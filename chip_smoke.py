@@ -27,7 +27,6 @@ then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -55,8 +54,6 @@ CARDS = (
     ("H100 PCIe", 2.0e12, 51e12),
     ("H100", 3.35e12, 67e12),
 )
-
-REPS = 25
 
 # f64: the JAX package's own tolerance between its kernel forms
 F64_TOL = dict(rtol=1e-10, atol=1e-13)
@@ -89,6 +86,7 @@ def main() -> int:
     from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
     from csmom_tpu_torch.ops import build, kernels
     from csmom_tpu_torch.ops.ranking import decile_assign_panel
+    from csmom_tpu_torch.phases import REPS, time_call
     from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
     from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
@@ -302,38 +300,8 @@ def main() -> int:
     log("north", f"kernel path equals plain path (validity exact, spreads "
                  f"within {SPREAD_ATOL}): {summary}")
 
-    # timing: CUDA events around each rep, median of REPS after warm-up
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
-
-    def time_ms(fn, cold=False):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(REPS):
-            if cold:
-                flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-    def host_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
+    # timing: CUDA events and host wall around each rep, median of REPS
+    # after warm-up (the helper that csmom_tpu_torch.phases times with)
     e2e = {}
     for label, fn in [
         ("monthly_qcut_J12", lambda: monthly_spread_backtest(pm, mm, 12, 1, mode="qcut")),
@@ -342,7 +310,8 @@ def main() -> int:
         ("grid16_rank_plain", lambda: jk_grid_backtest(pm, mm, GRID_JS, GRID_KS,
                                                        mode="rank", impl="plain")),
     ]:
-        e2e[label] = {"device_ms": time_ms(fn), "host_ms": host_ms(fn)}
+        d_ms, h_ms = time_call(fn)
+        e2e[label] = {"device_ms": d_ms, "host_ms": h_ms}
     log("north", "end-to-end f32 medians of %d reps: %s" % (REPS, json.dumps(e2e)))
 
     # -- 6. kernels line at the main-path shapes ---------------------------
@@ -367,6 +336,11 @@ def main() -> int:
     p2, pc2 = kernels.cohort_partial_sums_plain(ret, ret_valid, lab2, B, H)
     if not (torch.equal(c1, pc1) and torch.equal(c2, pc2)):
         raise AssertionError("main-path shape: counts differ")
+    absum1, _ = kernels.decile_partial_sums_plain(r1.abs(), lab1, B)
+    absum2, _ = kernels.cohort_partial_sums_plain(
+        torch.where(ret_valid, torch.nan_to_num(ret), 0.0).abs(), ret_valid, lab2, B, H)
+    assert_sums(s1, p1, absum1, r1.dtype, "main-path shape: K1 sums")
+    assert_sums(s2, p2, absum2, ret.dtype, "main-path shape: K2 sums")
 
     # yardsticks: one library computation of the same function each
     onehot = (lab1.T[:, None, :] == torch.arange(B, device=dev)[None, :, None]
@@ -424,15 +398,14 @@ def main() -> int:
          "csmom_tpu_torch/csrc/cohort_partial_sums.cu",
          "csmom_tpu/ops/pallas_kernels.py:66"),
     ]:
-        ms = time_ms(fn, cold=True)
         b_ms, b_by = bound(nbytes, ops)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms,
-            "plain_ms": time_ms(plain, cold=True),
+            "ms": time_call(fn, cold=True)[0],
+            "plain_ms": time_call(plain, cold=True)[0],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(library, cold=True),
+            "library_ms": time_call(library, cold=True)[0],
             "bytes": nbytes, "ops": ops,
         })
     log("kernels", f"main-path shapes: K1 labels/ret {tuple(lab1.shape)} f32, "

@@ -1,13 +1,15 @@
 """Where the time goes: the north-star engines split into their phases.
 
-    python -m csmom_tpu_torch.phases [--reps N] [--out PATH]
+    python -m csmom_tpu_torch.phases [--out PATH]
 
 Needs a CUDA card (builds the kernels on first use).  On the north-star
 month-end panel in f32 it times each phase of the 16-cell grid (rank and
-qcut) and of the monthly engine (qcut, J=12) with CUDA events (median of
-``--reps`` after warm-up), and traces one call of each engine with
-``torch.profiler`` to get the device's busy share and kernel launch
-count.  Prints one JSON object (and writes it to ``--out`` if given).
+qcut) and of the monthly engine (qcut, J=12) with :func:`time_call`
+(CUDA events and host wall, median of ``REPS`` after warm-up), and
+traces one call of each engine with ``torch.profiler`` to get the
+device's busy share and kernel launch count.  Prints one JSON object
+(and writes it to ``--out`` if given).  ``chip_smoke.py`` times with
+the same helper and repetition count.
 """
 
 from __future__ import annotations
@@ -38,13 +40,24 @@ from csmom_tpu_torch.signals.momentum import (
 from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP, north_star_month_panel
 
 
-def _time(fn, reps):
-    """(median device ms by CUDA events, median host ms) over ``reps``."""
+# timed repetitions per measurement, after 3 warm-up calls
+REPS = 25
+# L2 flush size for cold timings: 256 MB, over the H100's 50 MB L2
+_FLUSH_INTS = 64 * 2**20
+
+
+def time_call(fn, cold=False):
+    """(median device ms by CUDA events, median host ms) of ``fn()`` over
+    ``REPS`` calls after 3 warm-up calls.  ``cold`` overwrites a buffer
+    larger than L2 before each call, outside the timed region."""
     for _ in range(3):
         fn()
+    flush = torch.empty(_FLUSH_INTS, dtype=torch.int32, device="cuda") if cold else None
     torch.cuda.synchronize()
     dev, host = [], []
-    for _ in range(reps):
+    for _ in range(REPS):
+        if cold:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -80,7 +93,7 @@ def _trace(fn):
             "device_activities": n}
 
 
-def grid_phases(pm, mm, mode, reps):
+def grid_phases(pm, mm, mode):
     Js = torch.tensor(GRID_JS, device=pm.device)
     Ks = torch.tensor(GRID_KS, device=pm.device)
     H = max(GRID_KS)
@@ -114,10 +127,10 @@ def grid_phases(pm, mm, mode, reps):
         "whole": lambda: jk_grid_backtest(pm, mm, GRID_JS, GRID_KS,
                                           skip=GRID_SKIP, mode=mode),
     }
-    return _run(phases, reps)
+    return _run(phases)
 
 
-def monthly_phases(pm, mm, reps):
+def monthly_phases(pm, mm):
     ret, ret_valid = monthly_returns(pm, mm)
     mom, mom_valid = momentum(pm, mm, 12, 1)
     mom_valid = mom_valid & formation_listed_mask(mm, 1)
@@ -131,13 +144,13 @@ def monthly_phases(pm, mm, reps):
                                                         10, 12),
         "whole": lambda: monthly_spread_backtest(pm, mm, 12, 1, mode="qcut"),
     }
-    return _run(phases, reps)
+    return _run(phases)
 
 
-def _run(phases, reps):
+def _run(phases):
     out = {}
     for name, fn in phases.items():
-        d, h = _time(fn, reps)
+        d, h = time_call(fn)
         out[name] = {"device_ms": d, "host_ms": h}
     out["whole"]["trace"] = _trace(phases["whole"])
     return out
@@ -145,7 +158,6 @@ def _run(phases, reps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,10 +169,10 @@ def main(argv=None) -> int:
     record = {
         "card": card,
         "panel": list(pm.shape),
-        "reps": args.reps,
-        "grid16_rank": grid_phases(pm, mm, "rank", args.reps),
-        "grid16_qcut": grid_phases(pm, mm, "qcut", args.reps),
-        "monthly_qcut_J12": monthly_phases(pm, mm, args.reps),
+        "reps": REPS,
+        "grid16_rank": grid_phases(pm, mm, "rank"),
+        "grid16_qcut": grid_phases(pm, mm, "qcut"),
+        "monthly_qcut_J12": monthly_phases(pm, mm),
     }
     text = json.dumps(record)
     print(text)

@@ -29,13 +29,11 @@ REDUCED_GRID = (512, 3780)
 NORTH_STAR_GRID = (3000, 15120)
 
 
-def month_panel(n_assets: int, n_days: int, device=None,
-                dtype=torch.float32, seed: int = 7):
+def month_panel(n_assets: int, n_days: int, device=None, dtype=torch.float32):
     """Synthetic daily panel -> month-end ``(prices f[A, M], mask bool[A, M],
     month_ends datetime64[M])``, aggregated on ``device`` (default
     ``"cuda"``; raises without a card unless ``device="cpu"``)."""
-    daily = synthetic_daily_panel(n_assets, n_days, seed=seed,
-                                  listing_gaps=True)
+    daily = synthetic_daily_panel(n_assets, n_days, seed=7, listing_gaps=True)
     seg, ends = month_end_segments(daily.times)
     v, m = to_tensors(daily.values, daily.mask, device=device, dtype=dtype)
     pm, mm = month_end_aggregate(v, m, seg, len(ends))
