@@ -20,7 +20,11 @@ any phase fails (nothing is caught).  Phases:
    counts read around this run — checked against the plain versions and
    timed with CUDA events;
 6. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
-   and bound at the main-path shape;
+   and bound at the main-path shape.  ``ms`` is one call's time by CUDA
+   events (the wrapper's host work before the launch included);
+   ``device_ms`` the kernels' own durations in a profiler trace of the
+   same call, ``kernels_per_call`` how many kernels it launched,
+   ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -55,6 +59,12 @@ CARDS = (
     ("H100", 3.35e12, 67e12),
 )
 
+# K2's first version (one thread per (j, month, 4 horizons) over asset
+# chunks, then a second pass over the chunk partials): its device time at
+# the main-path shape, f32, by phases.time_kernels on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, section 6)
+K2_FIRST_VERSION_DEVICE_MS = 0.408012
+
 # f64: the JAX package's own tolerance between its kernel forms
 F64_TOL = dict(rtol=1e-10, atol=1e-13)
 # f32: 24-bit significands (u = 6e-8).  Two summations of n <= ~600 terms
@@ -86,7 +96,7 @@ def main() -> int:
     from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
     from csmom_tpu_torch.ops import build, kernels
     from csmom_tpu_torch.ops.ranking import decile_assign_panel
-    from csmom_tpu_torch.phases import REPS, time_call
+    from csmom_tpu_torch.phases import REPS, time_call, time_kernels
     from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
     from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
@@ -159,8 +169,10 @@ def main() -> int:
         assert_sums(s, ps, absum, ret.dtype, what)
         return (s - ps).abs().max().item() if s.numel() else 0.0
 
-    def k2_case(nj, a, m, n_bins, dtype):
+    def k2_case(nj, a, m, n_bins, dtype, extremes=False):
         labels = rng.integers(-1, n_bins, size=(nj, a, m)).astype(np.int32)
+        if extremes:  # every lane a member of side 0 or side 1
+            labels = np.where(labels % 2 == 0, 0, n_bins - 1).astype(np.int32)
         valid = rng.random((a, m)) > 0.25
         ret = np.where(valid, rng.normal(0.0, 0.1, size=(a, m)), np.nan)
         return t(ret, dtype), t(valid), t(labels)
@@ -189,13 +201,21 @@ def main() -> int:
             n_checks += 1
         check_k1(*k1_case(20, 16, 5, dtype, all_invalid=True), 5,
                  f"K1 all-invalid {dtype}")
+        # K2's tiling: 32-month tiles, clusters of 8 asset slices (A < 8
+        # leaves ranks empty), J groups, chunks of 16 horizons (H=128 is
+        # the shared-memory worst case), ragged months and assets
         for nj, a, m, h, nb in [(1, 37, 50, 6, 5), (1, 130, 300, 12, 5),
                                 (1, 64, 20, 12, 5), (1, 24, 5, 8, 5),
                                 (3, 40, 200, 128, 10), (2, 33, 60, 7, 1),
-                                (4, 3000, 696, 12, 10)]:
+                                (4, 3000, 696, 12, 10), (1, 1, 1, 1, 10),
+                                (1, 5, 33, 12, 10), (5, 7, 31, 12, 10),
+                                (4, 3001, 697, 12, 10), (2, 40, 200, 128, 10),
+                                (3, 50, 45, 17, 10)]:
             check_k2(*k2_case(nj, a, m, nb, dtype), nb, h,
                      f"K2 {nj}x{a}x{m} H={h} B={nb} {dtype}")
             n_checks += 1
+        check_k2(*k2_case(2, 300, 130, 10, dtype, extremes=True), 10, 12,
+                 f"K2 every label 0 or B-1 {dtype}")
         # valid +-inf returns go through nan_to_num (largest finite value)
         ret, valid, labels = k2_case(1, 16, 12, 4, dtype)
         ret[0, 5], ret[1, 7] = float("inf"), float("-inf")
@@ -385,13 +405,14 @@ def main() -> int:
     k2_ops = 2 * int((members * horizons).sum())
 
     rows = []
-    for name, fn, plain, library, err, nbytes, ops, src, rep in [
-        ("decile_partial_sums", lambda: kernels.decile_partial_sums(r1, lab1, B),
+    for name, wrapper, fn, plain, library, err, nbytes, ops, src, rep in [
+        ("decile_partial_sums", kernels.decile_partial_sums,
+         lambda: kernels.decile_partial_sums(r1, lab1, B),
          lambda: kernels.decile_partial_sums_plain(r1, lab1, B), k1_library,
          (s1 - p1).abs().max().item(), k1_bytes, k1_ops,
          "csmom_tpu_torch/csrc/decile_partial_sums.cu",
          "csmom_tpu/ops/pallas_kernels.py:153"),
-        ("cohort_partial_sums",
+        ("cohort_partial_sums", kernels.cohort_partial_sums,
          lambda: kernels.cohort_partial_sums(ret, ret_valid, lab2, B, H),
          lambda: kernels.cohort_partial_sums_plain(ret, ret_valid, lab2, B, H),
          k2_library, (s2 - p2).abs().max().item(), k2_bytes, k2_ops,
@@ -399,18 +420,31 @@ def main() -> int:
          "csmom_tpu/ops/pallas_kernels.py:66"),
     ]:
         b_ms, b_by = bound(nbytes, ops)
+        extra = ({"first_version_device_ms": K2_FIRST_VERSION_DEVICE_MS}
+                 if name == "cohort_partial_sums" else {})
+        # ms: the call (host work of the wrapper included); device_ms: the
+        # kernels' own durations in a profiler trace of the same calls
+        ms = time_call(fn, cold=True)[0]
+        device_ms, per_call = time_kernels(fn, wrapper.device_kernels)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": err,
-            "ms": time_call(fn, cold=True)[0],
+            "ms": ms, "device_ms": device_ms, "kernels_per_call": per_call,
+            "wrapper_ms": ms - device_ms,
             "plain_ms": time_call(plain, cold=True)[0],
             "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / device_ms,
             "library_ms": time_call(library, cold=True)[0],
-            "bytes": nbytes, "ops": ops,
+            "bytes": nbytes, "ops": ops, **extra,
         })
+    per_call = {r["name"]: r["kernels_per_call"] for r in rows}
+    if per_call["cohort_partial_sums"] != 1:
+        raise AssertionError(f"K2 launched {per_call['cohort_partial_sums']} "
+                             "kernels per call, not 1")
     log("kernels", f"main-path shapes: K1 labels/ret {tuple(lab1.shape)} f32, "
                    f"K2 labels {tuple(lab2.shape)} H={H} f32; times are medians "
-                   f"of {REPS} reps with L2 flushed before each")
+                   f"of {REPS} reps with L2 flushed before each; kernels per "
+                   f"call {per_call}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

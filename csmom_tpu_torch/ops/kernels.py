@@ -17,6 +17,7 @@ a CUDA tensor either goes through the kernel or raises.  Each wrapper's
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +46,27 @@ def _check_launchable(*tensors, what: str):
             raise ValueError(f"{what}: inputs must be contiguous")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{what}: unsupported device {dev}")
+
+
+# each C entry point's arguments: pointers, then ints, then the stream
+_ARGTYPES = {
+    "decile_partial_sums": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p],
+    "cohort_partial_sums": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
+                           + [ctypes.c_void_p],
+}
+
+
+@functools.cache
+def _entry(name: str, dtype: torch.dtype):
+    """(library, C entry point) of kernel ``name`` for ``dtype``, its
+    ctypes signature set once, when the library is loaded."""
+    lib = build.load(name)
+    fn = getattr(lib, f"csmom_{name}_" + ("f32" if dtype == torch.float32
+                                          else "f64"))
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    return lib, fn
 
 
 def _stream(t) -> ctypes.c_void_p:
@@ -106,11 +128,7 @@ def decile_partial_sums(ret, labels, n_bins: int):
                             device=ret.device)
     part_counts = torch.empty((n_chunks, n_bins, M), dtype=torch.int32,
                               device=ret.device)
-    lib = build.load("decile_partial_sums")
-    fn = (lib.csmom_decile_partial_sums_f32 if ret.dtype == torch.float32
-          else lib.csmom_decile_partial_sums_f64)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib, fn = _entry("decile_partial_sums", ret.dtype)
     code = fn(labels.data_ptr(), ret.data_ptr(), part_sums.data_ptr(),
               part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
               A, M, int(n_bins), chunk, ret.device.index or 0, _stream(ret))
@@ -120,9 +138,62 @@ def decile_partial_sums(ret, labels, n_bins: int):
 
 
 decile_partial_sums.launches = 0
+# the CUDA kernels one call launches, by name (csrc/decile_partial_sums.cu)
+decile_partial_sums.device_kernels = ("decile_partial_kernel",
+                                      "decile_reduce_kernel")
 
 
 # -- K2: cohort x horizon sums ---------------------------------------------
+
+# K2's launch plan (csrc/cohort_partial_sums.cu holds the same constants)
+_K2_TS = 32          # formation months per block
+_K2_TA = 32          # assets per staged tile
+_K2_HC = 16          # horizons per chunk, held in registers
+_K2_W = 48           # staged months per ret/valid row: TS + HC, 16-aligned
+_K2_JG = 8           # Js per block, at most
+_K2_THREADS = 256    # threads per block: groups of assets fill it
+_K2_CLUSTER = 8      # asset slices per cluster: the portable cluster size
+_K2_STAGES = 3       # staged tiles in flight
+_K2_MIN_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+
+
+@functools.lru_cache(maxsize=64)
+def _cohort_plan(nJ: int, A: int, M: int, H: int, itemsize: int) -> dict:
+    """K2's launch geometry, from the shapes alone (so the summation order
+    is fixed).
+
+    A block owns ``ts`` formation months, a group of ``jg`` Js, one chunk
+    of ``hc`` horizons and one of ``cluster`` slices of the asset axis,
+    which it walks in staged tiles of ``ta`` assets.  Its threads are
+    ``groups`` x ``jg`` x ``ts``: one per (asset group, j, month), each
+    group summing every ``groups``-th asset of a tile.  The slices of one
+    (month tile, J group, horizon chunk) form one thread block cluster,
+    so ``grid[0] == cluster``.  The J group halves from ``min(nJ, 8)``
+    until the grid has at least 264 blocks (two per SM) or one J is left.
+    ``smem`` is the dynamic shared memory: the larger of ``_K2_STAGES``
+    staged tiles plus two tiles in use (r and valid, 2 x itemsize each)
+    and the cluster reduction's buffers.  ``horizons`` lists each chunk's
+    1-based ``(first, last)``.  Cached by shape: callers must not change
+    the dict.
+    """
+    hc = min(H, _K2_HC)
+    n_hc = -(-H // hc)
+    n_mt = -(-M // _K2_TS)
+    jg = min(nJ, _K2_JG)
+    while jg > 1 and n_mt * -(-nJ // jg) * n_hc * _K2_CLUSTER < _K2_MIN_BLOCKS:
+        jg = -(-jg // 2)
+    groups = max(1, _K2_THREADS // (jg * _K2_TS))
+    stage = _K2_TA * _K2_W * itemsize + jg * _K2_TA * _K2_TS * 4 + _K2_TA * _K2_W
+    tiles = _K2_STAGES * stage + 2 * _K2_TA * _K2_W * 2 * itemsize
+    reduce = groups * jg * 2 * _K2_TS * hc * (itemsize + 4)
+    return {
+        "ts": _K2_TS, "ta": _K2_TA, "jg": jg, "hc": hc, "groups": groups,
+        "cluster": _K2_CLUSTER,
+        "grid": (_K2_CLUSTER, n_mt, -(-nJ // jg) * n_hc),
+        "smem": max(tiles, reduce),
+        "horizons": [(c * hc + 1, min(H, (c + 1) * hc)) for c in range(n_hc)],
+    }
+
 
 def cohort_partial_sums_plain(ret, ret_valid, labels, n_bins: int,
                               max_hold: int):
@@ -190,20 +261,12 @@ def cohort_partial_sums(ret, ret_valid, labels, n_bins: int = 10,
     counts = torch.empty_like(sums)
     if nJ == 0 or A == 0 or M == 0:
         return sums.zero_(), counts.zero_()
-    base = -(-M // 128) * -(-H // 4) * nJ
-    chunk, n_chunks = _chunks(A, base, 32)
-    part_sums = torch.empty((n_chunks, nJ, 2, H, M), dtype=ret.dtype,
-                            device=ret.device)
-    part_counts = torch.empty((n_chunks, nJ, 2, H, M), dtype=torch.int32,
-                              device=ret.device)
-    lib = build.load("cohort_partial_sums")
-    fn = (lib.csmom_cohort_partial_sums_f32 if ret.dtype == torch.float32
-          else lib.csmom_cohort_partial_sums_f64)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    plan = _cohort_plan(nJ, A, M, H, ret.element_size())
+    lib, fn = _entry("cohort_partial_sums", ret.dtype)
     code = fn(labels.data_ptr(), ret.data_ptr(), ret_valid.data_ptr(),
-              part_sums.data_ptr(), part_counts.data_ptr(), sums.data_ptr(),
-              counts.data_ptr(), nJ, A, M, H, int(n_bins), chunk,
+              sums.data_ptr(), counts.data_ptr(), nJ, A, M, H, int(n_bins),
+              plan["ts"], plan["ta"], plan["jg"], plan["hc"], plan["groups"],
+              plan["cluster"], *plan["grid"], plan["smem"],
               ret.device.index or 0, _stream(ret))
     build.check(lib, code, what)
     cohort_partial_sums.launches += 1
@@ -211,6 +274,8 @@ def cohort_partial_sums(ret, ret_valid, labels, n_bins: int = 10,
 
 
 cohort_partial_sums.launches = 0
+# the CUDA kernels one call launches, by name (csrc/cohort_partial_sums.cu)
+cohort_partial_sums.device_kernels = ("cohort_tile_kernel",)
 
 
 def reset_launches() -> None:

@@ -9,7 +9,8 @@ qcut) and of the monthly engine (qcut, J=12) with :func:`time_call`
 traces one call of each engine with ``torch.profiler`` to get the
 device's busy share and kernel launch count.  Prints one JSON object
 (and writes it to ``--out`` if given).  ``chip_smoke.py`` times with
-the same helper and repetition count.
+the same helper and repetition count, and times each kernel by its own
+device time with :func:`time_kernels`.
 """
 
 from __future__ import annotations
@@ -69,6 +70,38 @@ def time_call(fn, cold=False):
         host.append((time.perf_counter() - t0) * 1e3)
         dev.append(start.elapsed_time(end))
     return statistics.median(dev), statistics.median(host)
+
+
+def time_kernels(fn, names):
+    """(median device ms, kernels per call) of the CUDA kernels that
+    ``fn()`` launches whose names contain one of ``names``, traced with
+    ``torch.profiler`` over ``REPS`` calls after 3 warm-up calls, L2
+    flushed before each call.  A call's time is the sum of its matching
+    kernels' own durations, so the wrapper's host work before the launch
+    is not in it; the flush's fill kernel matches no name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    flush = torch.empty(_FLUSH_INTS, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (evt.time_range.start, evt.time_range.elapsed_us())
+        for evt in prof.events()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+        and any(n in evt.name for n in names))
+    per_call, rest = divmod(len(spans), REPS)
+    if per_call == 0 or rest:
+        raise RuntimeError(f"time_kernels: {len(spans)} kernels matching "
+                           f"{list(names)} in {REPS} calls")
+    calls = [sum(us for _, us in spans[i:i + per_call]) / 1e3
+             for i in range(0, len(spans), per_call)]
+    return statistics.median(calls), per_call
 
 
 def _trace(fn):

@@ -163,6 +163,12 @@ def _k2_args(**over):
      ValueError, "nJ, A, M"),
     (kernels.cohort_partial_sums, _k2_args(ret_valid=torch.ones(8, 16)),
      TypeError, "bool"),
+    (kernels.cohort_partial_sums, _k2_args(max_hold=129), ValueError, "max_hold"),
+    (kernels.cohort_partial_sums, _k2_args(max_hold=0), ValueError, "max_hold"),
+    (kernels.cohort_partial_sums,
+     _k2_args(labels=torch.zeros(1, 8, 16, dtype=torch.int64)), TypeError, "int32"),
+    (kernels.cohort_partial_sums,
+     _k2_args(labels=torch.zeros(1, 8, 15, dtype=torch.int32)), ValueError, "nJ, A, M"),
 ])
 def test_wrappers_reject_bad_inputs(fn, args, exc, match):
     before = (kernels.decile_partial_sums.launches, kernels.cohort_partial_sums.launches)
@@ -191,3 +197,46 @@ def test_unknown_impl_raises():
         monthly.decile_partial_sums(t, v, lab, 10, impl="xla")
     with pytest.raises(ValueError, match="impl"):
         grid._cohort_partial_sums(lab, t, v, 10, 3, impl="pallas")
+
+
+# K2's launch plan: the north star, A < cluster size, ragged months, the
+# horizon chunk edges and both float widths
+_PLAN_SHAPES = [(4, 3000, 696), (1, 5, 33), (5, 7, 31), (4, 3001, 697),
+                (2, 40, 200), (1, 1, 1), (12, 3000, 696)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("H", [1, 12, 16, 17, 128])
+@pytest.mark.parametrize("nJ,A,M", _PLAN_SHAPES)
+def test_cohort_plan_fits_the_card(nJ, A, M, H, itemsize):
+    p = kernels._cohort_plan(nJ, A, M, H, itemsize)
+    assert p["smem"] <= 232_448                 # an H100 block's shared memory
+    assert 1 <= p["cluster"] <= 8               # the portable cluster size
+    assert p["grid"][0] % p["cluster"] == 0
+    assert p["grid"][1] * p["ts"] >= M
+    assert 1 <= p["jg"] <= min(nJ, 8) and 1 <= p["hc"] <= 16
+    assert p["grid"][2] == -(-nJ // p["jg"]) * len(p["horizons"])
+    covered = [h for lo, hi in p["horizons"] for h in range(lo, hi + 1)]
+    assert covered == list(range(1, H + 1))     # every horizon exactly once
+    assert all(hi - lo + 1 <= p["hc"] for lo, hi in p["horizons"])
+    assert p["groups"] * p["jg"] * p["ts"] <= 256  # the kernel's launch bounds
+    # the staged tiles, the tile in use and the reduction's buffers all fit
+    width = 48                                  # ts + 16 horizons, 16-aligned
+    stage = p["ta"] * width * (itemsize + 1) + p["jg"] * p["ta"] * p["ts"] * 4
+    tiles = 3 * stage + 2 * p["ta"] * width * 2 * itemsize
+    reduce = p["groups"] * p["jg"] * 2 * p["ts"] * p["hc"] * (itemsize + 4)
+    assert p["smem"] >= max(tiles, reduce)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_cohort_plan_north_star_fills_the_card(itemsize):
+    p = kernels._cohort_plan(4, 3000, 696, 12, itemsize)
+    blocks = p["grid"][0] * p["grid"][1] * p["grid"][2]
+    assert blocks >= 264                         # two blocks per SM on 132 SMs
+    assert p["horizons"] == [(1, 12)] and p["cluster"] == 8
+
+
+def test_cohort_plan_depends_on_shapes_only():
+    assert kernels._cohort_plan(4, 3000, 696, 12, 4) == \
+        kernels._cohort_plan(4, 3000, 696, 12, 4)
+    assert kernels._cohort_plan(4, 3000, 696, 12, 4)["grid"] == (8, 22, 2)
