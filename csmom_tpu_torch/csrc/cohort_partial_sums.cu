@@ -51,10 +51,12 @@
 //     masks (side 0, side 1) and then adds only its members' rows, lowest
 //     asset first: about 2 in 10 (j, a, s) are members, and labels
 //     persist from month to month, so the lanes of a warp have similar
-//     masks and idle little.  Both sides' counts share one int32 (side 1
-//     in the high 16 bits); the horizon count is a template argument (4,
-//     8, 12 or 16), so the horizon loop unrolls into independent loads
-//     and adds;
+//     masks and idle little.  Both sides' counts share one uint32 (side
+//     1 in the high 16 bits), so an asset slice holds at most 65535
+//     assets and A is at most 8 * 65535 = 524280 (ops/kernels.py refuses
+//     more on every device); the horizon count is a template argument
+//     (4, 8, 12 or 16), so the horizon loop unrolls into independent
+//     loads and adds;
 //   - the asset slices of one (month tile, J group, horizon chunk) form a
 //     thread block cluster of C <= 8 blocks.  Each block adds its groups'
 //     sums in group order in its own shared memory; after cluster.sync()
@@ -84,14 +86,15 @@ constexpr int kTA = 32;         // assets per staged tile: one bit each
 constexpr int kHMax = 16;       // horizons per chunk, held in registers
 constexpr int kThreadsMax = 256;
 constexpr int kClusterMax = 8;  // the portable cluster size
-constexpr int kStages = 3;      // staged tiles in flight
+constexpr int kStages = 2;      // staged tiles in flight
 static_assert(kTA <= 32, "a thread's members of a tile are one uint32");
 // staged months per ret/valid row: the tile's months plus up to kHMax
 // horizons, a multiple of 16 so that every row starts 16-byte aligned
 constexpr int kW = 48;
 static_assert(kTS + kHMax <= kW && kW % 16 == 0, "staged row width");
-// counts of both sides share one int32 (side 1 in the high half), so one
-// thread may see at most 65535 members of a side
+// counts of both sides share one uint32 (side 1 in the high half), so one
+// thread may see at most 65535 members of a side: an asset slice holds at
+// most that many assets
 constexpr int kCountMax = 65535;
 
 template <typename T>
@@ -338,7 +341,7 @@ __global__ void __launch_bounds__(kThreadsMax)
   const int g = tid / (kTS * jg);
   const bool lane_live = tl.m0 + t < M && tl.j0 + jl < nJ;
   T s0[KH], s1[KH];
-  int32_t c01[KH];  // side 0 in the low 16 bits, side 1 in the high 16
+  uint32_t c01[KH];  // side 0 in the low 16 bits, side 1 in the high 16
 #pragma unroll
   for (int k = 0; k < KH; ++k) {
     s0[k] = s1[k] = T(0);
@@ -386,7 +389,7 @@ __global__ void __launch_bounds__(kThreadsMax)
       for (int k = 0; k < KH; ++k) {
         const Live<T> e = x[k];
         s0[k] += e.r;
-        c01[k] += e.v;
+        c01[k] += static_cast<uint32_t>(e.v);
       }
     }
     for (uint32_t m = cur1; m; m &= m - 1) {
@@ -395,7 +398,7 @@ __global__ void __launch_bounds__(kThreadsMax)
       for (int k = 0; k < KH; ++k) {
         const Live<T> e = x[k];
         s1[k] += e.r;
-        c01[k] += e.v << 16;
+        c01[k] += static_cast<uint32_t>(e.v) << 16;
       }
     }
   }
@@ -414,9 +417,9 @@ __global__ void __launch_bounds__(kThreadsMax)
   for (int k = 0; k < KH; ++k) {
     if (k < hc) {
       red_s[o0 + k] = s0[k];
-      red_c[o0 + k] = c01[k] & 0xffff;
+      red_c[o0 + k] = static_cast<int32_t>(c01[k] & 0xffffu);
       red_s[o1 + k] = s1[k];
-      red_c[o1 + k] = static_cast<int32_t>(static_cast<uint32_t>(c01[k]) >> 16);
+      red_c[o1 + k] = static_cast<int32_t>(c01[k] >> 16);
     }
   }
   __syncthreads();

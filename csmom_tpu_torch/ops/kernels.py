@@ -145,7 +145,8 @@ decile_partial_sums.device_kernels = ("decile_partial_kernel",
 
 # -- K2: cohort x horizon sums ---------------------------------------------
 
-# K2's launch plan (csrc/cohort_partial_sums.cu holds the same constants)
+# K2's launch plan (csrc/cohort_partial_sums.cu holds the same constants
+# and re-checks every plan against the shapes)
 _K2_TS = 32          # formation months per block
 _K2_TA = 32          # assets per staged tile
 _K2_HC = 16          # horizons per chunk, held in registers
@@ -153,8 +154,24 @@ _K2_W = 48           # staged months per ret/valid row: TS + HC, 16-aligned
 _K2_JG = 8           # Js per block, at most
 _K2_THREADS = 256    # threads per block: groups of assets fill it
 _K2_CLUSTER = 8      # asset slices per cluster: the portable cluster size
-_K2_STAGES = 3       # staged tiles in flight
+_K2_STAGES = 2       # staged tiles in flight
 _K2_MIN_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+# a thread keeps both sides' counts in one uint32, 16 bits each, so an
+# asset slice holds at most this many assets
+_K2_SLICE_MAX = 65535
+MAX_ASSETS = _K2_CLUSTER * _K2_SLICE_MAX
+
+
+def _k2_smem(jg: int, hc: int, groups: int, itemsize: int,
+             stages: int = _K2_STAGES) -> int:
+    """K2's dynamic shared memory: the larger of ``stages`` staged tiles
+    (ret, labels, valid) plus two tiles in use (r and valid, 2 x itemsize
+    each) and the cluster reduction's buffers (sums and int32 counts of
+    the block's ``groups`` x outputs)."""
+    stage = _K2_TA * _K2_W * itemsize + jg * _K2_TA * _K2_TS * 4 + _K2_TA * _K2_W
+    tiles = stages * stage + 2 * _K2_TA * _K2_W * 2 * itemsize
+    reduce = groups * jg * 2 * _K2_TS * hc * (itemsize + 4)
+    return max(tiles, reduce)
 
 
 @functools.lru_cache(maxsize=64)
@@ -168,30 +185,30 @@ def _cohort_plan(nJ: int, A: int, M: int, H: int, itemsize: int) -> dict:
     ``groups`` x ``jg`` x ``ts``: one per (asset group, j, month), each
     group summing every ``groups``-th asset of a tile.  The slices of one
     (month tile, J group, horizon chunk) form one thread block cluster,
-    so ``grid[0] == cluster``.  The J group halves from ``min(nJ, 8)``
-    until the grid has at least 264 blocks (two per SM) or one J is left.
-    ``smem`` is the dynamic shared memory: the larger of ``_K2_STAGES``
-    staged tiles plus two tiles in use (r and valid, 2 x itemsize each)
-    and the cluster reduction's buffers.  ``horizons`` lists each chunk's
-    1-based ``(first, last)``.  Cached by shape: callers must not change
-    the dict.
+    so ``grid[0] == cluster``; ``grid[2]`` runs over the J groups, each
+    with its ``ceil(H / hc)`` horizon chunks.  The J group halves from
+    ``min(nJ, 8)`` until the grid has at least 264 blocks (two per SM) or
+    one J is left.  ``smem`` is the dynamic shared memory
+    (:func:`_k2_smem`).  Raises ``ValueError`` for more than
+    ``MAX_ASSETS`` assets.  Cached by shape: callers must not change the
+    dict.
     """
+    if A > MAX_ASSETS:
+        raise ValueError(f"cohort_partial_sums: A={A} assets, at most "
+                         f"{MAX_ASSETS} ({_K2_CLUSTER} asset slices of "
+                         f"{_K2_SLICE_MAX}, the kernel's 16-bit counts)")
     hc = min(H, _K2_HC)
     n_hc = -(-H // hc)
     n_mt = -(-M // _K2_TS)
-    jg = min(nJ, _K2_JG)
+    jg = max(1, min(nJ, _K2_JG))
     while jg > 1 and n_mt * -(-nJ // jg) * n_hc * _K2_CLUSTER < _K2_MIN_BLOCKS:
         jg = -(-jg // 2)
     groups = max(1, _K2_THREADS // (jg * _K2_TS))
-    stage = _K2_TA * _K2_W * itemsize + jg * _K2_TA * _K2_TS * 4 + _K2_TA * _K2_W
-    tiles = _K2_STAGES * stage + 2 * _K2_TA * _K2_W * 2 * itemsize
-    reduce = groups * jg * 2 * _K2_TS * hc * (itemsize + 4)
     return {
         "ts": _K2_TS, "ta": _K2_TA, "jg": jg, "hc": hc, "groups": groups,
         "cluster": _K2_CLUSTER,
         "grid": (_K2_CLUSTER, n_mt, -(-nJ // jg) * n_hc),
-        "smem": max(tiles, reduce),
-        "horizons": [(c * hc + 1, min(H, (c + 1) * hc)) for c in range(n_hc)],
+        "smem": _k2_smem(jg, hc, groups, itemsize),
     }
 
 
@@ -231,6 +248,8 @@ def cohort_partial_sums(ret, ret_valid, labels, n_bins: int = 10,
       n_bins: B; side 0 is label 0, side 1 is label B-1.
       max_hold: H, 1 <= H <= 128.
 
+    At most ``MAX_ASSETS`` assets (``ValueError`` above, on every device).
+
     Returns ``(sums f[nJ, 2, M, H], counts f[nJ, 2, M, H])``; horizon
     h-1 of formation month s holds the members' returns at s+h, and
     months past the panel end contribute nothing.
@@ -251,17 +270,17 @@ def cohort_partial_sums(ret, ret_valid, labels, n_bins: int = 10,
                          f"[nJ, A, M], got {tuple(ret.shape)}, "
                          f"{tuple(ret_valid.shape)}, {tuple(labels.shape)}")
     _check_launchable(ret, ret_valid, labels, what=what)
+    nJ, A, M = labels.shape
+    H = int(max_hold)
+    plan = _cohort_plan(nJ, A, M, H, ret.element_size())  # refuses A > MAX_ASSETS
     if ret.device.type == "cpu":
         return cohort_partial_sums_plain(ret, ret_valid, labels, n_bins,
                                          max_hold)
 
-    nJ, A, M = labels.shape
-    H = int(max_hold)
     sums = torch.empty((nJ, 2, M, H), dtype=ret.dtype, device=ret.device)
     counts = torch.empty_like(sums)
     if nJ == 0 or A == 0 or M == 0:
         return sums.zero_(), counts.zero_()
-    plan = _cohort_plan(nJ, A, M, H, ret.element_size())
     lib, fn = _entry("cohort_partial_sums", ret.dtype)
     code = fn(labels.data_ptr(), ret.data_ptr(), ret_valid.data_ptr(),
               sums.data_ptr(), counts.data_ptr(), nJ, A, M, H, int(n_bins),

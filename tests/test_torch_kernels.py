@@ -14,6 +14,7 @@ from csmom_tpu.ops.pallas_kernels import (
     cohort_partial_sums_pallas,
     decile_partial_sums_pallas,
 )
+from csmom_tpu_torch import k2_sweep
 from csmom_tpu_torch.backtest import grid, monthly
 from csmom_tpu_torch.ops import kernels
 
@@ -213,19 +214,16 @@ def test_cohort_plan_fits_the_card(nJ, A, M, H, itemsize):
     assert p["smem"] <= 232_448                 # an H100 block's shared memory
     assert 1 <= p["cluster"] <= 8               # the portable cluster size
     assert p["grid"][0] % p["cluster"] == 0
-    assert p["grid"][1] * p["ts"] >= M
+    assert p["grid"][1] * p["ts"] >= M > (p["grid"][1] - 1) * p["ts"]
     assert 1 <= p["jg"] <= min(nJ, 8) and 1 <= p["hc"] <= 16
-    assert p["grid"][2] == -(-nJ // p["jg"]) * len(p["horizons"])
-    covered = [h for lo, hi in p["horizons"] for h in range(lo, hi + 1)]
-    assert covered == list(range(1, H + 1))     # every horizon exactly once
-    assert all(hi - lo + 1 <= p["hc"] for lo, hi in p["horizons"])
     assert p["groups"] * p["jg"] * p["ts"] <= 256  # the kernel's launch bounds
-    # the staged tiles, the tile in use and the reduction's buffers all fit
-    width = 48                                  # ts + 16 horizons, 16-aligned
-    stage = p["ta"] * width * (itemsize + 1) + p["jg"] * p["ta"] * p["ts"] * 4
-    tiles = 3 * stage + 2 * p["ta"] * width * 2 * itemsize
-    reduce = p["groups"] * p["jg"] * 2 * p["ts"] * p["hc"] * (itemsize + 4)
-    assert p["smem"] >= max(tiles, reduce)
+    # grid[2] runs over the J groups, each with its horizon chunks of hc
+    n_jgroups = -(-nJ // p["jg"])
+    assert p["grid"][2] % n_jgroups == 0
+    chunks = [range(c * p["hc"] + 1, min(H, (c + 1) * p["hc"]) + 1)
+              for c in range(p["grid"][2] // n_jgroups)]
+    covered = [h for chunk in chunks for h in chunk]
+    assert covered == list(range(1, H + 1))     # every horizon exactly once
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -233,10 +231,39 @@ def test_cohort_plan_north_star_fills_the_card(itemsize):
     p = kernels._cohort_plan(4, 3000, 696, 12, itemsize)
     blocks = p["grid"][0] * p["grid"][1] * p["grid"][2]
     assert blocks >= 264                         # two blocks per SM on 132 SMs
-    assert p["horizons"] == [(1, 12)] and p["cluster"] == 8
+    assert p["hc"] == 12 and p["cluster"] == 8
 
 
 def test_cohort_plan_depends_on_shapes_only():
     assert kernels._cohort_plan(4, 3000, 696, 12, 4) == \
         kernels._cohort_plan(4, 3000, 696, 12, 4)
     assert kernels._cohort_plan(4, 3000, 696, 12, 4)["grid"] == (8, 22, 2)
+
+
+def test_cohort_refuses_more_assets_than_its_counts_hold():
+    """A thread keeps both sides' counts in 16 bits each, so an asset slice
+    holds at most 65535 assets: 8 slices, 524,280 assets.  The plan and
+    the wrapper refuse more, on every device."""
+    assert kernels.MAX_ASSETS == 8 * 65535
+    kernels._cohort_plan(1, kernels.MAX_ASSETS, 1, 12, 4)
+    with pytest.raises(ValueError, match="524280"):
+        kernels._cohort_plan(1, kernels.MAX_ASSETS + 1, 1, 12, 4)
+    a = kernels.MAX_ASSETS + 1
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="at most 524280"):
+        kernels.cohort_partial_sums(torch.zeros(a, 1), torch.ones(a, 1, dtype=torch.bool),
+                                    torch.zeros(1, a, 1, dtype=torch.int32), 10, 12)
+    assert kernels.cohort_partial_sums.launches == 0
+
+
+@pytest.mark.parametrize("name", sorted(k2_sweep.VARIANTS))
+def test_k2_sweep_variants_edit_the_kernel_source(name):
+    """Every build variant of the K2 sweep applies to the kernel as it
+    stands: each edit matches once and changes the source."""
+    src = k2_sweep.SOURCE.read_text()
+    out = k2_sweep.variant_source(src, name)
+    assert (out == src) == (name == "main")
+    if name != "main":  # an edit that no longer matches stops the sweep
+        old = k2_sweep.VARIANTS[name][1][0][0]
+        with pytest.raises(ValueError, match="expects"):
+            k2_sweep.variant_source(src.replace(old, ""), name)
