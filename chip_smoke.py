@@ -59,12 +59,14 @@ CARDS = (
     ("H100", 3.35e12, 67e12),
 )
 
-# K2's first version (one thread per (j, month, 4 horizons) over asset
-# chunks, then a second pass over the chunk partials), since replaced: its
-# device time at the main-path shape, f32, by phases.time_kernels on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6).  A recorded figure,
-# printed beside this run's time on a log line and never in the kernels
-# line, whose numbers are all measured by the run that prints them.
+# The first versions of K1 (one thread per month over asset chunks) and
+# K2 (one thread per (j, month, 4 horizons) over asset chunks), each with
+# a second pass over the chunk partials, since replaced: their device time
+# at the main-path shape, f32, by phases.time_kernels on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md, section 6).  Recorded figures, printed
+# beside this run's times on log lines and never in the kernels line,
+# whose numbers are all measured by the run that prints them.
+K1_FIRST_VERSION_DEVICE_MS = 0.0288
 K2_FIRST_VERSION_DEVICE_MS = 0.408012
 
 # f64: the JAX package's own tolerance between its kernel forms
@@ -134,7 +136,7 @@ def main() -> int:
     log("build", f"{len(logs)} kernel(s) compiled in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log("build", f"{name}: {line.strip()}")
 
     # -- helpers ---------------------------------------------------------------
@@ -151,11 +153,14 @@ def main() -> int:
                 raise AssertionError(f"{what}: max err {err.max().item()} over "
                                      f"its f32 limit")
 
-    def k1_case(a, m, n_bins, dtype, all_invalid=False):
-        labels = rng.integers(-1, n_bins, size=(a, m)).astype(np.int32)
+    def k1_case(a, m, n_bins, dtype, all_invalid=False, wild=False):
+        # wild: labels from -3 to B+2, so some are >= B or < -1 (no bin)
+        lo, hi = (-3, n_bins + 3) if wild else (-1, n_bins)
+        labels = rng.integers(lo, hi, size=(a, m)).astype(np.int32)
         valid = (rng.random((a, m)) > 0.2) & (not all_invalid)
         labels = np.where(valid, labels, -1).astype(np.int32)
-        ret = np.where(labels >= 0, rng.normal(0.0, 0.1, size=(a, m)), 0.0)
+        member = (labels >= 0) & (labels < n_bins)
+        ret = np.where(member, rng.normal(0.0, 0.1, size=(a, m)), 0.0)
         return t(ret, dtype), t(labels)
 
     def check_k1(ret, labels, n_bins, what):
@@ -196,13 +201,30 @@ def main() -> int:
     # -- 3. kernels against their plain versions --------------------------------
     n_checks = 0
     for dtype in (torch.float64, torch.float32):
+        # K1's tiling: clusters of 8 asset slices (A < 8 leaves ranks
+        # empty), month tiles of lanes x V, 16-byte loads only where M % V
+        # == 0 (M odd or = 2 mod 4 takes scalar loads), up to 16 bins a
+        # block, more in bin groups (B = 20, 33)
         for a, m, nb in [(16, 24, 10), (256, 128, 10), (300, 130, 10),
                          (37, 7, 10), (50, 40, 3), (511, 257, 10),
-                         (300, 130, 20), (64, 30, 1), (3000, 696, 10)]:
+                         (300, 130, 20), (64, 30, 1), (3000, 696, 10),
+                         (40, 33, 10), (50, 30, 10), (20, 5, 10), (30, 1, 10),
+                         (5, 40, 10), (1, 64, 10), (1, 1, 1), (100, 60, 5),
+                         (120, 48, 3), (90, 36, 33), (3001, 697, 10)]:
             check_k1(*k1_case(a, m, nb, dtype), nb, f"K1 {a}x{m} B={nb} {dtype}")
             n_checks += 1
         check_k1(*k1_case(20, 16, 5, dtype, all_invalid=True), 5,
                  f"K1 all-invalid {dtype}")
+        for a, m, nb in [(300, 130, 10), (64, 40, 5), (33, 24, 3), (50, 44, 20)]:
+            check_k1(*k1_case(a, m, nb, dtype, wild=True), nb,
+                     f"K1 labels >= B and < -1 {a}x{m} B={nb} {dtype}")
+        # storage one element off 16-byte alignment: scalar loads at M = 696
+        ret, labels = k1_case(64, 696, 10, dtype)
+        ret_off = torch.empty(ret.numel() + 1, dtype=dtype, device=dev)[1:].view(64, 696)
+        lab_off = torch.empty(labels.numel() + 1, dtype=torch.int32, device=dev)[1:].view(64, 696)
+        ret_off.copy_(ret)
+        lab_off.copy_(labels)
+        check_k1(ret_off, lab_off, 10, f"K1 misaligned storage {dtype}")
         # K2's tiling: 32-month tiles, clusters of 8 asset slices (A < 8
         # leaves ranks empty), J groups, chunks of 16 horizons (H=128 is
         # the shared-memory worst case), ragged months and assets
@@ -241,7 +263,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log("kernels", f"K1 and K2 equal their plain versions, and repeat bit for "
                    f"bit, in {n_checks} f64/f32 shape cases (+ all-invalid, "
-                   "inf, H > 128 and A > MAX_ASSETS refusals)")
+                   "labels outside [-1, B), misaligned storage, inf, H > 128 "
+                   "and A > MAX_ASSETS refusals)")
 
     # -- 4. golden monthly, f64 --------------------------------------------
     daily = synthetic_daily_panel(40, 1260, seed=123, listing_gaps=True)
@@ -432,7 +455,9 @@ def main() -> int:
         # ms: the call (host work of the wrapper included); device_ms: the
         # kernels' own durations in a profiler trace of the same calls
         ms = time_call(fn, cold=True)[0]
-        device_ms, per_call = time_kernels(fn, wrapper.device_kernels)
+        device_ms, per_call, by_kernel = time_kernels(fn, wrapper.device_kernels,
+                                                      split=True)
+        log("kernels", f"{name} device ms by kernel (medians): {by_kernel}")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": err,
@@ -445,17 +470,19 @@ def main() -> int:
             "bytes": nbytes, "ops": ops,
         })
     per_call = {r["name"]: r["kernels_per_call"] for r in rows}
-    if per_call["cohort_partial_sums"] != 1:
-        raise AssertionError(f"K2 launched {per_call['cohort_partial_sums']} "
-                             "kernels per call, not 1")
+    for name, per in per_call.items():
+        if per != 1:
+            raise AssertionError(f"{name} launched {per} kernels per call, not 1")
     log("kernels", f"main-path shapes: K1 labels/ret {tuple(lab1.shape)} f32, "
                    f"K2 labels {tuple(lab2.shape)} H={H} f32; times are medians "
                    f"of {REPS} reps with L2 flushed before each; kernels per "
                    f"call {per_call}")
-    log("kernels", f"K2 device time {rows[1]['device_ms']:.6f} ms in this run; "
-                   f"its first version's, recorded (not measured here): "
-                   f"{K2_FIRST_VERSION_DEVICE_MS} ms on an NVIDIA H100 80GB "
-                   f"HBM3 at 700 W (PERF.md, section 6)")
+    for row, first in ((rows[0], K1_FIRST_VERSION_DEVICE_MS),
+                       (rows[1], K2_FIRST_VERSION_DEVICE_MS)):
+        log("kernels", f"{row['name']} device time {row['device_ms']:.6f} ms in "
+                       f"this run; its first version's, recorded (not measured "
+                       f"here): {first} ms on an NVIDIA H100 80GB HBM3 at 700 W "
+                       f"(PERF.md, section 6)")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -48,42 +48,54 @@ VARIANTS = {
 OTHER_SPLITS = ((2, 2), (1, 8), (4, 2))
 
 
-def variant_source(src: str, name: str) -> str:
-    """K2's source with variant ``name``'s edits; each edit must match
-    exactly once."""
-    for old, new in VARIANTS[name][1]:
+def variant_source(src: str, name: str, variants=None, source=None) -> str:
+    """A kernel's source with variant ``name``'s edits (K2's by default);
+    each edit must match exactly once."""
+    variants = VARIANTS if variants is None else variants
+    source = SOURCE if source is None else source
+    for old, new in variants[name][1]:
         if src.count(old) != 1:
-            raise ValueError(f"k2_sweep: variant {name!r} expects {old!r} once "
-                             f"in {SOURCE.name}, found {src.count(old)}")
+            raise ValueError(f"{source.stem}: variant {name!r} expects {old!r} "
+                             f"once in {source.name}, found {src.count(old)}")
         src = src.replace(old, new)
     return src
 
 
-def _build_all():
-    """{variant: float32 C entry point}, all compiled at once."""
-    src = SOURCE.read_text()
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+def build_variants(kernel: str, variants, out_dir):
+    """{variant: float32 C entry point} of ``csrc/<kernel>.cu`` under each
+    of ``variants``' edits, all compiled at once into ``out_dir``."""
+    source = build.SRC_DIR / f"{kernel}.cu"
+    src = source.read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
     procs = {}
-    for name in VARIANTS:
-        cu = OUT_DIR / f"{name}.cu"
-        cu.write_text(variant_source(src, name))
+    for name in variants:
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(variant_source(src, name, variants, source))
         procs[name] = subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-o", str(OUT_DIR / f"{name}.so"), str(cu)],
+            [nvcc, *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     entries = {}
     for name, p in procs.items():
         out, _ = p.communicate()
         if p.returncode:
-            raise RuntimeError(f"k2_sweep: nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(OUT_DIR / f"{name}.so"))
+            raise RuntimeError(f"{out_dir.name}: nvcc failed for {name}:\n{out}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
         lib.csmom_error_string.restype = ctypes.c_char_p
         lib.csmom_error_string.argtypes = [ctypes.c_int]
-        fn = lib.csmom_cohort_partial_sums_f32
+        fn = getattr(lib, f"csmom_{kernel}_f32")
         fn.restype = ctypes.c_int
-        fn.argtypes = kernels._ARGTYPES["cohort_partial_sums"]
+        fn.argtypes = kernels._ARGTYPES[kernel]
         entries[name] = (lib, fn)
     return entries
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def _grid_inputs():
@@ -111,7 +123,7 @@ def sweep():
 
     from csmom_tpu_torch.phases import time_kernels
 
-    entries = _build_all()
+    entries = build_variants("cohort_partial_sums", VARIANTS, OUT_DIR)
     ret, valid, labels = _grid_inputs()
     nJ, A, M = labels.shape
     H, B = 12, 10
@@ -160,15 +172,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    name = card()
+    print(name, flush=True)
     rows = sweep()
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "runs": rows}, f, indent=1)
+            json.dump({"card": name, "runs": rows}, f, indent=1)
     return 0
 
 

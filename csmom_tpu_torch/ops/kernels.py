@@ -25,8 +25,6 @@ from csmom_tpu_torch.ops import build
 
 # the Pallas cohort kernel's limit at its default time tile
 MAX_HOLD = 128
-# enough blocks to fill 132 SMs a few times over
-_TARGET_BLOCKS = 528
 
 
 def _check_float(ret, what: str):
@@ -50,7 +48,7 @@ def _check_launchable(*tensors, what: str):
 
 # each C entry point's arguments: pointers, then ints, then the stream
 _ARGTYPES = {
-    "decile_partial_sums": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    "decile_partial_sums": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                            + [ctypes.c_void_p],
     "cohort_partial_sums": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
                            + [ctypes.c_void_p],
@@ -73,17 +71,63 @@ def _stream(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _chunks(A: int, base_blocks: int, min_chunk: int) -> tuple:
-    """(chunk size, chunk count) for the asset axis: enough chunks that
-    ``base_blocks * n_chunks`` fills the card, each at least ``min_chunk``
-    assets.  Depends on shapes only, so the summation order is fixed."""
-    want = -(-_TARGET_BLOCKS // max(base_blocks, 1))
-    n = max(1, min(want, -(-A // min_chunk), 65535 // max(base_blocks, 1)))
-    chunk = -(-A // n)
-    return chunk, -(-A // chunk)
-
-
 # -- K1: per-(bin, month) sums ---------------------------------------------
+
+# K1's launch plan (csrc/decile_partial_sums.cu holds the same constants
+# and re-checks every plan against the shapes)
+_K1_LANES = 8         # month lanes per block, at most: V months each
+_K1_THREADS = 128     # threads per block: lanes x asset groups
+_K1_CLUSTER = 8       # asset slices per cluster: the portable cluster size
+_K1_MIN_BLOCKS = 132  # one block on each of the H100's 132 SMs
+_K1_GROUP_BINS = 16   # bins per block, at most; more go in groups
+_GRID_Y_MAX = 65535
+
+
+def _k1_smem(nb: int, lanes: int, groups: int, itemsize: int) -> int:
+    """K1's dynamic shared memory: every thread's (sum, count) slot per
+    (bin, month), ``2 * itemsize`` bytes each, then the block's sums and
+    int32 counts of ``nb`` bins x ``lanes * V`` months."""
+    v = 16 // itemsize
+    return nb * v * lanes * groups * 2 * itemsize + nb * lanes * v * (itemsize + 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _decile_plan(A: int, M: int, B: int, itemsize: int) -> dict:
+    """K1's launch geometry, from the shapes alone (so the summation order
+    is fixed).
+
+    A thread takes ``v = 16 // itemsize`` consecutive months of a row (one
+    16-byte load of returns where the row allows) and the assets ``g, g +
+    groups, ...`` of its block's slice.  A block is ``lanes`` x ``groups``
+    = 128 threads over a tile of ``lanes * v`` months and one of
+    ``cluster`` slices of the asset axis; the slices of a tile form one
+    thread block cluster, so ``grid[0] == cluster * month tiles``.  A
+    block holds ``nb = min(B, 16)`` bins, and ``grid[1]`` runs over the
+    ``ceil(B / nb)`` bin groups.  Lanes halve from 8 (a warp reads 128
+    bytes of a row in f32) until the grid has at least 132 blocks or one
+    lane is left.  ``smem`` is the dynamic shared
+    memory (:func:`_k1_smem`).  Raises ``ValueError`` when the bin groups
+    exceed the grid's y limit.  Cached by shape: callers must not change
+    the dict.
+    """
+    nb = min(B, _K1_GROUP_BINS)
+    n_bg = -(-B // nb)
+    if n_bg > _GRID_Y_MAX:
+        raise ValueError(f"decile_partial_sums: n_bins={B}, at most "
+                         f"{_GRID_Y_MAX * _K1_GROUP_BINS} (bin groups of "
+                         f"{_K1_GROUP_BINS} on the grid's y axis)")
+    v = 16 // itemsize
+    lanes = _K1_LANES
+    while lanes > 1 and _K1_CLUSTER * -(-M // (lanes * v)) * n_bg < _K1_MIN_BLOCKS:
+        lanes //= 2
+    groups = _K1_THREADS // lanes
+    return {
+        "v": v, "lanes": lanes, "groups": groups, "nb": nb,
+        "cluster": _K1_CLUSTER,
+        "grid": (_K1_CLUSTER * -(-M // (lanes * v)), n_bg),
+        "smem": _k1_smem(nb, lanes, groups, itemsize),
+    }
+
 
 def decile_partial_sums_plain(ret, labels, n_bins: int):
     """One-hot form: ``(sums f[B, M], counts f[B, M])`` in ret's dtype."""
@@ -114,24 +158,20 @@ def decile_partial_sums(ret, labels, n_bins: int):
     if int(n_bins) < 1:
         raise ValueError(f"{what}: n_bins must be >= 1, got {n_bins}")
     _check_launchable(ret, labels, what=what)
+    A, M = ret.shape
+    plan = _decile_plan(A, M, int(n_bins), ret.element_size())
     if ret.device.type == "cpu":
         return decile_partial_sums_plain(ret, labels, n_bins)
 
-    A, M = ret.shape
     sums = torch.empty((n_bins, M), dtype=ret.dtype, device=ret.device)
     counts = torch.empty_like(sums)
     if A == 0 or M == 0:
         return sums.zero_(), counts.zero_()
-    base = -(-M // 128) * -(-n_bins // 16)
-    chunk, n_chunks = _chunks(A, base, 16)
-    part_sums = torch.empty((n_chunks, n_bins, M), dtype=ret.dtype,
-                            device=ret.device)
-    part_counts = torch.empty((n_chunks, n_bins, M), dtype=torch.int32,
-                              device=ret.device)
     lib, fn = _entry("decile_partial_sums", ret.dtype)
-    code = fn(labels.data_ptr(), ret.data_ptr(), part_sums.data_ptr(),
-              part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-              A, M, int(n_bins), chunk, ret.device.index or 0, _stream(ret))
+    code = fn(labels.data_ptr(), ret.data_ptr(), sums.data_ptr(),
+              counts.data_ptr(), A, M, int(n_bins), plan["v"], plan["lanes"],
+              plan["groups"], plan["nb"], plan["cluster"], *plan["grid"],
+              plan["smem"], ret.device.index or 0, _stream(ret))
     build.check(lib, code, what)
     decile_partial_sums.launches += 1
     return sums, counts
@@ -139,8 +179,7 @@ def decile_partial_sums(ret, labels, n_bins: int):
 
 decile_partial_sums.launches = 0
 # the CUDA kernels one call launches, by name (csrc/decile_partial_sums.cu)
-decile_partial_sums.device_kernels = ("decile_partial_kernel",
-                                      "decile_reduce_kernel")
+decile_partial_sums.device_kernels = ("decile_tile_kernel",)
 
 
 # -- K2: cohort x horizon sums ---------------------------------------------

@@ -72,13 +72,19 @@ def time_call(fn, cold=False):
     return statistics.median(dev), statistics.median(host)
 
 
-def time_kernels(fn, names):
+def time_kernels(fn, names, split=False, clean=False):
     """(median device ms, kernels per call) of the CUDA kernels that
     ``fn()`` launches whose names contain one of ``names``, traced with
     ``torch.profiler`` over ``REPS`` calls after 3 warm-up calls, L2
     flushed before each call.  A call's time is the sum of its matching
     kernels' own durations, so the wrapper's host work before the launch
-    is not in it; the flush's fill kernel matches no name."""
+    is not in it; the flush's fill kernel matches no name.  With
+    ``split=True`` a third item ``{name: median ms}`` gives each name's
+    own share of a call (the kernels matching that name, summed per
+    call).  The flush writes its buffer, so the call starts with L2 full
+    of dirty lines that its reads must first write back; ``clean=True``
+    flushes by reading the buffer instead (its reduction must match no
+    name)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -87,11 +93,14 @@ def time_kernels(fn, names):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(REPS):
-            flush.zero_()
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     spans = sorted(
-        (evt.time_range.start, evt.time_range.elapsed_us())
+        (evt.time_range.start, evt.time_range.elapsed_us(), evt.name)
         for evt in prof.events()
         if evt.device_type == torch.autograd.DeviceType.CUDA
         and any(n in evt.name for n in names))
@@ -99,9 +108,14 @@ def time_kernels(fn, names):
     if per_call == 0 or rest:
         raise RuntimeError(f"time_kernels: {len(spans)} kernels matching "
                            f"{list(names)} in {REPS} calls")
-    calls = [sum(us for _, us in spans[i:i + per_call]) / 1e3
-             for i in range(0, len(spans), per_call)]
-    return statistics.median(calls), per_call
+    calls = [spans[i:i + per_call] for i in range(0, len(spans), per_call)]
+    median = statistics.median(sum(s[1] for s in c) / 1e3 for c in calls)
+    if not split:
+        return median, per_call
+    by_name = {n: statistics.median(sum(s[1] for s in c if n in s[2]) / 1e3
+                                    for c in calls)
+               for n in names}
+    return median, per_call, by_name
 
 
 def _trace(fn):

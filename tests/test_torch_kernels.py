@@ -14,7 +14,7 @@ from csmom_tpu.ops.pallas_kernels import (
     cohort_partial_sums_pallas,
     decile_partial_sums_pallas,
 )
-from csmom_tpu_torch import k2_sweep
+from csmom_tpu_torch import k1_sweep, k2_sweep
 from csmom_tpu_torch.backtest import grid, monthly
 from csmom_tpu_torch.ops import kernels
 
@@ -267,3 +267,160 @@ def test_k2_sweep_variants_edit_the_kernel_source(name):
         old = k2_sweep.VARIANTS[name][1][0][0]
         with pytest.raises(ValueError, match="expects"):
             k2_sweep.variant_source(src.replace(old, ""), name)
+
+
+# K1's launch plan: the north star, ragged months (M odd, M = 2 mod 4),
+# M below one tile and M = 1, A below the cluster size and A = 1
+_K1_SHAPES = [(3000, 696), (3001, 697), (300, 130), (37, 7), (5, 31),
+              (7, 30), (1, 1), (64, 3), (12, 4000)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B", [1, 3, 5, 10, 16, 20, 33])
+@pytest.mark.parametrize("A,M", _K1_SHAPES)
+def test_decile_plan_fits_the_card(A, M, B, itemsize):
+    p = kernels._decile_plan(A, M, B, itemsize)
+    threads = p["lanes"] * p["groups"]
+    assert p["v"] * itemsize == 16                    # one 16-byte load of returns
+    assert threads % 32 == 0 and threads <= 256       # the kernel's launch bounds
+    assert 32 % p["lanes"] == 0                       # a warp holds whole groups
+    assert 1 <= p["cluster"] <= 8                     # the portable cluster size
+    assert p["smem"] <= 232_448                       # an H100 block's shared memory
+    gx, gy = p["grid"]
+    assert gx % p["cluster"] == 0 and gx < 2**31 and gy <= 65535
+    tm = p["lanes"] * p["v"]
+    assert (gx // p["cluster"]) * tm >= M > (gx // p["cluster"] - 1) * tm
+    # a block holds up to 16 bins; more go in groups on the grid's y axis
+    assert p["nb"] == min(B, 16) and threads == 128
+    assert (gy - 1) * p["nb"] < B <= gy * p["nb"]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_decile_plan_north_star_fills_the_card(itemsize):
+    p = kernels._decile_plan(3000, 696, 10, itemsize)
+    blocks = p["grid"][0] * p["grid"][1]
+    assert blocks >= 132                              # a block on every SM
+    assert p["nb"] == 10 and p["cluster"] == 8
+    assert p["lanes"] * p["v"] * itemsize >= 128      # a warp reads 128 B of a return row
+    # bytes in flight: a round of 4 assets' loads per thread, >= 16 KB per SM
+    in_flight = blocks * p["lanes"] * p["groups"] * 4 * p["v"] * (4 + itemsize)
+    assert in_flight / 132 >= 16 * 1024
+    # every block resident at once: 5 of them fit an SM's 228 KB
+    assert p["smem"] * -(-blocks // 132) <= 228 * 1024
+
+
+def test_decile_plan_depends_on_shapes_only():
+    assert kernels._decile_plan(3000, 696, 10, 4) == kernels._decile_plan(3000, 696, 10, 4)
+    assert kernels._decile_plan(3000, 696, 10, 4)["grid"] == (176, 1)
+    assert kernels._decile_plan(3000, 696, 10, 4)["lanes"] == 8
+    assert kernels._decile_plan(3000, 696, 10, 8)["lanes"] == 8
+
+
+def test_decile_refuses_more_bin_groups_than_the_grid_holds():
+    """Bins go in groups of 16 on the grid's y axis: at most 65535 x 16
+    bins.  The plan and the wrapper refuse more, on every device."""
+    kernels._decile_plan(1, 1, 65535 * 16, 4)
+    with pytest.raises(ValueError, match="at most 1048560"):
+        kernels._decile_plan(1, 1, 65535 * 16 + 1, 4)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="at most 1048560"):
+        kernels.decile_partial_sums(torch.zeros(1, 1), torch.zeros(1, 1, dtype=torch.int32),
+                                    65535 * 16 + 1)
+    assert kernels.decile_partial_sums.launches == 0
+
+
+def _k1_emulate(labels, ret, B, plan, vec, unroll=8):
+    """The CUDA kernel's index map, in numpy: which thread reads which
+    panel slot (flat index, as the kernel addresses it), in which order the
+    partials meet, and which rank stores which output.  Returns (sums,
+    counts, reads per slot and bin group, stores per output)."""
+    A, M = labels.shape
+    V, lanes, groups, nb, C = (plan[k] for k in ("v", "lanes", "groups", "nb", "cluster"))
+    gx, gy = plan["grid"]
+    tm, per = lanes * V, -(-A // C)
+    flat_l, flat_r = labels.ravel(), ret.ravel()
+    reads = np.zeros((gy, A * M), dtype=int)
+    stores = np.zeros((B, M), dtype=int)
+    sums, counts = np.zeros((B, M)), np.zeros((B, M))
+    for by in range(gy):
+        bin0 = by * nb
+        nbg = min(nb, B - bin0)                      # this block's bins
+        for t0 in range(0, gx, C):                   # one cluster: a month tile
+            mt0 = (t0 // C) * tm
+            part = np.zeros((C, 2, nb, tm))
+            for rank in range(C):
+                a_lo = min(A, rank * per)
+                a_hi = min(A, a_lo + per)
+                for g in range(groups):
+                    for lane in range(lanes):
+                        m0, a0 = mt0 + lane * V, a_lo + g
+                        n = -(-(a_hi - a0) // groups) if a0 < a_hi and m0 < M else 0
+                        nv = V if vec else min(V, M - m0)
+                        for i in range(0, n, unroll):
+                            for u in range(unroll):
+                                if i + u >= n:
+                                    continue
+                                for v in range(nv):
+                                    idx = (a0 + (i + u) * groups) * M + m0 + v
+                                    reads[by, idx] += 1
+                                    b = flat_l[idx] - bin0
+                                    if 0 <= b < nbg:
+                                        part[rank, 0, b, lane * V + v] += flat_r[idx]
+                                        part[rank, 1, b, lane * V + v] += 1
+            n_out = nbg * tm
+            share = -(-n_out // C)
+            for rank in range(C):
+                for o in range(rank * share, min(n_out, rank * share + share)):
+                    b, m = bin0 + o // tm, mt0 + o % tm
+                    if m < M:
+                        stores[b, m] += 1
+                        sums[b, m] = part[:, 0, o // tm, o % tm].sum()
+                        counts[b, m] = part[:, 1, o // tm, o % tm].sum()
+    return sums, counts, reads, stores
+
+
+# ragged panels: A below the cluster size, M odd or = 2 mod 4, M below
+# one tile, B above every compiled bin count; labels >= B and < -1
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("A,M,B", [(37, 7, 10), (5, 31, 3), (3, 30, 20), (1, 1, 1),
+                                   (40, 33, 5), (9, 64, 12), (70, 24, 10), (2, 6, 5)])
+def test_decile_kernel_map_covers_every_slot_once(A, M, B, itemsize):
+    rng = np.random.default_rng(A * 1000 + M + B)
+    labels = rng.integers(-3, B + 3, size=(A, M)).astype(np.int32)
+    ret = np.where((labels >= 0) & (labels < B), rng.normal(size=(A, M)), 0.0)
+    plan = kernels._decile_plan(A, M, B, itemsize)
+    ws, wc = kernels.decile_partial_sums_plain(torch.as_tensor(ret),
+                                               torch.as_tensor(labels), B)
+    # the kernel takes 16-byte loads only where every row allows them
+    for vec in ([False, True] if M % plan["v"] == 0 else [False]):
+        s, c, reads, stores = _k1_emulate(labels, ret, B, plan, vec)
+        assert (reads == 1).all()                     # every slot once per bin group
+        assert (stores == 1).all()                    # every output stored once
+        np.testing.assert_array_equal(c, wc.numpy())
+        np.testing.assert_allclose(s, ws.numpy(), **TOL)
+
+
+def test_decile_kernel_map_dead_lanes_take_nothing():
+    """M = 530 in f32: 16-month tiles, so lanes 1-3 of the last tile
+    (months 532-543) start past the panel end.  They must read nothing:
+    a read there would land on the next row's slots, read twice."""
+    A, M = 3, 530
+    plan = kernels._decile_plan(A, M, 10, 4)
+    tm = plan["lanes"] * plan["v"]
+    assert plan["lanes"] > 1 and (plan["grid"][0] // plan["cluster"]) * tm - M >= 2 * plan["v"]
+    labels = np.zeros((A, M), dtype=np.int32)
+    s, c, reads, _ = _k1_emulate(labels, np.ones((A, M)), 10, plan, vec=False)
+    assert (reads == 1).all() and (c[0] == A).all() and (s[0] == A).all()
+
+
+@pytest.mark.parametrize("name", sorted(k1_sweep.VARIANTS))
+def test_k1_sweep_variants_edit_the_kernel_source(name):
+    """Every build variant of the K1 sweep applies to the kernel as it
+    stands: each edit matches once and changes the source."""
+    src = k1_sweep.SOURCE.read_text()
+    out = k1_sweep.k1_source(name)
+    assert (out == src) == (name == "main")
+    for old, _ in k1_sweep.VARIANTS[name][1]:  # an edit that no longer matches stops the sweep
+        with pytest.raises(ValueError, match="expects"):
+            k2_sweep.variant_source(src.replace(old, ""), name, k1_sweep.VARIANTS,
+                                    k1_sweep.SOURCE)
