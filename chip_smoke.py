@@ -19,7 +19,15 @@ any phase fails (nothing is caught).  Phases:
    16-cell J x K grid (rank and qcut) in f32 through the kernels — launch
    counts read around this run — checked against the plain versions and
    timed with CUDA events;
-6. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
+6. research paths (BASELINE configs 3 and 5): (a) on the golden panel in
+   f64, the sector-neutral engine, its net of costs, the grid's netting,
+   break-evens, walk-forward selection, block-bootstrap CIs and the
+   threefry draws reproduce the JAX package's pinned ``RESEARCH``
+   fingerprints; (b) at the north star in f32, ``hist`` labels equal
+   ``rank`` labels, the matmul cohort sums equal K2's counts, the
+   sector-neutral engine (11 sectors) equals its plain run, and each new
+   path is timed with CUDA events — launch counts read around the run;
+7. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
    and bound at the main-path shape.  ``ms`` is one call's time by CUDA
    events (the wrapper's host work before the launch included);
    ``device_ms`` the kernels' own durations in a profiler trace of the
@@ -48,6 +56,147 @@ MONTHLY = {
     "nw_t": -2.001284759867,
     "cum_return": 0.271094424165,
 }
+
+# the research paths' leg of the same golden panel: the JAX package's own
+# outputs in f64 (jax_enable_x64, so its bootstrap draws int64 indices),
+# recomputed from csmom_tpu by tests/test_torch_inference.py so these pins
+# cannot drift.  Sector ids: golden_sector_ids(); grid: J, K in {3, 6, 9,
+# 12}, skip 1, rank mode; costs at 10 bps half-spread (monthly) and a unit
+# half-spread (grid); bootstrap and draws from PRNGKey(0).
+GOLDEN_SECTORS = 3
+RESEARCH = {
+    "sector_valid": 44,
+    "sector_mean_spread": -0.02184539400257678,
+    "sector_nw_t": -2.1447455472780788,
+    "net10_mean": -0.023087818245001022,
+    "net10_sharpe": -0.8227915036932137,
+    "grid_unit_net_mean": [
+        -1.1375619411478115, -0.5766345049280238, -0.4088790438471827,
+        -0.2985255023033044, -0.8246914593086627, -0.604875565048859,
+        -0.41812075472667704, -0.2869995931006015, -0.7712193945631716,
+        -0.5438731071001996, -0.40523748264861215, -0.28584517664729353,
+        -0.6821371426437131, -0.4704619733012217, -0.3753955398595861,
+        -0.2805966447665517,
+    ],
+    "grid_break_even_bps": [
+        -43.103115730822594, -136.56586485885552, -367.02917934739133,
+        -324.1207566925033, -144.26851996988572, -369.29540083758184,
+        -464.5538702284668, -93.87346476063426, -342.51174828094344,
+        -513.1186133406032, -252.64462347402034, 78.86049986897648,
+        -326.3051629685034, -196.48981961894424, 81.96616625393713,
+        264.34538602034314,
+    ],
+    "wf_choice": [
+        -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+        -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 15, 15, 15, 15, 15, 15, 15, 15,
+        15,
+    ],
+    "wf_oos_mean": 0.00013420447103893384,
+    "ci_lo": [
+        -0.017202204168308873, -0.021317994081515287, -0.031737939554437045,
+        -0.024565331851112603, -0.04396679417973012, -0.053507869079660826,
+        -0.043135847167136546, -0.01577099144566405, -0.058615576649757306,
+        -0.05648369283213483, -0.031877705239885486, -0.015095789505290022,
+        -0.043033728729207306, -0.03423074349276336, -0.016358061469760186,
+        -0.011263989698251398,
+    ],
+    "ci_hi": [
+        0.009305687620646149, 0.004067271771847802, -0.0017797179226282458,
+        0.0018299452066358295, 0.011749231295398479, 0.002331093131830444,
+        -0.0005929201760837455, 0.012356232631685312, 0.0028775928861093157,
+        -0.0012209196075792668, 0.016723919247570055, 0.02244877744741283,
+        -0.002649450482245071, 0.015277745920678428, 0.024139569073935104,
+        0.026747658451305112,
+    ],
+    "randint32_sum": 8042429.0,
+    "randint32_head": [349, 576, 296, 205, 155, 3, 528, 311],
+    "randint64_sum": 8054003.0,
+    "randint64_head": [87, 575, 119, 437, 357, 343, 530, 24],
+    "uniform32_sum": 11577.633524537086,
+    "uniform32_head": [
+        0.9476670026779175, 0.9785798788070679, 0.33229148387908936,
+        0.46866846084594727, 0.569888710975647, 0.16550302505493164,
+        0.31019461154937744, 0.6894805431365967,
+    ],
+}
+
+
+def golden_sector_ids(n_assets: int) -> np.ndarray:
+    """Seeded sector ids in [-1, GOLDEN_SECTORS) (-1: unclassified)."""
+    return np.random.default_rng(5).integers(-1, GOLDEN_SECTORS, size=n_assets)
+
+
+def research_fingerprints(dev) -> dict:
+    """The port's research paths on the golden panel in f64 on ``dev``:
+    the values ``RESEARCH`` pins, by the same names."""
+    import torch
+
+    from csmom_tpu_torch import random
+    from csmom_tpu_torch.analytics.tables import jk_grid_ci_table
+    from csmom_tpu_torch.backtest.grid import (
+        grid_break_even_bps, grid_net_of_costs, jk_grid_backtest,
+    )
+    from csmom_tpu_torch.backtest.monthly import net_of_costs, sector_neutral_backtest
+    from csmom_tpu_torch.backtest.walkforward import walk_forward_select
+    from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
+    from csmom_tpu_torch.panel.panel import to_tensors
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+    from csmom_tpu_torch.workloads import GRID_JS, GRID_KS
+
+    daily = synthetic_daily_panel(40, 1260, seed=123, listing_gaps=True)
+    seg, ends = month_end_segments(daily.times)
+    v, m = to_tensors(daily.values, daily.mask, device=dev)
+    pm, mm = month_end_aggregate(v, m, seg, len(ends))
+    sid = torch.as_tensor(golden_sector_ids(pm.shape[0]), device=dev)
+    sec = sector_neutral_backtest(pm, mm, sid, GOLDEN_SECTORS, lookback=12, skip=1)
+    _, net_mean, net_sharpe = net_of_costs(sec, half_spread=0.001)
+    g = jk_grid_backtest(pm, mm, GRID_JS, GRID_KS, skip=1, mode="rank")
+    unit = grid_net_of_costs(pm, mm, g, half_spread=1.0)
+    be, _ = grid_break_even_bps(pm, mm, g, unit=unit)
+    wf = walk_forward_select(g.spreads, g.spread_valid)
+    lo, hi = jk_grid_ci_table(g.spreads, g.spread_valid, GRID_JS, GRID_KS,
+                              key=random.PRNGKey(0, device=dev), n_samples=200,
+                              index_dtype=torch.int64)
+    key = random.PRNGKey(0, device=dev)
+    draws = {
+        "randint32": random.randint(key, (200, 116), 0, 696, dtype=torch.int32),
+        "randint64": random.randint(key, (200, 116), 0, 696, dtype=torch.int64),
+        "uniform32": random.uniform(key, (200, 116), dtype=torch.float32),
+    }
+    got = {
+        "sector_valid": int(sec.spread_valid.sum()),
+        "sector_mean_spread": float(sec.mean_spread),
+        "sector_nw_t": float(sec.tstat_nw),
+        "net10_mean": float(net_mean),
+        "net10_sharpe": float(net_sharpe),
+        "grid_unit_net_mean": unit.mean_spread.flatten().tolist(),
+        "grid_break_even_bps": be.flatten().tolist(),
+        "wf_choice": wf.choice.tolist(),
+        "wf_oos_mean": float(wf.mean_spread),
+        "ci_lo": lo.to_numpy().ravel().tolist(),
+        "ci_hi": hi.to_numpy().ravel().tolist(),
+    }
+    for name, d in draws.items():
+        got[f"{name}_sum"] = float(d.to(torch.float64).sum())
+        got[f"{name}_head"] = d.flatten()[:8].tolist()
+    return got
+
+
+def check_research(got: dict) -> None:
+    """Hold fingerprints to ``RESEARCH``: integers and draws exactly, floats
+    to the f64 golden's ``rtol=1e-9``."""
+    if set(got) != set(RESEARCH):
+        raise AssertionError(f"research keys differ: {sorted(set(got) ^ set(RESEARCH))}")
+    for k, want in RESEARCH.items():
+        exact = isinstance(want, int) or k == "wf_choice" or k.endswith("_head") \
+            or k.startswith("randint")
+        if exact:
+            if got[k] != want:
+                raise AssertionError(f"research {k}: {got[k]} != {want}")
+        else:
+            np.testing.assert_allclose(got[k], want, rtol=1e-9, err_msg=k)
+
 
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
@@ -94,10 +243,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
+    from csmom_tpu_torch import random
+    from csmom_tpu_torch.analytics.bootstrap import block_bootstrap_grid
     from csmom_tpu_torch.analytics.stats import nw_t_stat
     from csmom_tpu_torch.backends.dispatch import run_grid, run_monthly
-    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
-    from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
+    from csmom_tpu_torch.backtest.grid import (
+        _cohort_partial_sums, grid_break_even_bps, grid_net_from_unit,
+        grid_net_of_costs, jk_grid_backtest,
+    )
+    from csmom_tpu_torch.backtest.monthly import (
+        monthly_spread_backtest, sector_neutral_backtest,
+    )
+    from csmom_tpu_torch.backtest.walkforward import walk_forward_select
     from csmom_tpu_torch.ops import build, kernels
     from csmom_tpu_torch.ops.ranking import decile_assign_panel
     from csmom_tpu_torch.phases import REPS, time_call, time_kernels
@@ -366,7 +523,155 @@ def main() -> int:
         e2e[label] = {"device_ms": d_ms, "host_ms": h_ms}
     log("north", "end-to-end f32 medians of %d reps: %s" % (REPS, json.dumps(e2e)))
 
-    # -- 6. kernels line at the main-path shapes ---------------------------
+    # -- 6. research paths (BASELINE configs 3 and 5) -------------------------
+    # (a) the JAX package's pinned outputs on the golden panel, f64
+    kernels.reset_launches()
+    check_research(research_fingerprints(dev))
+    torch.cuda.synchronize()
+    golden_launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                       "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+    if min(golden_launches.values()) < 1:
+        raise AssertionError(f"research golden: a kernel was not launched: "
+                             f"{golden_launches}")
+    log("research", f"golden RESEARCH fingerprints reproduced in f64 (sector-"
+                    f"neutral spread and NW t, net of 10 bps, grid netting and "
+                    f"break-evens, walk-forward choices, bootstrap CIs, threefry "
+                    f"draws); launches {golden_launches}")
+
+    # (b) north star, f32, through the entry points and the research layer;
+    # launch counts read around this run
+    n_sec = 11
+    sid = np.random.default_rng(11).integers(-1, n_sec, size=A)   # -1: unclassified
+    ns_panel = Panel(values=pm.cpu().numpy(), mask=mm.cpu().numpy(),
+                     tickers=tuple(f"S{i}" for i in range(A)), times=ends)
+    sid_t = t(sid)
+    key0 = random.PRNGKey(0, device=dev)
+    kernels.reset_launches()
+    sec_rep = run_monthly(ns_panel, sector_ids=sid, n_sectors=n_sec, device="cuda")
+    hist_rep = run_grid(ns_panel, mode="hist", device="cuda")
+    g_hist = jk_grid_backtest(pm, mm, GRID_JS, GRID_KS, skip=GRID_SKIP, mode="hist")
+    unit = grid_net_of_costs(pm, mm, g_hist, half_spread=1.0)
+    be, turn = grid_break_even_bps(pm, mm, g_hist, unit=unit)
+    net = grid_net_of_costs(pm, mm, g_hist, half_spread=0.0005)
+    wf = walk_forward_select(g_hist.spreads, g_hist.spread_valid)
+    boot = block_bootstrap_grid(g_hist.spreads, g_hist.spread_valid, key0,
+                                n_samples=200, block_len=6)
+    torch.cuda.synchronize()
+    research_launches = {
+        "decile_partial_sums": kernels.decile_partial_sums.launches,
+        "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+    if min(research_launches.values()) < 1:
+        raise AssertionError(f"research paths: a kernel was not launched: "
+                             f"{research_launches}")
+
+    # hist labels are rank labels, and the hist grid is the rank grid
+    jt = t(GRID_JS)
+    mom_r, momv_r = momentum_dynamic(pm, mm, jt, GRID_SKIP)
+    momv_r = momv_r & formation_listed_mask(mm, GRID_SKIP)
+    mom_r = torch.where(momv_r, mom_r, torch.nan)
+    lab_hist, n_hist = decile_assign_panel(mom_r, momv_r, n_bins=10, mode="hist")
+    lab_rank, n_rank = decile_assign_panel(mom_r, momv_r, n_bins=10, mode="rank")
+    if not (torch.equal(lab_hist, lab_rank) and torch.equal(n_hist, n_rank)):
+        raise AssertionError("research: hist labels differ from rank labels")
+    rank_rep = run_grid(ns_panel, mode="rank", device="cuda")
+    np.testing.assert_array_equal(hist_rep.spread_valid, rank_rep.spread_valid)
+    np.testing.assert_array_equal(hist_rep.spreads, rank_rep.spreads)
+    if not (torch.equal(g_hist.spreads.nan_to_num(), grids["rank"].spreads.nan_to_num())
+            and torch.equal(g_hist.spread_valid, grids["rank"].spread_valid)):
+        raise AssertionError("research: the hist grid differs from the rank grid")
+
+    # the cross-table cohort sums against K2 on the grid's own labels
+    ret, ret_valid = monthly_returns(pm, mm)
+    H = max(GRID_KS)
+    ks_, kc_ = _cohort_partial_sums(lab_rank, ret, ret_valid, 10, H, impl="kernel")
+    absum_c, _ = _cohort_partial_sums(lab_rank, torch.where(
+        ret_valid, torch.nan_to_num(ret), 0.0).abs(), ret_valid, 10, H, impl="plain")
+    mm_err = {}
+    for impl in ("matmul", "matmul_bf16"):
+        ms_, mc_ = _cohort_partial_sums(lab_rank, ret, ret_valid, 10, H, impl=impl)
+        if mc_.dtype != torch.float32 or ms_.dtype != torch.float32:
+            raise AssertionError(f"research {impl}: not float32 outputs")
+        if not torch.equal(mc_, kc_):
+            raise AssertionError(f"research {impl}: counts differ from K2's")
+        if impl == "matmul":
+            assert_sums(ms_, ks_, absum_c, torch.float32, "research matmul sums")
+        else:
+            # bf16 keeps 8 significant bits: each return moves by at most
+            # 2**-8 of itself before the float32 sums
+            lim = F32_ATOL + (2.0 ** -8 + F32_RTOL) * absum_c
+            if not bool(((ms_ - ks_).abs() <= lim).all()):
+                raise AssertionError("research matmul_bf16 sums over their bf16 limit")
+        mm_err[impl] = (ms_ - ks_).abs().max().item()
+
+    # the sector-neutral engine (K1) against its plain run
+    sec = sector_neutral_backtest(pm, mm, sid_t, n_sec, lookback=12, skip=1)
+    sec_plain = sector_neutral_backtest(pm, mm, sid_t, n_sec, lookback=12, skip=1,
+                                        impl="plain")
+    if not (torch.equal(sec.decile_counts, sec_plain.decile_counts)
+            and torch.equal(sec.spread_valid, sec_plain.spread_valid)
+            and torch.equal(sec.labels, sec_plain.labels)):
+        raise AssertionError("research: sector-neutral counts/validity differ from plain")
+    torch.testing.assert_close(sec.spread, sec_plain.spread, rtol=0,
+                               atol=SPREAD_ATOL, equal_nan=True)
+    np.testing.assert_array_equal(sec_rep.labels, sec.labels.cpu().numpy())
+    if not bool((sec.labels[sid_t < 0] == -1).all()):
+        raise AssertionError("research: an unclassified asset was ranked")
+
+    # one unit-cost run re-prices the grid at any level; f32: the unit cost
+    # (about 1 a month) carries ~1e-7 of rounding, scaled by hs <= 1
+    torch.testing.assert_close(grid_net_from_unit(g_hist, unit, 0.0005).spreads,
+                               net.spreads, rtol=0, atol=1e-6, equal_nan=True)
+    live = g_hist.spread_valid
+    if not bool(torch.isfinite(net.spreads[live]).all()) or \
+            not bool((net.spreads[live] <= g_hist.spreads[live]).all()):
+        raise AssertionError("research: net spreads not finite or above gross")
+    if not bool((turn > 0).all()) or not bool(torch.isfinite(be).all()):
+        raise AssertionError("research: turnover or break-even not positive/finite")
+    if int((wf.choice >= 0).sum()) == 0 or int(wf.choice.max()) > 15:
+        raise AssertionError("research: walk-forward chose nothing or out of range")
+    ci = boot.mean_ci
+    if tuple(ci.shape) != (2, 4, 4) or not bool(torch.isfinite(ci).all()) \
+            or not bool((ci[0] <= ci[1]).all()):
+        raise AssertionError("research: bootstrap CIs not finite and ordered")
+    log("research", f"north star f32: hist == rank labels and grids; matmul / "
+                    f"matmul_bf16 counts equal K2's (max |sum err| {mm_err}); "
+                    f"sector-neutral ({n_sec} sectors) equals plain; net from "
+                    f"unit equals direct netting; launches {research_launches}")
+    log("research", json.dumps({
+        "sector_mean_spread": float(sec.mean_spread),
+        "sector_valid": int(sec.spread_valid.sum()),
+        "grid_net_mean_J12K3_5bps": float(net.mean_spread[3, 0]),
+        "break_even_bps": be.flatten().tolist(),
+        "mean_turnover": turn.flatten().tolist(),
+        "wf_oos_mean": float(wf.mean_spread),
+        "wf_cells_chosen": sorted(set(wf.choice[wf.choice >= 0].tolist())),
+        "ci_J12K3": ci[:, 3, 0].tolist()}))
+
+    # each new path's CUDA-event median at the north star, f32
+    for label, fn in [
+        ("grid_net_of_costs", lambda: grid_net_of_costs(pm, mm, grids["rank"], 0.0005)),
+        ("grid_net_of_costs_hist", lambda: grid_net_of_costs(pm, mm, g_hist, 0.0005)),
+        ("grid_break_even_bps", lambda: grid_break_even_bps(pm, mm, grids["rank"])),
+        ("block_bootstrap_grid_200", lambda: block_bootstrap_grid(
+            g_hist.spreads, g_hist.spread_valid, key0, n_samples=200)),
+        ("walk_forward_select", lambda: walk_forward_select(
+            g_hist.spreads, g_hist.spread_valid)),
+        ("sector_neutral_monthly_qcut_J12", lambda: sector_neutral_backtest(
+            pm, mm, sid_t, n_sec, lookback=12, skip=1)),
+        ("ranking_grid_hist", lambda: decile_assign_panel(mom_r, momv_r, 10, "hist")),
+        ("ranking_grid_rank", lambda: decile_assign_panel(mom_r, momv_r, 10, "rank")),
+        ("grid16_rank_kernel", lambda: jk_grid_backtest(pm, mm, GRID_JS, GRID_KS,
+                                                        mode="rank")),
+        ("grid16_rank_matmul", lambda: jk_grid_backtest(pm, mm, GRID_JS, GRID_KS,
+                                                        mode="rank", impl="matmul")),
+        ("grid16_rank_matmul_bf16", lambda: jk_grid_backtest(
+            pm, mm, GRID_JS, GRID_KS, mode="rank", impl="matmul_bf16")),
+    ]:
+        d_ms, h_ms = time_call(fn)
+        log("research", f"time {label}: {d_ms:.4f} ms CUDA events, host "
+                        f"{h_ms:.4f} ms (median of {REPS}) | {smi}")
+
+    # -- 7. kernels line at the main-path shapes ---------------------------
     ret, ret_valid = monthly_returns(pm, mm)
     # K1's inputs as the monthly engine forms them (backtest/monthly.py)
     next_ret = torch.roll(ret, -1, dims=1)
@@ -468,6 +773,7 @@ def main() -> int:
             "bound_share": b_ms / device_ms,
             "library_ms": time_call(library, cold=True)[0],
             "bytes": nbytes, "ops": ops,
+            "research_launches": research_launches[name],
         })
     per_call = {r["name"]: r["kernels_per_call"] for r in rows}
     for name, per in per_call.items():

@@ -1,12 +1,16 @@
-"""csmom_tpu_torch: the monthly momentum replication and its J x K grid in
-PyTorch, with hand-written CUDA kernels for an NVIDIA H100.
+"""csmom_tpu_torch: the monthly momentum replication, its J x K grid and
+their costs and inference (sector-neutral ranking, turnover netting,
+walk-forward selection, block-bootstrap CIs) in PyTorch, with
+hand-written CUDA kernels for an NVIDIA H100.
 
 The module layout mirrors :mod:`csmom_tpu` (the JAX reference), so each
 counterpart sits at the same path under the same name.  Importing the
 package loads nothing heavy; the entry points below resolve on first use:
 
-- :func:`run_monthly` — month-end ``Panel`` -> ``MonthlyReport``;
-- :func:`run_grid` — month-end ``Panel`` -> ``GridReport`` (J x K grid).
+- :func:`run_monthly` — month-end ``Panel`` -> ``MonthlyReport``
+  (``sector_ids=``/``n_sectors=`` for sector-neutral ranking);
+- :func:`run_grid` — month-end ``Panel`` -> ``GridReport`` (J x K grid;
+  ``mode="hist"``, ``impl="matmul"``/``"matmul_bf16"``).
 
 Both run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back.

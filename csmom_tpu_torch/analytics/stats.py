@@ -2,14 +2,17 @@
 
 Counterpart of :mod:`csmom_tpu.analytics.stats`: annualized Sharpe
 (ddof=1, NaN on empty or zero-std series), the plain t-statistic, and the
-Newey–West (Bartlett) t-statistic the replicated paper quotes.  Every
-function reduces ``[..., T]`` series, so a ``[nJ, nK, M]`` grid of spreads
-reduces in one call.
+Newey–West (Bartlett) t-statistic the replicated paper quotes, and the
+trailing-window Sharpe and volatility-managed overlay.  Every function
+works on ``[..., T]`` series, so a ``[nJ, nK, M]`` grid of spreads reduces
+in one call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from csmom_tpu_torch.ops.rolling import rolling_mean, rolling_std
 
 
 def masked_mean(x, valid, axis: int = -1):
@@ -83,3 +86,47 @@ def cumulative_growth(returns, valid):
     """Cumulative (1+r) product over valid entries."""
     lr = torch.where(valid, torch.log1p(returns), 0.0)
     return torch.exp(torch.cumsum(lr, dim=-1))
+
+
+def rolling_sharpe(returns, valid, window: int, freq_per_year: int = 12,
+                   min_periods: int | None = None):
+    """Trailing-window annualized Sharpe series, with :func:`sharpe`'s
+    per-window semantics (ddof=1; NaN on fewer than ``min_periods`` valid
+    observations, by default the full window, or on zero std).
+
+    Returns ``(sharpe f[..., T], out_valid bool[..., T])``.
+    """
+    mp = window if min_periods is None else min_periods
+    mean, mv = rolling_mean(returns, valid, window, min_periods=mp)
+    sd, sv = rolling_std(returns, valid, window, min_periods=max(mp, 2), ddof=1)
+    f = torch.tensor(freq_per_year, dtype=returns.dtype, device=returns.device)
+    ann = torch.nan_to_num(mean) * f
+    ann_sd = torch.nan_to_num(sd) * torch.sqrt(f)
+    ok = mv & sv & (ann_sd > 0)
+    return torch.where(ok, ann / torch.where(ok, ann_sd, 1.0), torch.nan), ok
+
+
+def vol_managed(returns, valid, window: int = 6, target_ann_vol: float = 0.12,
+                freq_per_year: int = 12, max_leverage: float = 2.0):
+    """Volatility-managed overlay (Barroso & Santa-Clara 2015): exposure
+    scaled by ``target / sigma_hat``, ``sigma_hat`` the trailing
+    ``window``-period realized vol through the period before (no
+    lookahead), capped at ``max_leverage``.
+
+    Returns ``(managed f[..., T], out_valid bool[..., T], scale f[..., T])``;
+    a slot is valid where the return is and a full prior window exists.
+    """
+    sd, sv = rolling_std(returns, valid, window, min_periods=window, ddof=1)
+    # the scale applied over period t uses vol measured through t-1
+    sd_prev = torch.roll(sd, 1, dims=-1)
+    sd_prev[..., 0] = torch.nan
+    sv_prev = torch.roll(sv, 1, dims=-1)
+    sv_prev[..., 0] = False
+    f = torch.tensor(freq_per_year, dtype=returns.dtype, device=returns.device)
+    ann_sd = torch.nan_to_num(sd_prev) * torch.sqrt(f)
+    ok = valid & sv_prev & (ann_sd > 0)
+    target = torch.tensor(target_ann_vol, dtype=returns.dtype, device=returns.device)
+    scale = (target / torch.where(ok, ann_sd, 1.0)).clamp(0.0, max_leverage)
+    scale = torch.where(ok, scale, torch.nan)
+    managed = torch.where(ok, scale * torch.nan_to_num(returns), torch.nan)
+    return managed, ok, scale

@@ -2,8 +2,8 @@
 arrays out.
 
 Counterpart of :func:`csmom_tpu.backends.dispatch.run_monthly` (its
-panel-engine branch, without strategy plugins or sectors) plus
-:func:`run_grid`, its J x K twin.  Both run on ``device="cuda"`` unless
+panel-engine branch with sector-neutral ranking, without strategy plugins)
+plus :func:`run_grid`, its J x K twin.  Both run on ``device="cuda"`` unless
 the caller passes ``device="cpu"``, and raise when no card is present.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from csmom_tpu_torch.panel.panel import Panel, to_tensors
 from csmom_tpu_torch.workloads import GRID_JS, GRID_KS
@@ -58,16 +59,34 @@ def run_monthly(
     freq: int = 12,
     device=None,
     dtype=None,
+    sector_ids=None,
+    n_sectors: int = 0,
 ) -> MonthlyReport:
     """Monthly decile backtest of a month-end price panel [A, M].
 
     ``device`` defaults to ``"cuda"``; ``dtype`` to the panel's own.
+    ``sector_ids`` (int[A], negative = unclassified and unranked) with
+    ``n_sectors`` >= 1 switches to sector-neutral ranking (BASELINE
+    config 3).
     """
-    from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
+    from csmom_tpu_torch.backtest.monthly import (
+        monthly_spread_backtest,
+        sector_neutral_backtest,
+    )
 
+    if sector_ids is not None and (n_sectors is None or int(n_sectors) < 1):
+        raise ValueError(
+            "sector_ids requires n_sectors >= 1 (the sector id count)"
+        )
     v, m = to_tensors(panel.values, panel.mask, device=device, dtype=dtype)
-    res = monthly_spread_backtest(v, m, lookback=lookback, skip=skip,
-                                  n_bins=n_bins, mode=mode, freq=freq)
+    if sector_ids is not None:
+        sid = torch.as_tensor(np.asarray(sector_ids, np.int64), device=v.device)
+        res = sector_neutral_backtest(v, m, sid, int(n_sectors), lookback=lookback,
+                                      skip=skip, n_bins=n_bins, mode=mode,
+                                      freq=freq)
+    else:
+        res = monthly_spread_backtest(v, m, lookback=lookback, skip=skip,
+                                      n_bins=n_bins, mode=mode, freq=freq)
     spread = np.where(res.spread_valid.cpu().numpy(), res.spread.cpu().numpy(),
                       np.nan)
     return MonthlyReport(
@@ -95,16 +114,19 @@ def run_grid(
     freq: int = 12,
     device=None,
     dtype=None,
+    impl: str = "kernel",
 ) -> GridReport:
     """J x K momentum grid of a month-end price panel [A, M].
 
-    ``device`` defaults to ``"cuda"``; ``dtype`` to the panel's own.
+    ``device`` defaults to ``"cuda"``; ``dtype`` to the panel's own;
+    ``mode`` is 'qcut', 'rank' or 'hist'; ``impl`` the cohort aggregation
+    ('kernel', 'plain', 'matmul' or 'matmul_bf16').
     """
     from csmom_tpu_torch.backtest.grid import jk_grid_backtest
 
     v, m = to_tensors(panel.values, panel.mask, device=device, dtype=dtype)
     res = jk_grid_backtest(v, m, Js, Ks, skip=skip, n_bins=n_bins, mode=mode,
-                           max_hold=max_hold, freq=freq)
+                           max_hold=max_hold, freq=freq, impl=impl)
     return GridReport(
         times=panel.times,
         Js=res.Js.cpu().numpy(),

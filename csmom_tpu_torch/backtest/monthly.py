@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`csmom_tpu.backtest.monthly`: momentum signal ->
 per-month decile labels -> equal-weighted decile means of next-month
-returns -> top-minus-bottom spread -> Sharpe and t-statistics.  The
-per-(decile, month) aggregation is kernel K1
+returns -> top-minus-bottom spread -> Sharpe and t-statistics, with the
+sector-neutral variant and the net-of-costs spread (BASELINE config 3).
+The per-(decile, month) aggregation is kernel K1
 (:func:`csmom_tpu_torch.ops.kernels.decile_partial_sums`).
 
 ``impl="kernel"`` (the default) launches the CUDA kernel for CUDA tensors
@@ -18,8 +19,9 @@ import dataclasses
 import torch
 
 from csmom_tpu_torch.analytics.stats import masked_mean, nw_t_stat, sharpe, t_stat
+from csmom_tpu_torch.costs.impact import long_short_weights, turnover_cost
 from csmom_tpu_torch.ops import kernels
-from csmom_tpu_torch.ops.ranking import decile_assign_panel
+from csmom_tpu_torch.ops.ranking import decile_assign_panel, sector_decile_assign_panel
 from csmom_tpu_torch.signals.momentum import (
     formation_listed_mask,
     momentum,
@@ -120,3 +122,56 @@ def monthly_spread_backtest(
     mom = torch.where(mom_valid, mom, torch.nan)
     labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
     return _assemble_result(ret, ret_valid, labels, n_bins, freq, impl=impl)
+
+
+def sector_neutral_backtest(
+    prices,
+    mask,
+    sector_ids,
+    n_sectors: int,
+    lookback: int = 12,
+    skip: int = 1,
+    n_bins: int = 10,
+    mode: str = "qcut",
+    freq: int = 12,
+    impl: str = "kernel",
+) -> MonthlyResult:
+    """Monthly decile backtest with sector-neutral ranking (BASELINE config 3).
+
+    :func:`monthly_spread_backtest` with the formation bins of
+    :func:`~csmom_tpu_torch.ops.ranking.sector_decile_assign_panel`: each
+    asset is ranked within its sector and the pooled extreme bins form the
+    legs, so the spread carries no net sector tilt.  ``sector_ids`` is
+    ``int[A]`` in ``[0, n_sectors)``; negative ids are unclassified and
+    unranked.  ``impl`` as in :func:`monthly_spread_backtest` (K1 on the card).
+    """
+    ret, ret_valid = monthly_returns(prices, mask)
+    mom, mom_valid = momentum(prices, mask, lookback=lookback, skip=skip)
+    mom_valid = mom_valid & formation_listed_mask(mask, skip)
+    mom = torch.where(mom_valid, mom, torch.nan)
+    labels, _ = sector_decile_assign_panel(mom, mom_valid, sector_ids, n_sectors,
+                                           n_bins=n_bins, mode=mode)
+    return _assemble_result(ret, ret_valid, labels, n_bins, freq, impl=impl)
+
+
+def net_of_costs_arrays(labels, decile_counts, spread, spread_valid,
+                        half_spread: float = 0.0005, n_bins: int = 10,
+                        freq: int = 12):
+    """The cost adjustment on the four panel outputs it reads:
+    ``(net_spread f[M], net_mean, net_sharpe)``."""
+    w = long_short_weights(labels, decile_counts, n_bins, dtype=spread.dtype)
+    cost = turnover_cost(w, half_spread)
+    net = torch.where(spread_valid, spread - cost, torch.nan)
+    return (net, masked_mean(net, spread_valid),
+            sharpe(net, spread_valid, freq_per_year=freq))
+
+
+def net_of_costs(result: MonthlyResult, half_spread: float = 0.0005,
+                 n_bins: int = 10, freq: int = 12):
+    """Spread net of linear transaction costs (BASELINE config 3): each
+    month pays ``half_spread`` per unit of weight turnover of the
+    equal-weight long-short book the labels imply.  Returns ``(net_spread
+    f[M], net_mean, net_sharpe)``; validity is unchanged."""
+    return net_of_costs_arrays(result.labels, result.decile_counts,
+                               result.spread, result.spread_valid,
+                               half_spread=half_spread, n_bins=n_bins, freq=freq)

@@ -1,10 +1,12 @@
 """Cross-sectional decile assignment.
 
 Counterpart of :mod:`csmom_tpu.ops.ranking` for modes ``"qcut"`` (pandas
-``qcut(..., duplicates='drop')`` parity) and ``"rank"`` (ordinal-rank
-flooring, ties by position).  Each month's cross-section is one
-contiguous row: panels ``[..., A, M]`` are ranked as rows ``[..., M, A]``,
-so one batched ``torch.sort`` covers every month (and every J of the grid).
+``qcut(..., duplicates='drop')`` parity), ``"rank"`` (ordinal-rank
+flooring, ties by position) and ``"hist"`` (the same labels as ``"rank"``
+by radix-histogram selection, no sort: :mod:`csmom_tpu_torch.parallel.histrank`).
+Each month's cross-section is one contiguous row: panels ``[..., A, M]``
+are ranked as rows ``[..., M, A]``, so one batched ``torch.sort`` covers
+every month (and every J of the grid, and every sector).
 
 Labels are int32 in ``[0, n_bins)`` with ``-1`` for unranked lanes.
 """
@@ -114,7 +116,14 @@ def _assign_rows(x, valid, n_bins: int, mode: str):
         n_eff = valid.sum(dim=-1).clamp(max=n_bins).to(torch.int32)
         return labels, n_eff
     if mode == "hist":
-        raise NotImplementedError("mode='hist' is not ported yet; use 'rank'")
+        # imported here: histrank imports this module's sortable_bits
+        from csmom_tpu_torch.parallel.histrank import _hist_rank_rows
+
+        # one bit a round: the fewest compare-and-count passes (the labels
+        # do not depend on the digit width)
+        labels = _hist_rank_rows(x, valid, n_bins, bits_per_round=1)
+        n_eff = valid.sum(dim=-1).clamp(max=n_bins).to(torch.int32)
+        return labels, n_eff
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -130,3 +139,38 @@ def decile_assign_panel(x, valid, n_bins: int = 10, mode: str = "qcut"):
     labels, n_eff = _assign_rows(rows, vrows, n_bins, mode)
     labels = labels.reshape(*lead, M, A).transpose(-1, -2).contiguous()
     return labels, n_eff.reshape(*lead, M)
+
+
+def sector_decile_assign_panel(x, valid, sector_ids, n_sectors: int,
+                               n_bins: int = 10, mode: str = "qcut"):
+    """Sector-neutral bins for every date of an ``[A, T]`` panel (BASELINE
+    config 3): each asset is ranked only against its own sector's valid
+    lanes, in a label space pooled across sectors.
+
+    The sectors are extra rows of the one batched ranking: the panel is
+    ranked as ``[n_sectors, A, T]`` with ``valid & (sector_ids == s)``.
+    ``sector_ids`` is ``int[A]`` in ``[0, n_sectors)`` (static over time);
+    negative ids are unclassified and unranked.
+
+    Returns ``(labels i32[A, T], n_bins_effective i32[n_sectors, T])``.
+    """
+    A = x.shape[0]
+    sector_ids = torch.as_tensor(sector_ids, device=x.device).to(torch.int64)
+    sectors = torch.arange(n_sectors, device=x.device)
+    in_sector = valid[None] & (sector_ids[None, :, None] == sectors[:, None, None])
+    labels_s, n_eff = decile_assign_panel(x.expand(n_sectors, *x.shape),
+                                          in_sector, n_bins=n_bins, mode=mode)
+    own = labels_s[sector_ids.clamp(0, n_sectors - 1),
+                   torch.arange(A, device=x.device)]              # [A, T]
+    labels = torch.where(valid & (sector_ids >= 0)[:, None], own, -1)
+    return labels, n_eff
+
+
+def sector_decile_assign(x, valid, sector_ids, n_sectors: int, n_bins: int = 10,
+                         mode: str = "qcut"):
+    """:func:`sector_decile_assign_panel` for one date: ``(labels i32[A],
+    n_bins_effective i32[n_sectors])``."""
+    labels, n_eff = sector_decile_assign_panel(
+        x[:, None], valid[:, None], sector_ids, n_sectors, n_bins=n_bins,
+        mode=mode)
+    return labels[:, 0], n_eff[:, 0]

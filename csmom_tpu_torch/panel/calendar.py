@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`csmom_tpu.panel.calendar`.  The segment ids are
 sorted, so the per-(asset, month) "last valid day" is a running maximum
-(``cummax``) over masked day indices read at each segment's last day —
+(``cummax``) over masked day indices read at each segment's last day, and
+a per-segment sum is a difference of prefix sums at the segment bounds —
 no scatter, hence no order-dependent float reduction anywhere.
 """
 
@@ -29,6 +30,17 @@ def month_end_segments(times: np.ndarray):
     return seg_ids.astype(np.int32), month_ends.astype("datetime64[ns]")
 
 
+def _segment_bounds(seg_ids, num_segments: int, device):
+    """Each sorted segment's first day and one past its last day (equal
+    for an empty segment), as int64 tensors on ``device``."""
+    seg = np.asarray(seg_ids, dtype=np.int64)
+    if seg.size and (np.diff(seg) < 0).any():
+        raise ValueError("seg_ids must be nondecreasing")
+    k = np.arange(num_segments)
+    return (torch.as_tensor(np.searchsorted(seg, k, side="left"), device=device),
+            torch.as_tensor(np.searchsorted(seg, k, side="right"), device=device))
+
+
 def month_end_aggregate(values, mask, seg_ids, num_segments: int):
     """Per (asset, month): the last valid observation and whether any exists.
 
@@ -44,13 +56,9 @@ def month_end_aggregate(values, mask, seg_ids, num_segments: int):
     """
     dev = values.device
     A, T = values.shape
-    seg = np.asarray(seg_ids, dtype=np.int64)
-    if seg.size and (np.diff(seg) < 0).any():
-        raise ValueError("seg_ids must be nondecreasing")
-    k = np.arange(num_segments)
     # each segment's first and last day (last < first for an empty segment)
-    first = torch.as_tensor(np.searchsorted(seg, k, side="left"), device=dev)
-    last = torch.as_tensor(np.searchsorted(seg, k, side="right") - 1, device=dev)
+    first, end = _segment_bounds(seg_ids, num_segments, dev)
+    last = end - 1
 
     day_idx = torch.arange(T, device=dev)
     masked_idx = torch.where(mask, day_idx, -1)
@@ -62,3 +70,21 @@ def month_end_aggregate(values, mask, seg_ids, num_segments: int):
     last_vals = torch.gather(values, 1, gather_idx)
     last_vals = torch.where(any_mask, last_vals, torch.nan)
     return last_vals, any_mask
+
+
+def segment_sum_panel(values, mask, seg_ids, num_segments: int):
+    """Per (asset, month) sum of valid observations (volume aggregation).
+
+    Masked slots contribute 0, as the reference fills missing volume with 0
+    before summing.  Each segment's sum is the difference of an inclusive
+    prefix sum at its bounds, accumulated in float64 whatever the input
+    type (a float32 prefix over decades of daily volumes would lose the
+    month in its rounding), then cast back.
+
+    Returns ``f[A, M]`` on ``values``' device (0 for an empty segment).
+    """
+    first, end = _segment_bounds(seg_ids, num_segments, values.device)
+    filled = torch.where(mask, torch.nan_to_num(values), 0.0)
+    c = torch.cumsum(filled, dim=1, dtype=torch.float64)
+    c = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)   # c[:, t] = sum of days < t
+    return (c[:, end] - c[:, first]).to(values.dtype)

@@ -53,6 +53,23 @@ def monthly_returns(prices, mask):
     return ret, valid
 
 
+def raw_monthly_returns(prices, mask):
+    """Adjacent-month returns on the raw (unpadded) panel.
+
+    ``ret[t] = prices[t]/prices[t-1] - 1`` with both month ends observed,
+    NaN otherwise: a missing month drops out of the asset's windows instead
+    of carrying the last price forward (the contract of the rolling-window
+    signals).  Returns ``(ret f[A, M], ret_valid bool[A, M])``.
+    """
+    prev = torch.roll(prices, 1, dims=1)
+    prev_mask = torch.roll(mask, 1, dims=1)
+    prev_mask[:, 0] = False
+    valid = mask & prev_mask & (prev != 0.0)
+    ret = torch.where(valid, prices / torch.where(valid, prev, 1.0) - 1.0,
+                      torch.nan)
+    return ret, valid
+
+
 def momentum_dynamic(prices, mask, lookback, skip: int):
     """Compounded (J, skip) momentum for one J or a batch of Js.
 

@@ -76,3 +76,15 @@ def test_momentum_dynamic_batched_equals_per_j(skip):
         jm_, jv = jmom.momentum_dynamic(jp, jm, J, skip)
         np.testing.assert_array_equal(valid[i].numpy(), np.asarray(jv))
         np.testing.assert_allclose(mom[i].numpy(), np.asarray(jm_), **TOL)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_raw_monthly_returns_matches_jax(seed):
+    """Adjacent-month returns on the unpadded panel: a gap month drops out."""
+    prices, mask = _gappy_panel(seed)
+    ret, valid = momentum.raw_monthly_returns(torch.as_tensor(prices),
+                                              torch.as_tensor(mask))
+    jret, jvalid = jmom.raw_monthly_returns(jnp.asarray(prices), jnp.asarray(mask))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    np.testing.assert_allclose(ret.numpy(), np.asarray(jret), **TOL)
+    assert not valid[:, 0].any() and not valid[7, 31]      # after a zero price

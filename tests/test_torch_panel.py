@@ -90,3 +90,33 @@ def test_panel_validates_shapes():
         Panel(values=values, mask=mask, tickers=tickers, times=times[1:])
     with pytest.raises(ValueError, match="differ"):
         Panel(values=values, mask=mask[:, 1:], tickers=tickers, times=times)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_segment_sum_panel_matches_jax(dtype):
+    """Per-(asset, month) sums of valid days as prefix-sum differences at
+    the sorted segment bounds, including an empty segment and masked days;
+    float64 to the reference's rounding, float32 to one rounding of the
+    float64 prefix (the prefix is taken in float64 either way)."""
+    p = synthetic_daily_panel(9, 400, seed=3, listing_gaps=True)
+    seg, ends = calendar.month_end_segments(p.times)
+    seg = np.where(seg >= 5, seg + 1, seg).astype(np.int32)   # month 5 has no day
+    vol = np.abs(p.values) * 1e6
+    vol[p.mask & (np.arange(400) % 7 == 0)] = np.nan           # NaN on valid days: 0
+    vol = vol.astype(dtype)
+    n_seg = int(seg.max()) + 1
+    v, m = to_tensors(vol, p.mask, device="cpu")
+    got = calendar.segment_sum_panel(v, m, seg, n_seg)
+    want = np.asarray(jcal.segment_sum_panel(jnp.asarray(vol), jnp.asarray(p.mask),
+                                             jnp.asarray(seg), n_seg))
+    assert got.dtype == v.dtype and got.shape == (9, n_seg)
+    assert (got[:, 5] == 0).all()
+    if dtype == np.float64:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-6)
+    else:
+        ref = np.asarray(jcal.segment_sum_panel(jnp.asarray(vol.astype(np.float64)),
+                                                jnp.asarray(p.mask), jnp.asarray(seg),
+                                                n_seg))
+        np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32))
+    with pytest.raises(ValueError, match="nondecreasing"):
+        calendar.segment_sum_panel(v, m, seg[::-1].copy(), n_seg)

@@ -7,8 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
 from csmom_tpu.ops import ranking as jrank
 from csmom_tpu_torch.ops import ranking
+from csmom_tpu_torch.parallel.histrank import histogram_rank_labels
 
 torch.set_num_threads(2)
 
@@ -101,9 +105,107 @@ def test_sortable_bits_same_total_order(dtype):
 
 
 def test_unknown_and_unported_modes_raise():
+    """An unknown mode raises; 'hist' is ported and gives rank's labels, and
+    only its collective (asset-sharded) form is still refused."""
     x = torch.zeros(4, 3, dtype=torch.float64)
     v = torch.ones(4, 3, dtype=torch.bool)
     with pytest.raises(ValueError, match="unknown mode"):
         ranking.decile_assign_panel(x, v, mode="nope")
-    with pytest.raises(NotImplementedError, match="hist"):
-        ranking.decile_assign_panel(x, v, mode="hist")
+    hist, _ = ranking.decile_assign_panel(x, v, mode="hist")
+    rank, _ = ranking.decile_assign_panel(x, v, mode="rank")
+    assert torch.equal(hist, rank)
+    with pytest.raises(NotImplementedError, match="axis_name=None"):
+        histogram_rank_labels(x, v, 10, axis_name="assets")
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n_bins", [1, 2, 3, 5, 10])
+def test_hist_mode_matches_jax_and_rank(dtype, n_bins):
+    """mode='hist' equals the reference's hist labels and the port's rank
+    labels on every hard column (ties, signed zeros, infinities, months
+    with fewer valid lanes than bins, all-invalid months)."""
+    x, valid = _hard_panel(n_bins + 11)
+    x = x.astype(dtype)
+    labels, n_eff = ranking.decile_assign_panel(
+        torch.as_tensor(x), torch.as_tensor(valid), n_bins=n_bins, mode="hist")
+    rank, rank_n = ranking.decile_assign_panel(
+        torch.as_tensor(x), torch.as_tensor(valid), n_bins=n_bins, mode="rank")
+    # the reference's hist labels equal its rank labels by construction
+    # (its own tests hold them so); its hist compiles 8 or 16 unrolled
+    # radix rounds, so one case a width takes it and the rest take rank
+    jmode = "hist" if (n_bins, dtype) in ((10, np.float64), (3, np.float32)) else "rank"
+    jl, jn = jrank.decile_assign_panel(jnp.asarray(x), jnp.asarray(valid),
+                                       n_bins=n_bins, mode=jmode)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(n_eff.numpy(), np.asarray(jn))
+    assert torch.equal(labels, rank) and torch.equal(n_eff, rank_n)
+    # the public [A, M] form, and a coarser and finer radix
+    for bpr in (2, 4, 8):
+        np.testing.assert_array_equal(
+            histogram_rank_labels(torch.as_tensor(x), torch.as_tensor(valid),
+                                  n_bins, bits_per_round=bpr).numpy(),
+            np.asarray(jl))
+
+
+@settings(max_examples=30, deadline=None)
+@given(
+    n_bins=st.sampled_from([3, 10, 16]),
+    f32=st.booleans(),
+    p_valid=st.sampled_from([0.05, 0.3, 0.9]),
+    data=st.data(),
+)
+def test_hist_equals_rank_property(n_bins, f32, p_valid, data):
+    """Random [24, 3] panels drawn from few distinct values (ties), with
+    NaNs and masked lanes, often fewer valid lanes than bins: hist == rank
+    == the reference's rank.  One panel shape keeps the reference to one
+    compile per bin count."""
+    a, m = 24, 3
+    values = st.sampled_from([-1.5, -0.0, 0.0, 0.25, 0.25, 2.0, np.inf,
+                              -np.inf, np.nan, 7.0])
+    x = np.array(data.draw(st.lists(values, min_size=a * m, max_size=a * m)),
+                 dtype=np.float32 if f32 else np.float64).reshape(a, m)
+    u = np.array(data.draw(st.lists(st.floats(0, 1), min_size=a * m,
+                                    max_size=a * m))).reshape(a, m)
+    valid = (u < p_valid) & ~np.isnan(x)
+    hist, _ = ranking.decile_assign_panel(torch.as_tensor(x), torch.as_tensor(valid),
+                                          n_bins=n_bins, mode="hist")
+    rank, _ = ranking.decile_assign_panel(torch.as_tensor(x), torch.as_tensor(valid),
+                                          n_bins=n_bins, mode="rank")
+    jl, _ = jrank.decile_assign_panel(jnp.asarray(x), jnp.asarray(valid),
+                                      n_bins=n_bins, mode="rank")
+    np.testing.assert_array_equal(hist.numpy(), rank.numpy())
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(jl))
+
+
+@pytest.mark.parametrize("mode", ["qcut", "rank", "hist"])
+def test_sector_labels_match_jax(mode):
+    """Rank within sector, pooled label space; negative ids unranked."""
+    rng = np.random.default_rng(17)
+    a, m, s = 70, 15, 4
+    x = rng.normal(size=(a, m))
+    x[:, 3] = rng.integers(0, 3, size=a)                      # ties
+    valid = rng.random((a, m)) > 0.2
+    valid[:, 5] = False                                       # all invalid
+    x = np.where(valid, x, np.nan)
+    sid = rng.integers(-1, s, size=a)
+    sid[:6] = 2                                               # one big sector
+    labels, n_eff = ranking.sector_decile_assign_panel(
+        torch.as_tensor(x), torch.as_tensor(valid), torch.as_tensor(sid), s,
+        n_bins=5, mode=mode)
+    # port's hist against the reference's rank: the same labels, without
+    # compiling the reference's radix once per sector
+    jmode = "rank" if mode == "hist" else mode
+    jl, jn = jrank.sector_decile_assign_panel(
+        jnp.asarray(x), jnp.asarray(valid), jnp.asarray(sid, dtype=jnp.int32), s,
+        n_bins=5, mode=jmode)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(n_eff.numpy(), np.asarray(jn))
+    assert (labels.numpy()[sid < 0] == -1).all()
+    one, one_n = ranking.sector_decile_assign(
+        torch.as_tensor(x[:, 3]), torch.as_tensor(valid[:, 3]),
+        torch.as_tensor(sid), s, n_bins=5, mode=mode)
+    jo, jon = jrank.sector_decile_assign(
+        jnp.asarray(x[:, 3]), jnp.asarray(valid[:, 3]),
+        jnp.asarray(sid, dtype=jnp.int32), s, n_bins=5, mode=jmode)
+    np.testing.assert_array_equal(one.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(one_n.numpy(), np.asarray(jon))

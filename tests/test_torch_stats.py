@@ -68,3 +68,46 @@ def test_nw_t_stat_lag_loop_stops_at_series_length():
     np.testing.assert_allclose(stats.nw_t_stat(tx, tv, max_lag=24).numpy(),
                                np.asarray(jstats.nw_t_stat(jx, jv, max_lag=24)),
                                **TOL)
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("rolling_sum", {"window": 6}),
+    ("rolling_mean", {"window": 6, "min_periods": 3}),
+    ("rolling_std", {"window": 12, "min_periods": 4}),
+    ("rolling_std", {"window": 5, "ddof": 0}),
+])
+def test_rolling_matches_jax(fn, kw):
+    from csmom_tpu.ops import rolling as jrolling
+    from csmom_tpu_torch.ops import rolling
+
+    x, valid = _series(21)
+    x = x * 1e4 + 3e6                      # large raw values: the centering matters
+    tx, tv, jx, jv = _both(x, valid)
+    got, gv = getattr(rolling, fn)(tx, tv, **kw)
+    want, wv = getattr(jrolling, fn)(jx, jv, **kw)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    # a std is the square root of a difference of prefix sums of squares
+    # (centred values ~500 here, window sums ~1e7): where the variance
+    # cancels to ~0 (one point, ddof=0) it is sqrt of their rounding,
+    # sqrt(1e-16 * 1e7) ~ 3e-5, in either library's summation order
+    atol = 1e-4 if fn == "rolling_std" else 1e-7
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=atol,
+                               equal_nan=True)
+    np.testing.assert_array_equal(rolling.rolling_count(tv, 4).numpy(),
+                                  np.asarray(jrolling.rolling_count(jv, 4)))
+
+
+@pytest.mark.parametrize("window,mp", [(12, None), (6, 3)])
+def test_rolling_sharpe_and_vol_managed_match_jax(window, mp):
+    x, valid = _series(22)
+    tx, tv, jx, jv = _both(x, valid)
+    got = stats.rolling_sharpe(tx, tv, window, min_periods=mp)
+    want = jstats.rolling_sharpe(jx, jv, window, min_periods=mp)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
+    got = stats.vol_managed(tx, tv, window=window, target_ann_vol=0.1)
+    want = jstats.vol_managed(jx, jv, window=window, target_ann_vol=0.1)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for g, w in zip(got[::2], want[::2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    assert got[1].any() and (got[2][got[1]] <= 2.0).all()
