@@ -27,7 +27,18 @@ any phase fails (nothing is caught).  Phases:
    ``rank`` labels, the matmul cohort sums equal K2's counts, the
    sector-neutral engine (11 sectors) equals its plain run, and each new
    path is timed with CUDA events — launch counts read around the run;
-7. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
+7. data-in: (a) the committed 8-ticker CSV universe through the native
+   parser and ``monthly_price_panel`` on the card reproduces the JAX
+   package's CSV golden in f64 through K1; (b) the north-star daily panel
+   written as a two-field f32 pack, read back memmapped and aggregated on
+   the card equals ``north_star_month_panel()`` bit for bit, and
+   ``run_monthly`` (K1) and ``run_grid`` (K2) from it equal phase 5's
+   results bit for bit; banded rebalancing (band 0 = the plain engine's
+   spread and turnover charge) and tearsheets of the 16 cells; launch
+   counts read around this run, and each step timed; (c) 512 tickers x
+   3,780 days of CSVs in both dialects -> native ingest -> pack, with the
+   pack equal to its frames and equal month-end panels from either source;
+8. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
    and bound at the main-path shape.  ``ms`` is one call's time by CUDA
    events (the wrapper's host work before the launch included);
    ``device_ms`` the kernels' own durations in a profiler trace of the
@@ -39,11 +50,15 @@ then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the monthly leg of the JAX package's committed synthetic golden
 # (tests/test_synthetic_golden.py: synthetic_daily_panel(40, 1260,
@@ -196,6 +211,304 @@ def check_research(got: dict) -> None:
                 raise AssertionError(f"research {k}: {got[k]} != {want}")
         else:
             np.testing.assert_allclose(got[k], want, rtol=1e-9, err_msg=k)
+
+
+# tests/test_synthetic_golden.py::test_csv_universe_golden: the committed
+# universe (tests/fixtures/universe, 8 tickers in both cache dialects),
+# lookback 6, skip 1, 4 bins, f64
+CSV_GOLDEN = {"shape": (8, 23), "n_valid_spreads": 15, "mean_spread": 0.007170869622,
+              "ann_sharpe": 0.207281538823, "nw_t": 0.249081731114}
+# the JAX package's ingest workload (BENCH_FULL_r05.json, pack_ingest_note)
+CSV_AT_SCALE = (512, 3780)
+
+
+def write_csv_cache(daily, volume, out_dir: str) -> list:
+    """Each asset's listed days as one cache CSV, ``<ticker>_daily.csv``, in
+    dialect A (Date header and a junk ticker row) for even rows and
+    dialect B (Price/Ticker/Date preamble, no Adj Close) for odd ones, six
+    decimals.  Returns the tickers."""
+    import pandas as pd
+
+    dates = np.datetime_as_string(daily.times.astype("datetime64[D]"))
+    for i, t in enumerate(daily.tickers):
+        live = daily.mask[i]
+        close = daily.values[i, live]
+        cols = {"Date": dates[live]}
+        if i % 2 == 0:
+            cols["Adj Close"] = close
+            head = f"Date,Adj Close,Close,High,Low,Open,Volume\n,{t},{t},{t},{t},{t},{t}\n"
+        else:
+            head = f"Price,Close,High,Low,Open,Volume\nTicker,{t},{t},{t},{t},{t}\nDate,,,,,\n"
+        cols.update({"Close": close, "High": close * 1.01, "Low": close * 0.99,
+                     "Open": close * 1.002,
+                     "Volume": volume[i, live].astype(np.int64)})
+        body = pd.DataFrame(cols).to_csv(header=False, index=False, float_format="%.6f")
+        with open(os.path.join(out_dir, f"{t}_daily.csv"), "w") as f:
+            f.write(head + body)
+    return list(daily.tickers)
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equal arrays or tensors (NaN where NaN), of one type."""
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    b = b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.kind != "f":
+        return np.array_equal(a, b)
+    nan = np.isnan(a)
+    return np.array_equal(nan, np.isnan(b)) and a[~nan].tobytes() == b[~nan].tobytes()
+
+
+def data_in(dev, smi, pm, mm, ends, mres, grids) -> dict:
+    """Phase 7: CSV caches and packs -> month-end panels on the card.
+
+    ``pm, mm, ends`` are phase 5's north-star month-end panel, ``mres`` its
+    monthly engine run and ``grids`` its grids.  Returns the kernel launch
+    counts of part (b)'s run (the slice's main path at full width)."""
+    import warnings
+
+    import torch
+
+    from csmom_tpu_torch import native
+    from csmom_tpu_torch.analytics.stats import nw_t_stat
+    from csmom_tpu_torch.analytics.tearsheet import tearsheet
+    from csmom_tpu_torch.api import monthly_price_panel
+    from csmom_tpu_torch.backends.dispatch import run_grid, run_monthly
+    from csmom_tpu_torch.backtest.banded import banded_monthly_backtest
+    from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
+    from csmom_tpu_torch.costs.impact import long_short_weights, turnover_cost
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.panel.ingest import load_daily, long_to_panel
+    from csmom_tpu_torch.panel.pack import load_packed, pack_csv_cache, save_packed
+    from csmom_tpu_torch.panel.panel import Panel, PanelBundle
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+    from csmom_tpu_torch.phases import REPS, time_call
+    from csmom_tpu_torch.workloads import NORTH_STAR_GRID
+
+    def wall(fn):
+        """(result, host ms) of ``fn()``, the card synchronized around it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def copy_ms(dst, src, reps=5):
+        """Median CUDA-event ms of ``dst.copy_(src)`` (asynchronous when
+        ``src`` is pinned)."""
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    def dir_bytes(path):
+        return sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+
+    if not native.available():
+        raise AssertionError("data-in: the native CSV parser did not build")
+
+    # (a) the committed CSV universe, f64, through K1
+    universe = os.path.join(REPO, "tests", "fixtures", "universe")
+    tickers = sorted(n.split("_")[0] for n in os.listdir(universe))
+    files0 = native.parse_price_csv_native.files
+    kernels.reset_launches()
+    (prices, _), golden_ms = wall(lambda: monthly_price_panel(universe, tickers))
+    parsed = native.parse_price_csv_native.files - files0
+    if parsed != len(tickers):
+        raise AssertionError(f"data-in (a): {parsed} of {len(tickers)} files parsed natively")
+    if prices.shape != CSV_GOLDEN["shape"] or prices.values.dtype != np.float64:
+        raise AssertionError(f"data-in (a): panel {prices.shape} {prices.values.dtype}")
+    v, m = prices.tensors()
+    res = monthly_spread_backtest(v, m, lookback=6, skip=1, n_bins=4)
+    k1_golden = kernels.decile_partial_sums.launches
+    if k1_golden < 1:
+        raise AssertionError("data-in (a): K1 was not launched")
+    got = {"n_valid_spreads": int(res.spread_valid.sum()),
+           "mean_spread": float(res.mean_spread), "ann_sharpe": float(res.ann_sharpe),
+           "nw_t": float(nw_t_stat(res.spread, res.spread_valid))}
+    if got["n_valid_spreads"] != CSV_GOLDEN["n_valid_spreads"]:
+        raise AssertionError(f"data-in (a): {got['n_valid_spreads']} valid spreads")
+    for k in ("mean_spread", "ann_sharpe", "nw_t"):
+        np.testing.assert_allclose(got[k], CSV_GOLDEN[k], rtol=1e-9, err_msg=k)
+    log("data-in", f"(a) CSV universe {len(tickers)} tickers, every file by the native "
+                   f"parser -> {prices.shape[0]}x{prices.shape[1]} f64 month ends on "
+                   f"{dev}: the JAX package's CSV golden reproduced ({got}); K1 "
+                   f"launches {k1_golden}; monthly_price_panel {golden_ms:.2f} ms host")
+
+    # (b) the north-star daily panel as a two-field f32 pack
+    n_stocks, n_days = NORTH_STAR_GRID
+    t0 = time.perf_counter()
+    daily = synthetic_daily_panel(n_stocks, n_days, seed=7, listing_gaps=True)
+    vol = np.random.default_rng(70).integers(10_000, 5_000_000, size=daily.shape
+                                             ).astype(np.float32)
+    vol[~daily.mask] = np.nan
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    fields = {"adj_close": daily.values.astype(np.float32), "volume": vol}
+    bundle = PanelBundle(
+        panels={f: Panel(values=x, mask=daily.mask, tickers=daily.tickers,
+                         times=daily.times, name=f) for f, x in fields.items()},
+        tickers=daily.tickers, times=daily.times)
+    with tempfile.TemporaryDirectory(prefix="csmom_smoke_") as tmp:
+        pack_dir = os.path.join(tmp, "north_star")
+        _, write_ms = wall(lambda: save_packed(bundle, pack_dir))
+        packed, open_ms = wall(lambda: load_packed(pack_dir))
+        if not isinstance(packed["adj_close"].values, np.memmap):
+            raise AssertionError("data-in (b): the pack did not open memmapped")
+        # the hand-off of both memmapped fields (read into pinned host
+        # memory, then copied), and its two parts for the price field
+        _, tensors_ms = wall(lambda: [packed[f].tensors() for f in packed.fields])
+        src = packed["adj_close"].values
+        pinned = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            _, fill_ms = wall(lambda: pinned.copy_(torch.from_numpy(src)))
+        pageable = torch.from_numpy(np.array(src))
+        dst = torch.empty(src.shape, dtype=torch.float32, device=dev)
+        h2d = {"pinned": copy_ms(dst, pinned), "pageable": copy_ms(dst, pageable)}
+        if not same(dst, pageable):
+            raise AssertionError("data-in (b): the copied panel differs from the pack")
+        del pinned, pageable, dst
+
+        # the slice's main path at full width; launch counts read around it
+        kernels.reset_launches()
+        (dprices, dvolume), mpp_ms = wall(lambda: monthly_price_panel(pack_dir, None))
+        rep, run_monthly_ms = wall(lambda: run_monthly(dprices, lookback=12, skip=1,
+                                                       mode="qcut"))
+        grep, run_grid_ms = wall(lambda: run_grid(dprices, mode="rank"))
+        dpm, dmm = dprices.tensors()
+        band1 = banded_monthly_backtest(dpm, dmm, lookback=12, skip=1, mode="qcut", band=1)
+        band0 = banded_monthly_backtest(dpm, dmm, lookback=12, skip=1, mode="qcut", band=0)
+        gs = torch.as_tensor(grep.spreads, device=dev)
+        gv = torch.as_tensor(grep.spread_valid, device=dev)
+        ts = tearsheet(gs, gv)
+        torch.cuda.synchronize()
+        launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                    "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+        if min(launches.values()) < 1:
+            raise AssertionError(f"data-in (b): a kernel was not launched: {launches}")
+        pack_mb = dir_bytes(pack_dir) / 1e6
+        mpp_again = [wall(lambda: monthly_price_panel(pack_dir, None))[1] for _ in range(2)]
+
+    # the month ends are a selection, so the f32 pack aggregates to the
+    # generated panel's month ends bit for bit
+    if not (same(dprices.values, pm) and same(dprices.mask, mm)
+            and np.array_equal(dprices.times, ends) and dprices.tickers == daily.tickers
+            and dprices.values.dtype == np.float32):
+        raise AssertionError("data-in (b): the pack's month ends differ from "
+                             "north_star_month_panel()")
+    if not (np.array_equal(dvolume.mask, dprices.mask)
+            and bool((dvolume.values[dvolume.mask] > 0).all())
+            and bool((dvolume.values[~dvolume.mask] == 0).all())):
+        raise AssertionError("data-in (b): monthly volumes or their mask are wrong")
+    np.testing.assert_allclose(dvolume.values.astype(np.float64).sum(),
+                               np.nansum(vol, dtype=np.float64), rtol=1e-6)
+    if not (same(rep.labels, mres.labels) and same(rep.decile_counts, mres.decile_counts)
+            and same(rep.decile_means, mres.decile_means)
+            and same(rep.spread, torch.where(mres.spread_valid, mres.spread, torch.nan))
+            and rep.mean_spread == float(mres.mean_spread)
+            and rep.tstat_nw == float(mres.tstat_nw)):
+        raise AssertionError("data-in (b): run_monthly from the pack differs from phase 5")
+    g5 = grids["rank"]
+    if not all(same(getattr(grep, k), getattr(g5, k)) for k in
+               ("spreads", "spread_valid", "mean_spread", "ann_sharpe", "tstat_nw")):
+        raise AssertionError("data-in (b): run_grid from the pack differs from phase 5")
+    # band 0 is the plain engine: its spread and its turnover charge
+    if not torch.equal(band0.spread_valid, mres.spread_valid):
+        raise AssertionError("data-in (b): band=0 validity differs from the plain engine")
+    torch.testing.assert_close(band0.spread, mres.spread, rtol=0, atol=SPREAD_ATOL,
+                               equal_nan=True)
+    charge = turnover_cost(long_short_weights(mres.labels, mres.decile_counts, 10,
+                                              dtype=torch.float32), half_spread=1.0)
+    torch.testing.assert_close(band0.turnover, charge, rtol=F32_RTOL, atol=F32_ATOL)
+    if not float(band1.turnover.mean()) < float(band0.turnover.mean()):
+        raise AssertionError("data-in (b): the band did not cut turnover")
+    # the tearsheet on the card against its CPU run on the same spreads
+    ts_cpu = tearsheet(gs.cpu(), gv.cpu())
+    for f in ts.__dataclass_fields__:
+        a, b = getattr(ts, f).cpu(), getattr(ts_cpu, f)
+        if f == "n_periods":
+            if not torch.equal(a, b) or not torch.equal(a, gv.sum(-1).to(torch.int32).cpu()):
+                raise AssertionError("data-in (b): tearsheet period counts")
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, equal_nan=True, msg=f)
+    if tuple(ts.ann_return.shape) != (4, 4) or not bool(torch.isfinite(ts.ann_return).all()):
+        raise AssertionError("data-in (b): tearsheet returns not finite over 4x4 cells")
+    banded_ms = time_call(lambda: banded_monthly_backtest(dpm, dmm, 12, 1, mode="qcut", band=1))
+    tear_ms = time_call(lambda: tearsheet(gs, gv))
+    log("data-in", f"(b) {n_stocks}x{n_days} f32 pack ({pack_mb:.1f} MB: adj_close and "
+                   f"volume, values and masks) -> {dprices.shape[0]}x{dprices.shape[1]} "
+                   f"month ends on {dev} equal north_star_month_panel() bit for bit; "
+                   f"run_monthly (qcut, J=12; K1) and run_grid (rank; K2) from it equal "
+                   f"phase 5 bit for bit; band 0 = the plain engine's spread and "
+                   f"turnover charge (max |turnover err| "
+                   f"{(band0.turnover - charge).abs().max().item():.3g}); band 1 mean "
+                   f"turnover {float(band1.turnover.mean()):.4f} vs "
+                   f"{float(band0.turnover.mean()):.4f}; tearsheet of 16 cells equals "
+                   f"its CPU run; launches {launches}")
+    timings = {
+        "generate_host_ms": gen_ms, "pack_write_ms": write_ms, "pack_open_ms": open_ms,
+        "tensors_two_fields_ms": tensors_ms,
+        "adj_close_read_into_pinned_ms": fill_ms,
+        "adj_close_h2d_pinned_ms": h2d["pinned"], "adj_close_h2d_pageable_ms": h2d["pageable"],
+        "adj_close_mb": src.nbytes / 1e6,
+        "monthly_price_panel_ms": [mpp_ms] + mpp_again,
+        "run_monthly_ms": run_monthly_ms, "run_grid_ms": run_grid_ms,
+        "banded_band1_device_ms": banded_ms[0], "banded_band1_host_ms": banded_ms[1],
+        "tearsheet_16_device_ms": tear_ms[0], "tearsheet_16_host_ms": tear_ms[1],
+    }
+    log("data-in", f"(b) times (host wall around a synchronized call unless named "
+                   f"device: CUDA events, medians of {REPS}; H2D medians of 5) "
+                   f"{json.dumps(timings)} | {smi}")
+
+    # (c) CSVs at scale in both dialects -> native ingest -> pack
+    n_csv, d_csv = CSV_AT_SCALE
+    cdaily = synthetic_daily_panel(n_csv, d_csv, seed=7, listing_gaps=True)
+    cvol = np.random.default_rng(71).integers(10_000, 5_000_000, size=cdaily.shape)
+    with tempfile.TemporaryDirectory(prefix="csmom_smoke_") as tmp:
+        csv_dir, cpack = os.path.join(tmp, "csv"), os.path.join(tmp, "pack")
+        os.makedirs(csv_dir)
+        ctk, csv_write_ms = wall(lambda: write_csv_cache(cdaily, cvol, csv_dir))
+        csv_mb = dir_bytes(csv_dir) / 1e6
+        files0 = native.parse_price_csv_native.files
+        df, load_ms = wall(lambda: load_daily(csv_dir, ctk))
+        _, pack_ms = wall(lambda: pack_csv_cache(csv_dir, ctk, cpack))
+        parsed = native.parse_price_csv_native.files - files0
+        if parsed != 2 * n_csv:
+            raise AssertionError(f"data-in (c): {parsed} of {2 * n_csv} files parsed natively")
+        cp = load_packed(cpack)
+        for f in ("adj_close", "volume"):
+            want = long_to_panel(df, f)
+            if not (same(cp[f].values, want.values) and same(cp[f].mask, want.mask)
+                    and cp[f].tickers == want.tickers
+                    and np.array_equal(cp[f].times, want.times)):
+                raise AssertionError(f"data-in (c): the pack's {f} differs from its frames")
+        if len(cp["adj_close"].tickers) != n_csv or len(df) != int(cdaily.mask.sum()):
+            raise AssertionError(f"data-in (c): {len(df)} rows of {int(cdaily.mask.sum())}")
+        (csv_p, csv_v), csv_mpp_ms = wall(lambda: monthly_price_panel(csv_dir, ctk))
+        (pk_p, pk_v), pack_mpp_ms = wall(lambda: monthly_price_panel(cpack, ctk))
+        for a, b in ((csv_p, pk_p), (csv_v, pk_v)):
+            if not (same(a.values, b.values) and same(a.mask, b.mask)
+                    and a.tickers == b.tickers and np.array_equal(a.times, b.times)):
+                raise AssertionError("data-in (c): CSV and pack month ends differ")
+        cpack_mb = dir_bytes(cpack) / 1e6
+    log("data-in", f"(c) {n_csv} tickers x {d_csv} days as CSVs in both dialects "
+                   f"({csv_mb:.1f} MB, {len(df)} rows) -> native ingest -> f64 pack "
+                   f"({cpack_mb:.1f} MB) equal to its frames; month ends "
+                   f"{csv_p.shape[0]}x{csv_p.shape[1]} equal from the CSVs and the pack; "
+                   + json.dumps({"csv_write_ms": csv_write_ms, "load_daily_native_ms": load_ms,
+                                 "pack_csv_cache_ms": pack_ms,
+                                 "monthly_price_panel_csv_ms": csv_mpp_ms,
+                                 "monthly_price_panel_pack_ms": pack_mpp_ms})
+                   + f" | {smi}")
+    return launches
 
 
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
@@ -671,7 +984,10 @@ def main() -> int:
         log("research", f"time {label}: {d_ms:.4f} ms CUDA events, host "
                         f"{h_ms:.4f} ms (median of {REPS}) | {smi}")
 
-    # -- 7. kernels line at the main-path shapes ---------------------------
+    # -- 7. data-in: CSV caches and packs -> month-end panels on the card ----
+    data_in_launches = data_in(dev, smi, pm, mm, ends, mres, grids)
+
+    # -- 8. kernels line at the main-path shapes ---------------------------
     ret, ret_valid = monthly_returns(pm, mm)
     # K1's inputs as the monthly engine forms them (backtest/monthly.py)
     next_ret = torch.roll(ret, -1, dims=1)
@@ -774,6 +1090,7 @@ def main() -> int:
             "library_ms": time_call(library, cold=True)[0],
             "bytes": nbytes, "ops": ops,
             "research_launches": research_launches[name],
+            "data_in_launches": data_in_launches[name],
         })
     per_call = {r["name"]: r["kernels_per_call"] for r in rows}
     for name, per in per_call.items():

@@ -1,7 +1,8 @@
 """csmom_tpu_torch: the monthly momentum replication, its J x K grid and
 their costs and inference (sector-neutral ranking, turnover netting,
-walk-forward selection, block-bootstrap CIs) in PyTorch, with
-hand-written CUDA kernels for an NVIDIA H100.
+walk-forward selection, block-bootstrap CIs, banded rebalancing,
+tearsheets) in PyTorch, with hand-written CUDA kernels for an NVIDIA H100,
+fed from CSV caches or packed panels.
 
 The module layout mirrors :mod:`csmom_tpu` (the JAX reference), so each
 counterpart sits at the same path under the same name.  Importing the
@@ -10,10 +11,14 @@ package loads nothing heavy; the entry points below resolve on first use:
 - :func:`run_monthly` — month-end ``Panel`` -> ``MonthlyReport``
   (``sector_ids=``/``n_sectors=`` for sector-neutral ranking);
 - :func:`run_grid` — month-end ``Panel`` -> ``GridReport`` (J x K grid;
-  ``mode="hist"``, ``impl="matmul"``/``"matmul_bf16"``).
+  ``mode="hist"``, ``impl="matmul"``/``"matmul_bf16"``);
+- :func:`monthly_price_panel` — a CSV cache directory or a pack ->
+  month-end ``(prices, volume)`` Panels, aggregated on the device;
+- :func:`load_config` — a TOML file -> ``RunConfig``;
+- :func:`load_packed` — a packed directory -> memmapped Panels.
 
-Both run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
-without a card they raise instead of falling back.
+The three that compute run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; without a card they raise instead of falling back.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from __future__ import annotations
 _LAZY = {
     "run_monthly": "csmom_tpu_torch.backends.dispatch",
     "run_grid": "csmom_tpu_torch.backends.dispatch",
+    "monthly_price_panel": "csmom_tpu_torch.api",
+    "load_config": "csmom_tpu_torch.config",
+    "load_packed": "csmom_tpu_torch.panel.pack",
 }
 
 __all__ = sorted(_LAZY)

@@ -19,7 +19,7 @@ from csmom_tpu_torch import random
 from csmom_tpu_torch.analytics.bootstrap import block_bootstrap_grid
 from csmom_tpu_torch.analytics.stats import masked_mean, nw_t_stat, sharpe, t_stat
 
-__all__ = ["decile_table", "jk_grid_table", "jk_grid_ci_table"]
+__all__ = ["decile_table", "jk_grid_table", "jk_grid_ci_table", "tercile_labels"]
 
 
 def _masked_rows(x, valid):
@@ -116,3 +116,12 @@ def jk_grid_ci_table(spreads, live, Js, Ks, key=None, n_samples: int = 200,
     _, _, idx, cols = _jk_index(Js, Ks)
     return (pd.DataFrame(ci[0], index=idx, columns=cols),
             pd.DataFrame(ci[1], index=idx, columns=cols))
+
+
+def tercile_labels(V: int) -> list[str]:
+    """Display names for volume groups, shared by tables and plots so the
+    legend and columns can't drift: V1 (low) .. V{V} (high)."""
+    if V == 1:
+        return ["V1"]
+    return (["V1 (low)"] + [f"V{v + 1}" for v in range(1, V - 1)]
+            + [f"V{V} (high)"])

@@ -64,6 +64,15 @@ def decile_means(sums, counts):
     return torch.where(counts > 0, sums / counts.clamp(min=1), torch.nan)
 
 
+def decile_portfolio_returns(next_ret, next_valid, labels, n_bins: int,
+                             impl: str = "kernel"):
+    """Equal-weighted mean next-period return per (decile, date):
+    ``(means f[B, M], counts i32[B, M])``, through K1 on a CUDA tensor
+    (``impl="kernel"``) or its plain version (``impl="plain"``)."""
+    sums, counts = decile_partial_sums(next_ret, next_valid, labels, n_bins, impl=impl)
+    return decile_means(sums, counts), counts
+
+
 def _assemble_result(ret, ret_valid, labels, n_bins: int, freq: int,
                      impl: str = "kernel") -> MonthlyResult:
     """Align next-month returns to the formation month, pool decile means,
@@ -73,9 +82,8 @@ def _assemble_result(ret, ret_valid, labels, n_bins: int, freq: int,
     next_valid[:, -1] = False
     next_valid &= labels >= 0
 
-    sums, counts = decile_partial_sums(next_ret, next_valid, labels, n_bins,
-                                       impl=impl)
-    means = decile_means(sums, counts)
+    means, counts = decile_portfolio_returns(next_ret, next_valid, labels, n_bins,
+                                             impl=impl)
     spread_valid = (counts[n_bins - 1] > 0) & (counts[0] > 0)
     spread = torch.where(spread_valid, means[n_bins - 1] - means[0], torch.nan)
     return MonthlyResult(

@@ -127,6 +127,14 @@ def _assign_rows(x, valid, n_bins: int, mode: str):
     raise ValueError(f"unknown mode {mode!r}")
 
 
+def decile_assign(x, valid, n_bins: int = 10, mode: str = "qcut"):
+    """Bins for one date: ``x f[A]`` (NaN allowed at masked lanes) ->
+    ``(labels i32[A] with -1 at masked lanes, n_bins_effective i32 scalar)``
+    in mode ``"qcut"``, ``"rank"`` or ``"hist"``."""
+    labels, n_eff = _assign_rows(x[None, :], valid[None, :], n_bins, mode)
+    return labels[0], n_eff[0]
+
+
 def decile_assign_panel(x, valid, n_bins: int = 10, mode: str = "qcut"):
     """Bins for every date of ``[..., A, M]`` panels.
 

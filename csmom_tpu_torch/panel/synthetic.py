@@ -1,5 +1,6 @@
-"""Seeded synthetic daily panel: a copy of
-:func:`csmom_tpu.panel.synthetic.synthetic_daily_panel`, bit-identical
+"""Seeded synthetic market data: copies of
+:func:`csmom_tpu.panel.synthetic.synthetic_daily_panel` and
+:func:`~csmom_tpu.panel.synthetic.synthetic_minute_bars`, bit-identical
 for the same arguments (same numpy stream, same arithmetic), so the port
 and the reference run on the same data."""
 
@@ -8,6 +9,10 @@ from __future__ import annotations
 import numpy as np
 
 from csmom_tpu_torch.panel.panel import Panel
+
+# bumped with the reference's whenever a generator's output changes for the
+# same (shape, seed): disk caches of synthesized panels key on it
+SYNTH_VERSION = 1
 
 
 def synthetic_daily_panel(
@@ -49,3 +54,35 @@ def synthetic_daily_panel(
     return Panel(values=prices, mask=mask,
                  tickers=tuple(f"S{i:05d}" for i in range(n_assets)),
                  times=bdays.astype("datetime64[ns]"), name="synthetic_close")
+
+
+def synthetic_minute_bars(
+    open_p: np.ndarray,
+    close_p: np.ndarray,
+    day_volume: np.ndarray,
+    minutes_per_day: int = 390,
+    noise: float = 0.0005,
+    seed: int = 0,
+):
+    """Minute price/volume paths for a block of (asset, day) bars, the
+    reference demo's synthetic intraday fallback without its loop: price
+    path = linspace(open, close) * (1 + N(0, noise)); volume = a sin^2
+    U-curve + 0.1, normalized, scaled to the day's volume, floored to int.
+
+    Args:
+      open_p, close_p, day_volume: f[A, D] daily panels.
+
+    Returns:
+      (prices f[A, D, T], volumes i64[A, D, T]) with T = minutes_per_day.
+    """
+    rng = np.random.default_rng(seed)
+    A, D = open_p.shape
+    T = minutes_per_day
+    frac = np.linspace(0.0, 1.0, T)
+    path = open_p[..., None] + (close_p - open_p)[..., None] * frac
+    path = path * (1.0 + rng.normal(0.0, noise, size=(A, D, T)))
+
+    base = np.sin(np.linspace(0.0, np.pi, T)) ** 2 + 0.1
+    base = base / base.sum()
+    vols = np.maximum(day_volume, 1.0)[..., None] * base
+    return path, vols.astype(np.int64)

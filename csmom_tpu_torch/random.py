@@ -9,8 +9,9 @@ equals the JAX package's draw index for index.
   holding the two uint32 words of a JAX key;
 - every value is computed in int64 with an explicit ``& 0xFFFFFFFF``:
   torch has no shifts on ``uint32`` on the CPU and no ``uint64``
-  arithmetic, so 64-bit draws are int64 bit patterns and their unsigned
-  remainders are taken from the two 32-bit halves;
+  arithmetic, so 64-bit draws are int64 bit patterns, and ``randint``'s
+  unsigned products and remainders are built from their two 32-bit
+  words;
 - the draw runs on the key's device.
 
 The JAX package's production setting keeps 64-bit types off, so its
@@ -106,15 +107,69 @@ def random_bits(key, bit_width: int, shape):
     raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
 
 
-def _urem(x, span: int, bit_width: int):
-    """``x mod span`` of unsigned ``bit_width``-bit values held in int64
+def _words(key, bit_width: int, shape):
+    """One draw of ``bit_width`` random bits as (high, low) uint32 words."""
+    b1, b2 = _hash(key, shape)
+    if bit_width == 32:
+        return torch.zeros_like(b1), b1 ^ b2
+    return b1, b2
+
+
+def _mul_word(a, b: int):
+    """(high, low) words of ``a * b`` for uint32 words ``a`` and an int
+    ``0 <= b < 2**32``, from 16-bit pieces of ``b`` (no product passes
+    2**49)."""
+    p0 = a * (b & 0xFFFF)
+    p1 = a * (b >> 16)
+    s = p0 + ((p1 & 0xFFFF) << 16)
+    return (s >> 32) + (p1 >> 16), s & _M32
+
+
+def _mul64(x, b: int):
+    """``x * b mod 2**64`` for a uint64 ``x`` held as words and an int
+    ``0 <= b < 2**64``."""
+    hi, lo = x
+    carry, out_lo = _mul_word(lo, b & _M32)
+    out_hi = carry + _mul_word(hi, b & _M32)[1] + _mul_word(lo, b >> 32)[1]
+    return out_hi & _M32, out_lo
+
+
+def _add64(x, y):
+    """``x + y mod 2**64`` of two uint64 values held as words."""
+    lo = x[1] + y[1]
+    return (x[0] + y[0] + (lo >> 32)) & _M32, lo & _M32
+
+
+def _urem64(x, span: int):
+    """``x mod span`` of a uint64 ``x`` held as words, ``0 <= span < 2**64``
     (XLA's unsigned remainder: ``x mod 0 == x``)."""
+    hi, lo = x
     if span == 0:
         return x
-    if bit_width == 32:
-        return x % span
-    hi, lo = (x >> 32) & _M32, x & _M32
-    return ((hi % span) * ((1 << 32) % span) + lo % span) % span
+    if span < 1 << 31:   # every product below fits in int64
+        r = ((hi % span) * ((1 << 32) % span) + lo % span) % span
+        return torch.zeros_like(r), r
+    # binary long division over the low word's 32 bits, from hi mod span
+    # (hi itself when span > hi's range): the remainder r < span is held
+    # as words, and a bit shifted out of the high word means r >= span
+    s_hi, s_lo = span >> 32, span & _M32
+    r_hi = torch.zeros_like(hi)
+    r_lo = hi % span if span <= _M32 else hi
+    for i in range(31, -1, -1):
+        out = r_hi >> 31
+        r_hi = ((r_hi << 1) | (r_lo >> 31)) & _M32
+        r_lo = ((r_lo << 1) | ((lo >> i) & 1)) & _M32
+        ge = (out == 1) | (r_hi > s_hi) | ((r_hi == s_hi) & (r_lo >= s_lo))
+        d_lo = r_lo - s_lo
+        r_hi = torch.where(ge, (r_hi - s_hi - (d_lo < 0).to(torch.int64)) & _M32, r_hi)
+        r_lo = torch.where(ge, d_lo & _M32, r_lo)
+    return r_hi, r_lo
+
+
+def _join(x):
+    """The int64 whose bit pattern is the uint64 held as words ``x``."""
+    hi, lo = x
+    return torch.where(hi >= 1 << 31, hi - (1 << 32), hi) * (1 << 32) + lo
 
 
 def randint(key, shape, minval: int, maxval: int, dtype=torch.int32):
@@ -124,7 +179,8 @@ def randint(key, shape, minval: int, maxval: int, dtype=torch.int32):
 
     ``dtype`` is ``torch.int32`` (the JAX package's production draw) or
     ``torch.int64`` (its draw with 64-bit types on); the bounds are Python
-    ints, and an int64 draw takes spans below ``2**31``.
+    ints.  Every value is a uint64 held as two uint32 words, so spans up to
+    ``2**64 - 1`` take the unsigned arithmetic XLA does.
     """
     if dtype == torch.int32:
         nbits = 32
@@ -142,21 +198,20 @@ def randint(key, shape, minval: int, maxval: int, dtype=torch.int32):
         span = 1
     elif maxval_out_of_range:
         span = (span + 1) % (1 << nbits)
-    if nbits == 64 and span >= 1 << 31:
-        raise NotImplementedError("an int64 randint takes spans below 2**31")
 
     k1, k2 = split(key)
-    higher = random_bits(k1, nbits, shape)
-    lower = random_bits(k2, nbits, shape)
+    higher = _words(k1, nbits, shape)
+    lower = _words(k2, nbits, shape)
     half = 1 << (nbits // 2)
     mult = (half % span) if span else half
     mult = (mult * mult) % (1 << nbits)
     mult = mult % span if span else mult
-    offset = _urem(higher, span, nbits) * mult + _urem(lower, span, nbits)
-    if nbits == 32:
-        offset = offset & _M32
-    offset = _urem(offset, span, nbits)
-    return (offset + minval).to(dtype)
+    offset = _add64(_mul64(_urem64(higher, span), mult), _urem64(lower, span))
+    if nbits == 32:   # the sum wraps at the type's width
+        offset = (torch.zeros_like(offset[0]), offset[1])
+    offset = _urem64(offset, span)
+    m = minval % (1 << 64)
+    return _join(_add64(offset, (m >> 32, m & _M32))).to(dtype)
 
 
 def uniform(key, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0):

@@ -138,3 +138,32 @@ def test_host_entry_points_on_cpu():
     np.testing.assert_array_equal(grep.spread_valid, gres.spread_valid.numpy())
     np.testing.assert_allclose(grep.spreads, gres.spreads.numpy(), **TOL)
     np.testing.assert_array_equal(grep.Ks, [1, 3])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_decile_portfolio_returns_matches_jax(impl, dtype):
+    """K1 behind the public function: the CPU path of ``impl="kernel"`` and
+    ``impl="plain"`` against the reference's default path."""
+    from csmom_tpu.backtest.monthly import decile_portfolio_returns as jax_dpr
+    from csmom_tpu_torch.backtest.monthly import decile_portfolio_returns
+
+    rng = np.random.default_rng(17)
+    a, m, n_bins = 37, 29, 6
+    ret = np.where(rng.random((a, m)) > 0.1, rng.normal(0, 0.1, (a, m)), np.nan)
+    valid = np.isfinite(ret) & (rng.random((a, m)) > 0.2)
+    labels = rng.integers(-1, n_bins, size=(a, m)).astype(np.int32)
+    labels[:, 3] = -1                                  # an empty month
+    means, counts = decile_portfolio_returns(
+        torch.as_tensor(ret.astype(dtype)), torch.as_tensor(valid),
+        torch.as_tensor(labels), n_bins, impl=impl)
+    jmeans, jcounts = jax_dpr(jnp.asarray(ret.astype(dtype)), jnp.asarray(valid),
+                              jnp.asarray(labels), n_bins)
+    assert counts.dtype == torch.int32 and means.shape == (n_bins, m)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    tol = TOL if dtype == np.float64 else dict(rtol=1e-4, atol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(means.numpy(), np.asarray(jmeans), **tol)
+    assert torch.isnan(means[:, 3]).all()
+    with pytest.raises(ValueError, match="unknown impl"):
+        decile_portfolio_returns(torch.as_tensor(ret), torch.as_tensor(valid),
+                                 torch.as_tensor(labels), n_bins, impl="xla")

@@ -1,10 +1,14 @@
 """Package rules of the port: no JAX and no csmom_tpu module anywhere in it,
-and no silent CPU fallback when no card is present."""
+no file of csmom_tpu read by it either, its native build in its own build
+directory, and no silent CPU fallback when no card is present."""
 
 import ast
+import json
 import os
+import re
 import subprocess
 import sys
+import textwrap
 
 import pytest
 import torch
@@ -44,6 +48,83 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert bad == []
 
 
+# a "file:line" citation of a reference kernel (the smoke's "replaces"
+# field) names a file without opening it
+_CITATION = re.compile(r"^csmom_tpu/[\w/]+\.py:\d+(-\d+)?$")
+
+
+def _reference_paths(path):
+    """String constants of ``path`` (docstrings aside) that name a file or
+    directory of csmom_tpu: a path under ``csmom_tpu/``, or ``csmom_tpu``
+    as a path component to join."""
+    tree = ast.parse(open(path).read(), filename=path)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            v = node.value
+            if v.strip("/") == "csmom_tpu" or (
+                    re.search(r"(^|[/\\])csmom_tpu[/\\]", v) and not _CITATION.match(v)):
+                yield v
+
+
+def test_port_names_no_file_of_the_reference():
+    bad = [(os.path.relpath(f, _REPO), v) for f in _port_files()
+           for v in _reference_paths(f)]
+    assert bad == []
+
+
+def test_port_reads_no_file_of_the_reference(tmp_path):
+    """The data path run under an audit hook: every file it opens, every
+    library it loads and every program it starts lies outside csmom_tpu/,
+    and the CSV parser is loaded from build/csmom_tpu_torch/."""
+    code = textwrap.dedent(f"""
+        import json, os, sys
+        seen = []
+        def hook(event, args):
+            if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+                seen.append(("open", os.fsdecode(args[0])))
+            elif event == "ctypes.dlopen" and args[0]:
+                seen.append(("dlopen", os.fsdecode(args[0])))
+            elif event == "subprocess.Popen":
+                seen.append(("popen", " ".join(map(os.fsdecode, args[1]))))
+        sys.addaudithook(hook)
+        import numpy as np, torch
+        from csmom_tpu_torch.api import monthly_price_panel
+        from csmom_tpu_torch.analytics.tearsheet import tearsheet
+        from csmom_tpu_torch.backtest.banded import banded_monthly_backtest
+        from csmom_tpu_torch.panel.pack import pack_csv_cache
+        from csmom_tpu_torch import native
+        uni = {os.path.join(_REPO, "tests", "fixtures", "universe")!r}
+        tk = sorted(n.split("_")[0] for n in os.listdir(uni))
+        pack_csv_cache(uni, tk, {str(tmp_path / "pack")!r})
+        p, _ = monthly_price_panel(uni, tk, device="cpu")
+        q, _ = monthly_price_panel({str(tmp_path / "pack")!r}, None, device="cpu")
+        v, m = p.tensors(device="cpu")
+        b = banded_monthly_backtest(v, m, lookback=3, n_bins=4, band=1)
+        tearsheet(b.spread, b.spread_valid)
+        print(json.dumps({{"seen": seen, "native": native.available(),
+                          "lib": str(native.library_path())}}))
+    """)
+    env = {**os.environ, "PYTHONPATH": _REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         check=True, capture_output=True, text=True, timeout=300).stdout
+    rec = json.loads(out.strip().splitlines()[-1])
+    ref_dir = os.path.join(_REPO, "csmom_tpu") + os.sep
+    touched = [(kind, p) for kind, p in rec["seen"]
+               if ref_dir in os.path.abspath(p) or ref_dir in p]
+    assert touched == []
+    assert rec["native"]
+    build_dir = os.path.join(_REPO, "build", "csmom_tpu_torch") + os.sep
+    assert rec["lib"].startswith(build_dir)
+    loaded = [p for kind, p in rec["seen"] if kind == "dlopen" and "fastcsv" in p]
+    assert loaded and all(p.startswith(build_dir) for p in loaded)
+
+
 def test_package_import_is_lazy():
     """Importing the package loads neither torch nor any engine module."""
     code = ("import sys, csmom_tpu_torch; "
@@ -61,7 +142,7 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a CUDA device is present: the default device is valid")
     import numpy as np
 
-    from csmom_tpu_torch import run_grid, run_monthly
+    from csmom_tpu_torch import monthly_price_panel, run_grid, run_monthly
     from csmom_tpu_torch.device import resolve_device
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
     from csmom_tpu_torch.workloads import month_panel
@@ -70,6 +151,9 @@ def test_entry_points_raise_without_a_card():
                   tickers=("a", "b", "c"), times=np.arange(4).astype("datetime64[D]"))
     for call in (lambda: run_monthly(panel), lambda: run_grid(panel),
                  lambda: to_tensors(panel.values, panel.mask),
+                 lambda: panel.tensors(),
+                 lambda: monthly_price_panel(
+                     os.path.join(_REPO, "tests", "fixtures", "universe"), ["SYNAA"]),
                  lambda: month_panel(3, 40), lambda: resolve_device(None),
                  lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):

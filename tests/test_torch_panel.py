@@ -120,3 +120,44 @@ def test_segment_sum_panel_matches_jax(dtype):
         np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32))
     with pytest.raises(ValueError, match="nondecreasing"):
         calendar.segment_sum_panel(v, m, seg[::-1].copy(), n_seg)
+
+
+@pytest.mark.parametrize("seed,minutes", [(0, 390), (5, 7)])
+def test_synthetic_minute_bars_bit_equal(seed, minutes):
+    from csmom_tpu.panel.synthetic import SYNTH_VERSION as JAX_SYNTH_VERSION
+    from csmom_tpu.panel.synthetic import synthetic_minute_bars as jax_minutes
+    from csmom_tpu_torch.panel.synthetic import SYNTH_VERSION, synthetic_minute_bars
+
+    assert SYNTH_VERSION == JAX_SYNTH_VERSION
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(10, 50, size=(3, 4))
+    c = o * rng.uniform(0.95, 1.05, size=(3, 4))
+    v = rng.uniform(0, 1e6, size=(3, 4))
+    p, vol = synthetic_minute_bars(o, c, v, minutes_per_day=minutes, seed=seed)
+    jp, jvol = jax_minutes(o, c, v, minutes_per_day=minutes, seed=seed)
+    assert p.tobytes() == jp.tobytes() and vol.dtype == np.int64
+    np.testing.assert_array_equal(vol, jvol)
+
+
+def test_panel_host_views_equal_the_reference():
+    from csmom_tpu.panel.panel import Panel as JPanel
+    from csmom_tpu_torch.panel.panel import PanelBundle
+
+    values, mask, times = _gappy_daily(5)
+    tickers = [f"T{i}" for i in range(values.shape[0])]
+    p = Panel.from_dense(values, tickers, times, name="adj_close")
+    jp = JPanel.from_dense(values, tickers, times, name="adj_close")
+    np.testing.assert_array_equal(p.mask, jp.mask)
+    assert (p.n_assets, p.n_times, p.shape) == (jp.n_assets, jp.n_times, jp.shape)
+    assert p.to_dataframe().equals(jp.to_dataframe())
+    keep = ["T7", "T2", "T19"]
+    s, js = p.select_assets(keep), jp.select_assets(keep)
+    assert s.tickers == js.tickers == tuple(keep)
+    assert s.values.tobytes() == js.values.tobytes()
+    np.testing.assert_array_equal(s.mask, js.mask)
+    with pytest.raises(ValueError, match="differ"):
+        Panel(values=values, mask=mask[:, 1:], tickers=tuple(tickers), times=times)
+    b = PanelBundle(panels={"adj_close": p}, tickers=p.tickers, times=p.times)
+    assert b.fields == ("adj_close",) and "adj_close" in b and b["adj_close"] is p
+    v, m = p.tensors(device="cpu", dtype=torch.float32)
+    assert v.dtype == torch.float32 and torch.equal(m, torch.as_tensor(p.mask))

@@ -78,6 +78,19 @@ def test_randint_int32_out_of_range_bounds():
             np.asarray(jax.random.randint(jk, (50,), lo, hi, dtype=jnp.int32)))
 
 
+@pytest.mark.parametrize("lo,hi", [(-2**31, 2**31 - 1), (0, 2**31 + 10),
+                                   (-2**40, 0), (-2**63, 2**63 - 1)])
+def test_randint_int64_wide_spans(lo, hi):
+    """Spans of 2**31 and more: the unsigned 64-bit products and
+    remainders, built from 32-bit words, draw what jax.random draws."""
+    for seed in SEEDS:
+        jk, k = _chain(seed)
+        for shape in [(7,), (200, 116)]:
+            got = random.randint(k, shape, lo, hi, dtype=torch.int64)
+            want = np.asarray(jax.random.randint(jk, shape, lo, hi, dtype=jnp.int64))
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32),
                                           (torch.float64, jnp.float64)])
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.0, 3.5), (1e-3, 1e-3 + 1e-9)])
@@ -98,7 +111,5 @@ def test_refusals():
         random.randint(k, (3,), 0, 5, dtype=torch.int16)
     with pytest.raises(TypeError, match="float32 or float64"):
         random.uniform(k, (3,), dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="2\\*\\*31"):
-        random.randint(k, (3,), 0, 2**40, dtype=torch.int64)
     with pytest.raises(ValueError, match="2 words"):
         random.random_bits(torch.zeros(3, dtype=torch.int64), 32, (2,))

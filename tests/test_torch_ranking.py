@@ -209,3 +209,22 @@ def test_sector_labels_match_jax(mode):
         jnp.asarray(sid, dtype=jnp.int32), s, n_bins=5, mode=jmode)
     np.testing.assert_array_equal(one.numpy(), np.asarray(jo))
     np.testing.assert_array_equal(one_n.numpy(), np.asarray(jon))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("mode", ["qcut", "rank", "hist"])
+def test_one_date_decile_assign_matches_jax(mode, dtype):
+    """The 1-D ``decile_assign`` on each hard cross-section of the panel."""
+    x, valid = _hard_panel(7)
+    x = x.astype(dtype)
+    for col in range(x.shape[1]):
+        for n_bins in (3, 10):
+            lab, n_eff = ranking.decile_assign(torch.as_tensor(x[:, col]),
+                                               torch.as_tensor(valid[:, col]),
+                                               n_bins=n_bins, mode=mode)
+            jlab, jn = jrank.decile_assign(jnp.asarray(x[:, col]),
+                                           jnp.asarray(valid[:, col]),
+                                           n_bins=n_bins, mode=mode)
+            assert lab.dtype == torch.int32 and lab.shape == (x.shape[0],)
+            np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
+            assert int(n_eff) == int(jn) and n_eff.ndim == 0
