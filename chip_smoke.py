@@ -38,12 +38,26 @@ any phase fails (nothing is caught).  Phases:
    counts read around this run, and each step timed; (c) 512 tickers x
    3,780 days of CSVs in both dialects -> native ingest -> pack, with the
    pack equal to its frames and equal month-end panels from either source;
-8. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
+8. cli: the port's CLI (``csmom_tpu_torch.cli.main``) in-process on
+   phase 7(b)'s pack with ``--device cuda``: ``replicate`` with every
+   reporting flag (its statistics equal phase 5's monthly engine, K1 once),
+   five ``--strategy`` runs (momentum bit-equal to the monthly engine; K1
+   once each), ``grid`` and ``sweep`` (equal to phase 5's rank grid; K2
+   once each), K2 held against its plain version at the horizon shapes
+   and timed there, then ``horizons`` at 36 and 60 months and
+   ``--by-volume`` (K2 once each, tables equal to the engines' own),
+   ``doublesort``, ``residual`` (3 x 3 cells, K1 once a cell),
+   ``pack-info``, ``strategies``, and ``replicate`` on the committed CSV
+   universe in f64 (the CSV golden); each command's host wall on a
+   ``[cli]`` line, launch counts read around each command;
+9. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
    and bound at the main-path shape.  ``ms`` is one call's time by CUDA
    events (the wrapper's host work before the launch included);
    ``device_ms`` the kernels' own durations in a profiler trace of the
    same call, ``kernels_per_call`` how many kernels it launched,
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
+   ``research_launches``, ``data_in_launches`` and ``cli_launches`` the
+   counts of phases 6, 7 and 8;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -260,12 +274,13 @@ def same(a, b) -> bool:
     return np.array_equal(nan, np.isnan(b)) and a[~nan].tobytes() == b[~nan].tobytes()
 
 
-def data_in(dev, smi, pm, mm, ends, mres, grids) -> dict:
+def data_in(dev, smi, pm, mm, ends, mres, grids, pack_dir) -> dict:
     """Phase 7: CSV caches and packs -> month-end panels on the card.
 
     ``pm, mm, ends`` are phase 5's north-star month-end panel, ``mres`` its
-    monthly engine run and ``grids`` its grids.  Returns the kernel launch
-    counts of part (b)'s run (the slice's main path at full width)."""
+    monthly engine run and ``grids`` its grids; part (b) writes its pack to
+    ``pack_dir``, which the caller keeps for phase 8.  Returns the kernel
+    launch counts of part (b)'s run (the slice's main path at full width)."""
     import warnings
 
     import torch
@@ -356,46 +371,44 @@ def data_in(dev, smi, pm, mm, ends, mres, grids) -> dict:
         panels={f: Panel(values=x, mask=daily.mask, tickers=daily.tickers,
                          times=daily.times, name=f) for f, x in fields.items()},
         tickers=daily.tickers, times=daily.times)
-    with tempfile.TemporaryDirectory(prefix="csmom_smoke_") as tmp:
-        pack_dir = os.path.join(tmp, "north_star")
-        _, write_ms = wall(lambda: save_packed(bundle, pack_dir))
-        packed, open_ms = wall(lambda: load_packed(pack_dir))
-        if not isinstance(packed["adj_close"].values, np.memmap):
-            raise AssertionError("data-in (b): the pack did not open memmapped")
-        # the hand-off of both memmapped fields (read into pinned host
-        # memory, then copied), and its two parts for the price field
-        _, tensors_ms = wall(lambda: [packed[f].tensors() for f in packed.fields])
-        src = packed["adj_close"].values
-        pinned = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            _, fill_ms = wall(lambda: pinned.copy_(torch.from_numpy(src)))
-        pageable = torch.from_numpy(np.array(src))
-        dst = torch.empty(src.shape, dtype=torch.float32, device=dev)
-        h2d = {"pinned": copy_ms(dst, pinned), "pageable": copy_ms(dst, pageable)}
-        if not same(dst, pageable):
-            raise AssertionError("data-in (b): the copied panel differs from the pack")
-        del pinned, pageable, dst
+    _, write_ms = wall(lambda: save_packed(bundle, pack_dir))
+    packed, open_ms = wall(lambda: load_packed(pack_dir))
+    if not isinstance(packed["adj_close"].values, np.memmap):
+        raise AssertionError("data-in (b): the pack did not open memmapped")
+    # the hand-off of both memmapped fields (read into pinned host
+    # memory, then copied), and its two parts for the price field
+    _, tensors_ms = wall(lambda: [packed[f].tensors() for f in packed.fields])
+    src = packed["adj_close"].values
+    pinned = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        _, fill_ms = wall(lambda: pinned.copy_(torch.from_numpy(src)))
+    pageable = torch.from_numpy(np.array(src))
+    dst = torch.empty(src.shape, dtype=torch.float32, device=dev)
+    h2d = {"pinned": copy_ms(dst, pinned), "pageable": copy_ms(dst, pageable)}
+    if not same(dst, pageable):
+        raise AssertionError("data-in (b): the copied panel differs from the pack")
+    del pinned, pageable, dst
 
-        # the slice's main path at full width; launch counts read around it
-        kernels.reset_launches()
-        (dprices, dvolume), mpp_ms = wall(lambda: monthly_price_panel(pack_dir, None))
-        rep, run_monthly_ms = wall(lambda: run_monthly(dprices, lookback=12, skip=1,
-                                                       mode="qcut"))
-        grep, run_grid_ms = wall(lambda: run_grid(dprices, mode="rank"))
-        dpm, dmm = dprices.tensors()
-        band1 = banded_monthly_backtest(dpm, dmm, lookback=12, skip=1, mode="qcut", band=1)
-        band0 = banded_monthly_backtest(dpm, dmm, lookback=12, skip=1, mode="qcut", band=0)
-        gs = torch.as_tensor(grep.spreads, device=dev)
-        gv = torch.as_tensor(grep.spread_valid, device=dev)
-        ts = tearsheet(gs, gv)
-        torch.cuda.synchronize()
-        launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
-                    "cohort_partial_sums": kernels.cohort_partial_sums.launches}
-        if min(launches.values()) < 1:
-            raise AssertionError(f"data-in (b): a kernel was not launched: {launches}")
-        pack_mb = dir_bytes(pack_dir) / 1e6
-        mpp_again = [wall(lambda: monthly_price_panel(pack_dir, None))[1] for _ in range(2)]
+    # the slice's main path at full width; launch counts read around it
+    kernels.reset_launches()
+    (dprices, dvolume), mpp_ms = wall(lambda: monthly_price_panel(pack_dir, None))
+    rep, run_monthly_ms = wall(lambda: run_monthly(dprices, lookback=12, skip=1,
+                                                   mode="qcut"))
+    grep, run_grid_ms = wall(lambda: run_grid(dprices, mode="rank"))
+    dpm, dmm = dprices.tensors()
+    band1 = banded_monthly_backtest(dpm, dmm, lookback=12, skip=1, mode="qcut", band=1)
+    band0 = banded_monthly_backtest(dpm, dmm, lookback=12, skip=1, mode="qcut", band=0)
+    gs = torch.as_tensor(grep.spreads, device=dev)
+    gv = torch.as_tensor(grep.spread_valid, device=dev)
+    ts = tearsheet(gs, gv)
+    torch.cuda.synchronize()
+    launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"data-in (b): a kernel was not launched: {launches}")
+    pack_mb = dir_bytes(pack_dir) / 1e6
+    mpp_again = [wall(lambda: monthly_price_panel(pack_dir, None))[1] for _ in range(2)]
 
     # the month ends are a selection, so the f32 pack aggregates to the
     # generated panel's month ends bit for bit
@@ -511,6 +524,220 @@ def data_in(dev, smi, pm, mm, ends, mres, grids) -> dict:
     return launches
 
 
+def k2_bound_inputs(labels, ret, ret_valid, n_bins: int, H: int):
+    """(bytes, operations) K2 must move and do on these inputs: each input
+    read once and both outputs written once; two adds per (member,
+    horizon inside the panel)."""
+    nJ, A, M = labels.shape
+    out_bytes = 2 * nJ * 2 * M * H * ret.element_size()
+    nbytes = labels.nbytes + ret.nbytes + ret_valid.nbytes + out_bytes
+    members = ((labels == 0).sum(dim=(0, 1)) + (labels == n_bins - 1).sum(dim=(0, 1)))
+    horizons = (M - 1 - np.arange(M)).clip(0, H)
+    return nbytes, 2 * int((members.cpu().numpy().astype(np.int64) * horizons).sum())
+
+
+def cli_phase(dev, smi, pack_dir, out_dir, mres, grids, assert_sums, bound) -> dict:
+    """Phase 8: the port's CLI on phase 7(b)'s pack, in-process, on the card.
+
+    ``mres`` and ``grids`` are phase 5's monthly engine run and grids on
+    the same month ends.  Each command runs with the launch counts set to 0
+    just before it and read just after; returns their sums per kernel."""
+    import contextlib
+    import io
+
+    import torch
+
+    from csmom_tpu_torch.analytics.tables import (
+        double_sort_table,
+        horizon_table,
+        jk_grid_table,
+        volume_horizon_table,
+    )
+    from csmom_tpu_torch.api import monthly_price_panel
+    from csmom_tpu_torch.backends.dispatch import run_monthly
+    from csmom_tpu_torch.backtest.double_sort import volume_double_sort
+    from csmom_tpu_torch.backtest.horizon import (
+        _momentum_labels,
+        horizon_profile,
+        volume_horizon_profile,
+    )
+    from csmom_tpu_torch.backtest.walkforward import walk_forward_select
+    from csmom_tpu_torch.cli.main import main as cli
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.phases import REPS, time_kernels
+    from csmom_tpu_torch.signals.momentum import monthly_returns
+    from csmom_tpu_torch.signals.turnover import turnover_features, volume_tercile_labels
+    from csmom_tpu_torch.strategy import Momentum
+    from csmom_tpu_torch.workloads import GRID_JS, GRID_KS
+
+    common = ["--data-dir", pack_dir, "--device", "cuda", "--out", out_dir]
+    totals = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    walls = {}
+
+    def run(label, argv, k1, k2):
+        """The command's stdout; it must exit 0 and launch K1 ``k1`` and
+        K2 ``k2`` times."""
+        buf = io.StringIO()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+               "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+        if rc != 0:
+            raise AssertionError(f"cli {label}: exit {rc}\n{buf.getvalue()}")
+        if got != {"decile_partial_sums": k1, "cohort_partial_sums": k2}:
+            raise AssertionError(f"cli {label}: launches {got}, expected K1 {k1}, K2 {k2}")
+        for name, n in got.items():
+            totals[name] += n
+        walls[label] = ms
+        log("cli", f"{label}: {ms:.2f} ms host wall, launches {got} | {smi}")
+        return buf.getvalue()
+
+    def expect(label, out, *texts):
+        for text in texts:
+            if text not in out:
+                raise AssertionError(f"cli {label}: {text!r} not in its output:\n{out}")
+
+    stats_lines = (f"Mean monthly spread: {float(mres.mean_spread):.6f}\n"
+                   f"Annualized Sharpe:   {float(mres.ann_sharpe):.4f}\n"
+                   f"t-stat (NW):         {float(mres.tstat_nw):.3f}\n"
+                   f"t-stat (iid):        {float(mres.tstat):.3f}\n")
+
+    prices, volume = monthly_price_panel(pack_dir, None)
+    A, M = prices.shape
+
+    # 1. replicate with every reporting flag: phase 5's monthly engine
+    out = run("replicate", ["replicate", *common, "--tables", "--tc-bps", "10",
+                            "--band", "1", "--bootstrap", "200", "--tearsheet"], 1, 0)
+    expect("replicate", out, f"Universe: {A} tickers x {M} dates", stats_lines,
+           "net of 10 bps half-spread turnover costs", "break-even half-spread",
+           "hysteresis band 1", "Per-decile performance (R1 = losers):",
+           "-- tearsheet: monthly spread (torch) --", "Per-year compounded spread:",
+           "95% CI mean:", "95% CI Sharpe:")
+
+    # 2. the strategies; momentum is the monthly engine bit for bit
+    for name, extra in (("momentum", ()), ("low_volatility", ()),
+                        ("volume_z_momentum", ()), ("residual_momentum", ()),
+                        ("zscore_combo", ("--strategy-arg",
+                                          "components=momentum:0.6,reversal:0.4"))):
+        out = run(f"replicate --strategy {name}",
+                  ["replicate", *common, "--strategy", name, *extra], 1, 0)
+        expect(name, out, "strategy: ", "Mean monthly spread: ")
+        if name == "momentum":
+            expect(name, out, "strategy: Momentum(lookback=12, skip=1)\n", stats_lines)
+    srep = run_monthly(prices, strategy=Momentum(), device="cuda")
+    if not (same(srep.labels, mres.labels) and same(srep.decile_counts, mres.decile_counts)
+            and same(srep.spread, torch.where(mres.spread_valid, mres.spread, torch.nan))
+            and srep.mean_spread == float(mres.mean_spread)
+            and srep.tstat_nw == float(mres.tstat_nw)):
+        raise AssertionError("cli: --strategy momentum differs from the monthly engine")
+
+    # 3. grid and sweep: phase 5's rank grid
+    g = grids["rank"]
+    out = run("grid --mode rank --tc-bps 5",
+              ["grid", *common, "--mode", "rank", "--tc-bps", "5"], 0, 1)
+    for title, df in zip(("mean monthly spread", "Newey-West t-stat (lag=K)",
+                          "annualized Sharpe"),
+                         jk_grid_table(g.spreads, g.spread_valid, GRID_JS, GRID_KS)):
+        expect("grid", out, f"\n{title}:\n{df.round(4).to_string()}\n")
+    expect("grid", out, "NET of 5 bps half-spread", "break-even half-spread (bps)",
+           "95% CI mean spread, lower (200 block-bootstrap resamples):")
+    out = run("sweep --mode rank", ["sweep", *common, "--mode", "rank"], 0, 1)
+    wf = walk_forward_select(g.spreads, g.spread_valid, min_months=24)
+    expect("sweep", out, "Selection basis:   gross\n",
+           f"OOS months:        {int(wf.oos_valid.sum())}\n",
+           f"OOS mean spread:   {float(wf.mean_spread):.6f}\n",
+           f"OOS ann. Sharpe:   {float(wf.ann_sharpe):.4f}\n")
+
+    # 4. K2 at the horizon commands' shapes against its plain version,
+    # timed there; then the commands, each one K2 launch
+    pm, mm = prices.tensors(device=dev)
+    ret, ret_valid = monthly_returns(pm, mm)
+    labels, mom_valid = _momentum_labels(pm, mm, 12, 1, 10, "qcut")
+    turn, turn_valid = turnover_features(
+        torch.as_tensor(volume.values, device=dev), torch.as_tensor(volume.mask, device=dev),
+        np.ones(A), lookback=3)["turn_avg"]
+    both = mom_valid & turn_valid
+    vol_labels, _ = volume_tercile_labels(torch.where(both, turn, torch.nan), both)
+    terciles = torch.arange(3, device=dev)[:, None, None]
+    labels_v = torch.where(vol_labels[None] == terciles, labels[None], -1).to(torch.int32)
+    absum_r = torch.where(ret_valid, torch.nan_to_num(ret), 0.0).abs()
+    k2_shapes = []
+    for lab, H in ((labels[None], 36), (labels[None], 60), (labels_v, 36)):
+        shape = f"{list(lab.shape)} H={H}"
+        s, c = kernels.cohort_partial_sums(ret, ret_valid, lab, 10, H)
+        again = kernels.cohort_partial_sums(ret, ret_valid, lab, 10, H)
+        p, pc = kernels.cohort_partial_sums_plain(ret, ret_valid, lab, 10, H)
+        absum, _ = kernels.cohort_partial_sums_plain(absum_r, ret_valid, lab, 10, H)
+        torch.cuda.synchronize()
+        if not (torch.equal(s, again[0]) and torch.equal(c, again[1])):
+            raise AssertionError(f"K2 {shape}: two launches differ")
+        if not torch.equal(c, pc):
+            raise AssertionError(f"K2 {shape}: counts differ from the plain version")
+        assert_sums(s, p, absum, torch.float32, f"K2 {shape}")
+        nbytes, ops = k2_bound_inputs(lab, ret, ret_valid, 10, H)
+        b_ms, b_by = bound(nbytes, ops)
+        device_ms, per_call = time_kernels(
+            lambda: kernels.cohort_partial_sums(ret, ret_valid, lab, 10, H),
+            kernels.cohort_partial_sums.device_kernels)
+        k2_shapes.append({"shape": shape, "device_ms": device_ms, "kernels_per_call": per_call,
+                          "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / device_ms,
+                          "bytes": nbytes, "ops": ops,
+                          "max_abs_err": (s - p).abs().max().item()})
+    log("kernels", f"K2 at the horizons shapes, f32, equal to its plain version (counts "
+                   f"exact, sums within 1e-6 + 1e-5 sum|x|), device ms medians of {REPS} "
+                   f"with L2 flushed, bound as in the kernels line: "
+                   f"{json.dumps(k2_shapes)} | {smi}")
+
+    for max_h in (36, 60):
+        argv = ["horizons", *common] + (["--max-h", str(max_h)] if max_h != 36 else [])
+        out = run(f"horizons --max-h {max_h}", argv, 0, 1)
+        hp = horizon_profile(pm, mm, lookback=12, skip=1, n_bins=10, mode="qcut", max_h=max_h)
+        if not bool(torch.isfinite(hp.mean_spread[:max_h - 12]).all()):
+            raise AssertionError(f"horizons {max_h}: non-finite mean spreads")
+        expect("horizons", out, f"J=12 event-time profile, horizons 1..{max_h}:\n"
+                                f"{horizon_table(hp).round(4).to_string()}\n")
+    out = run("horizons --by-volume", ["horizons", *common, "--by-volume"], 0, 1)
+    vhp = volume_horizon_profile(pm, mm, turn, turn_valid, lookback=12, skip=1,
+                                 n_bins=10, mode="qcut", max_h=36)
+    expect("horizons --by-volume", out,
+           "J=12 momentum life cycle by volume tercile (turnover avg 3m), horizons "
+           f"1..36:\n{volume_horizon_table(vhp).round(4).to_string()}\n")
+
+    # 5. doublesort, residual, pack-info, strategies
+    out = run("doublesort", ["doublesort", *common], 0, 0)
+    ds = volume_double_sort(pm, mm, turn, turn_valid, lookback=12, skip=1)
+    expect("doublesort", out, double_sort_table(ds).round(4).to_string())
+    out = run("residual", ["residual", *common], 9, 0)
+    expect("residual", out, "mean monthly spread:", "Newey-West t-stat:",
+           "annualized Sharpe:", "est_window")
+    out = run("pack-info", ["pack-info", pack_dir], 0, 0)
+    expect("pack-info", out, f"universe: {A} tickers", "field adj_close: dtype float32",
+           "field volume: dtype float32")
+    out = run("strategies", ["strategies"], 0, 0)
+    expect("strategies", out, *(f"\n{n}(" for n in (
+        "intermediate_momentum", "low_volatility", "momentum", "residual_momentum",
+        "reversal", "volume_z_momentum", "zscore_combo")), "high_52w(")
+
+    # 6. the committed CSV universe in f64: the CSV golden
+    universe = os.path.join(REPO, "tests", "fixtures", "universe")
+    tickers = ",".join(sorted(n.split("_")[0] for n in os.listdir(universe)))
+    out = run("replicate (CSV universe, f64)",
+              ["replicate", "--data-dir", universe, "--tickers", tickers, "--lookback",
+               "6", "--n-bins", "4", "--device", "cuda", "--out", out_dir], 1, 0)
+    expect("replicate (CSV universe)", out,
+           f"Mean monthly spread: {CSV_GOLDEN['mean_spread']:.6f}\n"
+           f"Annualized Sharpe:   {CSV_GOLDEN['ann_sharpe']:.4f}\n"
+           f"t-stat (NW):         {CSV_GOLDEN['nw_t']:.3f}\n")
+    log("cli", f"every command exited 0 with its checks; host walls (ms) "
+               f"{json.dumps(walls)}; launches over the phase {totals} | {smi}")
+    return totals
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -622,6 +849,12 @@ def main() -> int:
             if not bool((err <= lim).all()):
                 raise AssertionError(f"{what}: max err {err.max().item()} over "
                                      f"its f32 limit")
+
+    def bound(nbytes, ops):
+        """The least time for the work: bytes over the memory rate or
+        operations over the f32 peak, whichever is longer."""
+        b_ms, o_ms = nbytes / bw * 1e3, ops / f32_peak * 1e3
+        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
     def k1_case(a, m, n_bins, dtype, all_invalid=False, wild=False):
         # wild: labels from -3 to B+2, so some are >= B or < -1 (no bin)
@@ -984,10 +1217,16 @@ def main() -> int:
         log("research", f"time {label}: {d_ms:.4f} ms CUDA events, host "
                         f"{h_ms:.4f} ms (median of {REPS}) | {smi}")
 
-    # -- 7. data-in: CSV caches and packs -> month-end panels on the card ----
-    data_in_launches = data_in(dev, smi, pm, mm, ends, mres, grids)
+    with tempfile.TemporaryDirectory(prefix="csmom_smoke_") as tmp:
+        # -- 7. data-in: CSV caches and packs -> month-end panels on the card
+        pack_dir = os.path.join(tmp, "north_star")
+        data_in_launches = data_in(dev, smi, pm, mm, ends, mres, grids, pack_dir)
 
-    # -- 8. kernels line at the main-path shapes ---------------------------
+        # -- 8. cli: the port's CLI on phase 7(b)'s pack -------------------
+        cli_launches = cli_phase(dev, smi, pack_dir, os.path.join(tmp, "results"),
+                                 mres, grids, assert_sums, bound)
+
+    # -- 9. kernels line at the main-path shapes ---------------------------
     ret, ret_valid = monthly_returns(pm, mm)
     # K1's inputs as the monthly engine forms them (backtest/monthly.py)
     next_ret = torch.roll(ret, -1, dims=1)
@@ -1045,17 +1284,9 @@ def main() -> int:
     torch.testing.assert_close(lib2[0], p2, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lib2[1], pc2)
 
-    def bound(nbytes, ops):
-        b_ms, o_ms = nbytes / bw * 1e3, ops / f32_peak * 1e3
-        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
     k1_bytes = lab1.nbytes + r1.nbytes + s1.nbytes + c1.nbytes
     k1_ops = 2 * int(((lab1 >= 0) & (lab1 < B)).sum())
-    members = ((lab2 == 0).to(torch.int64) + (lab2 == B - 1).to(torch.int64)
-               ).sum(dim=(0, 1))                                 # [M]
-    horizons = (M - 1 - torch.arange(M, device=dev)).clamp(0, H)
-    k2_bytes = lab2.nbytes + ret.nbytes + ret_valid.nbytes + s2.nbytes + c2.nbytes
-    k2_ops = 2 * int((members * horizons).sum())
+    k2_bytes, k2_ops = k2_bound_inputs(lab2, ret, ret_valid, B, H)
 
     rows = []
     for name, wrapper, fn, plain, library, err, nbytes, ops, src, rep in [
@@ -1091,7 +1322,10 @@ def main() -> int:
             "bytes": nbytes, "ops": ops,
             "research_launches": research_launches[name],
             "data_in_launches": data_in_launches[name],
+            "cli_launches": cli_launches[name],
         })
+    if min(r["cli_launches"] for r in rows) < 1:
+        raise AssertionError(f"cli: a kernel was not launched: {cli_launches}")
     per_call = {r["name"]: r["kernels_per_call"] for r in rows}
     for name, per in per_call.items():
         if per != 1:

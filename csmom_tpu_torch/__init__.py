@@ -1,8 +1,10 @@
 """csmom_tpu_torch: the monthly momentum replication, its J x K grid and
 their costs and inference (sector-neutral ranking, turnover netting,
 walk-forward selection, block-bootstrap CIs, banded rebalancing,
-tearsheets) in PyTorch, with hand-written CUDA kernels for an NVIDIA H100,
-fed from CSV caches or packed panels.
+tearsheets), the Strategy plugins, the volume double sort, event-time
+horizon profiles and residual momentum in PyTorch, with hand-written CUDA
+kernels for an NVIDIA H100, fed from CSV caches or packed panels, and the
+``csmom`` command line for monthly data (``python -m csmom_tpu_torch.cli``).
 
 The module layout mirrors :mod:`csmom_tpu` (the JAX reference), so each
 counterpart sits at the same path under the same name.  Importing the
@@ -22,6 +24,8 @@ The three that compute run on ``device="cuda"`` unless the caller passes
 """
 
 from __future__ import annotations
+
+__version__ = "0.1.0"
 
 _LAZY = {
     "run_monthly": "csmom_tpu_torch.backends.dispatch",

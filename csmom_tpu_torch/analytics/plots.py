@@ -104,7 +104,8 @@ def save_horizon_plot(profile, results_dir: str,
                       fname: str = "horizon_profile.png") -> str:
     """Event-time cumulative spread curve (the JT/LeSw hump: persistence
     then reversal).  ``profile`` carries ``cum_spread``: ``f[H]`` (one
-    line) or ``f[V, H]`` (one line per volume tercile), as the reference's
+    line) or ``f[V, H]`` (one line per volume tercile), an array or a
+    tensor on any device, as the port's and the reference's
     ``HorizonProfile`` and ``VolumeHorizonProfile`` do."""
     import matplotlib
 
@@ -112,7 +113,8 @@ def save_horizon_plot(profile, results_dir: str,
     import matplotlib.pyplot as plt
 
     ensure_dir(results_dir)
-    cum = np.asarray(profile.cum_spread, dtype=float)
+    cum = profile.cum_spread
+    cum = np.asarray(cum.cpu() if hasattr(cum, "cpu") else cum, dtype=float)
     fig, ax = plt.subplots(figsize=(9, 4.5))
     if cum.ndim == 1:
         ax.plot(np.arange(1, len(cum) + 1), cum, color=_LINE, linewidth=2)

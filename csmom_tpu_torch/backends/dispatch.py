@@ -1,10 +1,11 @@
 """Host-side entry points: a month-end :class:`Panel` in, a report of host
 arrays out.
 
-Counterpart of :func:`csmom_tpu.backends.dispatch.run_monthly` (its
-panel-engine branch with sector-neutral ranking, without strategy plugins)
-plus :func:`run_grid`, its J x K twin.  Both run on ``device="cuda"`` unless
-the caller passes ``device="cpu"``, and raise when no card is present.
+Counterpart of :func:`csmom_tpu.backends.dispatch.run_monthly` (the card
+engine, the pandas engine, strategy plugins and sector-neutral ranking)
+plus :func:`run_grid`, its J x K twin.  The card engine runs on
+``device="cuda"`` unless the caller passes ``device="cpu"``, and raises
+when no card is present.
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ class GridReport:
     backend: str
 
 
+# the card engine's names: ``"tpu"`` is the reference's, so one config
+# file serves both packages
+CARD_BACKENDS = ("torch", "tpu")
+
+
 def run_monthly(
     panel: Panel,
     lookback: int = 12,
@@ -61,26 +67,75 @@ def run_monthly(
     dtype=None,
     sector_ids=None,
     n_sectors: int = 0,
+    backend: str = "torch",
+    strategy=None,
+    **panels,
 ) -> MonthlyReport:
     """Monthly decile backtest of a month-end price panel [A, M].
 
-    ``device`` defaults to ``"cuda"``; ``dtype`` to the panel's own.
-    ``sector_ids`` (int[A], negative = unclassified and unranked) with
-    ``n_sectors`` >= 1 switches to sector-neutral ranking (BASELINE
-    config 3).
+    ``backend`` is ``"torch"`` (the engine on ``device``, which defaults
+    to ``"cuda"``; ``"tpu"`` is accepted as its name in the reference's
+    config files) or ``"pandas"`` (the reference-semantics CPU engine,
+    which ignores ``device``, ``dtype`` and ``mode``).  ``dtype`` defaults
+    to the panel's own.  ``strategy`` is an optional
+    :class:`~csmom_tpu_torch.strategy.Strategy` ranked instead of the
+    built-in momentum signal; extra ``**panels`` (``volumes=``,
+    ``volumes_mask=``; arrays or tensors) go to its ``signal``, and only
+    names it reads are accepted.  ``sector_ids`` (int[A], negative =
+    unclassified and unranked) with ``n_sectors`` >= 1 switches the card
+    engine to sector-neutral ranking (BASELINE config 3), with or without
+    a strategy.
     """
+    if sector_ids is not None and (n_sectors is None or int(n_sectors) < 1):
+        raise ValueError(
+            "sector_ids requires n_sectors >= 1 (the sector id count)"
+        )
+    if strategy is None and panels:
+        raise TypeError(
+            f"unexpected keyword arguments {sorted(panels)} — extra panels are "
+            "only forwarded to a strategy plugin (did you misspell a parameter, "
+            "or forget strategy=?)"
+        )
+    if strategy is not None and panels:
+        from csmom_tpu_torch.strategy import consumed_panels
+
+        allowed = consumed_panels(strategy)
+        unknown = sorted(set(panels) - allowed)
+        if unknown:
+            raise TypeError(
+                f"panel kwarg(s) {unknown} match no signal parameter of "
+                f"{type(strategy).__name__} (accepts: {sorted(allowed) or None}) "
+                "— misspelled? A strategy's **panels catch-all exists to ignore "
+                "panels other strategies need, not to swallow typos."
+            )
+    if sector_ids is not None and backend not in CARD_BACKENDS:
+        raise NotImplementedError(
+            "sector-neutral ranking runs on the card engine only "
+            "(backend='torch'; works with or without strategy=)"
+        )
+    if backend == "pandas":
+        return _run_monthly_pandas(panel, lookback, skip, n_bins, freq, strategy,
+                                   panels)
+    if backend not in CARD_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected 'torch' or 'pandas')")
+
     from csmom_tpu_torch.backtest.monthly import (
         monthly_spread_backtest,
         sector_neutral_backtest,
     )
 
-    if sector_ids is not None and (n_sectors is None or int(n_sectors) < 1):
-        raise ValueError(
-            "sector_ids requires n_sectors >= 1 (the sector id count)"
-        )
     v, m = to_tensors(panel.values, panel.mask, device=device, dtype=dtype)
+    sid = None
     if sector_ids is not None:
         sid = torch.as_tensor(np.asarray(sector_ids, np.int64), device=v.device)
+    if strategy is not None:
+        from csmom_tpu_torch.strategy import strategy_backtest
+
+        res = strategy_backtest(
+            v, m, strategy, n_bins=n_bins, mode=mode, freq=freq, sector_ids=sid,
+            n_sectors=int(n_sectors) if sid is not None else None,
+            **{k: _panel_tensor(x, v) for k, x in panels.items()})
+    elif sid is not None:
         res = sector_neutral_backtest(v, m, sid, int(n_sectors), lookback=lookback,
                                       skip=skip, n_bins=n_bins, mode=mode,
                                       freq=freq)
@@ -100,6 +155,42 @@ def run_monthly(
         tstat=float(res.tstat),
         tstat_nw=float(res.tstat_nw),
         backend=f"torch:{v.device.type}",
+    )
+
+
+def _panel_tensor(x, like):
+    """An extra panel on ``like``'s device: floats in ``like``'s dtype,
+    masks as bool; None passes through."""
+    if x is None:
+        return None
+    t = torch.as_tensor(x, device=like.device)
+    return t if t.dtype == torch.bool else t.to(like.dtype)
+
+
+def _run_monthly_pandas(panel, lookback, skip, n_bins, freq, strategy, panels):
+    if strategy is not None:
+        from csmom_tpu_torch.strategy import strategy_backtest_pandas
+
+        res = strategy_backtest_pandas(panel.to_dataframe(), strategy,
+                                       n_bins=n_bins, freq=freq, **panels)
+    else:
+        from csmom_tpu_torch.backends.pandas_engine import (
+            monthly_spread_backtest_pandas,
+        )
+
+        res = monthly_spread_backtest_pandas(panel.to_dataframe(), lookback=lookback,
+                                             skip=skip, n_bins=n_bins, freq=freq)
+    return MonthlyReport(
+        times=panel.times,
+        spread=res.spread.to_numpy(),
+        decile_means=res.decile_means.to_numpy(),
+        decile_counts=res.decile_counts.to_numpy(),
+        labels=res.labels.to_numpy(),
+        mean_spread=res.mean_spread,
+        ann_sharpe=res.ann_sharpe,
+        tstat=res.tstat,
+        tstat_nw=res.tstat_nw,
+        backend="pandas",
     )
 
 

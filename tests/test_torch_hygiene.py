@@ -79,9 +79,10 @@ def test_port_names_no_file_of_the_reference():
 
 
 def test_port_reads_no_file_of_the_reference(tmp_path):
-    """The data path run under an audit hook: every file it opens, every
-    library it loads and every program it starts lies outside csmom_tpu/,
-    and the CSV parser is loaded from build/csmom_tpu_torch/."""
+    """The data path and one CLI command run under an audit hook: every
+    file they open, every library they load and every program they start
+    lies outside csmom_tpu/, and the CSV parser is loaded from
+    build/csmom_tpu_torch/."""
     code = textwrap.dedent(f"""
         import json, os, sys
         seen = []
@@ -107,6 +108,12 @@ def test_port_reads_no_file_of_the_reference(tmp_path):
         v, m = p.tensors(device="cpu")
         b = banded_monthly_backtest(v, m, lookback=3, n_bins=4, band=1)
         tearsheet(b.spread, b.spread_valid)
+        from csmom_tpu_torch.cli.main import main
+        rc = main(["replicate", "--data-dir", {str(tmp_path / "pack")!r},
+                   "--device", "cpu", "--out", {str(tmp_path / "out")!r},
+                   "--lookback", "3", "--n-bins", "4", "--strategy",
+                   "volume_z_momentum", "--tables", "--band", "1"])
+        assert rc == 0
         print(json.dumps({{"seen": seen, "native": native.available(),
                           "lib": str(native.library_path())}}))
     """)
