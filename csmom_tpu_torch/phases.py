@@ -19,6 +19,7 @@ import argparse
 import json
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
@@ -43,6 +44,10 @@ from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP, north_star_mo
 
 # timed repetitions per measurement, after 3 warm-up calls
 REPS = 25
+# traces time_kernels may take before it gives up on a lossy profiler
+TRACE_ATTEMPTS = 3
+# idle host time at each end of a trace, seconds
+_TRACE_MARGIN_S = 0.05
 # L2 flush size for cold timings: 256 MB, over the H100's 50 MB L2
 _FLUSH_INTS = 64 * 2**20
 
@@ -84,30 +89,26 @@ def time_kernels(fn, names, split=False, clean=False):
     call).  The flush writes its buffer, so the call starts with L2 full
     of dirty lines that its reads must first write back; ``clean=True``
     flushes by reading the buffer instead (its reduction must match no
-    name)."""
-    from torch.profiler import ProfilerActivity, profile
+    name).
 
+    The profiler now and then loses kernel records from a trace, which
+    shows as a count of matching kernels that is not the same for every
+    call; each trace has idle margins at both ends against that.  A
+    trace that lost records all the same is taken again, up to
+    ``TRACE_ATTEMPTS`` traces in all; each retry is reported on stderr,
+    and a count that is still uneven raises."""
     for _ in range(3):
         fn()
-    flush = torch.empty(_FLUSH_INTS, dtype=torch.int32, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            if clean:
-                flush.sum()
-            else:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted(
-        (evt.time_range.start, evt.time_range.elapsed_us(), evt.name)
-        for evt in prof.events()
-        if evt.device_type == torch.autograd.DeviceType.CUDA
-        and any(n in evt.name for n in names))
-    per_call, rest = divmod(len(spans), REPS)
-    if per_call == 0 or rest:
-        raise RuntimeError(f"time_kernels: {len(spans)} kernels matching "
-                           f"{list(names)} in {REPS} calls")
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        spans = _matching_spans(fn, names, clean)
+        per_call, rest = divmod(len(spans), REPS)
+        if per_call and not rest:
+            break
+        msg = (f"time_kernels: {len(spans)} kernels matching {list(names)} "
+               f"in {REPS} calls (trace {attempt} of {TRACE_ATTEMPTS})")
+        if attempt == TRACE_ATTEMPTS:
+            raise RuntimeError(msg)
+        print(f"{msg}; tracing again", file=sys.stderr, flush=True)
     calls = [spans[i:i + per_call] for i in range(0, len(spans), per_call)]
     median = statistics.median(sum(s[1] for s in c) / 1e3 for c in calls)
     if not split:
@@ -116,6 +117,33 @@ def time_kernels(fn, names, split=False, clean=False):
                                     for c in calls)
                for n in names}
     return median, per_call, by_name
+
+
+def _matching_spans(fn, names, clean):
+    """(start, µs, name) of every CUDA kernel matching ``names`` in one
+    trace of ``REPS`` flushed calls of ``fn()``, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(_FLUSH_INTS, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # idle margins keep the calls away from the trace's edges, where
+        # device records whose times, moved onto the host's clock, fall
+        # outside the capture window can be dropped
+        time.sleep(_TRACE_MARGIN_S)
+        for _ in range(REPS):
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(_TRACE_MARGIN_S)
+    return sorted(
+        (evt.time_range.start, evt.time_range.elapsed_us(), evt.name)
+        for evt in prof.events()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+        and any(n in evt.name for n in names))
 
 
 def _trace(fn):
