@@ -50,14 +50,29 @@ any phase fails (nothing is caught).  Phases:
    ``pack-info``, ``strategies``, and ``replicate`` on the committed CSV
    universe in f64 (the CSV golden); each command's host wall on a
    ``[cli]`` line, launch counts read around each command;
-9. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
-   and bound at the main-path shape.  ``ms`` is one call's time by CUDA
+9. intraday: (a) on the JAX package's golden minute frame in f64, the
+   ridge and online-ridge pipelines reproduce its ``EVENT`` and ``ONLINE``
+   fingerprints and the rest of the leg (elastic net, lasso, the MLP,
+   hysteresis, latency 3 with cost attribution, limit orders, a 5-point
+   sweep) its pinned ``INTRADAY`` outputs; (b) a month of minute bars for
+   500 names (up to 4.1M rows): the pipeline's stages in f64 on the card
+   equal the same calls on the CPU, f32 decisions differ from f64 only
+   near the threshold, the accounting identities hold, every latency path
+   repeats bit for bit, each stage is timed and one f32 pipeline traced;
+   (c) online ridge at the reference's 20 x ~2,730 shape timed in both
+   types, its launches counted; (d) the CLI's ``intraday`` (each model and
+   every flag) and ``run`` on a CSV cache, numbers and trade logs equal to
+   the API's; launch counts read around the phase (``run`` launches K1
+   once, nothing else launches a kernel);
+10. a ``{"kernels": [...]}`` line: per kernel its launches, error, times
+   and bound at the main-path shape (measured before phase 9, whose long
+   traces leave later profiler traces losing records; printed after it).  ``ms`` is one call's time by CUDA
    events (the wrapper's host work before the launch included);
    ``device_ms`` the kernels' own durations in a profiler trace of the
    same call, ``kernels_per_call`` how many kernels it launched,
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
-   ``research_launches``, ``data_in_launches`` and ``cli_launches`` the
-   counts of phases 6, 7 and 8;
+   ``research_launches``, ``data_in_launches``, ``cli_launches`` and
+   ``intraday_launches`` the counts of phases 6, 7, 8 and 9;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -738,6 +753,655 @@ def cli_phase(dev, smi, pack_dir, out_dir, mres, grids, assert_sums, bound) -> d
     return totals
 
 
+# the intraday leg's goldens (the JAX package's tests/test_synthetic_golden.py:
+# synthetic_daily_panel(8, 10, seed=77) -> synthetic_minute_frame(seed=5),
+# 31,200 rows, f64): the ridge pipeline (EVENT) and the causal one (ONLINE)
+EVENT = {
+    "n_trades": 29_423,
+    "total_pnl": 12_246.7590405609,
+    "final_cash": 1_469_477.6043309155,
+    "cv_mse": [1.111000906788e-06, 1.028217201301e-06, 1.515819594342e-06],
+    "n_train": 21_828,
+}
+ONLINE = {
+    "n_trades": 28_545,
+    "total_pnl": -12_923.9031903070,
+    "final_cash": 1_270_969.0140300414,
+    "cv_mse": [1.284104689967e-06, 1.622457984344e-06, 1.779746464592e-06],
+    "n_train": 31_184,
+}
+# the rest of the intraday leg on the same frame: the JAX package's own
+# outputs in f64, recomputed from csmom_tpu by
+# tests/test_torch_intraday_pipeline.py so these pins cannot drift.
+# Elastic net and lasso at the pipeline's default alpha (1e-8); the MLP at
+# its defaults (hidden (32, 16), 500 AdamW steps, seed 0); the engines on
+# the ridge pipeline's dense panels: hysteresis (1e-4 / 2e-5), latency 3
+# with its cost attribution, limit orders (PRNGKey(0)), a 5-point sweep.
+INTRADAY_SWEEP = (1e-6, 5e-6, 1e-5, 5e-5, 1e-4)
+INTRADAY = {
+    "elastic_net": {"n_nonzero": 5, "cv_mse": [1.11100013624304e-06, 1.0282157024999398e-06,
+                                               1.515818927663514e-06],
+                    "n_trades": 29424, "total_pnl": 12179.140292694443},
+    "lasso": {"n_nonzero": 5, "cv_mse": [1.1109995659184345e-06, 1.028216279242958e-06,
+                                         1.5158182669953623e-06],
+              "n_trades": 29422, "total_pnl": 12008.142506781267},
+    "mlp": {"cv_mse": [1.1363744362946263e-06, 1.0544982299941935e-06,
+                       1.5348318120859117e-06],
+            "train_mse": 1.6258897182683836e-06, "score_sum": 0.020626221256286513,
+            "score_abs_sum": 3.1794855774760427},
+    "hysteresis": {"n_trades": 11177, "total_pnl": -3825.454071377055,
+                   "final_cash": 996006.9428465493},
+    "latency3": {"n_trades": 29403, "total_pnl": -979.4997836352559,
+                 "total_cost": 35870.48389169092, "delay_cost": 13229.754129829815,
+                 "spread_cost": 22045.63201748551, "impact_cost": 595.0977443752278,
+                 "gross_notional": 44090978.95119476},
+    "limit": {"n_trades": 16071, "total_pnl": 5321.471526839072},
+    "sweep": {"total_pnl": [8834.901612664107, 9829.45828935213, 12246.759040560923,
+                            18309.229193306644, 22854.144585987553],
+              "n_trades": [31023, 30292, 29423, 22507, 14105],
+              "cost_bps": [5.1350318390250935, 5.135034491609319, 5.134968396198647,
+                           5.134951740121305, 5.135080379503219]},
+}
+# the goldens' float tolerance; the MLP's drift between the packages, 500
+# AdamW steps x 4 fits in f64, measured 1.4e-14 relative on the MSEs and
+# 9.1e-15 absolute on a score (tests/test_torch_models.py), so its sums
+# take the same 1e-9 relative
+INTRADAY_RTOL = 1e-9
+# phase 9(b): one month of minute bars for an S&P-500-sized universe
+INTRADAY_SCALE = (500, 21)
+# phase 9(d): the CLI cache, 20 tickers of daily bars and 7 days of minutes
+CLI_CACHE = (20, 1260, 7)
+
+
+def golden_minute_frame():
+    """The goldens' frames: ``(minute_df, daily_df)``, 31,200 minute rows."""
+    import pandas as pd
+
+    from csmom_tpu_torch.api import synthetic_minute_frame
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+
+    daily = synthetic_daily_panel(8, 10, seed=77)
+    a, t = len(daily.tickers), len(daily.times)
+    v = daily.values.T.ravel()
+    df = pd.DataFrame({"date": np.repeat(daily.times, a), "ticker": np.tile(daily.tickers, t),
+                       "open": v, "close": v, "adj_close": v, "volume": 1e6})
+    return synthetic_minute_frame(df, seed=5), df
+
+
+def intraday_fingerprints(dev) -> dict:
+    """The port's intraday leg on the golden frame in f64 on ``dev``, in
+    the layout of ``INTRADAY``, the MLP apart (:func:`mlp_fingerprint`)."""
+    import torch
+
+    from csmom_tpu_torch import random
+    from csmom_tpu_torch.api import daily_risk_maps, intraday_pipeline
+    from csmom_tpu_torch.backtest.event import (
+        cost_attribution, event_backtest, hysteresis_event_backtest, threshold_sweep,
+    )
+
+    minute_df, df = golden_minute_frame()
+    out = {}
+    _, _, compact, score, price, valid = intraday_pipeline(minute_df, df, device=dev)
+    for model in ("elastic_net", "lasso"):
+        r, f, *_ = intraday_pipeline(minute_df, df, model=model, device=dev)
+        out[model] = {"n_nonzero": int((f.coef != 0).sum()), "cv_mse": f.cv_mse.cpu().tolist(),
+                      "n_trades": int(r.n_trades), "total_pnl": float(r.total_pnl)}
+    adv, vol = (torch.as_tensor(x, dtype=price.dtype).to(dev)
+                for x in daily_risk_maps(df, compact.tickers))
+    sc = torch.nan_to_num(score)
+    h = hysteresis_event_backtest(price, valid, sc, adv, vol, threshold_hi=1e-4,
+                                  threshold_lo=2e-5)
+    out["hysteresis"] = {"n_trades": int(h.n_trades), "total_pnl": float(h.total_pnl),
+                         "final_cash": float(h.cash[-1])}
+    r3 = event_backtest(price, valid, sc, adv, vol, latency_bars=3)
+    tca = cost_attribution(r3, price, latency_bars=3, valid=valid)
+    out["latency3"] = {"n_trades": int(r3.n_trades), "total_pnl": float(r3.total_pnl),
+                       **{k: float(getattr(tca, k)) for k in (
+                           "total_cost", "delay_cost", "spread_cost", "impact_cost",
+                           "gross_notional")}}
+    rl = event_backtest(price, valid, sc, adv, vol, order_type="limit",
+                        fill_key=random.PRNGKey(0))
+    out["limit"] = {"n_trades": int(rl.n_trades), "total_pnl": float(rl.total_pnl)}
+    p, n, b = threshold_sweep(price, valid, sc, adv, vol, np.asarray(INTRADAY_SWEEP))
+    out["sweep"] = {"total_pnl": p.cpu().tolist(), "n_trades": n.cpu().tolist(),
+                    "cost_bps": b.cpu().tolist()}
+    return out
+
+
+def mlp_fingerprint(dev) -> dict:
+    """``INTRADAY["mlp"]``'s layout from the port's MLP pipeline on the
+    golden frame in f64 on ``dev``."""
+    import torch
+
+    from csmom_tpu_torch.api import intraday_pipeline
+
+    _, f, *_ = intraday_pipeline(*golden_minute_frame(), model="mlp", device=dev)
+    s = torch.nan_to_num(f.scores)
+    return {"mlp": {"cv_mse": f.cv_mse.cpu().tolist(), "train_mse": float(f.train_mse),
+                    "score_sum": float(s.sum()), "score_abs_sum": float(s.abs().sum())}}
+
+
+def check_intraday(got: dict) -> None:
+    """Hold fingerprints to ``INTRADAY``: integers exact, floats within
+    ``INTRADAY_RTOL``; a section ``got`` lacks is not checked."""
+    for section, pins in INTRADAY.items():
+        if section not in got:
+            continue
+        for key, want in pins.items():
+            have = got[section][key]
+            w, h = np.asarray(want), np.asarray(have)
+            ok = (np.array_equal(h, w) if w.dtype.kind == "i"
+                  else np.allclose(h, w, rtol=INTRADAY_RTOL, atol=0))
+            if not ok:
+                raise AssertionError(f"intraday {section}.{key}: {have} vs pinned {want}")
+
+
+def check_event_golden(res, fit, want: dict, what: str) -> None:
+    """The EVENT / ONLINE rules: trades and n_train exact, PnL and final
+    cash at rtol 1e-9, the CV MSEs at rtol 1e-8."""
+    if int(res.n_trades) != want["n_trades"] or int(fit.n_train) != want["n_train"]:
+        raise AssertionError(f"{what}: trades {int(res.n_trades)}, n_train "
+                             f"{int(fit.n_train)} vs {want}")
+    for got, pin, rtol in ((float(res.total_pnl), want["total_pnl"], 1e-9),
+                           (float(res.cash[-1]), want["final_cash"], 1e-9)):
+        if not np.isclose(got, pin, rtol=rtol, atol=0):
+            raise AssertionError(f"{what}: {got} vs pinned {pin}")
+    if not np.allclose(fit.cv_mse.cpu().numpy(), want["cv_mse"], rtol=1e-8, atol=0):
+        raise AssertionError(f"{what}: cv_mse {fit.cv_mse.tolist()} vs {want['cv_mse']}")
+
+
+def _result_fields(r):
+    import dataclasses
+
+    return {f.name: getattr(r, f.name) for f in dataclasses.fields(r)}
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(_result_fields(a).values(),
+                                                  _result_fields(b).values()))
+
+
+def _near_threshold(score, th, rel):
+    """Cells whose score lies within ``rel`` relative of +-threshold."""
+    return ((score - th).abs() <= rel * th) | ((score + th).abs() <= rel * th)
+
+
+def intraday_scale(dev, smi):
+    """Phase 9(b): an S&P-500-sized universe's month of minute bars
+    through the intraday leg, f64 on the card against the same calls on
+    the CPU, f32 against f64, the accounting identities, bit-equal latency
+    repeats, and a time for every stage."""
+    import pandas as pd
+    import torch
+
+    from csmom_tpu_torch import random
+    from csmom_tpu_torch.api import daily_risk_maps, intraday_pipeline, scatter_to_minutes, \
+        synthetic_minute_frame
+    from csmom_tpu_torch.backtest.event import (
+        cost_attribution, event_backtest, hysteresis_event_backtest, threshold_sweep,
+    )
+    from csmom_tpu_torch.models import (
+        elastic_net_time_series_cv, mlp_time_series_cv, ridge_time_series_cv,
+    )
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+    from csmom_tpu_torch.phases import _trace, time_call
+    from csmom_tpu_torch.signals.intraday import (
+        compact_minutes, minute_features, next_row_return,
+    )
+
+    def L(msg):
+        log("intraday", f"(b) {msg} | {smi}")
+
+    n_assets, n_days = INTRADAY_SCALE
+    daily = synthetic_daily_panel(n_assets, n_days, seed=7, listing_gaps=True)
+    a, t = daily.values.shape
+    v = daily.values.T.ravel()
+    df = pd.DataFrame({"date": np.repeat(daily.times, a), "ticker": np.tile(daily.tickers, t),
+                       "open": v, "close": v, "adj_close": v, "volume": 1e6})
+    df = df[np.isfinite(df["close"])].reset_index(drop=True)
+    t0 = time.perf_counter()
+    minute_df = synthetic_minute_frame(df, seed=5)
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    compact = compact_minutes(minute_df)
+    _, compact_ms = time_call(lambda: compact_minutes(minute_df), reps=3, warmup=0)
+    A, R = compact.price.shape
+    T = len(compact.times)
+    L(f"{len(minute_df):,} minute rows, compact [{A}, {R}], minute axis {T}; "
+      f"host: synthetic frame {gen_ms:.1f} ms (one call), compaction {compact_ms:.1f} "
+      f"ms (median of 3)")
+    adv_h, vol_h = daily_risk_maps(df, compact.tickers)
+
+    def device_part(device, dtype, lat=0, model="ridge"):
+        """features -> fit -> dense panels -> engine, from the compact layout."""
+        price = torch.as_tensor(compact.price, dtype=dtype).to(device)
+        volume = torch.as_tensor(compact.volume, dtype=dtype).to(device)
+        rv = torch.as_tensor(compact.row_valid).to(device)
+        feats, fv = minute_features(price, volume, rv)
+        y, yv = next_row_return(price, fv)
+        if model == "ridge":
+            fit = ridge_time_series_cv(feats, y, yv)
+        else:
+            fit = elastic_net_time_series_cv(feats, y, yv, alpha=1e-8)
+        score, dprice, dvalid = scatter_to_minutes(compact, yv, (fit.scores, price))
+        adv = torch.as_tensor(adv_h, dtype=dtype).to(device)
+        vol = torch.as_tensor(vol_h, dtype=dtype).to(device)
+        sc = torch.nan_to_num(score)
+        res = event_backtest(dprice, dvalid, sc, adv, vol, latency_bars=lat)
+        return dict(feats=feats, fv=fv, y=y, yv=yv, fit=fit, score=score, sc=sc,
+                    price=dprice, valid=dvalid, adv=adv, vol=vol, res=res)
+
+    def extras(d, lat):
+        """The engines beyond the plain one, on a device part's panels."""
+        p, va, sc, adv, vol = d["price"], d["valid"], d["sc"], d["adv"], d["vol"]
+        out = {"lat": event_backtest(p, va, sc, adv, vol, latency_bars=lat),
+               "limit": event_backtest(p, va, sc, adv, vol, order_type="limit",
+                                       latency_bars=lat, fill_key=random.PRNGKey(0)),
+               "hyst": hysteresis_event_backtest(p, va, sc, adv, vol, threshold_hi=1e-4,
+                                                 threshold_lo=2e-5, latency_bars=lat),
+               "sweep": threshold_sweep(p, va, sc, adv, vol, np.geomspace(1e-6, 1e-3, 8))}
+        out["tca"] = cost_attribution(d["res"], p)
+        out["tca_lat"] = cost_attribution(out["lat"], p, latency_bars=lat, valid=va)
+        return out
+
+    lat = 2
+    cpu = torch.device("cpu")
+    g64 = device_part(dev, torch.float64)
+    x64 = extras(g64, lat)
+    c64 = device_part(cpu, torch.float64)
+    y64 = extras(c64, lat)
+
+    # -- f64 card == f64 CPU ---------------------------------------------
+    for m in ("fv", "yv", "valid"):
+        if not torch.equal(g64[m].cpu(), c64[m]):
+            raise AssertionError(f"intraday (b): mask {m} differs card vs CPU")
+    if int(g64["fit"].n_train) != int(c64["fit"].n_train):
+        raise AssertionError("intraday (b): n_train differs card vs CPU")
+    torch.testing.assert_close(g64["score"].cpu(), c64["score"], rtol=1e-9, atol=1e-15,
+                               equal_nan=True, msg="intraday (b): scores card vs CPU")
+
+    def same_engine(label, got, want, score_cpu, ths):
+        """Decisions equal but where the CPU score sits within 1e-9
+        relative of a +-threshold (printed); with every decision equal, the
+        floats agree within 1e-9 relative."""
+        diff = got.trade_side.cpu() != want.trade_side
+        near = torch.zeros_like(diff)
+        for th in ths:
+            near |= _near_threshold(score_cpu, th, 1e-9)
+        if bool((diff & ~near).any()):
+            raise AssertionError(f"intraday (b) {label}: card and CPU decide "
+                                 f"{int(diff.sum())} cells apart, away from a threshold")
+        if bool(diff.any()):
+            L(f"{label}: {int(diff.sum())} decisions differ card vs CPU, each within "
+              f"1e-9 of the threshold: {torch.nonzero(diff).tolist()[:10]}")
+            return
+        for f in ("n_trades", "n_buys", "n_sells"):
+            if int(getattr(got, f)) != int(getattr(want, f)):
+                raise AssertionError(f"intraday (b) {label}: {f} card vs CPU")
+        for f in ("total_pnl", "net_notional", "cash", "portfolio_value"):
+            torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f), rtol=1e-9,
+                                       atol=1e-6, msg=f"intraday (b) {label}: {f}")
+
+    sc_cpu = c64["sc"]
+    same_engine("event_backtest", g64["res"], c64["res"], sc_cpu, (1e-5,))
+    same_engine(f"latency {lat}", x64["lat"], y64["lat"], sc_cpu, (1e-5,))
+    same_engine(f"limit latency {lat}", x64["limit"], y64["limit"], sc_cpu, (1e-5,))
+    same_engine(f"hysteresis latency {lat}", x64["hyst"], y64["hyst"], sc_cpu, (1e-4, 2e-5))
+    if not torch.equal(x64["sweep"][1].cpu(), y64["sweep"][1]):
+        raise AssertionError("intraday (b): sweep trade counts card vs CPU")
+    torch.testing.assert_close(x64["sweep"][0].cpu(), y64["sweep"][0], rtol=1e-9, atol=1e-6)
+    for k in ("tca", "tca_lat"):
+        for f, val in _result_fields(x64[k]).items():
+            torch.testing.assert_close(val.cpu(), getattr(y64[k], f), rtol=1e-9, atol=1e-6,
+                                       msg=f"intraday (b): {k}.{f} card vs CPU")
+    ge = device_part(dev, torch.float64, model="elastic_net")
+    ce = device_part(cpu, torch.float64, model="elastic_net")
+    if int(ge["fit"].n_nonzero) != int(ce["fit"].n_nonzero):
+        raise AssertionError("intraday (b): elastic net n_nonzero card vs CPU")
+    torch.testing.assert_close(ge["score"].cpu(), ce["score"], rtol=1e-9, atol=1e-15,
+                               equal_nan=True)
+    same_engine("elastic net event_backtest", ge["res"], ce["res"], ce["sc"], (1e-5,))
+    L(f"f64 card == f64 CPU: masks, n_train {int(g64['fit'].n_train)}, scores (rtol "
+      f"1e-9), trades {int(g64['res'].n_trades)} / latency {lat} "
+      f"{int(x64['lat'].n_trades)} / limit {int(x64['limit'].n_trades)} / hysteresis "
+      f"{int(x64['hyst'].n_trades)} / sweep {x64['sweep'][1].tolist()}, elastic net "
+      f"n_nonzero {int(ge['fit'].n_nonzero)} trades {int(ge['res'].n_trades)}")
+    del c64, y64, ce
+
+    # -- accounting identities and bit-equal repeats on the card ----------
+    for label, r in (("event", g64["res"]), ("latency", x64["lat"]), ("limit", x64["limit"]),
+                     ("hysteresis", x64["hyst"])):
+        if int(r.n_trades) != int(r.n_buys) + int(r.n_sells):
+            raise AssertionError(f"intraday (b) {label}: n_trades != buys + sells")
+        if not torch.isclose(r.total_pnl, r.pnl.sum(), rtol=1e-12, atol=1e-9):
+            raise AssertionError(f"intraday (b) {label}: total_pnl != sum(pnl)")
+    if int(x64["hyst"].positions.abs().max()) > 50:
+        raise AssertionError("intraday (b): the hysteresis book exceeds one unit")
+    for k in ("tca", "tca_lat"):
+        c = x64[k]
+        legs = c.delay_cost + c.spread_cost + c.impact_cost
+        if not torch.isclose(c.total_cost, legs + c.residual, rtol=1e-12, atol=1e-9):
+            raise AssertionError(f"intraday (b) {k}: total != delay + spread + impact + residual")
+        if float(c.residual.abs()) > 1e-9 * float(c.total_cost.abs()):
+            raise AssertionError(f"intraday (b) {k}: market-order residual {float(c.residual)}")
+    p, va, sc, adv, vol = (g64[k] for k in ("price", "valid", "sc", "adv", "vol"))
+    for label, fn in (
+        (f"event latency {lat}", lambda: event_backtest(p, va, sc, adv, vol, latency_bars=lat)),
+        (f"limit latency {lat}", lambda: event_backtest(
+            p, va, sc, adv, vol, order_type="limit", latency_bars=lat,
+            fill_key=random.PRNGKey(0))),
+        (f"hysteresis latency {lat}", lambda: hysteresis_event_backtest(
+            p, va, sc, adv, vol, threshold_hi=1e-4, threshold_lo=2e-5, latency_bars=lat)),
+    ):
+        r1, r2 = fn(), fn()
+        if not _bit_equal(r1, r2):
+            raise AssertionError(f"intraday (b): {label} run twice is not bit-equal")
+        c1 = cost_attribution(r1, p, latency_bars=lat, valid=va)
+        c2 = cost_attribution(r2, p, latency_bars=lat, valid=va)
+        if not _bit_equal(c1, c2):
+            raise AssertionError(f"intraday (b): {label} cost attribution not bit-equal")
+    L(f"identities hold (trades = buys + sells, total PnL = sum of PnL, total cost = "
+      f"delay + spread + impact + residual with residual {float(x64['tca'].residual):.3e} "
+      f"of {float(x64['tca'].total_cost):.6f}; hysteresis book within one unit); every "
+      f"latency path run twice bit-equal")
+
+    # -- f32 against f64 on the card ---------------------------------------
+    # A score is xs @ coef + intercept on scaled features xs.  Per row,
+    # s32 - s64 = coef64 . (xs32 - xs64) + (coef32 - coef64) . xs32
+    #             + (intercept32 - intercept64) + the f32 rounding of the sum,
+    # so |s32 - s64| <= B = sum|coef64||dxs| + sum|dcoef||xs32| + |dintercept|
+    #                      + (F + 2) u32 (sum|coef32 xs32| + |intercept32|):
+    # an f32 decision can differ from f64 only where |s64 -+ threshold| <= B.
+    g32 = device_part(dev, torch.float32)
+    f64, f32 = g64["fit"], g32["fit"]
+    F = g64["feats"].shape[-1]
+
+    def scaled(d):
+        fit = d["fit"]
+        return (torch.nan_to_num(d["feats"].reshape(-1, F)) - fit.scale_mean) / fit.scale_std
+
+    xs64, xs32 = scaled(g64), scaled(g32)
+    u32 = 2.0 ** -24
+    bound = ((xs32.double() - xs64).abs() @ f64.coef.abs()
+             + xs32.double().abs() @ (f32.coef.double() - f64.coef).abs()
+             + (f32.intercept.double() - f64.intercept).abs()
+             + (F + 2) * u32 * ((xs32 * f32.coef).double().abs().sum(-1)
+                                + f32.intercept.double().abs()))
+    bound = bound.reshape(g64["yv"].shape)
+    dev_err = (g32["fit"].scores.double() - f64.scores).abs()
+    if bool((dev_err[g64["yv"]] > bound[g64["yv"]]).any()):
+        raise AssertionError("intraday (b): an f32 score is off its f64 one beyond B")
+    (dense_b,) = scatter_to_minutes(compact, g64["yv"], (bound,))[:1]
+    s64 = g64["sc"]
+    at_risk = ((s64 - 1e-5).abs() <= dense_b) | ((s64 + 1e-5).abs() <= dense_b)
+    diff = g32["res"].trade_side.to(torch.int32) != g64["res"].trade_side.to(torch.int32)
+    if bool((diff & ~at_risk).any()):
+        raise AssertionError("intraday (b): an f32 decision differs from f64 farther "
+                             "than B from the threshold")
+    moved = int(f32.n_train) != int(f64.n_train)
+    L(f"f32 vs f64: n_train {int(f32.n_train)} vs {int(f64.n_train)}"
+      f"{' (moved: f32 rounding of n_total * 0.7)' if moved else ''}; score error "
+      f"max {float(dev_err[g64['yv']].max()):.3e}, median bound B "
+      f"{float(bound[g64['yv']].median()):.3e}; {int(at_risk.sum())} decisions lie "
+      f"within B of +-threshold, {int(diff.sum())} differ; trades f32 "
+      f"{int(g32['res'].n_trades)} vs f64 {int(g64['res'].n_trades)}, PnL "
+      f"{float(g32['res'].total_pnl):.4f} vs {float(g64['res'].total_pnl):.4f}")
+    del g32, xs32, xs64
+
+    # -- MLP at scale, f64 on the card (the CPU is too slow to hold it) -----
+    feats, y, yv = g64["feats"], g64["y"], g64["yv"]
+    fits = []
+    mlp_dev_ms, mlp_ms = time_call(lambda: fits.append(mlp_time_series_cv(feats, y, yv)),
+                                   reps=1, warmup=0)
+    mfit = fits.pop()
+    if int(mfit.n_train) != int(f64.n_train) or not bool(
+            torch.isfinite(mfit.scores[yv]).all()) or not bool(
+            (torch.isfinite(mfit.cv_mse) & (mfit.cv_mse > 0)).all()):
+        raise AssertionError("intraday (b): the MLP at scale is not finite")
+    L(f"MLP f64: one fit (4 x 500 AdamW steps over {int(yv.sum()):,} rows) {mlp_ms:.1f} ms "
+      f"host wall, {mlp_dev_ms:.1f} ms CUDA events; cv_mse {mfit.cv_mse.tolist()}")
+    del mfit
+
+    # -- stage times, f64 and f32 -----------------------------------------
+    for dtype in (torch.float64, torch.float32):
+        d = g64 if dtype == torch.float64 else device_part(dev, dtype)
+        price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
+        volume = torch.as_tensor(compact.volume, dtype=dtype).to(dev)
+        rv = torch.as_tensor(compact.row_valid).to(dev)
+        p, va, sc, adv, vol = (d[k] for k in ("price", "valid", "sc", "adv", "vol"))
+        stages = {
+            "h2d": (lambda: [torch.as_tensor(x, dtype=dtype).to(dev)
+                             for x in (compact.price, compact.volume)], {}),
+            "features": (lambda: minute_features(price, volume, rv), {}),
+            "ridge_fit": (lambda: ridge_time_series_cv(d["feats"], d["y"], d["yv"]), {}),
+            "elastic_net_fit": (lambda: elastic_net_time_series_cv(
+                d["feats"], d["y"], d["yv"], alpha=1e-8), dict(reps=3, warmup=1)),
+            "scatter": (lambda: scatter_to_minutes(compact, d["yv"], (d["fit"].scores, price)),
+                        {}),
+            "event_backtest": (lambda: event_backtest(p, va, sc, adv, vol), {}),
+            "cost_attribution": (lambda: cost_attribution(d["res"], p), {}),
+            "hysteresis": (lambda: hysteresis_event_backtest(
+                p, va, sc, adv, vol, threshold_hi=1e-4, threshold_lo=2e-5), {}),
+            "sweep8": (lambda: threshold_sweep(p, va, sc, adv, vol,
+                                               np.geomspace(1e-6, 1e-3, 8)), dict(reps=5)),
+            "limit": (lambda: event_backtest(p, va, sc, adv, vol, order_type="limit",
+                                             fill_key=random.PRNGKey(0)), {}),
+            f"latency{lat}": (lambda: event_backtest(p, va, sc, adv, vol,
+                                                    latency_bars=lat), {}),
+        }
+        times = {}
+        for name, (fn, kw) in stages.items():
+            d_ms, h_ms = time_call(fn, **kw)
+            times[name] = {"device_ms": d_ms, "host_ms": h_ms}
+        L(f"{str(dtype)[6:]} stage medians (CUDA events / host, ms; 25 reps unless "
+          f"noted: elastic net 3, sweep 5): {json.dumps(times)}")
+        del d
+
+    whole = _trace(lambda: intraday_pipeline(minute_df, df, dtype=torch.float32,
+                                             device=dev), warm=False)
+    part = _trace(lambda: device_part(dev, torch.float32))
+    L(f"trace f32: intraday_pipeline whole call (host compaction included) {json.dumps(whole)}; "
+      f"device part (features -> ridge -> scatter -> engine) {json.dumps(part)}")
+
+
+def write_cli_cache(out_dir: str):
+    """Phase 9(d)'s cache in the reference's naming: ``<T>_daily.csv``
+    (CLI_CACHE[1] days) and ``<T>_intraday.csv`` (the last CLI_CACHE[2]
+    days' minutes, 2% of them missing) for CLI_CACHE[0] tickers."""
+    import pandas as pd
+
+    from csmom_tpu_torch.api import synthetic_minute_frame
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+
+    n, days, mdays = CLI_CACHE
+    daily = synthetic_daily_panel(n, days, seed=3)
+    tickers = [f"TK{i:02d}" for i in range(n)]
+    stamps = pd.DatetimeIndex(daily.times)
+    for i, tk in enumerate(tickers):
+        v = daily.values[i]
+        pd.DataFrame({"date": stamps.strftime("%Y-%m-%d"), "open": v * 0.998, "high": v,
+                      "low": v * 0.995, "close": v, "adj_close": v,
+                      "volume": 1e6 + 1e4 * (np.arange(days) % 17)}).to_csv(
+            os.path.join(out_dir, f"{tk}_daily.csv"), index=False)
+    last = pd.DataFrame({"date": np.repeat(daily.times[-mdays:], n),
+                         "ticker": np.tile(tickers, mdays),
+                         "open": daily.values[:, -mdays:].T.ravel() * 0.998,
+                         "close": daily.values[:, -mdays:].T.ravel(), "volume": 1e6})
+    minutes = synthetic_minute_frame(last, seed=9)
+    minutes = minutes[np.random.default_rng(9).random(len(minutes)) > 0.02]
+    for tk, g in minutes.groupby("ticker"):
+        pd.DataFrame({"datetime": g["datetime"].dt.strftime("%Y-%m-%d %H:%M:%S"),
+                      "open": g["price"], "high": g["price"], "low": g["price"],
+                      "close": g["price"], "volume": g["volume"]}).to_csv(
+            os.path.join(out_dir, f"{tk}_intraday.csv"), index=False)
+    return tickers
+
+
+def intraday_cli(dev, smi, cache, tickers, out_dir):
+    """Phase 9(c) and (d): online ridge at the cache's reference shape, then
+    the CLI's ``intraday`` and ``run`` on the cache with ``--device cuda``,
+    each command's numbers and trade log held to the API's own."""
+    import contextlib
+    import io
+
+    import pandas as pd
+    import torch
+
+    from csmom_tpu_torch.analytics.plots import save_trades_csv
+    from csmom_tpu_torch.api import intraday_pipeline
+    from csmom_tpu_torch.backtest.event import trades_dataframe
+    from csmom_tpu_torch.cli.main import main as cli
+    from csmom_tpu_torch.config import RunConfig
+    from csmom_tpu_torch.models import online_ridge_scores
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.panel.ingest import load_daily, load_intraday
+    from csmom_tpu_torch.phases import _trace
+    from csmom_tpu_torch.signals.intraday import (
+        compact_minutes, minute_features, next_row_return,
+    )
+
+    minute_df = load_intraday(cache, tickers)
+    daily_df = load_daily(cache, tickers)
+    compact = compact_minutes(minute_df)
+    A, R = compact.price.shape
+
+    # -- (c) online ridge at the reference's shape -------------------------
+    walls = {}
+    for dtype in (torch.float64, torch.float32):
+        price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
+        volume = torch.as_tensor(compact.volume, dtype=dtype).to(dev)
+        feats, fv = minute_features(price, volume, torch.as_tensor(compact.row_valid).to(dev))
+        y, yv = next_row_return(price, fv)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        online_ridge_scores(feats, y, yv)
+        end.record()
+        torch.cuda.synchronize()
+        walls[str(dtype)[6:]] = {"host_ms": (time.perf_counter() - t0) * 1e3,
+                                 "device_ms": start.elapsed_time(end)}
+        if dtype == torch.float64:
+            # the walk is a fixed Python loop, so its launches are a + b*R:
+            # profile two row counts and read a and b off them exactly
+            traces = {r: _trace(lambda r=r: online_ridge_scores(
+                feats[:, :r], y[:, :r], yv[:, :r]), warm=False) for r in (20, 40)}
+            per_row = (traces[40]["device_activities"] - traces[20]["device_activities"]) / 20
+            fixed = traces[20]["device_activities"] - 20 * per_row
+    launches = fixed + per_row * R
+    log("intraday", f"(c) online_ridge_scores at [{A}, {R}] (one call each): "
+                    f"{json.dumps(walls)}; launches {launches:.0f} = {fixed:.0f} + "
+                    f"{per_row:.0f} a row (profiled at 20 and 40 rows: "
+                    f"{json.dumps(traces)}) | {smi}")
+
+    # -- (d) the CLI --------------------------------------------------------
+    icfg = RunConfig().intraday
+    results = {}
+
+    def api(model, lat=0):
+        key = (model, lat)
+        if key not in results:
+            alpha = icfg.alpha if model in ("ridge", "online_ridge") else None
+            results[key] = intraday_pipeline(
+                minute_df, daily_df, window_minutes=icfg.window_minutes,
+                n_splits=icfg.n_splits, alpha=alpha, size_shares=icfg.size_shares,
+                threshold=icfg.threshold, cash0=icfg.cash0, model=model,
+                latency_bars=lat, device=dev)
+        return results[key]
+
+    common = ["--data-dir", cache, "--tickers", ",".join(tickers), "--device", "cuda",
+              "--out", out_dir]
+    totals = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    for label, argv, model, lat, k1 in (
+        [(f"intraday --model {m}", ["intraday", "--model", m], m, 0, 0)
+         for m in ("ridge", "online_ridge", "elastic_net", "lasso", "mlp")]
+        + [("intraday sweep/hysteresis/latency 2/tearsheet",
+            ["intraday", "--threshold-sweep", "1e-6,1e-5,1e-4", "--threshold-hi", "1e-4",
+             "--threshold-lo", "2e-5", "--latency-bars", "2", "--tearsheet"], "ridge", 2, 0),
+           ("intraday --parity", ["intraday", "--parity"], "ridge", 0, 0),
+           ("run", ["run"], "ridge", 0, 1)]):
+        buf = io.StringIO()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv + common)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+               "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+        out = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"intraday cli {label}: exit {rc}\n{out}")
+        if got != {"decile_partial_sums": k1, "cohort_partial_sums": 0}:
+            raise AssertionError(f"intraday cli {label}: launches {got}, expected K1 {k1}")
+        for name, n in got.items():
+            totals[name] += n
+        res, fit, comp, score, *_ = api(model, lat)
+        for line in (f"CV MSEs:     {[f'{m:.3g}' for m in fit.cv_mse.cpu().numpy()]}",
+                     f"Trades:      {int(res.n_trades)} ({int(res.n_buys)} buys / "
+                     f"{int(res.n_sells)} sells)",
+                     f"Total PnL:   ${float(res.total_pnl):,.2f}"):
+            if line not in out.splitlines():
+                raise AssertionError(f"intraday cli {label}: {line!r} not in\n{out}")
+        ref_dir = os.path.join(out_dir, "api")
+        want = pd.read_csv(save_trades_csv(trades_dataframe(
+            res, comp.tickers, comp.times, score, size_shares=icfg.size_shares), ref_dir))
+        have = pd.read_csv(os.path.join(out_dir, "trades.csv"))
+        pd.testing.assert_frame_equal(have, want, check_exact=True)
+        log("intraday", f"(d) cli {label}: exit 0, {ms:.2f} ms host wall, launches {got}, "
+                        f"CV MSEs / trades / PnL and trades.csv ({len(have)} rows) equal "
+                        f"the API's | {smi}")
+    return totals
+
+
+def intraday_phase(dev, smi) -> dict:
+    """Phase 9: the intraday leg on the card.  Returns the phase's launch
+    counts per kernel (only ``run``'s replicate leg launches one: K1)."""
+    import torch
+
+    from csmom_tpu_torch.api import intraday_pipeline
+    from csmom_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    # -- (a) goldens in f64 --------------------------------------------------
+    t0 = time.perf_counter()
+    minute_df, df = golden_minute_frame()
+    if len(minute_df) != 31_200:
+        raise AssertionError(f"intraday (a): golden frame has {len(minute_df)} rows")
+    res, fit, *_ = intraday_pipeline(minute_df, df, device=dev)
+    check_event_golden(res, fit, EVENT, "intraday (a) EVENT")
+    t1 = time.perf_counter()
+    res, fit, *_ = intraday_pipeline(minute_df, df, model="online_ridge", device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_event_golden(res, fit, ONLINE, "intraday (a) ONLINE")
+    fp = {**intraday_fingerprints(dev), **mlp_fingerprint(dev)}
+    check_intraday(fp)
+    t3 = time.perf_counter()
+    log("intraday", f"(a) f64 goldens on the card: EVENT (trades {EVENT['n_trades']}) "
+                    f"{(t1 - t0) * 1e3:.1f} ms, ONLINE (trades {ONLINE['n_trades']}) "
+                    f"{(t2 - t1) * 1e3:.1f} ms, INTRADAY pins (elastic net, lasso, MLP, "
+                    f"hysteresis, latency 3 + TCA, limit, sweep) {(t3 - t2) * 1e3:.1f} ms "
+                    f"host walls | {smi}")
+    log("intraday", f"(a) {json.dumps(fp)} | {smi}")
+
+    # -- (b) at scale ------------------------------------------------------
+    intraday_scale(dev, smi)
+    launched = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+    if any(launched.values()):
+        raise AssertionError(f"intraday (a)-(b) launched a kernel: {launched}")
+
+    # -- (c) and (d) on a CSV cache of the reference's shape ---------------
+    with tempfile.TemporaryDirectory(prefix="csmom_intraday_") as tmp:
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        tickers = write_cli_cache(cache)
+        return intraday_cli(dev, smi, cache, tickers, os.path.join(tmp, "results"))
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -1226,7 +1890,9 @@ def main() -> int:
         cli_launches = cli_phase(dev, smi, pack_dir, os.path.join(tmp, "results"),
                                  mres, grids, assert_sums, bound)
 
-    # -- 9. kernels line at the main-path shapes ---------------------------
+    # -- 10. kernels line at the main-path shapes, measured here, before
+    # phase 9: after its traces of ~10^5 device activities, later traces
+    # of the kernels have lost records three times in a row -------------
     ret, ret_valid = monthly_returns(pm, mm)
     # K1's inputs as the monthly engine forms them (backtest/monthly.py)
     next_ret = torch.roll(ret, -1, dims=1)
@@ -1340,6 +2006,17 @@ def main() -> int:
                        f"this run; its first version's, recorded (not measured "
                        f"here): {first} ms on an NVIDIA H100 80GB HBM3 at 700 W "
                        f"(PERF.md, section 6)")
+
+    # -- 9. intraday: the intraday leg and its CLI -------------------------
+    t_phase = time.perf_counter()
+    intraday_launches = intraday_phase(dev, smi)
+    log("intraday", f"phase wall {time.perf_counter() - t_phase:.1f} s; launches "
+                    f"{intraday_launches} | {smi}")
+    if intraday_launches != {"decile_partial_sums": 1, "cohort_partial_sums": 0}:
+        raise AssertionError(f"intraday: launches {intraday_launches}, expected K1 1 "
+                             f"(run's replicate) and K2 0")
+    for row in rows:
+        row["intraday_launches"] = intraday_launches[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

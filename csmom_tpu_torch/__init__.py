@@ -3,8 +3,10 @@ their costs and inference (sector-neutral ranking, turnover netting,
 walk-forward selection, block-bootstrap CIs, banded rebalancing,
 tearsheets), the Strategy plugins, the volume double sort, event-time
 horizon profiles and residual momentum in PyTorch, with hand-written CUDA
-kernels for an NVIDIA H100, fed from CSV caches or packed panels, and the
-``csmom`` command line for monthly data (``python -m csmom_tpu_torch.cli``).
+kernels for an NVIDIA H100, fed from CSV caches or packed panels; the
+intraday leg (minute features, five score models and the event engines,
+:func:`csmom_tpu_torch.api.intraday_pipeline`); and the ``csmom`` command
+line (``python -m csmom_tpu_torch.cli``).
 
 The module layout mirrors :mod:`csmom_tpu` (the JAX reference), so each
 counterpart sits at the same path under the same name.  Importing the

@@ -1,9 +1,11 @@
-"""The port's ``csmom`` CLI for monthly data: ``python -m csmom_tpu_torch.cli``.
+"""The port's ``csmom`` CLI: ``python -m csmom_tpu_torch.cli``.
 
-Counterpart of the monthly commands of :mod:`csmom_tpu.cli.main`:
-``replicate``, ``grid``, ``sweep``, ``doublesort``, ``horizons``,
-``residual``, ``strategies``, ``pack-info`` and ``fetch``.  Each prints
-what ``csmom`` prints for the same arguments, line for line; the
+Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
+``run``, ``replicate``, ``grid``, ``sweep``, ``doublesort``,
+``intraday``, ``horizons``, ``residual``, ``strategies``, ``pack-info``
+and ``fetch``.  Each prints what ``csmom`` prints for the same
+arguments, line for line (``intraday --threshold-sweep`` names its one
+engine run a threshold where the reference names one vmapped call); the
 subcommand table in ``--help`` is generated from the parser itself.
 
 The flags that differ are the device's and the kernels':
@@ -1043,6 +1045,188 @@ def cmd_strategies(args) -> int:
     return 0
 
 
+def cmd_intraday(args) -> int:
+    """Intraday pipeline + event backtest: features,
+    score-model CV (--model ridge|online_ridge|elastic_net|lasso|mlp),
+    per-minute fills;
+    writes trades.csv + intraday_cum_pnl.png."""
+    import numpy as np
+    import torch
+
+    cfg = _load_cfg(args)
+    dev = args.device
+    from csmom_tpu_torch.api import intraday_pipeline
+    from csmom_tpu_torch.panel.ingest import load_daily, load_intraday
+    from csmom_tpu_torch.panel.pack import is_packed
+
+    if is_packed(cfg.universe.data_dir):
+        print("error: --data-dir is a packed panel, which holds daily "
+              "panels only; the intraday pipeline needs the minute CSV "
+              "caches — point --data-dir at the CSV cache directory",
+              file=sys.stderr)
+        return 2
+    tickers = list(cfg.universe.tickers)
+    minute_df = load_intraday(cfg.universe.data_dir, tickers)
+    daily_tickers = tickers
+    if getattr(args, "parity", False):
+        # the reference's EFFECTIVE daily universe: its loader loses
+        # dialect-B caches, so those tickers take the default ADV/vol
+        from csmom_tpu_torch.panel.ingest import reference_readable_daily
+
+        daily_tickers = reference_readable_daily(cfg.universe.data_dir, tickers)
+        lost = sorted(set(tickers) - set(daily_tickers))
+        print(f"parity mode: daily risk-map universe drops {len(lost)} "
+              f"caches the reference's loader cannot read (dialect-B "
+              f"headers or fetch-cache marker lines): "
+              f"{','.join(lost) or 'none'}")
+    daily_df = load_daily(cfg.universe.data_dir, daily_tickers)
+    lat = getattr(args, "latency_bars", None) or 0
+    if lat < 0:
+        print("--latency-bars must be >= 0", file=sys.stderr)
+        return 2
+    model = getattr(args, "model", None) or "ridge"
+    if getattr(args, "alpha", None) is not None:
+        alpha = args.alpha
+    elif model in ("ridge", "online_ridge"):
+        # one penalty scale for the leaky and the causal model
+        alpha = cfg.intraday.alpha
+    else:
+        # the l1 and weight-decay scales differ: the API's per-model defaults
+        alpha = None
+    extra = {}
+    if getattr(args, "l1_ratio", None) is not None:
+        extra["l1_ratio"] = args.l1_ratio
+    res, fit, compact, dense_score, dense_price, dense_valid = intraday_pipeline(
+        minute_df, daily_df,
+        window_minutes=cfg.intraday.window_minutes,
+        n_splits=cfg.intraday.n_splits,
+        alpha=alpha,
+        size_shares=cfg.intraday.size_shares,
+        threshold=cfg.intraday.threshold,
+        cash0=cfg.intraday.cash0,
+        model=model,
+        latency_bars=lat,
+        device=dev,
+        **extra,
+    )
+    print(f"CV MSEs:     {[f'{m:.3g}' for m in _host(fit.cv_mse)]}")
+    print(f"Trades:      {int(res.n_trades)} "
+          f"({int(res.n_buys)} buys / {int(res.n_sells)} sells)")
+    print(f"Total PnL:   ${float(res.total_pnl):,.2f}")
+
+    from csmom_tpu_torch.backtest.event import cost_attribution
+
+    bar = _host(res.bar_mask)
+    tca = cost_attribution(res, dense_price,
+                           size_shares=cfg.intraday.size_shares,
+                           latency_bars=lat, valid=dense_valid)
+    delay_leg = (f"delay drift ${float(tca.delay_cost):,.2f}, "
+                 if lat else "")
+    print(f"Costs:       ${float(tca.total_cost):,.2f} "
+          f"({float(tca.cost_bps):.2f} bps of ${float(tca.gross_notional):,.0f}"
+          f" traded; {delay_leg}spread ${float(tca.spread_cost):,.2f}, "
+          f"impact ${float(tca.impact_cost):,.2f}) — "
+          f"gross PnL ${float(tca.gross_pnl):,.2f}")
+
+    if (getattr(args, "threshold_hi", None) is not None
+            and getattr(args, "threshold_lo", None) is None):
+        print("--threshold-hi sets the hysteresis ENTRY threshold and does "
+              "nothing alone: add --threshold-lo (the exit threshold) to "
+              "run the Schmitt-trigger engine", file=sys.stderr)
+        return 2
+    score0 = torch.nan_to_num(dense_score)
+    if (getattr(args, "threshold_sweep", None)
+            or getattr(args, "threshold_lo", None) is not None):
+        from csmom_tpu_torch.api import daily_risk_maps
+
+        adv, vol = daily_risk_maps(daily_df, compact.tickers)
+        adv = _tensor(adv, dense_price.device, dense_price.dtype)
+        vol = _tensor(vol, dense_price.device, dense_price.dtype)
+
+    if getattr(args, "threshold_sweep", None):
+        from csmom_tpu_torch.backtest.event import threshold_sweep
+
+        ths = [float(t) for t in args.threshold_sweep.split(",")]
+        pnl, ntr, bps = threshold_sweep(
+            dense_price, dense_valid, score0, adv, vol, np.asarray(ths),
+            size_shares=cfg.intraday.size_shares,
+            cash0=cfg.intraday.cash0, latency_bars=lat,
+        )
+        print("\nthreshold sensitivity (one engine run a threshold):")
+        print(f"{'threshold':>12} {'trades':>8} {'PnL':>16} {'cost bps':>9}")
+        for t, p, n, b in zip(ths, _host(pnl), _host(ntr), _host(bps)):
+            print(f"{t:>12g} {int(n):>8d} {float(p):>16,.2f} {float(b):>9.2f}")
+
+    if getattr(args, "threshold_lo", None) is not None:
+        from csmom_tpu_torch.backtest.event import hysteresis_event_backtest
+
+        hi = (args.threshold_hi if getattr(args, "threshold_hi", None)
+              is not None else cfg.intraday.threshold)
+        if args.threshold_lo > hi:
+            print(f"--threshold-lo {args.threshold_lo:g} must not exceed "
+                  f"the entry threshold {hi:g} (--threshold-hi)",
+                  file=sys.stderr)
+            return 2
+        hres = hysteresis_event_backtest(
+            dense_price, dense_valid, score0, adv, vol,
+            threshold_hi=hi, threshold_lo=args.threshold_lo,
+            size_shares=cfg.intraday.size_shares, cash0=cfg.intraday.cash0,
+            latency_bars=lat,
+        )
+        print(f"\nhysteresis trigger (enter |score|>{hi:g}, exit "
+              f"|score|<{args.threshold_lo:g}, bounded 1-unit book):")
+        print(f"  trades {int(hres.n_trades)} (plain engine: "
+              f"{int(res.n_trades)}), total PnL ${float(hres.total_pnl):,.2f}")
+        from csmom_tpu_torch.analytics.plots import save_trades_csv
+        from csmom_tpu_torch.backtest.event import trades_dataframe
+
+        h_trades = trades_dataframe(hres, compact.tickers, compact.times, score0,
+                                    size_shares=cfg.intraday.size_shares)
+        h_csv = save_trades_csv(h_trades, cfg.results_dir,
+                                fname="trades_hysteresis.csv")
+        print(f"  trade log: {h_csv} (flips are single ±2-unit rows)")
+
+    if getattr(args, "tearsheet", False):
+        import pandas as pd
+
+        from csmom_tpu_torch.analytics.tearsheet import format_tearsheet, tearsheet
+
+        # minute PnL -> calendar-day returns on starting capital: the
+        # standard daily tearsheet for an intraday strategy
+        days = pd.DatetimeIndex(np.asarray(compact.times)[bar]).normalize()
+        daily = pd.Series(_host(res.pnl)[bar], index=days).groupby(level=0).sum()
+        rets = _tensor((daily / cfg.intraday.cash0).to_numpy(copy=True), dev)
+        print()
+        print(format_tearsheet(
+            tearsheet(rets, torch.isfinite(rets), freq_per_year=252),
+            label=f"daily PnL / ${cfg.intraday.cash0:,.0f} start",
+        ))
+
+    from csmom_tpu_torch.analytics.plots import save_trades_csv
+    from csmom_tpu_torch.backtest.event import trades_dataframe
+
+    trades = trades_dataframe(res, compact.tickers, compact.times, dense_score,
+                              size_shares=cfg.intraday.size_shares)
+    out_csv = save_trades_csv(trades, cfg.results_dir)
+    if _can_plot("intraday_cum_pnl.png"):
+        from csmom_tpu_torch.analytics.plots import save_intraday_pnl_plot
+
+        out_png = save_intraday_pnl_plot(
+            np.asarray(compact.times)[bar], _host(res.pnl)[bar], cfg.results_dir)
+        log.info("wrote %s and %s", out_csv, out_png)
+    else:
+        log.info("wrote %s", out_csv)
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Full demo: replicate + intraday, like the reference's ``main()``."""
+    rc = cmd_replicate(args)
+    if rc:
+        return rc
+    return cmd_intraday(args)
+
+
 def _add_common(p, tickers: bool = True):
     p.add_argument("--config", help="TOML RunConfig file")
     p.add_argument("--data-dir", help="CSV cache directory, or a packed "
@@ -1095,11 +1279,15 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command")
 
     for name, fn, extra in (
+        ("run", cmd_run,
+         ("bootstrap", "strategy", "tables", "tearsheet", "monthly_extras",
+          "model")),
         ("replicate", cmd_replicate,
          ("bootstrap", "strategy", "tables", "tearsheet", "monthly_extras")),
         ("grid", cmd_grid, ("js", "ks", "bootstrap", "tearsheet", "tc")),
         ("doublesort", cmd_doublesort, ("doublesort",)),
         ("sweep", cmd_sweep, ("js", "ks", "min_months", "tc_bps")),
+        ("intraday", cmd_intraday, ("model", "tearsheet")),
         ("horizons", cmd_horizons, ("horizons",)),
         ("fetch", cmd_fetch, ("fetch",)),
         ("residual", cmd_residual,
@@ -1241,6 +1429,41 @@ def build_parser() -> argparse.ArgumentParser:
                             action="store_true",
                             help="store packed values as float32 (half the "
                                  "disk; the card's compute type)")
+        if "model" in extra:
+            sp.add_argument("--model",
+                            choices=["ridge", "online_ridge", "elastic_net",
+                                     "lasso", "mlp"],
+                            help="score model (default: ridge, the reference's)")
+            sp.add_argument("--alpha", type=float,
+                            help="regularization strength (mlp: weight decay)")
+            sp.add_argument("--l1-ratio", dest="l1_ratio", type=float,
+                            help="elastic-net l1 ratio (default 0.5)")
+            sp.add_argument("--threshold-sweep", dest="threshold_sweep",
+                            help="comma-separated score thresholds: print "
+                                 "PnL/trades/cost sensitivity")
+            sp.add_argument("--threshold-hi", dest="threshold_hi",
+                            type=float, metavar="S",
+                            help="hysteresis entry threshold (default: the "
+                                 "config threshold); used with "
+                                 "--threshold-lo")
+            sp.add_argument("--threshold-lo", dest="threshold_lo",
+                            type=float, metavar="S",
+                            help="ALSO run the Schmitt-trigger event "
+                                 "engine: enter a bounded 1-unit position "
+                                 "when |score| > entry, exit when |score| "
+                                 "< this, hold in between (cuts intraday "
+                                 "churn; reports trades/PnL vs the plain "
+                                 "engine)")
+            sp.add_argument("--latency-bars", dest="latency_bars",
+                            type=int, metavar="N",
+                            help="order-to-fill delay in bars (fills at the "
+                                 "next valid row >= decision+N; the cost "
+                                 "print adds the delay-drift leg of the "
+                                 "implementation shortfall)")
+            sp.add_argument("--parity", action="store_true",
+                            help="reproduce the reference's EFFECTIVE daily "
+                                 "risk-map universe (drop the dialect-B "
+                                 "caches its loader loses) for its trade log")
         if "strategy" in extra:
             sp.add_argument("--strategy",
                             help="registered strategy plugin to rank instead of "

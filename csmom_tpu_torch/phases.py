@@ -52,16 +52,17 @@ _TRACE_MARGIN_S = 0.05
 _FLUSH_INTS = 64 * 2**20
 
 
-def time_call(fn, cold=False):
+def time_call(fn, cold=False, reps=REPS, warmup=3):
     """(median device ms by CUDA events, median host ms) of ``fn()`` over
-    ``REPS`` calls after 3 warm-up calls.  ``cold`` overwrites a buffer
-    larger than L2 before each call, outside the timed region."""
-    for _ in range(3):
+    ``reps`` calls after ``warmup`` warm-up calls.  ``cold`` overwrites a
+    buffer larger than L2 before each call, outside the timed region.
+    Calls that take seconds (a model fit at scale) pass fewer of both."""
+    for _ in range(warmup):
         fn()
     flush = torch.empty(_FLUSH_INTS, dtype=torch.int32, device="cuda") if cold else None
     torch.cuda.synchronize()
     dev, host = [], []
-    for _ in range(REPS):
+    for _ in range(reps):
         if cold:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -146,12 +147,14 @@ def _matching_spans(fn, names, clean):
         and any(n in evt.name for n in names))
 
 
-def _trace(fn):
+def _trace(fn, warm=True):
     """One traced call: device-busy ms (sum of kernel and copy times),
-    wall ms, and the number of device activities."""
+    wall ms, and the number of device activities; ``warm`` calls ``fn()``
+    once untraced first."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -43,3 +43,38 @@ def month_panel(n_assets: int, n_days: int, device=None, dtype=torch.float32):
 def north_star_month_panel(device=None, dtype=torch.float32):
     """The north-star month-end panel (3,000 x 696) on ``device``."""
     return month_panel(*NORTH_STAR_GRID, device=device, dtype=dtype)
+
+
+def golden_event_inputs(dtype=torch.float64, device=None):
+    """Dense minute panels for the event engine at the reference's
+    golden event shape (counterpart of
+    :func:`csmom_tpu.compile.workloads.golden_event_inputs`): the
+    synthesized same-shape stand-in for its 20-ticker minute panel, 20
+    tickers x 7 days x 390 minutes from ``synthetic_daily_panel(20, 7,
+    seed=0)`` with the default risk maps, run through the ridge pipeline
+    on ``device`` (default ``"cuda"``; raises without a card unless
+    ``device="cpu"``).
+
+    Returns ``(price, valid, score, adv, vol, n_trades)`` — the argument
+    set of the headline ``event_backtest`` call and its trade count.
+    """
+    import numpy as np
+    import pandas as pd
+
+    from csmom_tpu_torch.api import daily_risk_maps, intraday_pipeline, synthetic_minute_frame
+
+    daily = synthetic_daily_panel(20, 7, seed=0)
+    minute_df = synthetic_minute_frame(pd.DataFrame({
+        "date": np.repeat(daily.times, 20),
+        "ticker": np.tile(daily.tickers, 7),
+        "open": daily.values.T.ravel(),
+        "close": daily.values.T.ravel(),
+        "volume": 1e6,
+    }))
+    res, _, compact, dense_score, dense_price, dense_valid = intraday_pipeline(
+        minute_df, None, dtype=dtype, device=device)
+    adv, vol = daily_risk_maps(None, compact.tickers)
+    dev = dense_price.device
+    return (dense_price, dense_valid, torch.nan_to_num(dense_score),
+            torch.as_tensor(adv, dtype=dtype).to(dev),
+            torch.as_tensor(vol, dtype=dtype).to(dev), int(res.n_trades))

@@ -1,9 +1,11 @@
 """The port's CLI (``python -m csmom_tpu_torch.cli``) against ``csmom``, each
 run in-process on the same inputs, on the CPU.
 
-Inputs: (a) the committed 8-ticker CSV universe (``tests/fixtures/universe``)
-and (b) a two-field f64 pack of ``synthetic_daily_panel(60, 1260, seed=7,
-listing_gaps=True)`` with a seeded volume.  Every command's stdout must be
+Inputs: (a) the committed 8-ticker CSV universe (``tests/fixtures/universe``),
+(b) a two-field f64 pack of ``synthetic_daily_panel(60, 1260, seed=7,
+listing_gaps=True)`` with a seeded volume, and (c) for ``intraday`` and
+``run``, a CSV cache of 6 tickers (300 daily bars, one file in the
+second dialect; 3 days of minute bars with 4% of the minutes missing).  Every command's stdout must be
 the reference's, line for line, once the program name and the engine label
 are mapped; where a line differs, its text outside the numbers must be equal
 (whitespace aside, as pandas pads columns to the widest value) and every
@@ -343,7 +345,8 @@ def test_fetch_cache_hit_and_miss(inputs, tmp_path, no_network):
 def test_default_device_exits_2_without_a_card(inputs):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    for argv in (["replicate"], ["grid"], ["horizons", "--by-volume"]):
+    for argv in (["replicate"], ["grid"], ["horizons", "--by-volume"], ["intraday"],
+                 ["run"]):
         rc, out, err = _run(port_main, argv + inputs["universe"], [])
         assert rc == 2 and out == ""
         assert "--device cpu" in err
@@ -373,9 +376,9 @@ def test_config_backend_tpu_means_the_card_engine(inputs, tmp_path):
 def test_help_lists_the_ported_commands():
     rc, out, _ = _run(port_main, [], [])
     assert rc == 0
-    assert "subcommands (9):" in out
-    for name in ("doublesort", "fetch", "grid", "horizons", "pack-info",
-                 "replicate", "residual", "strategies", "sweep"):
+    assert "subcommands (11):" in out
+    for name in ("doublesort", "fetch", "grid", "horizons", "intraday", "pack-info",
+                 "replicate", "residual", "run", "strategies", "sweep"):
         assert f"\n  {name}" in out
 
 
@@ -395,3 +398,105 @@ def test_replicate_without_matplotlib_prints_the_same_and_writes_no_plot(
     assert without[0] == with_plot[0] == 0 and without[1] == with_plot[1]
     assert not (tmp_path / "b").exists()
     assert "matplotlib is not installed: monthly_mom_cum.png not written" in caplog.text
+
+
+INTRADAY_TICKERS = ("IAA", "IBB", "ICC", "IDD", "IEE", "IFF")
+
+
+def _write_intraday_cache(d):
+    """Daily CSVs (IFF in the second dialect, which the reference's own
+    loader loses) and minute CSVs in the reference's naming."""
+    import pandas as pd
+
+    from csmom_tpu_torch.api import synthetic_minute_frame
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+
+    daily = synthetic_daily_panel(len(INTRADAY_TICKERS), 300, seed=11)
+    stamps = pd.DatetimeIndex(daily.times).strftime("%Y-%m-%d")
+    rng = np.random.default_rng(12)
+    for i, t in enumerate(INTRADAY_TICKERS):
+        v = daily.values[i]
+        vol = rng.integers(200_000, 2_000_000, len(v))
+        if t == "IFF":
+            rows = "\n".join(f"{dd},{c:.6f},{c * 1.01:.6f},{c * 0.99:.6f},{c:.6f},{n}"
+                             for dd, c, n in zip(stamps, v, vol))
+            (d / f"{t}_daily.csv").write_text(
+                f"Price,Close,High,Low,Open,Volume\nTicker,{t},{t},{t},{t},{t}\n"
+                f"Date,,,,,\n{rows}\n")
+        else:
+            pd.DataFrame({"date": stamps, "open": v * 0.998, "high": v * 1.01,
+                          "low": v * 0.99, "close": v, "adj_close": v,
+                          "volume": vol}).to_csv(d / f"{t}_daily.csv", index=False)
+    last = pd.DataFrame({"date": np.repeat(daily.times[-3:], len(INTRADAY_TICKERS)),
+                         "ticker": np.tile(INTRADAY_TICKERS, 3),
+                         "open": daily.values[:, -3:].T.ravel() * 0.998,
+                         "close": daily.values[:, -3:].T.ravel(), "volume": 1e6})
+    minutes = synthetic_minute_frame(last, seed=2)
+    minutes = minutes[rng.random(len(minutes)) > 0.04]
+    for t, g in minutes.groupby("ticker"):
+        pd.DataFrame({"datetime": g["datetime"].dt.strftime("%Y-%m-%d %H:%M:%S"),
+                      "open": g["price"], "high": g["price"], "low": g["price"],
+                      "close": g["price"], "volume": g["volume"]}).to_csv(
+            d / f"{t}_intraday.csv", index=False)
+
+
+@pytest.fixture(scope="module")
+def intraday_cache(tmp_path_factory):
+    d = tmp_path_factory.mktemp("intraday_cache")
+    _write_intraday_cache(d)
+    return ["--data-dir", str(d), "--tickers", ",".join(INTRADAY_TICKERS)], d
+
+
+INTRADAY_COMMANDS = {
+    **{m: ("intraday", "--model", m)
+       for m in ("ridge", "online_ridge", "elastic_net", "lasso", "mlp")},
+    "flags": ("intraday", "--threshold-sweep", "1e-6,1e-5,1e-4", "--threshold-hi",
+              "1e-4", "--threshold-lo", "2e-5", "--latency-bars", "2", "--tearsheet"),
+    "parity": ("intraday", "--parity", "--alpha", "3", "--l1-ratio", "0.7"),
+    "run": ("run", "--lookback", "6", "--n-bins", "4"),
+}
+
+
+def _intraday_text(text, port_dir, ref_dir):
+    """The port's output in the reference's words: its program name, its
+    results directory, and the sweep's header (the port runs the engine
+    once a threshold where the reference vmaps it)."""
+    return (_port_text(text).replace(str(port_dir), str(ref_dir))
+            .replace("(one engine run a threshold)", "(one vmapped call)"))
+
+
+@pytest.mark.parametrize("name", list(INTRADAY_COMMANDS))
+def test_intraday_and_run_print_what_the_reference_prints(intraday_cache, name):
+    import pandas as pd
+
+    args, d = intraday_cache
+    port_dir, ref_dir = d / f"port_{name}", d / f"ref_{name}"
+    argv = list(INTRADAY_COMMANDS[name][:1]) + args + list(INTRADAY_COMMANDS[name][1:])
+    p = _run(port_main, argv, ["--device", "cpu", "--out", str(port_dir)])
+    r = _run(jax_main, argv, ["--platform", "cpu", "--out", str(ref_dir)])
+    assert p[0] == r[0] == 0, (p, r)
+    assert_same_output(_intraday_text(p[1], port_dir, ref_dir), r[1])
+    assert "Trades:" in p[1] and "Costs:" in p[1]
+    logs = ["trades.csv"] + (["trades_hysteresis.csv"] if name == "flags" else [])
+    for log_name in logs:
+        got = pd.read_csv(port_dir / log_name)
+        want = pd.read_csv(ref_dir / log_name)
+        assert len(got) > 0
+        pd.testing.assert_frame_equal(got, want, check_exact=False, rtol=1e-10, atol=1e-13)
+
+
+@pytest.mark.parametrize("args", [
+    ("--latency-bars", "-1"),
+    ("--threshold-hi", "1e-4"),
+    ("--threshold-hi", "1e-5", "--threshold-lo", "1e-4"),
+    ("--data-dir", "{pack}"),
+], ids=["negative_latency", "hi_without_lo", "lo_above_hi", "packed_data_dir"])
+def test_intraday_error_paths_match_the_reference(intraday_cache, inputs, args):
+    cache_args, d = intraday_cache
+    args = [a.format(pack=inputs["pack_dir"]) for a in args]
+    argv = ["intraday"] + cache_args + args
+    p = _run(port_main, argv, ["--device", "cpu", "--out", str(d / "err_port")])
+    r = _run(jax_main, argv, ["--platform", "cpu", "--out", str(d / "err_ref")])
+    assert p[0] == r[0] == 2
+    assert p[2].strip().splitlines()[-1] == r[2].strip().splitlines()[-1]
+    assert_same_output(p[1], r[1])

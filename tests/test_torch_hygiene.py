@@ -132,6 +132,65 @@ def test_port_reads_no_file_of_the_reference(tmp_path):
     assert loaded and all(p.startswith(build_dir) for p in loaded)
 
 
+def test_intraday_reads_no_file_of_the_reference(tmp_path):
+    """One intraday pipeline and one intraday command of the port's CLI run
+    under the audit hook: no file, library or program they touch lies under
+    csmom_tpu/."""
+    import numpy as np
+    import pandas as pd
+
+    from csmom_tpu_torch.api import synthetic_minute_frame
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+
+    daily = synthetic_daily_panel(3, 40, seed=4)
+    stamps = pd.DatetimeIndex(daily.times).strftime("%Y-%m-%d")
+    tickers = ["HA", "HB", "HC"]
+    for i, t in enumerate(tickers):
+        v = daily.values[i]
+        pd.DataFrame({"date": stamps, "open": v, "high": v, "low": v, "close": v,
+                      "adj_close": v, "volume": 1e6}).to_csv(
+            tmp_path / f"{t}_daily.csv", index=False)
+    last = pd.DataFrame({"date": np.repeat(daily.times[-2:], 3), "ticker": tickers * 2,
+                         "open": daily.values[:, -2:].T.ravel(),
+                         "close": daily.values[:, -2:].T.ravel(), "volume": 1e6})
+    for t, g in synthetic_minute_frame(last, seed=1).groupby("ticker"):
+        pd.DataFrame({"datetime": g["datetime"].dt.strftime("%Y-%m-%d %H:%M:%S"),
+                      "open": g["price"], "high": g["price"], "low": g["price"],
+                      "close": g["price"], "volume": g["volume"]}).to_csv(
+            tmp_path / f"{t}_intraday.csv", index=False)
+    code = textwrap.dedent(f"""
+        import json, os, sys
+        seen = []
+        def hook(event, args):
+            if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+                seen.append(("open", os.fsdecode(args[0])))
+            elif event == "ctypes.dlopen" and args[0]:
+                seen.append(("dlopen", os.fsdecode(args[0])))
+            elif event == "subprocess.Popen":
+                seen.append(("popen", " ".join(map(os.fsdecode, args[1]))))
+        sys.addaudithook(hook)
+        from csmom_tpu_torch.api import intraday_pipeline
+        from csmom_tpu_torch.panel.ingest import load_daily, load_intraday
+        d, tk = {str(tmp_path)!r}, {tickers!r}
+        res, *_ = intraday_pipeline(load_intraday(d, tk), load_daily(d, tk),
+                                    model="elastic_net", latency_bars=1, device="cpu")
+        from csmom_tpu_torch.cli.main import main
+        rc = main(["intraday", "--data-dir", d, "--tickers", ",".join(tk),
+                   "--device", "cpu", "--out", {str(tmp_path / "out")!r},
+                   "--threshold-hi", "1e-4", "--threshold-lo", "2e-5"])
+        assert rc == 0 and int(res.n_trades) > 0
+        print(json.dumps({{"seen": seen}}))
+    """)
+    env = {**os.environ, "PYTHONPATH": _REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         check=True, capture_output=True, text=True, timeout=300).stdout
+    seen = json.loads(out.strip().splitlines()[-1])["seen"]
+    ref_dir = os.path.join(_REPO, "csmom_tpu") + os.sep
+    assert [(kind, p) for kind, p in seen
+            if ref_dir in os.path.abspath(p) or ref_dir in p] == []
+    assert any(p.endswith("HA_intraday.csv") for kind, p in seen if kind == "open")
+
+
 def test_package_import_is_lazy():
     """Importing the package loads neither torch nor any engine module."""
     code = ("import sys, csmom_tpu_torch; "
