@@ -928,11 +928,245 @@ def _near_threshold(score, th, rel):
     return ((score - th).abs() <= rel * th) | ((score + th).abs() <= rel * th)
 
 
+# Phase 9(b)'s f32 error model, first order, computed in f64 from the f64
+# run's own data; no f32 result enters a limit.  U32 is f32's unit
+# roundoff.  An elementwise operation rounds its result by U32 relative.
+# A sum over n rows in an order the library picks (torch.sum, cuBLAS) is
+# off by at most LAMBDA sqrt(n) U32 sum|x| (Higham and Mary, SIAM J. Sci.
+# Comput. 41(5), 2019, Thm. 3.1: independent rounding errors, failing
+# with probability under 2n exp(-LAMBDA^2/2) < 1e-14 here).  A trailing
+# window is a difference of two torch.cumsum prefixes.  On the card
+# torch scans a row in chunks of 2^(lx+1) (ATen's ScanUtils.cuh,
+# tensor_kernel_scan_innermost_dim): a Sklansky tree in the chunk, in
+# which element j is the root of adds at most bitlen(j) deep, each level
+# summing disjoint parts of the prefix, then the chunk's last prefix
+# carried into the next chunk's first element.  A carry shared by both
+# ends cancels, so a window's rounding is at most U32 times the prefix of
+# |x| at its end, times each end's depth plus (lx + 2) for every chunk
+# end between them.
+U32 = 2.0 ** -24
+LAMBDA = 10.0
+
+
+def _wsum(x, w):
+    """Trailing window sums over rows of ``x [A, R]`` (f64)."""
+    from csmom_tpu_torch.ops.rolling import _windowed_prefix_diff
+
+    return _windowed_prefix_diff(x, w)
+
+
+def _window_err(x, e, w):
+    """Error bound of an f32 trailing-window sum of terms ``x`` (exact,
+    f64), each off by at most ``e``: the terms' errors plus the prefix
+    difference's rounding."""
+    import math
+
+    import torch
+
+    rows, size = x.shape
+    # the scan's threads a row, as torch picks them: 2^lx, 4 <= lx <= 9
+    lx = min(max(4, (9 + math.ceil(math.log2(size)) - math.ceil(math.log2(rows))) // 2), 9)
+    chunk = 2 ** (lx + 1)
+    t = torch.arange(size, device=x.device)
+    lo = (t + 1 - w).clamp(min=0) - 1          # the prefix subtracted; -1: none
+
+    def path(i):                               # adds on prefix i's path
+        j = (i % chunk).to(x.dtype)
+        bits = torch.where(j > 0, torch.floor(torch.log2(j.clamp(min=1))) + 1, 0.0)
+        return torch.where(i >= 0, bits + (i >= chunk).to(x.dtype), 0.0)
+
+    n_round = path(t) + path(lo) + (lx + 2) * (t // chunk - lo.clamp(min=0) // chunk)
+    prefix = torch.cumsum(x.abs(), 1)
+    return _wsum(e, w) + n_round * U32 * prefix + U32 * _wsum(x, w).abs()
+
+
+def _sum_err(x_abs_sum, n):
+    """Rounding of a library sum of ``n`` terms with ``sum|x|`` given."""
+    return LAMBDA * (n ** 0.5) * U32 * x_abs_sum
+
+
+def feature_error_bound(price, volume, row_valid, window):
+    """Per-cell limits ``[A, R, 5]`` on how far ``minute_features`` in f32
+    can fall from f64, from the rounding of the f64 run's inputs and of
+    each step, in FEATURE_NAMES order; zero off the valid rows, inf where
+    the volume z-score's std is not bounded away from its own error."""
+    import torch
+
+    u = U32
+    inf = torch.tensor(float("inf"), dtype=price.dtype, device=price.device)
+    prev = torch.roll(price, 1, 1)
+    prev_valid = torch.roll(row_valid, 1, 1)
+    prev_valid[:, 0] = False
+    ret_valid = row_valid & prev_valid
+    q = torch.where(ret_valid, price / torch.where(ret_valid, prev, 1.0), 1.0)
+    r1 = torch.where(ret_valid, q - 1.0, 0.0)
+    # two rounded inputs and a quotient, then the subtraction of 1
+    e_r1 = torch.where(ret_valid, 3.01 * u * q.abs() + u * r1.abs(), 0.0)
+    e_r5 = _window_err(r1, e_r1, 5)
+    v = torch.where(row_valid, volume, 0.0)
+    e_vr = _window_err(v, u * v.abs(), window)
+    # the tick rule's sign survives rounding (it is monotone) unless the
+    # two prices round to one f32: then it may read 0, off by |v|
+    tick = torch.where(ret_valid, torch.sign(price - prev), 0.0)
+    tie = ret_valid & (price != prev) & (
+        (price - prev).abs() <= 2 * u * torch.maximum(price.abs(), prev.abs()))
+    e_sr = _window_err(tick * v, u * (tick * v).abs() + tie * v.abs(), window)
+
+    # z-score against 60-row moments of vol_roll (centred on its row mean:
+    # the variance does not see the centre, only the centred values)
+    vr = torch.where(row_valid, _wsum(v, window), 0.0)
+    e_vr = torch.where(row_valid, e_vr, 0.0)
+    n = _wsum(row_valid.to(price.dtype), 60)
+    nn = n.clamp(min=1)
+    vm = _wsum(vr, 60) / nn
+    e_vm = _window_err(vr, e_vr, 60) / nn + u * vm.abs()
+    center = vr.sum(1, keepdim=True) / row_valid.sum(1, keepdim=True).clamp(min=1)
+    xc = torch.where(row_valid, vr - center, 0.0)
+    e_xc = torch.where(row_valid, e_vr + u * xc.abs(), 0.0)
+    s1, e_s1 = _wsum(xc, 60), _window_err(xc, e_xc, 60)
+    x2 = xc * xc
+    s2, e_s2 = _wsum(x2, 60), _window_err(x2, 2 * xc.abs() * e_xc + u * x2, 60)
+    num = s2 - s1 * s1 / nn
+    e_num = e_s2 + 2 * s1.abs() * e_s1 / nn + 3 * u * s1 * s1 / nn + u * num.abs()
+    std_valid = n > 1
+    var = (num / (n - 1).clamp(min=1)).clamp(min=0.0)
+    e_var = e_num / (n - 1).clamp(min=1) + u * var
+    std = var.sqrt()
+    e_std = torch.minimum(e_var / (2 * std), e_var.sqrt()) + u * std
+    std = torch.where(std_valid, std, 1.0)
+    e_std = torch.where(std_valid, e_std, 0.0)
+    d = vr - vm
+    z = d / std
+    e_z = torch.where(e_std < std, (e_vr + e_vm + u * d.abs() + z.abs() * e_std)
+                      / (std - e_std) + u * z.abs(), inf)
+    e = torch.stack([e_r1, e_r5, e_vr, e_z, e_sr], dim=-1)
+    return torch.where(row_valid[..., None], e, 0.0)
+
+
+def fit_rounding_bound(feats, y, yv, fit, alpha):
+    """Limits on the f32 rounding of the ridge harness's final fit and
+    scores about the f64 ``fit`` of the same inputs (``feats`` and ``y``
+    are f64 copies of f32 values, so exact).  The scaler's mean error
+    shifts a column, which the centring and the intercept take back; its
+    std error ``rho`` (relative) rescales the column and its coefficient
+    the other way, so a score sees neither, only through ``alpha``.  What
+    remains is rounding: of the scaled and centred features, the Gram
+    matrix and right side, the solve (LU's backward error, first order,
+    closed by a Neumann factor), the intercept and the scores.  Returns
+    ``(e_coef [F], e_intercept, e_score [A, R])``, ``e_coef`` with the
+    rescaling."""
+    import torch
+
+    u = U32
+    F = feats.shape[-1]
+    X = torch.nan_to_num(feats.reshape(-1, F))
+    vf = yv.reshape(-1)
+    yf = torch.nan_to_num(y.reshape(-1))
+    train = vf & (torch.cumsum(vf, 0) - 1 < fit.n_train)
+    w = train.to(X.dtype)
+    n = float(w.sum())
+
+    mean, std = fit.scale_mean, fit.scale_std
+    e_mean = _sum_err(w @ X.abs(), n) / n + u * mean.abs()
+    dX = X - mean
+    e_var = (w @ (2 * dX.abs() * (e_mean + u * dX.abs()) + u * dX ** 2)
+             + _sum_err(w @ dX ** 2, n)) / n + u * std ** 2
+    rho = (e_var / (2 * std) + u * std) / std
+    Xs = dX / std
+    e_r = 2 * u * Xs.abs()                    # the subtraction and the quotient
+    xbar = (w @ Xs) / n
+    ybar = (w @ yf) / n
+    e_xbar = (w @ e_r + _sum_err(w @ Xs.abs(), n)) / n + u * xbar.abs()
+    e_ybar = _sum_err(w @ yf.abs(), n) / n + u * ybar.abs()
+    Xc = (Xs - xbar) * w[:, None]
+    aXc = Xc.abs()
+    e_Xc = (e_r + e_xbar + u * (Xs - xbar).abs()) * w[:, None]
+    yc = (yf - ybar) * w
+    e_yc = (e_ybar + u * (yf - ybar).abs()) * w
+    G = Xc.T @ Xc + alpha * torch.eye(F, dtype=X.dtype, device=X.device)
+    # the Gram's inputs and sums, then LU's backward error 3F U32 |G|
+    # (partial pivoting on this symmetric positive definite matrix)
+    e_G = (aXc.T @ e_Xc + e_Xc.T @ aXc + _sum_err(aXc.T @ aXc, n)
+           + (1 + 3 * F) * u * G.abs())
+    e_b = e_Xc.T @ yc.abs() + aXc.T @ e_yc + _sum_err(aXc.T @ yc.abs(), n)
+    coef = fit.coef.abs()
+    Gi = torch.linalg.inv(G).abs()
+    grow = float(torch.linalg.matrix_norm(Gi @ e_G, ord=float("inf")))
+    if grow >= 1:
+        raise AssertionError(f"fit_rounding_bound: the perturbation {grow} leaves the "
+                             f"Neumann radius; no first-order limit")
+    # rounding, and alpha against the rescaled Gram: (G + alpha D^-2)^-1
+    e_c = Gi @ (e_b + e_G @ coef + alpha * (2 * rho + rho ** 2) * coef) / (1 - grow)
+    r_ic = (F + 1) * u * (ybar.abs() + xbar.abs() @ coef)
+    e_ic = (e_ybar + (e_mean / std) @ coef + (1 + rho) * (xbar.abs() + e_mean / std) @ e_c
+            + e_xbar @ ((1 + rho) * coef + e_c) + r_ic)
+    e_s = ((1 + rho) * (Xs - xbar).abs() @ e_c + (e_r + e_xbar) @ ((1 + rho) * coef + e_c)
+           + e_ybar + r_ic + (F + 1) * u * (Xs.abs() @ coef + fit.intercept.abs()))
+    return rho * coef + e_c, e_ic, e_s.reshape(yv.shape)
+
+
+def hold_f32(d32, d64, fit32, window, alpha):
+    """Phase 9(b)'s f32 checks, every f32 stage held to its own derived
+    limit: the features to f64 within :func:`feature_error_bound`, the
+    label within its quotient's rounding, the masks exactly, and the fit
+    and scores to the f64 fit of the same f32 features within
+    :func:`fit_rounding_bound`.  ``d32`` and ``d64`` hold the compact
+    ``price``, ``volume``, ``rv`` and the ``feats``, ``fv``, ``y`` and
+    ``yv`` made from them.  Returns the band about the f64 scores ``[A, R]``
+    inside which an f32 score must lie: the fit's limit plus the f64
+    fit's own response to the f32 features (both fits in f64), and a dict
+    of what was held."""
+    import torch
+
+    from csmom_tpu_torch.models import ridge_time_series_cv
+    from csmom_tpu_torch.signals.intraday import FEATURE_NAMES
+
+    u = U32
+    for m in ("fv", "yv"):
+        if not torch.equal(d32[m], d64[m]):
+            raise AssertionError(f"intraday (b): f32 mask {m} differs from f64")
+    fv, yv = d64["fv"], d64["yv"]
+    E = feature_error_bound(d64["price"], d64["volume"], d64["rv"], window)
+    err = torch.where(fv[..., None], (d32["feats"].double() - d64["feats"]).abs(), 0.0)
+    stats = {"feature_err_over_limit": {}}
+    for i, name in enumerate(FEATURE_NAMES):
+        over = int((err[..., i] > E[..., i]).sum())
+        if over:
+            raise AssertionError(f"intraday (b): f32 {name} off f64 beyond its derived "
+                                 f"limit at {over} cells")
+        fin = fv & torch.isfinite(E[..., i]) & (E[..., i] > 0)
+        stats["feature_err_over_limit"][name] = float((err[..., i][fin] / E[..., i][fin]).max())
+    y64 = torch.nan_to_num(d64["y"])
+    e_y = 3.01 * u * (1 + y64).abs() + u * y64.abs()
+    if bool(((d32["y"].double() - d64["y"]).abs() > e_y)[yv].any()):
+        raise AssertionError("intraday (b): the f32 label is off f64 beyond its rounding")
+
+    X, y = d32["feats"].double(), d32["y"].double()
+    star = ridge_time_series_cv(X, y, yv, alpha=alpha)
+    if int(fit32.n_train) != int(star.n_train):
+        raise AssertionError(f"intraday (b): n_train moved in f32 ({int(fit32.n_train)} vs "
+                             f"{int(star.n_train)}): the f32 fit trains on other rows")
+    e_coef, e_ic, e_s = fit_rounding_bound(X, y, yv, star, alpha)
+    d_coef = (fit32.coef.double() - star.coef).abs()
+    d_ic = (fit32.intercept.double() - star.intercept).abs()
+    d_s = (fit32.scores.double() - star.scores).abs()[yv]
+    if bool((d_coef > e_coef).any()) or bool(d_ic > e_ic) or bool((d_s > e_s[yv]).any()):
+        raise AssertionError(f"intraday (b): the f32 fit is off the f64 fit of its own "
+                             f"features beyond the rounding limit: coef {d_coef.tolist()} vs "
+                             f"{e_coef.tolist()}, intercept {float(d_ic)} vs {float(e_ic)}, "
+                             f"scores max {float((d_s / e_s[yv]).max())} of the limit")
+    stats.update(coef_err_over_limit=float((d_coef / e_coef).max()),
+                 intercept_err_over_limit=float(d_ic / e_ic),
+                 score_err_over_limit=float((d_s / e_s[yv]).max()))
+    return e_s + (star.scores - d64["fit"].scores).abs(), stats
+
+
 def intraday_scale(dev, smi):
     """Phase 9(b): an S&P-500-sized universe's month of minute bars
-    through the intraday leg, f64 on the card against the same calls on
-    the CPU, f32 against f64, the accounting identities, bit-equal latency
-    repeats, and a time for every stage."""
+    through ``intraday_pipeline``, f64 on the card against the same call
+    on the CPU, f32 against f64 stage by stage, the accounting
+    identities, bit-equal latency repeats, and a time for every stage of
+    the entry point."""
     import pandas as pd
     import torch
 
@@ -972,28 +1206,32 @@ def intraday_scale(dev, smi):
       f"host: synthetic frame {gen_ms:.1f} ms (one call), compaction {compact_ms:.1f} "
       f"ms (median of 3)")
     adv_h, vol_h = daily_risk_maps(df, compact.tickers)
+    window, alpha, threshold = 30, 1.0, 1e-5
 
-    def device_part(device, dtype, lat=0, model="ridge"):
-        """features -> fit -> dense panels -> engine, from the compact layout."""
-        price = torch.as_tensor(compact.price, dtype=dtype).to(device)
-        volume = torch.as_tensor(compact.volume, dtype=dtype).to(device)
-        rv = torch.as_tensor(compact.row_valid).to(device)
-        feats, fv = minute_features(price, volume, rv)
+    def entry(device, dtype=torch.float64, model="ridge"):
+        """``intraday_pipeline`` itself, with its panels and risk maps."""
+        res, fit, comp, score, price, valid = intraday_pipeline(
+            minute_df, df, window_minutes=window, threshold=threshold, cash0=1e6,
+            dtype=dtype, model=model, device=device)
+        if not (np.array_equal(comp.price, compact.price, equal_nan=True)
+                and np.array_equal(comp.time_idx, compact.time_idx)):
+            raise AssertionError("intraday (b): the entry point compacts otherwise")
+        return dict(res=res, fit=fit, score=score, sc=torch.nan_to_num(score), price=price,
+                    valid=valid, adv=torch.as_tensor(adv_h, dtype=dtype).to(device),
+                    vol=torch.as_tensor(vol_h, dtype=dtype).to(device))
+
+    def features(dtype):
+        """The entry point's first device stages on the card: H2D of the
+        compact panels, features, labels."""
+        price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
+        volume = torch.as_tensor(compact.volume, dtype=dtype).to(dev)
+        rv = torch.as_tensor(compact.row_valid).to(dev)
+        feats, fv = minute_features(price, volume, rv, window=window)
         y, yv = next_row_return(price, fv)
-        if model == "ridge":
-            fit = ridge_time_series_cv(feats, y, yv)
-        else:
-            fit = elastic_net_time_series_cv(feats, y, yv, alpha=1e-8)
-        score, dprice, dvalid = scatter_to_minutes(compact, yv, (fit.scores, price))
-        adv = torch.as_tensor(adv_h, dtype=dtype).to(device)
-        vol = torch.as_tensor(vol_h, dtype=dtype).to(device)
-        sc = torch.nan_to_num(score)
-        res = event_backtest(dprice, dvalid, sc, adv, vol, latency_bars=lat)
-        return dict(feats=feats, fv=fv, y=y, yv=yv, fit=fit, score=score, sc=sc,
-                    price=dprice, valid=dvalid, adv=adv, vol=vol, res=res)
+        return dict(price=price, volume=volume, rv=rv, feats=feats, fv=fv, y=y, yv=yv)
 
     def extras(d, lat):
-        """The engines beyond the plain one, on a device part's panels."""
+        """The engines beyond the plain one, on the entry point's panels."""
         p, va, sc, adv, vol = d["price"], d["valid"], d["sc"], d["adv"], d["vol"]
         out = {"lat": event_backtest(p, va, sc, adv, vol, latency_bars=lat),
                "limit": event_backtest(p, va, sc, adv, vol, order_type="limit",
@@ -1007,15 +1245,15 @@ def intraday_scale(dev, smi):
 
     lat = 2
     cpu = torch.device("cpu")
-    g64 = device_part(dev, torch.float64)
+    g64 = entry(dev)
     x64 = extras(g64, lat)
-    c64 = device_part(cpu, torch.float64)
+    c64 = entry(cpu)
     y64 = extras(c64, lat)
 
     # -- f64 card == f64 CPU ---------------------------------------------
-    for m in ("fv", "yv", "valid"):
-        if not torch.equal(g64[m].cpu(), c64[m]):
-            raise AssertionError(f"intraday (b): mask {m} differs card vs CPU")
+    if not torch.equal(g64["valid"].cpu(), c64["valid"]) or not torch.equal(
+            g64["fit"].scores.isnan().cpu(), c64["fit"].scores.isnan()):
+        raise AssertionError("intraday (b): the validity masks differ card vs CPU")
     if int(g64["fit"].n_train) != int(c64["fit"].n_train):
         raise AssertionError("intraday (b): n_train differs card vs CPU")
     torch.testing.assert_close(g64["score"].cpu(), c64["score"], rtol=1e-9, atol=1e-15,
@@ -1044,9 +1282,9 @@ def intraday_scale(dev, smi):
                                        atol=1e-6, msg=f"intraday (b) {label}: {f}")
 
     sc_cpu = c64["sc"]
-    same_engine("event_backtest", g64["res"], c64["res"], sc_cpu, (1e-5,))
-    same_engine(f"latency {lat}", x64["lat"], y64["lat"], sc_cpu, (1e-5,))
-    same_engine(f"limit latency {lat}", x64["limit"], y64["limit"], sc_cpu, (1e-5,))
+    same_engine("intraday_pipeline", g64["res"], c64["res"], sc_cpu, (threshold,))
+    same_engine(f"latency {lat}", x64["lat"], y64["lat"], sc_cpu, (threshold,))
+    same_engine(f"limit latency {lat}", x64["limit"], y64["limit"], sc_cpu, (threshold,))
     same_engine(f"hysteresis latency {lat}", x64["hyst"], y64["hyst"], sc_cpu, (1e-4, 2e-5))
     if not torch.equal(x64["sweep"][1].cpu(), y64["sweep"][1]):
         raise AssertionError("intraday (b): sweep trade counts card vs CPU")
@@ -1055,19 +1293,17 @@ def intraday_scale(dev, smi):
         for f, val in _result_fields(x64[k]).items():
             torch.testing.assert_close(val.cpu(), getattr(y64[k], f), rtol=1e-9, atol=1e-6,
                                        msg=f"intraday (b): {k}.{f} card vs CPU")
-    ge = device_part(dev, torch.float64, model="elastic_net")
-    ce = device_part(cpu, torch.float64, model="elastic_net")
-    if int(ge["fit"].n_nonzero) != int(ce["fit"].n_nonzero):
-        raise AssertionError("intraday (b): elastic net n_nonzero card vs CPU")
+    ge = entry(dev, model="elastic_net")
+    ce = entry(cpu, model="elastic_net")
     torch.testing.assert_close(ge["score"].cpu(), ce["score"], rtol=1e-9, atol=1e-15,
                                equal_nan=True)
-    same_engine("elastic net event_backtest", ge["res"], ce["res"], ce["sc"], (1e-5,))
-    L(f"f64 card == f64 CPU: masks, n_train {int(g64['fit'].n_train)}, scores (rtol "
-      f"1e-9), trades {int(g64['res'].n_trades)} / latency {lat} "
+    same_engine("elastic net intraday_pipeline", ge["res"], ce["res"], ce["sc"], (threshold,))
+    L(f"f64 intraday_pipeline, card == CPU: masks, n_train {int(g64['fit'].n_train)}, "
+      f"scores (rtol 1e-9), trades {int(g64['res'].n_trades)} / latency {lat} "
       f"{int(x64['lat'].n_trades)} / limit {int(x64['limit'].n_trades)} / hysteresis "
       f"{int(x64['hyst'].n_trades)} / sweep {x64['sweep'][1].tolist()}, elastic net "
-      f"n_nonzero {int(ge['fit'].n_nonzero)} trades {int(ge['res'].n_trades)}")
-    del c64, y64, ce
+      f"trades {int(ge['res'].n_trades)}")
+    del c64, y64, ce, ge
 
     # -- accounting identities and bit-equal repeats on the card ----------
     for label, r in (("event", g64["res"]), ("latency", x64["lat"]), ("limit", x64["limit"]),
@@ -1106,56 +1342,41 @@ def intraday_scale(dev, smi):
       f"of {float(x64['tca'].total_cost):.6f}; hysteresis book within one unit); every "
       f"latency path run twice bit-equal")
 
-    # -- f32 against f64 on the card ---------------------------------------
-    # A score is xs @ coef + intercept on scaled features xs.  Per row,
-    # s32 - s64 = coef64 . (xs32 - xs64) + (coef32 - coef64) . xs32
-    #             + (intercept32 - intercept64) + the f32 rounding of the sum,
-    # so |s32 - s64| <= B = sum|coef64||dxs| + sum|dcoef||xs32| + |dintercept|
-    #                      + (F + 2) u32 (sum|coef32 xs32| + |intercept32|):
-    # an f32 decision can differ from f64 only where |s64 -+ threshold| <= B.
-    g32 = device_part(dev, torch.float32)
-    f64, f32 = g64["fit"], g32["fit"]
-    F = g64["feats"].shape[-1]
-
-    def scaled(d):
-        fit = d["fit"]
-        return (torch.nan_to_num(d["feats"].reshape(-1, F)) - fit.scale_mean) / fit.scale_std
-
-    xs64, xs32 = scaled(g64), scaled(g32)
-    u32 = 2.0 ** -24
-    bound = ((xs32.double() - xs64).abs() @ f64.coef.abs()
-             + xs32.double().abs() @ (f32.coef.double() - f64.coef).abs()
-             + (f32.intercept.double() - f64.intercept).abs()
-             + (F + 2) * u32 * ((xs32 * f32.coef).double().abs().sum(-1)
-                                + f32.intercept.double().abs()))
-    bound = bound.reshape(g64["yv"].shape)
-    dev_err = (g32["fit"].scores.double() - f64.scores).abs()
-    if bool((dev_err[g64["yv"]] > bound[g64["yv"]]).any()):
-        raise AssertionError("intraday (b): an f32 score is off its f64 one beyond B")
-    (dense_b,) = scatter_to_minutes(compact, g64["yv"], (bound,))[:1]
+    # -- f32 against f64, stage by stage ------------------------------------
+    d64, d32 = features(torch.float64), features(torch.float32)
+    g32 = entry(dev, torch.float32)
+    # the features are the entry point's: its own fit comes back from them
+    # (to the reduction order a library may vary from call to call)
+    same_fit = {"f64": dict(rtol=1e-12, atol=1e-18), "f32": dict(rtol=1e-5, atol=1e-10)}
+    for dt, d, g in (("f64", d64, g64), ("f32", d32, g32)):
+        fit = ridge_time_series_cv(d["feats"], d["y"], d["yv"], alpha=alpha)
+        torch.testing.assert_close(fit.scores, g["fit"].scores, equal_nan=True, **same_fit[dt],
+                                   msg=f"intraday (b): {dt} features are not the entry point's")
+    d64["fit"] = g64["fit"]
+    band, held = hold_f32(d32, d64, g32["fit"], window, alpha)
+    (dense_band,) = scatter_to_minutes(compact, d64["yv"], (band,))[:1]
     s64 = g64["sc"]
-    at_risk = ((s64 - 1e-5).abs() <= dense_b) | ((s64 + 1e-5).abs() <= dense_b)
+    at_risk = ((s64 - threshold).abs() <= dense_band) | ((s64 + threshold).abs() <= dense_band)
     diff = g32["res"].trade_side.to(torch.int32) != g64["res"].trade_side.to(torch.int32)
     if bool((diff & ~at_risk).any()):
-        raise AssertionError("intraday (b): an f32 decision differs from f64 farther "
-                             "than B from the threshold")
-    moved = int(f32.n_train) != int(f64.n_train)
-    L(f"f32 vs f64: n_train {int(f32.n_train)} vs {int(f64.n_train)}"
-      f"{' (moved: f32 rounding of n_total * 0.7)' if moved else ''}; score error "
-      f"max {float(dev_err[g64['yv']].max()):.3e}, median bound B "
-      f"{float(bound[g64['yv']].median()):.3e}; {int(at_risk.sum())} decisions lie "
-      f"within B of +-threshold, {int(diff.sum())} differ; trades f32 "
-      f"{int(g32['res'].n_trades)} vs f64 {int(g64['res'].n_trades)}, PnL "
-      f"{float(g32['res'].total_pnl):.4f} vs {float(g64['res'].total_pnl):.4f}")
-    del g32, xs32, xs64
+        raise AssertionError("intraday (b): an f32 decision differs from f64 outside the "
+                             "band of the threshold")
+    yv = d64["yv"]
+    L(f"f32 vs f64, each stage within its derived limit (largest error / limit): "
+      f"{json.dumps(held)}; n_train {int(g32['fit'].n_train)} vs {int(g64['fit'].n_train)}; "
+      f"score band median {float(band[yv].median()):.3e}, max {float(band[yv].max()):.3e}; "
+      f"{int(at_risk.sum())} decisions lie within the band of +-threshold, "
+      f"{int(diff.sum())} differ; trades f32 {int(g32['res'].n_trades)} vs f64 "
+      f"{int(g64['res'].n_trades)}, PnL {float(g32['res'].total_pnl):.4f} vs "
+      f"{float(g64['res'].total_pnl):.4f}")
 
     # -- MLP at scale, f64 on the card (the CPU is too slow to hold it) -----
-    feats, y, yv = g64["feats"], g64["y"], g64["yv"]
+    feats, y = d64["feats"], d64["y"]
     fits = []
     mlp_dev_ms, mlp_ms = time_call(lambda: fits.append(mlp_time_series_cv(feats, y, yv)),
                                    reps=1, warmup=0)
     mfit = fits.pop()
-    if int(mfit.n_train) != int(f64.n_train) or not bool(
+    if int(mfit.n_train) != int(g64["fit"].n_train) or not bool(
             torch.isfinite(mfit.scores[yv]).all()) or not bool(
             (torch.isfinite(mfit.cv_mse) & (mfit.cv_mse > 0)).all()):
         raise AssertionError("intraday (b): the MLP at scale is not finite")
@@ -1163,24 +1384,23 @@ def intraday_scale(dev, smi):
       f"host wall, {mlp_dev_ms:.1f} ms CUDA events; cv_mse {mfit.cv_mse.tolist()}")
     del mfit
 
-    # -- stage times, f64 and f32 -----------------------------------------
-    for dtype in (torch.float64, torch.float32):
-        d = g64 if dtype == torch.float64 else device_part(dev, dtype)
-        price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
-        volume = torch.as_tensor(compact.volume, dtype=dtype).to(dev)
-        rv = torch.as_tensor(compact.row_valid).to(dev)
-        p, va, sc, adv, vol = (d[k] for k in ("price", "valid", "sc", "adv", "vol"))
+    # -- the entry point's stages, timed on its own inputs, f64 and f32 -----
+    for dtype, d, g in ((torch.float64, d64, g64), (torch.float32, d32, g32)):
+        p, va, sc, adv, vol = (g[k] for k in ("price", "valid", "sc", "adv", "vol"))
         stages = {
             "h2d": (lambda: [torch.as_tensor(x, dtype=dtype).to(dev)
                              for x in (compact.price, compact.volume)], {}),
-            "features": (lambda: minute_features(price, volume, rv), {}),
-            "ridge_fit": (lambda: ridge_time_series_cv(d["feats"], d["y"], d["yv"]), {}),
+            "features": (lambda: minute_features(d["price"], d["volume"], d["rv"],
+                                                 window=window), {}),
+            "ridge_fit": (lambda: ridge_time_series_cv(d["feats"], d["y"], d["yv"],
+                                                       alpha=alpha), {}),
             "elastic_net_fit": (lambda: elastic_net_time_series_cv(
                 d["feats"], d["y"], d["yv"], alpha=1e-8), dict(reps=3, warmup=1)),
-            "scatter": (lambda: scatter_to_minutes(compact, d["yv"], (d["fit"].scores, price)),
-                        {}),
-            "event_backtest": (lambda: event_backtest(p, va, sc, adv, vol), {}),
-            "cost_attribution": (lambda: cost_attribution(d["res"], p), {}),
+            "scatter": (lambda: scatter_to_minutes(compact, d["yv"],
+                                                   (g["fit"].scores, d["price"])), {}),
+            "event_backtest": (lambda: event_backtest(p, va, sc, adv, vol,
+                                                      threshold=threshold), {}),
+            "cost_attribution": (lambda: cost_attribution(g["res"], p), {}),
             "hysteresis": (lambda: hysteresis_event_backtest(
                 p, va, sc, adv, vol, threshold_hi=1e-4, threshold_lo=2e-5), {}),
             "sweep8": (lambda: threshold_sweep(p, va, sc, adv, vol,
@@ -1196,13 +1416,27 @@ def intraday_scale(dev, smi):
             times[name] = {"device_ms": d_ms, "host_ms": h_ms}
         L(f"{str(dtype)[6:]} stage medians (CUDA events / host, ms; 25 reps unless "
           f"noted: elastic net 3, sweep 5): {json.dumps(times)}")
-        del d
 
+    adv32, vol32 = g32["adv"], g32["vol"]
+
+    def device_part():
+        """The entry point's device work after compaction, f32, for the trace."""
+        d = features(torch.float32)
+        fit = ridge_time_series_cv(d["feats"], d["y"], d["yv"], alpha=alpha)
+        score, price, valid = scatter_to_minutes(compact, d["yv"], (fit.scores, d["price"]))
+        return fit, event_backtest(price, valid, torch.nan_to_num(score), adv32, vol32,
+                                   threshold=threshold)
+
+    fit_p, _ = device_part()
+    torch.testing.assert_close(fit_p.scores, g32["fit"].scores, equal_nan=True,
+                               **same_fit["f32"],
+                               msg="intraday (b): the traced device part is not the entry point's")
     whole = _trace(lambda: intraday_pipeline(minute_df, df, dtype=torch.float32,
                                              device=dev), warm=False)
-    part = _trace(lambda: device_part(dev, torch.float32))
+    part = _trace(device_part)
     L(f"trace f32: intraday_pipeline whole call (host compaction included) {json.dumps(whole)}; "
-      f"device part (features -> ridge -> scatter -> engine) {json.dumps(part)}")
+      f"its device part (H2D -> features -> ridge -> scatter -> engine, equal to the "
+      f"call's result) {json.dumps(part)}")
 
 
 def write_cli_cache(out_dir: str):
@@ -1249,8 +1483,8 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
     import torch
 
     from csmom_tpu_torch.analytics.plots import save_trades_csv
-    from csmom_tpu_torch.api import intraday_pipeline
-    from csmom_tpu_torch.backtest.event import trades_dataframe
+    from csmom_tpu_torch.api import daily_risk_maps, intraday_pipeline, scatter_to_minutes
+    from csmom_tpu_torch.backtest.event import event_backtest, trades_dataframe
     from csmom_tpu_torch.cli.main import main as cli
     from csmom_tpu_torch.config import RunConfig
     from csmom_tpu_torch.models import online_ridge_scores
@@ -1265,24 +1499,29 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
     daily_df = load_daily(cache, tickers)
     compact = compact_minutes(minute_df)
     A, R = compact.price.shape
+    icfg = RunConfig().intraday
 
     # -- (c) online ridge at the reference's shape -------------------------
     walls = {}
     for dtype in (torch.float64, torch.float32):
         price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
         volume = torch.as_tensor(compact.volume, dtype=dtype).to(dev)
-        feats, fv = minute_features(price, volume, torch.as_tensor(compact.row_valid).to(dev))
+        feats, fv = minute_features(price, volume, torch.as_tensor(compact.row_valid).to(dev),
+                                    window=icfg.window_minutes)
         y, yv = next_row_return(price, fv)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        online_ridge_scores(feats, y, yv)
+        walk = online_ridge_scores(feats, y, yv, n_splits=icfg.n_splits, alpha=icfg.alpha)
         end.record()
         torch.cuda.synchronize()
         walls[str(dtype)[6:]] = {"host_ms": (time.perf_counter() - t0) * 1e3,
                                  "device_ms": start.elapsed_time(end)}
         if dtype == torch.float64:
+            # the CLI's own online-ridge walk: (d) finishes the pipeline
+            # from it rather than walking the same inputs again
+            walk64 = (walk, price, yv)
             # the walk is a fixed Python loop, so its launches are a + b*R:
             # profile two row counts and read a and b off them exactly
             traces = {r: _trace(lambda r=r: online_ridge_scores(
@@ -1296,8 +1535,14 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
                     f"{json.dumps(traces)}) | {smi}")
 
     # -- (d) the CLI --------------------------------------------------------
-    icfg = RunConfig().intraday
-    results = {}
+    walk, price, yv = walk64
+    score, dprice, dvalid = scatter_to_minutes(compact, yv, (walk.scores, price))
+    adv, vol = (torch.as_tensor(x, dtype=torch.float64).to(dev)
+                for x in daily_risk_maps(daily_df, compact.tickers))
+    res = event_backtest(dprice, dvalid, torch.nan_to_num(score), adv, vol,
+                         size_shares=icfg.size_shares, threshold=icfg.threshold,
+                         cash0=icfg.cash0)
+    results = {("online_ridge", 0): (res, walk, compact, score, dprice, dvalid)}
 
     def api(model, lat=0):
         key = (model, lat)

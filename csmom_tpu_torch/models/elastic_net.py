@@ -34,9 +34,10 @@ class ElasticNetFit:
     n_nonzero: torch.Tensor   # i32 selected features in the final model
 
     @classmethod
-    def from_numpy(cls, device="cpu", **arrays):
+    def from_numpy(cls, device=None, **arrays):
         """A fit from numpy arrays (a ``csmom_tpu`` fit's fields), as
-        tensors on ``device``."""
+        tensors on ``device`` (cuda by default; raises without a card
+        unless ``device="cpu"``)."""
         return cls(**_tensors(arrays, device))
 
 

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from csmom_tpu_torch import random
+from csmom_tpu_torch.device import resolve_device
 from csmom_tpu_torch.models.ridge import time_series_cv_harness
 
 # optax.adamw's defaults (b1, b2, eps; eps_root is 0)
@@ -54,12 +55,13 @@ class MLP(nn.Module):
         return (h @ head.weight.T + head.bias)[:, 0]
 
 
-def params_from_numpy(params, device="cpu") -> MLP:
+def params_from_numpy(params, device=None) -> MLP:
     """The port's :class:`MLP` carrying the JAX package's weights: ``params``
     is a list of ``(W [in, out], b [out])`` numpy arrays (a ``csmom_tpu``
-    ``MLPFit.params``); the model keeps their dtype."""
+    ``MLPFit.params``); the model keeps their dtype.  ``device`` is cuda by
+    default and raises without a card unless ``device="cpu"``."""
     return _mlp_of([(torch.tensor(np.array(W)), torch.tensor(np.array(b)))
-                    for W, b in params], device)
+                    for W, b in params], resolve_device(device))
 
 
 def _mlp_of(params, device) -> MLP:

@@ -43,9 +43,10 @@ class OnlineRidgeFit:
     n_train: torch.Tensor     # i32 rows ever updated on (== n valid rows)
 
     @classmethod
-    def from_numpy(cls, device="cpu", **arrays):
+    def from_numpy(cls, device=None, **arrays):
         """A fit from numpy arrays (a ``csmom_tpu`` fit's fields), as
-        tensors on ``device``."""
+        tensors on ``device`` (cuda by default; raises without a card
+        unless ``device="cpu"``)."""
         return cls(**_tensors(arrays, device))
 
 

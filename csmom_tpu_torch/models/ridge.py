@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from csmom_tpu_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class RidgeFit:
@@ -30,14 +32,16 @@ class RidgeFit:
     n_train: torch.Tensor     # i32 number of training rows
 
     @classmethod
-    def from_numpy(cls, device="cpu", **arrays):
+    def from_numpy(cls, device=None, **arrays):
         """A fit from numpy arrays (a ``csmom_tpu`` fit's fields, read
-        with ``np.asarray``), as tensors on ``device``."""
+        with ``np.asarray``), as tensors on ``device`` (cuda by default;
+        raises without a card unless ``device="cpu"``)."""
         return cls(**_tensors(arrays, device))
 
 
 def _tensors(arrays, device):
-    return {k: torch.as_tensor(np.array(v), device=device) for k, v in arrays.items()}
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v), device=dev) for k, v in arrays.items()}
 
 
 def _masked_ridge(Xs, y, w, alpha):

@@ -210,6 +210,8 @@ def test_entry_points_raise_without_a_card():
 
     from csmom_tpu_torch import monthly_price_panel, run_grid, run_monthly
     from csmom_tpu_torch.device import resolve_device
+    from csmom_tpu_torch.models import ElasticNetFit, OnlineRidgeFit, RidgeFit
+    from csmom_tpu_torch.models.mlp import params_from_numpy
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
     from csmom_tpu_torch.workloads import month_panel
 
@@ -221,7 +223,11 @@ def test_entry_points_raise_without_a_card():
                  lambda: monthly_price_panel(
                      os.path.join(_REPO, "tests", "fixtures", "universe"), ["SYNAA"]),
                  lambda: month_panel(3, 40), lambda: resolve_device(None),
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"),
+                 lambda: params_from_numpy([(np.ones((2, 1)), np.zeros(1))]),
+                 lambda: RidgeFit.from_numpy(coef=np.zeros(2)),
+                 lambda: ElasticNetFit.from_numpy(coef=np.zeros(2)),
+                 lambda: OnlineRidgeFit.from_numpy(coef=np.zeros(2))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

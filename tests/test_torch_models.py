@@ -177,7 +177,7 @@ def test_mlp_without_hidden_layers_equals_the_reference():
 def test_jax_trained_mlp_scores_the_same_rows_in_the_port(mlp_fits):
     (feats, y, valid), want, _ = mlp_fits
     model = mlp.params_from_numpy([(np.asarray(W), np.asarray(b))
-                                   for W, b in want.params])
+                                   for W, b in want.params], device="cpu")
     assert [tuple(layer.weight.shape) for layer in model.layers] == [(32, 5), (16, 32),
                                                                      (1, 16)]
     Xs = (np.nan_to_num(feats.reshape(-1, 5)) - np.asarray(want.scale_mean)) / \
@@ -200,7 +200,8 @@ def test_linear_fits_load_from_the_reference(data):
                       (jmodels.elastic_net_time_series_cv(*data), models.ElasticNetFit),
                       (jmodels.online_ridge_scores(*data, standardize=False),
                        models.OnlineRidgeFit)):
-        fit = cls.from_numpy(**{f.name: np.asarray(getattr(jfit, f.name))
+        fit = cls.from_numpy(device="cpu",
+                             **{f.name: np.asarray(getattr(jfit, f.name))
                                 for f in dataclasses.fields(jfit)})
         assert int(fit.n_train) == int(jfit.n_train)
         if cls is models.OnlineRidgeFit:   # final weights on raw features
