@@ -1208,17 +1208,20 @@ def intraday_scale(dev, smi):
     adv_h, vol_h = daily_risk_maps(df, compact.tickers)
     window, alpha, threshold = 30, 1.0, 1e-5
 
-    def entry(device, dtype=torch.float64, model="ridge"):
-        """``intraday_pipeline`` itself, with its panels and risk maps."""
+    def entry(device, dtype=None, model="ridge"):
+        """``intraday_pipeline`` itself (its own dtype, f64, unless one is
+        given), with its panels and risk maps."""
         res, fit, comp, score, price, valid = intraday_pipeline(
             minute_df, df, window_minutes=window, threshold=threshold, cash0=1e6,
             dtype=dtype, model=model, device=device)
         if not (np.array_equal(comp.price, compact.price, equal_nan=True)
                 and np.array_equal(comp.time_idx, compact.time_idx)):
             raise AssertionError("intraday (b): the entry point compacts otherwise")
+        if price.dtype != (dtype or torch.float64):
+            raise AssertionError(f"intraday (b): the entry point ran in {price.dtype}")
         return dict(res=res, fit=fit, score=score, sc=torch.nan_to_num(score), price=price,
-                    valid=valid, adv=torch.as_tensor(adv_h, dtype=dtype).to(device),
-                    vol=torch.as_tensor(vol_h, dtype=dtype).to(device))
+                    valid=valid, adv=torch.as_tensor(adv_h, dtype=price.dtype).to(device),
+                    vol=torch.as_tensor(vol_h, dtype=price.dtype).to(device))
 
     def features(dtype):
         """The entry point's first device stages on the card: H2D of the
