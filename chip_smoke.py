@@ -1438,8 +1438,8 @@ def intraday_scale(dev, smi):
                                              device=dev), warm=False)
     part = _trace(device_part)
     L(f"trace f32: intraday_pipeline whole call (host compaction included) {json.dumps(whole)}; "
-      f"its device part (H2D -> features -> ridge -> scatter -> engine, equal to the "
-      f"call's result) {json.dumps(part)}")
+      f"its device part (H2D -> features -> ridge -> scatter -> engine, its fit the "
+      f"call's) {json.dumps(part)}")
 
 
 def write_cli_cache(out_dir: str):
