@@ -71,8 +71,26 @@ any phase fails (nothing is caught).  Phases:
    ``device_ms`` the kernels' own durations in a profiler trace of the
    same call, ``kernels_per_call`` how many kernels it launched,
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
-   ``research_launches``, ``data_in_launches``, ``cli_launches`` and
-   ``intraday_launches`` the counts of phases 6, 7, 8 and 9;
+   ``research_launches``, ``data_in_launches``, ``cli_launches``,
+   ``intraday_launches`` and ``serve_launches`` the counts of phases 6,
+   7, 8, 9 and 11, and K1's ``serve_device_ms`` and ``serve_bound_ms`` at
+   the serve shape ``serve_shape``;
+11. serve (run before phase 9): (a) each of the five endpoints'
+   ``TorchEngine`` on the card against ``TorchEngine(device="cpu")`` at
+   all six shapes of profile ``serve`` (B in {1, 4, 8} x A in {32, 128} x
+   60 months, padded rows and assets) in f64 and f32, K1 on the folded
+   ``[A, B*60]`` against its plain version, ``backtest`` launching K1 once
+   a micro-batch, one request alone against the same request in a batch
+   of 8, and each endpoint's micro-batch timed and traced; (b)
+   ``SignalService`` on the card, telemetry disarmed, driven by
+   ``run_loadgen`` with the schedules ``2x40``, ``bursty`` and ``10x200``
+   (seed 0; the last long enough for p99 to be a percentile): closed
+   books, no kernel built in the window, no worker crash, a valid
+   artifact, every served
+   result equal to the engine scoring that request alone, its latency,
+   batch and cache figures and the allocator's growth; launch counts read
+   around the runs; (c) the CLI's ``serve`` and ``loadgen``; (d) K1 timed
+   at the serve shape;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -1650,6 +1668,304 @@ def intraday_phase(dev, smi) -> dict:
         return intraday_cli(dev, smi, cache, tickers, os.path.join(tmp, "results"))
 
 
+# phase 11: the in-process serving tier on the card.  Profile "serve":
+# 60-month histories, universes padded to 32 or 128 names, micro-batches
+# padded to 1, 4 or 8 requests, f32 (the JAX package's production grid)
+SERVE_SHAPES = ((1, 32), (1, 128), (4, 32), (4, 128), (8, 32), (8, 128))
+SERVE_MONTHS = 60
+# the card's f32 scores against the CPU's: the same algorithm in f32 on
+# both, differing only in the order of their reductions (K1's sums over
+# at most 128 assets, cumulative sums over 60 months, z-score moments
+# over 128 assets).  Each reordered sum moves by at most n u sum|x| with
+# u = 6e-8 and n <= 128, under 1e-5 of its magnitude; the scores divide
+# such sums (means, ratios of a mean to a standard deviation), which at
+# worst doubles the relative error.  1e-4 relative leaves a factor of 5
+# over that; 1e-6 absolute covers a score that cancels to ~0 (a spread
+# or a z-score of a nearly flat cross-section), whose error is relative
+# to the magnitudes summed, not to the result.  The same limit as the
+# CPU tests hold the port to the JAX package in f32.
+SERVE_F32 = dict(rtol=1e-4, atol=1e-6)
+# the service runs: the CLI's default schedule and the named bursty one
+# (73 and 240 arrivals, where the nearest-rank p99 is the run's worst
+# request or close to it), and 10 s at a steady 200 req/s with the
+# default load (2,000 arrivals), long enough for p99 to be a percentile
+SERVE_SCHEDULES = ("2x40", "bursty", "10x200")
+
+
+def serve_batch(rng, kind, B, A, dtype):
+    """A padded micro-batch as the batcher builds it: ``max(1, B-1)``
+    requests of the loadgen's synthetic panels (a padded row wherever B >
+    1), the first with ``A - 3`` assets and the others 2..A, the rest of
+    every row masked padding.  Returns ``(values, mask, sizes)``."""
+    import random as pyrandom
+
+    from csmom_tpu_torch.serve.loadgen import synth_panel
+
+    r = pyrandom.Random(int(rng.integers(2**31)))
+    values = np.zeros((B, A, SERVE_MONTHS), dtype)
+    mask = np.zeros((B, A, SERVE_MONTHS), bool)
+    sizes = []
+    for b in range(max(1, B - 1)):
+        n = A - 3 if b == 0 else r.randint(2, A)
+        v, m = synth_panel(r, n, SERVE_MONTHS, kind)
+        values[b, :n], mask[b, :n] = v, m
+        sizes.append(n)
+    return values, mask, sizes
+
+
+def hold_scores(got, want, what, f64):
+    """NaN in the same places, the rest within F64_TOL or SERVE_F32."""
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{what}: NaN in different places")
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], err_msg=what,
+                               **(F64_TOL if f64 else SERVE_F32))
+    return float(np.abs(got[ok] - want[ok]).max()) if ok.any() else 0.0
+
+
+def k1_inputs_of(engine, values, mask):
+    """The ``(ret, labels, n_bins)`` that the ``backtest`` endpoint passes
+    to K1 when ``engine`` scores this micro-batch, captured where
+    backtest/monthly.py calls the wrapper (the endpoint makes exactly one
+    K1 call a batch).  The ``kernels`` module itself is left as it is:
+    the wrapper counts its launches through its own module-level name."""
+    from csmom_tpu_torch.backtest import monthly
+    from csmom_tpu_torch.ops import kernels
+
+    seen = []
+
+    class Capture:
+        def __getattr__(self, name):
+            return getattr(kernels, name)
+
+        @staticmethod
+        def decile_partial_sums(ret, labels, n_bins):
+            seen.append((ret.clone(), labels.clone(), n_bins))
+            return kernels.decile_partial_sums(ret, labels, n_bins)
+
+    monthly.kernels = Capture()
+    try:
+        engine.score("backtest", values, mask)
+    finally:
+        monthly.kernels = kernels
+    if len(seen) != 1:
+        raise AssertionError(f"serve backtest: {len(seen)} K1 calls in one batch")
+    return seen[0]
+
+
+def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
+    """Phase 11: the serving tier on the card.  Returns the service runs'
+    launch counts and K1's time and bound at the serve shape."""
+    import contextlib
+    import io
+
+    import torch
+
+    from csmom_tpu_torch.cli.main import main as cli
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.phases import REPS, _trace, time_call, time_kernels
+    from csmom_tpu_torch.registry import serve_endpoints, serve_surface
+    from csmom_tpu_torch.serve.engine import TorchEngine, unpack_result
+    from csmom_tpu_torch.serve.loadgen import LoadConfig, resolve_schedule, run_loadgen
+    from csmom_tpu_torch.serve.queue import Request
+    from csmom_tpu_torch.serve.service import ServeConfig, SignalService
+
+    rng = np.random.default_rng(20261017)
+    kinds = serve_endpoints()
+    card, host = TorchEngine(device="cuda"), TorchEngine(device="cpu")
+
+    # -- (a) engine parity on the card ---------------------------------------
+    errs = {}
+    for kind in kinds:
+        for B, A in SERVE_SHAPES:
+            for dtype in (np.float64, np.float32):
+                v, m, _ = serve_batch(rng, kind, B, A, dtype)
+                kernels.reset_launches()
+                got = card.score(kind, v, m)
+                k1 = kernels.decile_partial_sums.launches
+                want = 1 if kind == "backtest" else 0
+                if k1 != want or kernels.cohort_partial_sums.launches:
+                    raise AssertionError(f"serve {kind} B={B} A={A}: K1 launched "
+                                         f"{k1} times, expected {want}")
+                what = f"serve {kind} B={B} A={A} {np.dtype(dtype).name}"
+                err = hold_scores(got, host.score(kind, v, m), what,
+                                  dtype == np.float64)
+                key = f"{kind}_{np.dtype(dtype).name}"
+                errs[key] = max(errs.get(key, 0.0), err)
+    # K1 on the folded batch against its plain version
+    for B, A in SERVE_SHAPES:
+        for dtype in (np.float64, np.float32):
+            v, m, _ = serve_batch(rng, "backtest", B, A, dtype)
+            r, lab, n_bins = k1_inputs_of(card, v, m)
+            if tuple(r.shape) != (A, B * SERVE_MONTHS) or n_bins != 10:
+                raise AssertionError(f"serve K1 inputs {tuple(r.shape)}, {n_bins} bins")
+            s, c = kernels.decile_partial_sums(r, lab, 10)
+            ps, pc = kernels.decile_partial_sums_plain(r, lab, 10)
+            absum, _ = kernels.decile_partial_sums_plain(r.abs(), lab, 10)
+            torch.cuda.synchronize()
+            if not torch.equal(c, pc):
+                raise AssertionError(f"serve K1 [{A}, {B * SERVE_MONTHS}]: counts differ")
+            assert_sums(s, ps, absum, r.dtype, f"serve K1 [{A}, {B * SERVE_MONTHS}]")
+    # one request alone equals the same request inside a full batch
+    for kind in kinds:
+        v, m, sizes = serve_batch(rng, kind, 8, 128, np.float32)
+        full = card.score(kind, v, m)
+        for b in (0, 3):
+            A1 = 32 if sizes[b] <= 32 else 128
+            alone = card.score(kind, v[b:b + 1, :A1], m[b:b + 1, :A1])
+            n = sizes[b]
+            want = full[b] if serve_surface(kind).output == "summary" else full[b, :n]
+            got = alone[0] if serve_surface(kind).output == "summary" else alone[0, :n]
+            hold_scores(got, want, f"serve {kind}: request {b} alone vs in a batch of 8",
+                        False)
+    log("serve", f"(a) 5 endpoints x 6 shapes: card == CPU (f64 within {F64_TOL}, "
+                 f"f32 within {SERVE_F32}, NaN in the same places); max |err| "
+                 f"{json.dumps(errs)}; K1 == plain on every folded [A, B*60] in both "
+                 f"types; backtest launches K1 once a micro-batch at every B; a "
+                 f"request alone == the same request in a batch of 8")
+
+    # per-endpoint micro-batch times at B in {1, 8}, A = 128, f32
+    for kind in kinds:
+        for B in (1, 8):
+            v, m, _ = serve_batch(rng, kind, B, 128, np.float32)
+            kernels.reset_launches()
+            card.score(kind, v, m)
+            k1 = kernels.decile_partial_sums.launches
+            d_ms, h_ms = time_call(lambda: card.score(kind, v, m))
+            log("serve", f"time {kind} B={B} A=128: {d_ms:.4f} ms CUDA events, host "
+                         f"{h_ms:.4f} ms (median of {REPS}; H2D + scorer + D2H), K1 "
+                         f"launches a call {k1} | {smi}")
+    for kind in ("backtest", "momentum"):
+        v, m, _ = serve_batch(rng, kind, 8, 128, np.float32)
+        tr = _trace(lambda: card.score(kind, v, m))
+        log("serve", f"trace {kind} B=8 A=128: {json.dumps(tr)} | {smi}")
+
+    # -- (d) K1 at the serve shape: a full B = 8, A = 128 micro-batch ------
+    # timed before the service runs: after (b)'s ~500k launches the
+    # profiler lost one K1 record in each of three traces on an H100
+    v, m, _ = serve_batch(rng, "backtest", 8, 128, np.float32)
+    k1_ret, k1_lab, _ = k1_inputs_of(card, v, m)
+    k1_shape = list(k1_ret.shape)
+    nbytes = k1_lab.nbytes + k1_ret.nbytes + 2 * 10 * k1_shape[1] * k1_ret.element_size()
+    ops = 2 * int(((k1_lab >= 0) & (k1_lab < 10)).sum())
+    b_ms, b_by = bound(nbytes, ops)
+    d_ms, per_call = time_kernels(lambda: kernels.decile_partial_sums(k1_ret, k1_lab, 10),
+                                  kernels.decile_partial_sums.device_kernels)
+    log("serve", f"(d) K1 at the serve shape {k1_shape}, 10 bins, f32: device "
+                 f"{d_ms:.6f} ms, bound {b_ms:.6f} ms by {b_by} ({nbytes} bytes, {ops} "
+                 f"ops), kernels a call {per_call} | {smi}")
+
+    # -- (b) the service on the card, the main path ------------------------
+    # telemetry disarmed, as the CLI's loadgen runs it
+    launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    for sched in SERVE_SCHEDULES:
+        schedule, schedule_kind, preset = resolve_schedule(sched)
+        # the main path: counts from 0 at the service's start (its
+        # warm-up included) to the end of the load generator's run
+        kernels.reset_launches()
+        svc = SignalService(ServeConfig(profile="serve", engine="torch"))
+        svc.start()
+        submitted = []
+        submit = svc.submit
+
+        def recording_submit(*a, **kw):
+            req = submit(*a, **kw)
+            submitted.append(req)
+            return req
+
+        svc.submit = recording_submit
+        torch.cuda.synchronize()
+        seg0 = torch.cuda.memory_stats()["segment.all.current"]
+        res0 = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+        art = run_loadgen(svc, LoadConfig(schedule=schedule,
+                                          schedule_kind=schedule_kind, seed=0,
+                                          run_id=f"chip-{sched}", **preset))
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        run_launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                        "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+        for name, n in run_launches.items():
+            launches[name] += n
+        if svc.invariant_violations():
+            raise AssertionError(f"serve {sched}: {svc.invariant_violations()}")
+        if art["compile"]["in_window_fresh_compiles"] != 0:
+            raise AssertionError(f"serve {sched}: fresh compiles "
+                                 f"{art['compile']['in_window_fresh_compiles']}")
+        crashes = svc.accounting()["rejected_worker_crash"]
+        if art["requests"]["rejected_worker_crash"] or crashes:
+            raise AssertionError(f"serve {sched}: worker crashes "
+                                 f"{art['requests']['rejected_worker_crash']} "
+                                 f"({crashes}): " + "; ".join(
+                                     {str(r.error) for r in submitted
+                                      if r.state == "rejected"}))
+        viols = inv.validate(art)
+        if viols:
+            raise AssertionError(f"serve {sched}: artifact invalid: {viols}")
+        # every served result against the engine scoring it alone
+        n_held = 0
+        for r in submitted:
+            if r.state != "served":
+                continue
+            req = Request(kind=r.kind, values=r.values, mask=r.mask,
+                          n_assets=r.n_assets)
+            mb = svc.batcher.pad([req])
+            alone = unpack_result(r.kind, svc.engine.score(r.kind, mb.values,
+                                                           mb.mask), 0, r.n_assets)
+            if isinstance(alone, dict):
+                hold_scores(np.array(list(r.result.values())),
+                            np.array(list(alone.values())),
+                            f"serve {sched}: a served backtest", False)
+            else:
+                hold_scores(np.asarray(r.result), alone,
+                            f"serve {sched}: a served {r.kind}", False)
+            n_held += 1
+        lat = art["latency_ms"]
+        log("serve", f"(b) {sched}: {art['value']} req/s achieved vs "
+                     f"{art['offered']['offered_rps']} offered over {art['wall_s']} s; "
+                     f"requests {json.dumps(art['requests'])}; invariants closed, "
+                     f"0 fresh compiles, 0 worker crashes, artifact valid; "
+                     f"{n_held} served results == the engine alone; launches "
+                     f"{run_launches} | {smi}")
+        log("serve", f"(b) {sched} latency ms {json.dumps(lat)}; per class " + json.dumps(
+            {k: {"p50": b["latency_ms"]["p50"], "p95": b["latency_ms"]["p95"],
+                 "p99": b["latency_ms"]["p99"], "budget_ms": b["budget_ms"],
+                 "served": b["served"], "rejected_quota": b["rejected_quota"]}
+             for k, b in art["classes"].items()}) + "; per endpoint " + json.dumps(
+            {k: dict(b["latency_ms"], served=b["served"])
+             for k, b in art["endpoints"].items()}))
+        log("serve", f"(b) {sched} batches {json.dumps(art['batches'])}; cache hit "
+                     f"rate {art['cache']['hit_rate']} ({art['cache']['hits']} of "
+                     f"{art['cache']['lookups']}), stale hits "
+                     f"{art['cache']['stale_hits']}; allocator over the serving "
+                     f"window: segments {seg0} -> {st['segment.all.current']}, "
+                     f"reserved bytes {res0} -> {st['reserved_bytes.all.current']}")
+    if launches["decile_partial_sums"] < 1 or launches["cohort_partial_sums"]:
+        raise AssertionError(f"serve: launches {launches}, expected K1 > 0, K2 0")
+
+    # -- (c) the CLI ------------------------------------------------------------
+    walls = {}
+    for label, argv, want in (
+            ("serve", ["serve", "--duration", "1", "--device", "cuda"],
+             "self-probe: all endpoints served"),
+            ("loadgen", ["loadgen", "--device", "cuda", "--out", out_dir,
+                         "--run-id", "chip-smoke"], "artifact: ")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        walls[label] = time.perf_counter() - t0
+        if rc != 0 or want not in buf.getvalue():
+            raise AssertionError(f"serve cli {label}: exit {rc}\n{buf.getvalue()}")
+        log("serve", f"(c) {' '.join(argv)}: exit 0 in {walls[label]:.2f} s host wall; "
+                     + " / ".join(ln.strip() for ln in buf.getvalue().splitlines()
+                                  if ln.startswith(("throughput", "latency", "  self-probe",
+                                                    "in-window"))) + f" | {smi}")
+
+    return {"launches": launches, "serve_shape": k1_shape,
+            "serve_device_ms": d_ms, "serve_bound_ms": b_ms, "serve_bound_by": b_by}
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -2254,6 +2570,20 @@ def main() -> int:
                        f"this run; its first version's, recorded (not measured "
                        f"here): {first} ms on an NVIDIA H100 80GB HBM3 at 700 W "
                        f"(PERF.md, section 6)")
+
+    # -- 11. serve: the in-process serving tier, before phase 9 (whose long
+    # traces leave later traces losing records) --------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="csmom_serve_") as tmp:
+        serve = serve_phase(smi, tmp, assert_sums, bound)
+    log("serve", f"phase wall {time.perf_counter() - t_phase:.1f} s; service-run "
+                 f"launches {serve['launches']} | {smi}")
+    for row in rows:
+        row["serve_launches"] = serve["launches"][row["name"]]
+        k1 = row["name"] == "decile_partial_sums"
+        for key in ("serve_shape", "serve_device_ms", "serve_bound_ms",
+                    "serve_bound_by"):
+            row[key] = serve[key] if k1 else None
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()

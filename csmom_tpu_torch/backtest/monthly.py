@@ -10,6 +10,12 @@ The per-(decile, month) aggregation is kernel K1
 ``impl="kernel"`` (the default) launches the CUDA kernel for CUDA tensors
 and runs its plain version for CPU tensors; ``impl="plain"`` forces the
 plain version (the reference's ``impl="xla"``), for tests and comparisons.
+
+:func:`monthly_spread_backtest` also takes a batch of panels ``[B, A,
+M]`` (the serving tier's micro-batch), where the reference vmaps
+over them: time-axis steps act on each asset row, ranking on each
+(panel, month) column, and the aggregation folds the batch into the
+month axis, ``[A, B*M]``, so K1 runs once for the whole batch.
 """
 
 from __future__ import annotations
@@ -47,15 +53,25 @@ class MonthlyResult:
 def decile_partial_sums(next_ret, next_valid, labels, n_bins: int,
                         impl: str = "kernel"):
     """Per-(decile, month) sums and counts over the asset axis:
-    ``(sums f[B, M], counts i32[B, M])``."""
+    ``(sums f[..., n_bins, M], counts i32[..., n_bins, M])`` of panels
+    ``[..., A, M]``.  Leading axes fold into the month axis (every column
+    of ``[A, L*M]`` is one panel's cross-section at one month), so one
+    kernel launch covers them all."""
     lab = torch.where(next_valid, labels, -1)
     r = torch.where(lab >= 0, torch.nan_to_num(next_ret), 0.0)
+    lead, (A, M) = lab.shape[:-2], lab.shape[-2:]
+    if lead:  # [..., A, M] -> contiguous [A, L*M]
+        lab = lab.movedim(-2, 0).reshape(A, -1)
+        r = r.movedim(-2, 0).reshape(A, -1)
     if impl == "kernel":
         sums, counts = kernels.decile_partial_sums(r, lab, n_bins)
     elif impl == "plain":
         sums, counts = kernels.decile_partial_sums_plain(r, lab, n_bins)
     else:
         raise ValueError(f"unknown impl {impl!r}: use 'kernel' or 'plain'")
+    if lead:
+        sums = sums.reshape(n_bins, *lead, M).movedim(0, -2)
+        counts = counts.reshape(n_bins, *lead, M).movedim(0, -2)
     return sums, counts.to(torch.int32)
 
 
@@ -73,19 +89,32 @@ def decile_portfolio_returns(next_ret, next_valid, labels, n_bins: int,
     return decile_means(sums, counts), counts
 
 
-def _assemble_result(ret, ret_valid, labels, n_bins: int, freq: int,
-                     impl: str = "kernel") -> MonthlyResult:
-    """Align next-month returns to the formation month, pool decile means,
-    and wrap the spread statistics."""
-    next_ret = torch.roll(ret, -1, dims=1)
-    next_valid = torch.roll(ret_valid, -1, dims=1)
-    next_valid[:, -1] = False
+def next_month_spread(ret, ret_valid, labels, n_bins: int,
+                      impl: str = "kernel"):
+    """Align next-month returns to the formation month and pool decile
+    means: ``(spread f[..., M], spread_valid bool[..., M], means f[...,
+    n_bins, M], counts i32[..., n_bins, M])`` of panels ``[..., A, M]``.
+    Each panel's months roll on their own, before any folding, so no
+    panel reads another's first month."""
+    next_ret = torch.roll(ret, -1, dims=-1)
+    next_valid = torch.roll(ret_valid, -1, dims=-1)
+    next_valid[..., -1] = False
     next_valid &= labels >= 0
 
     means, counts = decile_portfolio_returns(next_ret, next_valid, labels, n_bins,
                                              impl=impl)
-    spread_valid = (counts[n_bins - 1] > 0) & (counts[0] > 0)
-    spread = torch.where(spread_valid, means[n_bins - 1] - means[0], torch.nan)
+    spread_valid = (counts[..., n_bins - 1, :] > 0) & (counts[..., 0, :] > 0)
+    spread = torch.where(spread_valid,
+                         means[..., n_bins - 1, :] - means[..., 0, :], torch.nan)
+    return spread, spread_valid, means, counts
+
+
+def _assemble_result(ret, ret_valid, labels, n_bins: int, freq: int,
+                     impl: str = "kernel") -> MonthlyResult:
+    """Pool decile means of next-month returns and wrap the spread
+    statistics."""
+    spread, spread_valid, means, counts = next_month_spread(
+        ret, ret_valid, labels, n_bins, impl=impl)
     return MonthlyResult(
         spread=spread,
         spread_valid=spread_valid,
@@ -113,8 +142,9 @@ def monthly_spread_backtest(
 
     Args:
       prices: f[A, M] month-end prices, NaN at masked slots (a tensor; the
-        backtest runs on its device).
-      mask: bool[A, M] observation mask.
+        backtest runs on its device), or a batch of panels f[B, A, M]
+        (every result field then gains the leading B axis).
+      mask: bool[A, M] (or [B, A, M]) observation mask.
       lookback: J months compounded into the formation signal.
       skip: months between window end and formation.
       n_bins: cross-sectional quantile bins (10 = deciles).
@@ -122,6 +152,16 @@ def monthly_spread_backtest(
       freq: periods per year for annualization.
       impl: 'kernel' (CUDA kernel K1 on the card) or 'plain'.
     """
+    ret, ret_valid, labels = formation_labels(prices, mask, lookback, skip,
+                                              n_bins, mode)
+    return _assemble_result(ret, ret_valid, labels, n_bins, freq, impl=impl)
+
+
+def formation_labels(prices, mask, lookback: int, skip: int, n_bins: int,
+                     mode: str):
+    """The backtest's inputs to aggregation: ``(ret, ret_valid, labels
+    i32)``, all ``[..., A, M]``, the labels the momentum deciles at each
+    formation month."""
     ret, ret_valid = monthly_returns(prices, mask)
     mom, mom_valid = momentum(prices, mask, lookback=lookback, skip=skip)
     # the reference's backtest scripts drop an asset from ranking once it
@@ -129,7 +169,7 @@ def monthly_spread_backtest(
     mom_valid = mom_valid & formation_listed_mask(mask, skip)
     mom = torch.where(mom_valid, mom, torch.nan)
     labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
-    return _assemble_result(ret, ret_valid, labels, n_bins, freq, impl=impl)
+    return ret, ret_valid, labels
 
 
 def sector_neutral_backtest(

@@ -3,8 +3,9 @@
 Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
 ``run``, ``replicate``, ``grid``, ``sweep``, ``doublesort``,
 ``intraday``, ``horizons``, ``residual``, ``strategies``, ``pack-info``
-and ``fetch``.  Each prints what ``csmom`` prints for the same
-arguments, line for line (``intraday --threshold-sweep`` names its one
+and ``fetch``, and of the serving tier's in-process ``serve`` and
+``loadgen`` (:mod:`csmom_tpu_torch.cli.serve`).  Each prints what
+``csmom`` prints for the same arguments, line for line (``intraday --threshold-sweep`` names its one
 engine run a threshold where the reference names one vmapped call); the
 subcommand table in ``--help`` is generated from the parser itself.
 
@@ -1472,6 +1473,9 @@ def build_parser() -> argparse.ArgumentParser:
                             action="append", metavar="K=V",
                             help="strategy parameter, repeatable")
 
+    from csmom_tpu_torch.cli.serve import register as register_serve
+
+    register_serve(sub)
     p.epilog = _subcommand_epilog(sub)
     p.formatter_class = argparse.RawDescriptionHelpFormatter
     return p
@@ -1505,7 +1509,8 @@ def main(argv=None) -> int:
               f"{_MULTI_DEVICE}; use --mode rank or --mode hist (the same "
               "labels on one device)", file=sys.stderr)
         return 2
-    if args.command not in _DEVICE_FREE_COMMANDS and args.device == "cuda":
+    if (args.command not in _DEVICE_FREE_COMMANDS and args.device == "cuda"
+            and not getattr(args, "stub", False)):
         import torch
 
         if not torch.cuda.is_available():

@@ -1,11 +1,20 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+    python -m csmom_tpu_torch.ops.build
+
+builds every kernel (the serving tier's cold-cache gate asks for this
+before ``serve`` or ``loadgen`` on the card).  Each source
+``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries go to
 ``build/csmom_tpu_torch/`` at the repository root, keyed by a hash of the
 source and the flags, so an edited kernel never loads a stale build.  All
 sources compile in parallel (one ``nvcc`` each).  Nothing here runs at
 import time; a missing or failing ``nvcc`` raises with its output.
+
+:func:`libraries_built_or_loaded` counts, over the process's life, each
+library compiled and each library loaded: the serving tier's
+in-window build count (``TorchEngine.fresh_compiles``) is its change
+since the engine warmed.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ KERNELS = ("decile_partial_sums", "cohort_partial_sums")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+# libraries compiled or loaded by this process (libraries_built_or_loaded)
+_EVENTS = 0
 
 
 def find_nvcc() -> str:
@@ -55,6 +66,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def libraries_built_or_loaded() -> int:
+    """How many kernel libraries this process has compiled plus how many
+    it has loaded, so far; a load from an existing build counts once, a
+    fresh build twice (compiled, then loaded)."""
+    return _EVENTS
+
+
 def build(names=KERNELS) -> dict:
     """Compile every named kernel whose library is missing, all at once.
 
@@ -62,6 +80,7 @@ def build(names=KERNELS) -> dict:
     call (the ``-Xptxas -v`` register and shared-memory report); raises
     ``RuntimeError`` with the compiler's output if any build fails.
     """
+    global _EVENTS
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -82,6 +101,7 @@ def build(names=KERNELS) -> dict:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, library_path(n))  # atomic: never a half-written .so
+            _EVENTS += 1
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
@@ -90,6 +110,7 @@ def build(names=KERNELS) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
+    global _EVENTS
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -98,6 +119,7 @@ def load(name: str) -> ctypes.CDLL:
             lib.csmom_error_string.restype = ctypes.c_char_p
             lib.csmom_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
+            _EVENTS += 1
         return lib
 
 
@@ -106,3 +128,9 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.csmom_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+if __name__ == "__main__":
+    for _name, _log in build().items():
+        print(f"built {_name} -> {library_path(_name)}")
+    print(f"every kernel is built in {BUILD_DIR}")

@@ -1,4 +1,4 @@
-"""Momentum signals on monthly ``[A, M]`` panels.
+"""Momentum signals on monthly ``[A, M]`` panels (or ``[..., A, M]``).
 
 Counterpart of :mod:`csmom_tpu.signals.momentum`, with the same pandas
 ``fill_method='pad'`` semantics: returns are differences of the
@@ -12,6 +12,11 @@ valid iff every padded monthly return inside the window exists.
 :func:`momentum_dynamic` takes a tensor of lookbacks ``[nJ]`` and returns
 ``[nJ, A, M]`` — the batch axis that replaces the reference's ``vmap``
 over J in the grid engine.
+
+Every function here but :func:`momentum_dynamic` also takes a batch of
+panels ``[..., A, M]`` (the serving tier's micro-batch ``[B, A, M]``)
+and acts on each asset row's months alone, so no panel reads another's
+months.
 """
 
 from __future__ import annotations
@@ -22,15 +27,16 @@ import torch
 def padded_prices(prices, mask):
     """Forward-filled price panel.
 
-    Returns ``(filled f[A, M], seen bool[A, M])``: ``filled[a, t]`` is the
-    last observed price at or before t (NaN before the first observation),
-    ``seen[a, t]`` marks slots with at least one observation at or before t.
+    Returns ``(filled f[..., A, M], seen bool[..., A, M])``: ``filled[a, t]``
+    is the last observed price at or before t (NaN before the first
+    observation), ``seen[a, t]`` marks slots with at least one observation
+    at or before t.
     """
-    M = prices.shape[1]
+    M = prices.shape[-1]
     idx = torch.arange(M, device=prices.device)
-    last = torch.cummax(torch.where(mask, idx, -1), dim=1).values
+    last = torch.cummax(torch.where(mask, idx, -1), dim=-1).values
     seen = last >= 0
-    filled = torch.gather(torch.where(mask, prices, torch.nan), 1,
+    filled = torch.gather(torch.where(mask, prices, torch.nan), -1,
                           last.clamp(0, M - 1))
     return torch.where(seen, filled, torch.nan), seen
 
@@ -43,9 +49,9 @@ def monthly_returns(prices, mask):
     observation, in the first month, and after a zero price.
     """
     filled, seen = padded_prices(prices, mask)
-    prev = torch.roll(filled, 1, dims=1)
-    prev_seen = torch.roll(seen, 1, dims=1)
-    prev_seen[:, 0] = False
+    prev = torch.roll(filled, 1, dims=-1)
+    prev_seen = torch.roll(seen, 1, dims=-1)
+    prev_seen[..., 0] = False
     # seen is monotone along time, so prev_seen alone implies seen
     valid = prev_seen & (prev != 0.0)
     ret = torch.where(valid, filled / torch.where(valid, prev, 1.0) - 1.0,
@@ -61,9 +67,9 @@ def raw_monthly_returns(prices, mask):
     of carrying the last price forward (the contract of the rolling-window
     signals).  Returns ``(ret f[A, M], ret_valid bool[A, M])``.
     """
-    prev = torch.roll(prices, 1, dims=1)
-    prev_mask = torch.roll(mask, 1, dims=1)
-    prev_mask[:, 0] = False
+    prev = torch.roll(prices, 1, dims=-1)
+    prev_mask = torch.roll(mask, 1, dims=-1)
+    prev_mask[..., 0] = False
     valid = mask & prev_mask & (prev != 0.0)
     ret = torch.where(valid, prices / torch.where(valid, prev, 1.0) - 1.0,
                       torch.nan)
@@ -121,17 +127,21 @@ def momentum_dynamic(prices, mask, lookback, skip: int):
 
 
 def momentum(prices, mask, lookback: int = 12, skip: int = 1):
-    """Compounded (J, skip) momentum for one J: ``(mom f[A, M],
-    mom_valid bool[A, M])``."""
-    return momentum_dynamic(prices, mask, lookback, skip)
+    """Compounded (J, skip) momentum for one J: ``(mom f[..., A, M],
+    mom_valid bool[..., A, M])``; leading axes are taken as more rows."""
+    M = prices.shape[-1]
+    mom, valid = momentum_dynamic(prices.reshape(-1, M), mask.reshape(-1, M),
+                                  lookback, skip)
+    return mom.reshape(prices.shape), valid.reshape(prices.shape)
 
 
 def formation_listed_mask(mask, skip: int):
-    """bool[A, M]: the asset is still listed at the formation window's end
-    (an observation exists at or after month ``t - skip``), the reference
-    backtest scripts' raw-shifted-price rule that drops delisted assets."""
-    M = mask.shape[1]
+    """bool[..., A, M]: the asset is still listed at the formation window's
+    end (an observation exists at or after month ``t - skip``), the
+    reference backtest scripts' raw-shifted-price rule that drops delisted
+    assets."""
+    M = mask.shape[-1]
     idx = torch.arange(M, device=mask.device)
-    last = torch.where(mask, idx, -1).amax(dim=1)          # [A] final print
+    last = torch.where(mask, idx, -1).amax(dim=-1)         # [..., A] final print
     hi = idx - skip
-    return last[:, None] >= hi[None, :]
+    return last[..., None] >= hi

@@ -113,13 +113,14 @@ def xs_zscore(score, valid):
 
     Monotone within a date, so it ranks like the raw signal; it makes
     combinations of signals scale-free (each component counts in units of
-    its cross-sectional standard deviation).
+    its cross-sectional standard deviation).  Panels are ``[..., A, M]``:
+    the moments reduce over the asset axis (-2), so a batch of panels
+    ``[B, A, M]`` z-scores each panel's dates on their own.
     """
-    n = valid.sum(dim=0).clamp(min=1)
+    n = valid.sum(dim=-2, keepdim=True).clamp(min=1)
     x = torch.where(valid, torch.nan_to_num(score), 0.0)
-    mu = x.sum(dim=0) / n
-    var = torch.where(valid, (x - mu[None, :]) ** 2, 0.0).sum(dim=0) / n
+    mu = x.sum(dim=-2, keepdim=True) / n
+    var = torch.where(valid, (x - mu) ** 2, 0.0).sum(dim=-2, keepdim=True) / n
     sd = torch.sqrt(var)
-    z = torch.where(sd[None, :] > 0,
-                    (x - mu[None, :]) / torch.where(sd == 0, 1.0, sd)[None, :], 0.0)
+    z = torch.where(sd > 0, (x - mu) / torch.where(sd == 0, 1.0, sd), 0.0)
     return torch.where(valid, z, torch.nan)

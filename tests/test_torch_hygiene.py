@@ -72,6 +72,15 @@ def _reference_paths(path):
                 yield v
 
 
+def test_the_scan_covers_the_serving_tier():
+    """The import scan walks every subpackage of the port, the serving
+    tier's included."""
+    rel = {os.path.relpath(f, _REPO) for f in _port_files()}
+    for sub in ("registry", "serve", "obs", "chaos", "utils"):
+        assert os.path.join("csmom_tpu_torch", sub, "__init__.py") in rel
+    assert os.path.join("csmom_tpu_torch", "cli", "serve.py") in rel
+
+
 def test_port_names_no_file_of_the_reference():
     bad = [(os.path.relpath(f, _REPO), v) for f in _port_files()
            for v in _reference_paths(f)]
@@ -213,6 +222,8 @@ def test_entry_points_raise_without_a_card():
     from csmom_tpu_torch.models import ElasticNetFit, OnlineRidgeFit, RidgeFit
     from csmom_tpu_torch.models.mlp import params_from_numpy
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
+    from csmom_tpu_torch.serve.engine import TorchEngine, make_engine
+    from csmom_tpu_torch.serve.service import ServeConfig, SignalService
     from csmom_tpu_torch.workloads import month_panel
 
     panel = Panel(values=np.ones((3, 4)), mask=np.ones((3, 4), bool),
@@ -227,7 +238,9 @@ def test_entry_points_raise_without_a_card():
                  lambda: params_from_numpy([(np.ones((2, 1)), np.zeros(1))]),
                  lambda: RidgeFit.from_numpy(coef=np.zeros(2)),
                  lambda: ElasticNetFit.from_numpy(coef=np.zeros(2)),
-                 lambda: OnlineRidgeFit.from_numpy(coef=np.zeros(2))):
+                 lambda: OnlineRidgeFit.from_numpy(coef=np.zeros(2)),
+                 lambda: TorchEngine(), lambda: make_engine("torch"),
+                 lambda: SignalService(ServeConfig(engine="torch"))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

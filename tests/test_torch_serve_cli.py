@@ -1,0 +1,111 @@
+"""The port's ``serve`` and ``loadgen`` commands on the CPU, in-process:
+``loadgen --smoke --device cpu`` lands a ``GPU_SERVE_smoke.json`` valid
+under both packages' validators with no kernel built in the window,
+``serve --stub`` self-probes every endpoint, the reference's flags the
+port does not have yet exit 2 naming their ROADMAP item, the cold-cache
+gate exits 3, and no card means exit 2 naming ``--device cpu``."""
+
+import json
+
+import pytest
+import torch
+
+from csmom_tpu.chaos import invariants as ref_inv
+from csmom_tpu_torch.chaos import invariants as inv
+from csmom_tpu_torch.cli.main import main
+
+torch.set_num_threads(2)
+
+
+def test_loadgen_smoke_on_the_cpu(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    assert main(["loadgen", "--smoke", "--device", "cpu", "--seed", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "signal service ready: engine torch, bucket profile serve-smoke" in out
+    assert "in-window fresh compiles: 0" in out
+    path = tmp_path / "GPU_SERVE_smoke.json"
+    assert inv.validate_file(str(path)) == []
+    assert ref_inv.validate_file(str(path)) == []
+    art = json.loads(path.read_text())
+    assert art["compile"]["in_window_fresh_compiles"] == 0
+    assert art["extra"]["platform"] == "cpu" and "smoke" in art["extra"]
+    req = art["requests"]
+    assert req["admitted"] > 0 and req["expired_dispatched"] == 0
+    for leg in ("queue", "service", "total"):
+        assert all(isinstance(art["latency_ms"][leg][q], (int, float))
+                   for q in ("p50", "p95", "p99"))
+
+
+def test_loadgen_named_schedule_with_reuse(tmp_path, capsys):
+    assert main(["loadgen", "--stub", "--smoke", "--schedule", "0.4x100",
+                 "--reuse-fraction", "0.5", "--out", str(tmp_path),
+                 "--run-id", "reuse"]) == 0
+    art = json.loads((tmp_path / "GPU_SERVE_reuse.json").read_text())
+    assert art["offered"]["reuse_fraction"] == 0.5
+    assert art["cache"]["hits"] > 0 and art["extra"]["platform"] == "stub"
+    assert main(["loadgen", "--stub", "--schedule", "2q5"]) == 2
+
+
+def test_serve_stub_self_probes_every_endpoint(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    assert main(["serve", "--stub", "--duration", "0.2"]) == 0
+    out = capsys.readouterr().out
+    assert "self-probe: all endpoints served" in out
+    assert ("endpoints: momentum, turnover, backtest, low_volatility, "
+            "zscore_combo") in out
+    assert "in-window fresh compiles: 0" in out
+
+
+def test_serve_on_the_cpu(capsys):
+    assert main(["serve", "--device", "cpu", "--profile", "serve-smoke",
+                 "--duration", "0.1"]) == 0
+    assert "self-probe: all endpoints served" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["serve", "--workers", "2"], "6b"),
+    (["serve", "--hedge-fraction", "0.3"], "6b"),
+    (["serve", "--mesh"], "item 7"),
+    (["serve", "--devices-per-worker", "2"], "item 7"),
+    (["loadgen", "--pool"], "6b"),
+    (["loadgen", "--kill-worker-after", "1"], "6b"),
+    (["loadgen", "--fabric"], "6c"),
+    (["loadgen", "--routers", "3"], "6c"),
+    (["loadgen", "--fleet"], "6c"),
+    (["loadgen", "--spares", "1"], "6c"),
+    (["loadgen", "--autoscale"], "6c"),
+    (["loadgen", "--trace"], "6d"),
+])
+def test_deferred_flags_exit_2_naming_their_item(argv, item, capsys):
+    assert main([*argv, "--stub"]) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and item in err
+
+
+def test_cold_cache_gate_exits_3(tmp_path, monkeypatch, capsys):
+    """With a card and no built K1, serving would build inside the ready
+    probe: both commands refuse with exit 3 before touching the card."""
+    from csmom_tpu_torch.ops import build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "empty")
+    for cmd in ("serve", "loadgen"):
+        assert main([cmd, "--device", "cuda"]) == 3
+        err = capsys.readouterr().err
+        assert "NOT READY" in err and "decile_partial_sums" in err
+        assert "python -m csmom_tpu_torch.ops.build" in err
+
+
+def test_no_card_exits_2_naming_device_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    for cmd in ("serve", "loadgen"):
+        assert main([cmd]) == 2
+        assert "--device cpu" in capsys.readouterr().err
+
+
+def test_serve_and_loadgen_are_listed():
+    from csmom_tpu_torch.cli.main import build_parser
+
+    epilog = build_parser().epilog
+    assert "  serve " in epilog and "  loadgen " in epilog
