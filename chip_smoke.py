@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (csmom_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
+``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json`` artifacts there
+(by default they go to a temporary directory, removed at the end).
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -72,8 +74,9 @@ any phase fails (nothing is caught).  Phases:
    same call, ``kernels_per_call`` how many kernels it launched,
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
    ``research_launches``, ``data_in_launches``, ``cli_launches``,
-   ``intraday_launches`` and ``serve_launches`` the counts of phases 6,
-   7, 8, 9 and 11, and K1's ``serve_device_ms`` and ``serve_bound_ms`` at
+   ``intraday_launches``, ``serve_launches`` and ``pool_launches`` the
+   counts of phases 6, 7, 8, 9, 11 and 12 (12's in the worker
+   processes), and K1's ``serve_device_ms`` and ``serve_bound_ms`` at
    the serve shape ``serve_shape``;
 11. serve (run before phase 9): (a) each of the five endpoints'
    ``TorchEngine`` on the card against ``TorchEngine(device="cpu")`` at
@@ -91,6 +94,25 @@ any phase fails (nothing is caught).  Phases:
    batch and cache figures and the allocator's growth; launch counts read
    around the runs; (c) the CLI's ``serve`` and ``loadgen``; (d) K1 timed
    at the serve shape;
+12. pool (run after phase 11 and before phase 9): three torch workers on
+   the one card behind the router in this process, profile ``serve``:
+   (a) each ready with platform ``gpu``, no kernel built in its window
+   and this process's cache version, its spawn → ready wall and the
+   card's memory before and after the spawns; a worker expecting another
+   cache version exits ``RC_VERSION_SKEW``; (b) every endpoint at all six
+   shapes through the router, each result equal to this process's
+   engine scoring the request alone, and the workers' K1 launches (read
+   through their ``stats`` replies) equal to their ``backtest`` batches;
+   (c) the JAX package's ``SERVE_POOL_r11.json`` cell (``2x30,2x60,26x15``,
+   seed 11, hedging at 0.35, worker ``w0`` SIGKILLed 2 s in and its warm
+   replacement awaited): books closed per class, no infra rejection, one
+   kill and one restart, three workers ready at the end, no kernel built
+   in the window, every served result equal to the engine alone, a valid
+   ``GPU_SERVE_POOL_*.json``; (d) the ceiling: one
+   saturating backtest schedule through one worker and through three;
+   then ``serve --workers 2`` and ``loadgen --pool --kill-worker-after 1``
+   in subprocesses; the kernels line's ``pool_launches`` the workers'
+   counts;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -1966,6 +1988,357 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
             "serve_device_ms": d_ms, "serve_bound_ms": b_ms, "serve_bound_by": b_by}
 
 
+# phase 12: the multi-process serving pool on the card.  Three workers
+# (the JAX package's SERVE_POOL_r11.json fleet) share the one card, each
+# a SignalService with a TorchEngine of its own, behind the hedging
+# router in this process; profile "serve" as in phase 11
+POOL_WORKERS = 3
+# the reference's pool cell, SERVE_POOL_r11.json's own configuration:
+# its schedule and seed, its three endpoints, 70% interactive, 500 ms
+# deadlines, hedging at 0.35 of the budget, w0 SIGKILLed 2 s in
+POOL_R11 = dict(schedule="2x30,2x60,26x15", seed=11,
+                kinds=("momentum", "turnover", "backtest"),
+                interactive_fraction=0.7, deadline_s=0.5)
+POOL_HEDGE_FRACTION = 0.35
+POOL_KILL_AFTER_S = 2.0
+# the ceiling runs: interactive backtest traffic (no class quota to
+# reject it) for 3 s at POOL_CEILING_FACTOR times the rate one worker
+# sustains when every request is its own batch (1 / its mean backtest
+# engine call in (c))
+POOL_CEILING_S = 3
+POOL_CEILING_FACTOR = 4
+
+
+def pool_stats(sup) -> dict:
+    """Each ready worker's ``stats`` reply, by pid (a replacement is a new
+    process: its counts start at its own spawn)."""
+    from csmom_tpu_torch.serve import proto
+
+    out = {}
+    for h in sup.ready_workers():
+        obj, _ = proto.request_once(h.socket_path, {"op": "stats"}, timeout_s=10.0)
+        out[obj["pid"]] = obj
+    return out
+
+
+def pool_deltas(before: dict, after: dict) -> dict:
+    """Summed over the processes read both times: K1 and K2 launches,
+    ``backtest`` engine calls and their wall, library builds and loads."""
+    d = {"k1": 0, "k2": 0, "backtest_calls": 0, "backtest_ms": 0.0, "libraries": 0}
+    for pid, a in after.items():
+        b = before.get(pid)
+        if b is None:
+            continue
+        d["k1"] += (a["kernel_launches"]["decile_partial_sums"]
+                    - b["kernel_launches"]["decile_partial_sums"])
+        d["k2"] += (a["kernel_launches"]["cohort_partial_sums"]
+                    - b["kernel_launches"]["cohort_partial_sums"])
+        d["backtest_calls"] += (a["batches"]["engine_calls"].get("backtest", 0)
+                                - b["batches"]["engine_calls"].get("backtest", 0))
+        d["backtest_ms"] += (a["batches"]["engine_ms"].get("backtest", 0.0)
+                             - b["batches"]["engine_ms"].get("backtest", 0.0))
+        d["libraries"] += a["libraries_built_or_loaded"] - b["libraries_built_or_loaded"]
+    return d
+
+
+def pool_phase(smi, out_dir) -> dict:
+    """Phase 12: the pool on the card.  Returns the workers' kernel
+    launches over the phase, read through their ``stats`` replies."""
+    import random as pyrandom
+    import resource
+    import shutil
+    import threading
+
+    import torch
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.cli.serve import _kill_w0_after
+    from csmom_tpu_torch.registry import serve_endpoints
+    from csmom_tpu_torch.serve import health
+    from csmom_tpu_torch.serve.batcher import Batcher
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.engine import TorchEngine, unpack_result
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig, run_pool_loadgen, synth_panel, write_artifact,
+    )
+    from csmom_tpu_torch.serve.queue import Request
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.supervisor import PoolConfig, PoolSupervisor, pick_transport
+    from csmom_tpu_torch.serve.worker import RC_VERSION_SKEW
+
+    spec = bucket_spec("serve")
+    card = TorchEngine(device="cuda")
+    card.warm(spec)
+    batcher = Batcher(spec)
+
+    def alone(kind, values, mask):
+        """The smoke's own engine scoring one request alone, padded to its
+        bucket as a worker's batcher pads it."""
+        mb = batcher.pad([Request(kind=kind, values=values, mask=mask,
+                                  n_assets=values.shape[0])])
+        return unpack_result(kind, card.score(kind, mb.values, mb.mask), 0,
+                             values.shape[0])
+
+    def hold_result(result, kind, values, mask, what):
+        want = alone(kind, values, mask)
+        if isinstance(want, dict):
+            return hold_scores(np.array(list(result.values())),
+                               np.array(list(want.values())), what, False)
+        return hold_scores(np.asarray(result), want, what, False)
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    run_dir = tempfile.mkdtemp(prefix="csmom-pool-")
+    transport = pick_transport(run_dir)
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    sup = PoolSupervisor(PoolConfig(
+        n_workers=POOL_WORKERS, profile="serve", engine="torch", device="cuda",
+        transport=transport, require_warm_cache=True), run_dir)
+    launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    routers = []
+    try:
+        # -- (a) spawn and demonstrate ready ------------------------------
+        t0 = time.perf_counter()
+        sup.start()
+        spawn_s = time.perf_counter() - t0
+        free1, _ = torch.cuda.mem_get_info()
+        want_version = health.aot_cache_version("serve")
+        if sup.expect_cache_version != want_version:
+            raise AssertionError("pool: the supervisor's cache version is not the "
+                                 "parent's")
+        for h in sup.handles:
+            rep = h.ready_report or {}
+            if (h.state != "ready" or rep.get("platform") != "gpu"
+                    or rep.get("fresh_compiles") != 0
+                    or rep.get("cache_version") != want_version):
+                raise AssertionError(f"pool (a): {h.worker_id} {h.state}: {rep} "
+                                     f"{h.reason}")
+        walls = {h.worker_id: {"ready_wall_s": round(h.t_ready_s - h.t_spawned_s, 3),
+                               **h.ready_report["walls"]} for h in sup.handles}
+        log("pool", f"(a) {POOL_WORKERS} workers ready in {spawn_s:.2f} s over "
+                    f"{transport} sockets (compute mode {mode}): platform gpu, "
+                    f"fresh_compiles 0, cache version {want_version}; walls "
+                    f"{json.dumps(walls)}; card memory free {free0 / 2**20:.0f} -> "
+                    f"{free1 / 2**20:.0f} MiB of {total / 2**20:.0f} "
+                    f"({(free0 - free1) / POOL_WORKERS / 2**20:.0f} MiB a worker) | {smi}")
+        skew = subprocess.run(
+            [sys.executable, "-m", "csmom_tpu_torch.serve.worker", "--socket",
+             os.path.join(run_dir, "skew.sock"), "--expect-cache-version",
+             "0" * 12], cwd=REPO, capture_output=True, text=True, timeout=300)
+        if skew.returncode != RC_VERSION_SKEW or "skew" not in skew.stderr:
+            raise AssertionError(f"pool (a): a skewed worker exited {skew.returncode}: "
+                                 f"{skew.stderr[-500:]}")
+        log("pool", f"(a) a worker expecting cache version {'0' * 12} exits "
+                    f"{skew.returncode} (RC_VERSION_SKEW): "
+                    f"{skew.stderr.strip().splitlines()[-1][:160]}")
+
+        # -- (b) parity through the router --------------------------------
+        # each group of B requests goes to one worker (a router over it),
+        # so the worker's batcher can coalesce the group into one batch
+        base0 = pool_stats(sup)
+        rng = pyrandom.Random(20261017)
+        n_held, i = 0, 0
+        cfg_b = RouterConfig(profile="serve", default_deadline_s=10.0)
+        by_worker = {h.worker_id: Router(lambda h=h: [h], cfg_b) for h in sup.ready_workers()}
+        routers += by_worker.values()
+        ids = sorted(by_worker)
+        for kind in serve_endpoints():
+            for B, A in SERVE_SHAPES:
+                router = by_worker[ids[i % len(ids)]]
+                i += 1
+                group = []
+                for b in range(B):
+                    n = A - 3 if b == 0 else rng.randint(2 if A == 32 else 33, A)
+                    v, m = synth_panel(rng, n, SERVE_MONTHS, kind)
+                    group.append((v, m))
+                reqs = [router.submit(kind, v, m) for v, m in group]
+                for (v, m), req in zip(group, reqs):
+                    if not req.wait(60.0) or req.state != "served":
+                        raise AssertionError(f"pool (b) {kind} B={B} A={A}: "
+                                             f"{req.state} {req.error}")
+                    hold_result(req.result, kind, v, m,
+                                f"pool (b) {kind} B={B} A={A} through the router")
+                    n_held += 1
+        base1 = pool_stats(sup)
+        d = pool_deltas(base0, base1)
+        if d["k1"] != d["backtest_calls"] or d["k1"] < 1 or d["k2"] or d["libraries"]:
+            raise AssertionError(f"pool (b): the workers' K1 launches {d['k1']} != "
+                                 f"their backtest batches {d['backtest_calls']} "
+                                 f"(K2 {d['k2']}, libraries {d['libraries']})")
+        hists = {s["worker_id"]: s["batches"]["size_hist"] for s in base1.values()}
+        log("pool", f"(b) {n_held} requests (5 endpoints x 6 serve shapes, padded "
+                    f"rows and assets) through the router == the smoke's engine "
+                    f"scoring each alone (f32 {SERVE_F32}); the workers' K1 launches "
+                    f"{d['k1']} == their backtest batches {d['backtest_calls']}, K2 0, "
+                    f"0 libraries loaded; batch sizes by worker {json.dumps(hists)}")
+
+        # -- (c) the reference's pool cell --------------------------------
+        router = Router(sup.ready_workers, RouterConfig(
+            profile="serve", default_deadline_s=POOL_R11["deadline_s"],
+            hedge_fraction=POOL_HEDGE_FRACTION), retry_after_fn=sup.retry_after_s)
+        routers.append(router)
+        submitted = []
+        lock = threading.Lock()
+        submit = router.submit
+
+        def recording_submit(kind, values, mask, **kw):
+            req = submit(kind, values, mask, **kw)
+            with lock:
+                submitted.append((kind, values, mask, req))
+            return req
+
+        router.submit = recording_submit
+        load = LoadConfig(run_id="chip-r11", **POOL_R11)
+        before = pool_stats(sup)
+        art = run_pool_loadgen(router, sup, load,
+                               concurrent=_kill_w0_after(sup, POOL_KILL_AFTER_S))
+        after = pool_stats(sup)
+        path = write_artifact(out_dir, art, prefix="GPU_SERVE_POOL")
+        viols = inv.validate(art) + router.invariant_violations()
+        for name, book in router.class_accounting().items():
+            if book["served"] + book["rejected"] + book["expired"] != book["admitted"]:
+                viols.append(f"class {name} books open: {book}")
+        req_c = art["requests"]
+        pool = art["pool"]
+        if (viols or req_c["rejected_infra"] or pool["kills"] != 1
+                or pool["restarts"] != 1 or pool["ready_workers_end"] != POOL_WORKERS
+                or art["compile"]["in_window_fresh_compiles"] != 0):
+            raise AssertionError(f"pool (c): {viols}; requests {req_c}; pool "
+                                 f"{ {k: pool[k] for k in ('kills', 'restarts', 'ready_workers_end')} }; "
+                                 f"fresh {art['compile']['in_window_fresh_compiles']!r}")
+        n_c = 0
+        for kind, v, m, req in submitted:
+            if req.state == "served":
+                hold_result(req.result, kind, v, m, f"pool (c) a served {kind}")
+                n_c += 1
+        respawn = [e for e in pool["events"]
+                   if e["event"] == "ready" and e.get("generation") == 1]
+        dc = pool_deltas(before, after)
+        lat = art["latency_ms"]["total"]
+        log("pool", f"(c) r11 {POOL_R11['schedule']} seed {POOL_R11['seed']}, "
+                    f"{POOL_WORKERS} workers, hedge {POOL_HEDGE_FRACTION}, w0 SIGKILLed "
+                    f"{POOL_KILL_AFTER_S} s in: {art['value']} req/s achieved vs "
+                    f"{art['offered']['offered_rps']} offered over {art['wall_s']} s; "
+                    f"p50 {lat['p50']} p95 {lat['p95']} p99 {lat['p99']} ms; "
+                    f"requests {json.dumps(req_c)}; availability {art['availability']}, "
+                    f"hedge rate {art['hedge']['rate']}, retries {req_c['retries']}, "
+                    f"worker connection failures {req_c['worker_conn_failures']}; "
+                    f"kills 1, restarts 1, {POOL_WORKERS} ready at the end, restart "
+                    f"ready wall {respawn[0]['wall_s'] if respawn else None} s "
+                    f"({json.dumps(respawn[0].get('walls') if respawn else None)}); "
+                    f"books closed per class, 0 fresh compiles, artifact valid "
+                    f"({path}); {n_c} served results == the "
+                    f"engine alone | {smi}")
+
+        # -- (d) the ceiling: 1 worker against 3 --------------------------
+        if not dc["backtest_calls"]:
+            raise AssertionError("pool (c): no backtest batch to take a rate from")
+        batch_ms = dc["backtest_ms"] / dc["backtest_calls"]
+        one = 1e3 / batch_ms
+        rate = int(POOL_CEILING_FACTOR * one) + 1
+        log("pool", f"(d) rate: a backtest engine call took {batch_ms:.3f} ms on "
+                    f"average in (c) ({dc['backtest_calls']} calls), so one worker "
+                    f"serving each request alone sustains {one:.1f} req/s; offering "
+                    f"{POOL_CEILING_FACTOR}x that, {rate} req/s for {POOL_CEILING_S} s")
+        ceiling = {}
+        for n in (1, POOL_WORKERS):
+            r_n = Router(lambda n=n: sup.ready_workers()[:n], RouterConfig(
+                profile="serve", default_deadline_s=POOL_R11["deadline_s"],
+                hedge_fraction=POOL_HEDGE_FRACTION), retry_after_fn=sup.retry_after_s)
+            routers.append(r_n)
+            stamps = []
+            submit_n = r_n.submit
+
+            def stamping_submit(*a, submit_n=submit_n, stamps=stamps, **kw):
+                stamps.append(time.perf_counter())
+                return submit_n(*a, **kw)
+
+            r_n.submit = stamping_submit
+            s0 = pool_stats(sup)
+            ru0 = resource.getrusage(resource.RUSAGE_SELF)
+            art_n = run_pool_loadgen(r_n, sup, LoadConfig(
+                schedule=f"{POOL_CEILING_S}x{rate}", seed=12, kinds=("backtest",),
+                class_mix=(("interactive", 1.0),),
+                deadline_s=POOL_R11["deadline_s"], run_id=f"chip-ceiling-{n}"))
+            ru1 = resource.getrusage(resource.RUSAGE_SELF)
+            s1 = pool_stats(sup)
+            dn = pool_deltas(s0, s1)
+            cpu_s = (ru1.ru_utime - ru0.ru_utime) + (ru1.ru_stime - ru0.ru_stime)
+            busy = {s1[pid]["worker_id"]: round(
+                (s1[pid]["batches"]["engine_ms"].get("backtest", 0.0)
+                 - s0[pid]["batches"]["engine_ms"].get("backtest", 0.0))
+                / 1e3 / art_n["wall_s"], 3) for pid in s1 if pid in s0}
+            if (r_n.invariant_violations() or inv.validate(art_n)
+                    or dn["k1"] != dn["backtest_calls"]):
+                raise AssertionError(f"pool (d) {n} worker(s): "
+                                     f"{r_n.invariant_violations()} "
+                                     f"{inv.validate(art_n)} {dn}")
+            write_artifact(out_dir, art_n, prefix="GPU_SERVE_POOL")
+            rq = art_n["requests"]
+            ceiling[n] = art_n["value"]
+            log("pool", f"(d) {n} worker(s): {art_n['value']} req/s achieved of "
+                        f"{art_n['offered']['offered_rps']} offered over "
+                        f"{art_n['wall_s']} s, offered_limited "
+                        f"{art_n['offered_limited']}; p50 "
+                        f"{art_n['latency_ms']['total']['p50']} p99 "
+                        f"{art_n['latency_ms']['total']['p99']} ms; served "
+                        f"{rq['served']}, rejected {rq['rejected']} (saturated "
+                        f"{rq['rejected_saturated']}, infra {rq['rejected_infra']}), "
+                        f"expired {rq['expired']}, hedged {rq['hedged']}; "
+                        f"{dn['backtest_calls']} backtest batches "
+                        f"({dn['backtest_ms'] / max(1, dn['backtest_calls']):.3f} ms "
+                        f"each); engine-busy share of the wall by worker "
+                        f"{json.dumps(busy)}; the arrivals of the "
+                        f"{POOL_CEILING_S} s schedule submitted over "
+                        f"{stamps[-1] - stamps[0]:.3f} s; this (router) process "
+                        f"{cpu_s:.2f} s of CPU ({cpu_s / art_n['wall_s']:.2f} cores) "
+                        f"| {smi}")
+        log("pool", f"(d) ceiling: {ceiling[POOL_WORKERS]} req/s through "
+                    f"{POOL_WORKERS} workers against {ceiling[1]} through 1 "
+                    f"({ceiling[POOL_WORKERS] / max(ceiling[1], 1e-9):.2f}x)")
+
+        # the workers' launches over the phase: every live process's count
+        # since its spawn, plus the killed worker's last read before its
+        # death (what it launched after that read died with it)
+        final = pool_stats(sup)
+        dead = {pid: s for pid, s in base1.items() if pid not in final}
+        for s in list(final.values()) + list(dead.values()):
+            for name in launches:
+                launches[name] += s["kernel_launches"][name]
+    finally:
+        for r in routers:
+            r.channels.close()
+        sup.stop()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    if any(h.proc.poll() is None for h in sup.handles):
+        raise AssertionError("pool: a worker outlived the supervisor's stop")
+
+    # -- the CLI, in subprocesses ------------------------------------------
+    for label, argv, want in (
+            ("serve", ["serve", "--workers", "2", "--duration", "1"],
+             "self-probe: all endpoints served"),
+            ("loadgen", ["loadgen", "--pool", "--workers", "2", "--schedule", "2x40",
+                         "--kill-worker-after", "1", "--out", out_dir, "--run-id",
+                         "chip-cli-pool"], "artifact: ")):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", *argv],
+                           cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0 or want not in p.stdout:
+            raise AssertionError(f"pool cli {label}: exit {p.returncode}\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        log("pool", f"(cli) {' '.join(argv)}: exit 0 in {wall:.2f} s; "
+                    + " / ".join(ln.strip() for ln in p.stdout.splitlines()
+                                 if ln.startswith(("throughput", "latency", "  self-probe",
+                                                   "availability", "fleet", "in-window")))
+                    + f" | {smi}")
+    if launches["decile_partial_sums"] < 1 or launches["cohort_partial_sums"]:
+        raise AssertionError(f"pool: worker launches {launches}, expected K1 > 0, K2 0")
+    return {"launches": launches}
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -2004,8 +2377,15 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--out", help="keep phase 12's pool artifacts in this "
+                                  "directory (default: a temporary one)")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2584,6 +2964,16 @@ def main() -> int:
         for key in ("serve_shape", "serve_device_ms", "serve_bound_ms",
                     "serve_bound_by"):
             row[key] = serve[key] if k1 else None
+
+    # -- 12. pool: the multi-process serving pool, after phase 11 and before
+    # phase 9 ---------------------------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="csmom_pool_") as tmp:
+        pool = pool_phase(smi, args.out or tmp)
+    log("pool", f"phase wall {time.perf_counter() - t_phase:.1f} s; the workers' "
+                f"launches {pool['launches']} | {smi}")
+    for row in rows:
+        row["pool_launches"] = pool["launches"][row["name"]]
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()

@@ -1,8 +1,16 @@
-"""The serve artifact's contract: closed books, ordered percentiles.
+"""The serving artifacts' contracts: closed books, ordered percentiles.
 
-Counterpart of ``csmom_tpu.chaos.invariants`` for the one artifact kind
-the port lands, ``serve`` (``GPU_SERVE_<run>.json``, written by
-:mod:`csmom_tpu_torch.serve.loadgen`), with the reference's rules
+Counterpart of ``csmom_tpu.chaos.invariants`` for the two artifact kinds
+the port lands, both written by :mod:`csmom_tpu_torch.serve.loadgen`.
+
+``serve_pool`` (``GPU_SERVE_POOL_<run>.json``, schema v1, the
+reference's rules copied): request books that close across the process
+boundary, hedge arithmetic (``hedge_wins`` and ``duplicates_suppressed``
+at most ``hedged``), an availability and a hedge rate that reconcile
+with the books, ordered total-latency percentiles, the fleet's counters
+and per-worker records.
+
+``serve`` (``GPU_SERVE_<run>.json``), with the reference's rules
 copied: schema versions 1-4, the record-shaped headline, balanced
 request books (``served + rejected + expired == admitted`` and
 ``expired_dispatched == 0``), non-decreasing percentiles, a batch
@@ -20,19 +28,25 @@ from __future__ import annotations
 
 import json
 
-__all__ = ["KNOWN_SERVE_SCHEMA_VERSIONS", "detect_kind", "validate",
-           "validate_file"]
+__all__ = ["KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
+           "detect_kind", "validate", "validate_file"]
 
 KNOWN_SERVE_SCHEMA_VERSIONS = (1, 2, 3, 4)
+KNOWN_SERVE_POOL_SCHEMA_VERSIONS = (1,)
 
 _NUM = (int, float)
 
 
 def detect_kind(obj: dict) -> str | None:
-    """``"serve"`` for a serve artifact (its ``kind``, or the
-    requests/latency_ms/batches key signature), else None."""
+    """``"serve_pool"`` or ``"serve"`` by the artifact's ``kind`` or key
+    signature (the pool's requests/availability/hedge, the service's
+    requests/latency_ms/batches), else None.  Pool before serve: the
+    reference's order."""
     if not isinstance(obj, dict):
         return None
+    if obj.get("kind") == "serve_pool" or {"requests", "availability",
+                                           "hedge"} <= set(obj):
+        return "serve_pool"
     if obj.get("kind") == "serve" or {"requests", "latency_ms",
                                       "batches"} <= set(obj):
         return "serve"
@@ -447,17 +461,131 @@ def _validate_serve_v4(obj: dict) -> list:
     return out
 
 
+def _validate_serve_pool(obj: dict) -> list:
+    """The pool artifact contract: the closed request book ACROSS the
+    process boundary, exactly-once hedging arithmetic, and an
+    availability figure that reconciles with its own counters."""
+    out: list = []
+    _require(obj, "run_id", str, "serve_pool", out)
+    ver = _require(obj, "schema_version", int, "serve_pool", out)
+    if ver is not None and ver not in KNOWN_SERVE_POOL_SCHEMA_VERSIONS:
+        out.append(
+            f"serve_pool: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_SERVE_POOL_SCHEMA_VERSIONS)}) — the "
+            "artifact is from a different era of the code; do not "
+            "half-parse it"
+        )
+    _require(obj, "wall_s", _NUM, "serve_pool", out, "a number")
+    out += _validate_record(obj, kind="serve_pool")
+
+    req = _require(obj, "requests", dict, "serve_pool", out)
+    if req is not None:
+        for k in ("admitted", "served", "rejected", "expired",
+                  "rejected_infra", "hedged", "hedge_wins",
+                  "duplicates_suppressed"):
+            v = req.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"serve_pool: requests.{k} must be a "
+                           "non-negative int (the accounting is the "
+                           "contract)")
+                req = None
+                break
+    if req is not None:
+        total = req["served"] + req["rejected"] + req["expired"]
+        if total != req["admitted"]:
+            out.append(
+                f"serve_pool: request accounting broken across the "
+                f"process boundary — served {req['served']} + rejected "
+                f"{req['rejected']} + expired {req['expired']} = {total} "
+                f"!= admitted {req['admitted']} (a request was dropped "
+                "or double-counted between router and workers)"
+            )
+        if req["rejected_infra"] > req["rejected"]:
+            out.append("serve_pool: rejected_infra exceeds rejected")
+        if req["hedge_wins"] > req["hedged"]:
+            out.append(
+                f"serve_pool: hedge_wins {req['hedge_wins']} > hedged "
+                f"{req['hedged']}")
+        if req["duplicates_suppressed"] > req["hedged"]:
+            out.append(
+                f"serve_pool: duplicates_suppressed "
+                f"{req['duplicates_suppressed']} > hedged {req['hedged']}"
+                " — a duplicate terminal without a hedge means "
+                "exactly-once broke"
+            )
+
+    avail = _require(obj, "availability", _NUM, "serve_pool", out,
+                     "a number")
+    if isinstance(avail, _NUM) and not isinstance(avail, bool):
+        if not 0.0 <= avail <= 1.0:
+            out.append(f"serve_pool: availability {avail} outside [0, 1]")
+        elif req is not None and req["admitted"]:
+            want = 1.0 - req["rejected_infra"] / req["admitted"]
+            if abs(avail - want) > 1e-4:
+                out.append(
+                    f"serve_pool: availability {avail} does not reconcile "
+                    f"with 1 - rejected_infra/admitted = {want:.6f} — the "
+                    "headline must be computable from the books"
+                )
+
+    hedge = _require(obj, "hedge", dict, "serve_pool", out)
+    if hedge is not None and req is not None and req["admitted"]:
+        rate = hedge.get("rate")
+        if not isinstance(rate, _NUM) or isinstance(rate, bool):
+            out.append("serve_pool: hedge.rate must be a number")
+        elif abs(rate - req["hedged"] / req["admitted"]) > 1e-3:
+            out.append(
+                f"serve_pool: hedge.rate {rate} does not reconcile with "
+                f"hedged/admitted = {req['hedged'] / req['admitted']:.4f}"
+            )
+
+    lat = _require(obj, "latency_ms", dict, "serve_pool", out)
+    if lat is not None:
+        _validate_latency_side(lat.get("total"), "total", "serve_pool", out)
+
+    pool = _require(obj, "pool", dict, "serve_pool", out)
+    if pool is not None:
+        for k in ("n_workers", "kills", "restarts"):
+            v = pool.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"serve_pool: pool.{k} must be a non-negative "
+                           "int")
+        if "events" in pool and not isinstance(pool["events"], list):
+            out.append("serve_pool: pool.events must be a list")
+
+    workers = _require(obj, "workers", list, "serve_pool", out)
+    if workers is not None:
+        for i, w in enumerate(workers):
+            if not isinstance(w, dict) or not isinstance(
+                    w.get("worker_id"), str):
+                out.append(f"serve_pool: workers[{i}] must be a dict with "
+                           "a worker_id")
+    comp = obj.get("compile")
+    if comp is not None and not isinstance(comp, dict):
+        out.append("serve_pool: compile must be a dict when present")
+    elif isinstance(comp, dict):
+        fc = comp.get("in_window_fresh_compiles")
+        if fc is not None and not isinstance(fc, (int, str)):
+            out.append("serve_pool: compile.in_window_fresh_compiles must "
+                       "be an int count or a reason string")
+    return out
+
+
 def validate(obj, kind: str | None = None) -> list:
-    """All contract violations of one serve artifact (empty = valid)."""
+    """All contract violations of one serve or serve_pool artifact (empty
+    = valid)."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
     if kind is None:
         return ["unrecognized artifact shape: not a serve artifact (no "
-                "kind 'serve', no requests/latency_ms/batches keys)"]
+                "kind 'serve' or 'serve_pool', no requests/latency_ms/"
+                "batches or requests/availability/hedge keys)"]
+    if kind == "serve_pool":
+        return _validate_serve_pool(obj)
     if kind != "serve":
         return [f"unknown artifact kind {kind!r}: this validator checks "
-                "serve artifacts only"]
+                "serve and serve_pool artifacts only"]
     return _validate_serve(obj)
 
 

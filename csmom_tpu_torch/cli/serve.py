@@ -1,14 +1,25 @@
-"""``serve`` and ``loadgen``: the serving tier's commands, in-process.
+"""``serve`` and ``loadgen``: the serving tier's commands.
 
-Counterpart of ``csmom_tpu.cli.serve``'s in-process half; each prints
-what ``csmom`` prints.  ``serve`` starts the micro-batching signal
-service (:mod:`csmom_tpu_torch.serve`), warms every bucket shape,
+Counterpart of ``csmom_tpu.cli.serve``'s in-process and pool halves;
+each prints what ``csmom`` prints.  ``serve`` starts the micro-batching
+signal service (:mod:`csmom_tpu_torch.serve`), warms every bucket shape,
 prints the readiness report, runs a self-probe of every endpoint, then
 serves until ``--duration`` elapses (0 = until Ctrl-C) and prints the
 request accounting.  ``loadgen`` drives an in-process service with the
 seeded open-loop generator and lands ``GPU_SERVE_<run>.json``; it exits
 1 when the artifact fails its own invariants or when a kernel was built
 inside the serving window.
+
+``serve --workers N`` runs the multi-process pool instead: N supervised
+worker processes (each a ``SignalService``; several share one card)
+behind a hedging router, self-probed through the router.  ``loadgen
+--pool`` (2 workers unless ``--workers`` says otherwise) drives it and
+lands ``GPU_SERVE_POOL_<run>.json``; ``--kill-worker-after SEC``
+SIGKILLs worker ``w0`` that far into the run and waits for its warm
+replacement.  The pool's requests carry a 500 ms deadline unless
+``--deadline-ms`` says otherwise; ``--hedge-fraction`` (0.35) sets when a
+straggler is hedged.  On the card the cold-cache gate runs once, in this
+process, before any worker is spawned.
 
 The flags that differ from the reference's:
 
@@ -19,8 +30,8 @@ The flags that differ from the reference's:
   ``build/csmom_tpu_torch/`` (``ops/build.py::library_path``), else the
   command exits 3 (``--allow-cold-cache`` accepts the build pause);
 - ``--reuse-fraction`` sets the in-process run's panel reuse;
-- the multi-process, fabric, fleet, tracing and mesh flags are not
-  ported yet: each exits 2 naming the ROADMAP.md item that brings it.
+- the fabric, fleet, tracing and mesh flags are not ported yet: each
+  exits 2 naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -33,10 +44,6 @@ __all__ = ["cmd_loadgen", "cmd_serve", "register"]
 # flags of the reference's serving tier the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them: (dest, flag, item)
 _DEFERRED = (
-    ("workers", "--workers", "6b, the multi-process pool"),
-    ("pool", "--pool", "6b, the multi-process pool"),
-    ("hedge_fraction", "--hedge-fraction", "6b, the multi-process pool"),
-    ("kill_worker_after", "--kill-worker-after", "6b, the multi-process pool"),
     ("fabric", "--fabric", "6c, the fabric and fleet"),
     ("routers", "--routers", "6c, the fabric and fleet"),
     ("transport", "--transport", "6c, the fabric and fleet"),
@@ -56,7 +63,7 @@ def _deferred_flag(args) -> int:
     for dest, flag, item in _DEFERRED:
         if getattr(args, dest, None) not in (None, False):
             print(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item "
-                  f"{item}); the port serves in-process only",
+                  f"{item}); the port serves in-process or as a pool",
                   file=sys.stderr)
             return 2
     return 0
@@ -88,20 +95,17 @@ def _check_cache_honesty(args) -> int:
     instead.  Returns 0 when serving may proceed."""
     if args.stub or args.device == "cpu" or args.allow_cold_cache:
         return 0
-    from csmom_tpu_torch.ops import build
-    from csmom_tpu_torch.serve.engine import KERNELS
+    from csmom_tpu_torch.serve.health import BUILD_POINTER, cache_readiness
 
-    cold = [n for n in KERNELS if not build.library_path(n).exists()]
-    if cold:
-        print(f"NOT READY (cold kernel build): no library of "
-              f"{', '.join(cold)} in {build.BUILD_DIR}", file=sys.stderr)
+    ready, reason = cache_readiness()
+    if not ready:
+        print(f"NOT READY ({reason})", file=sys.stderr)
         print("readiness is a demonstrated claim — building inside the "
-              "ready probe would fake it; build first (python -m "
-              "csmom_tpu_torch.ops.build), or pass --allow-cold-cache to "
-              "accept the build pause", file=sys.stderr)
+              f"ready probe would fake it; build first ({BUILD_POINTER}), "
+              "or pass --allow-cold-cache to accept the build pause",
+              file=sys.stderr)
         return 3
-    print(f"kernel build check: {', '.join(KERNELS)} built in "
-          f"{build.BUILD_DIR}")
+    print(reason)
     return 0
 
 
@@ -121,9 +125,294 @@ def _print_ready(svc) -> None:
     print(f"  warmup: {svc.warm_report}")
 
 
+# ------------------------------------------------------------------ pool ---
+
+def _mk_pool(args, run_dir: str):
+    """Start the supervised fleet and its router (serve and loadgen)."""
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.supervisor import (
+        PoolConfig,
+        PoolSupervisor,
+        pick_transport,
+    )
+
+    profile = args.profile or ("serve-smoke" if getattr(args, "smoke", False)
+                               else "serve")
+    engine = "stub" if args.stub else "torch"
+    # the pool's wire carries each request's deadline from the router, so
+    # the worker-side default keeps plain float semantics
+    pool_deadline_ms = 500.0 if args.deadline_ms is None else args.deadline_ms
+    cfg = PoolConfig(
+        # --pool without --workers means a pool: two workers is the
+        # smallest fleet hedging can route around
+        n_workers=args.workers if args.workers > 0 else 2,
+        profile=profile,
+        engine=engine,
+        device=args.device,
+        transport=pick_transport(run_dir),
+        capacity=args.capacity,
+        max_wait_ms=args.max_wait_ms,
+        deadline_ms=pool_deadline_ms,
+        # the parent ran the cold-cache gate; each worker checks again
+        require_warm_cache=(engine == "torch" and args.device == "cuda"
+                            and not args.allow_cold_cache),
+    )
+    sup = PoolSupervisor(cfg, run_dir).start()
+    router = Router(sup.ready_workers, RouterConfig(
+        profile=profile,
+        default_deadline_s=(None if pool_deadline_ms == 0
+                            else pool_deadline_ms / 1e3),
+        hedge_fraction=args.hedge_fraction,
+    ), retry_after_fn=sup.retry_after_s)
+    return sup, router
+
+
+def _print_pool_ready(sup, router) -> None:
+    print(f"serving pool ready: {len(sup.ready_workers())}/"
+          f"{sup.config.n_workers} workers (engine {sup.config.engine}, "
+          f"profile {sup.config.profile})")
+    print(f"  cache version: {sup.expect_cache_version}")
+    for h in sup.handles:
+        rep = h.ready_report or {}
+        walls = rep.get("walls") or {}
+        wall = (f" ready_wall {h.t_ready_s - h.t_spawned_s:.2f}s"
+                f" (bind {walls.get('main_to_bind_s', '—')}s, warm "
+                f"{walls.get('warm_s', '—')}s)"
+                if h.t_ready_s is not None else "")
+        print(f"  {h.worker_id} g{h.generation} [{h.state}] pid "
+              f"{h.proc.pid if h.proc else '-'} platform "
+              f"{rep.get('platform')} fresh_compiles "
+              f"{rep.get('fresh_compiles')!r}{wall}")
+    print(f"  hedging: fraction {router.config.hedge_fraction}, floor "
+          f"{router.config.hedge_floor_s * 1e3:g} ms, max attempts "
+          f"{router.config.max_attempts}")
+
+
+def _pool_self_probe(router) -> list:
+    """One probe request per endpoint through the pool's router: the
+    tier's demonstrated-ready claim.  Returns the failed probes (empty =
+    ok)."""
+    import numpy as np
+
+    from csmom_tpu_torch.registry import serve_endpoints
+
+    spec = router.spec
+    A = spec.asset_buckets[0]
+    rng = np.random.default_rng(0)
+    probes = []
+    for kind in serve_endpoints():
+        v = 100.0 * np.exp(np.cumsum(
+            rng.normal(0, 0.03, (A, spec.months)), axis=1))
+        probes.append(router.submit(kind, v.astype(np.float32),
+                                    np.ones((A, spec.months), bool),
+                                    deadline_s=10.0))
+    for p in probes:
+        p.wait(15.0)
+    return [p for p in probes if p.state != "served"]
+
+
+def _start_pool(args, run_dir: str):
+    """``(sup, router)``, or an exit code: the cold-cache gate runs here,
+    once, before any worker is spawned (N workers must never race N
+    builds inside their readiness windows)."""
+    rc = _check_cache_honesty(args)
+    if rc:
+        return rc
+    try:
+        return _mk_pool(args, run_dir)
+    except RuntimeError as e:
+        print(f"pool failed to start: {e}", file=sys.stderr)
+        return 1
+
+
+def _cmd_serve_pool(args) -> int:
+    """The multi-process tier behind ``serve --workers N``."""
+    import shutil
+    import tempfile
+    import time
+
+    from csmom_tpu_torch.utils.deadline import mono_now_s
+
+    run_dir = tempfile.mkdtemp(prefix="csmom-pool-")
+    try:
+        started = _start_pool(args, run_dir)
+        if isinstance(started, int):
+            return started
+        sup, router = started
+        # from here every exit path must stop the fleet: worker processes
+        # would outlive a crashed CLI
+        try:
+            _print_pool_ready(sup, router)
+            failed = _pool_self_probe(router)
+            print(f"  self-probe: "
+                  f"{'all endpoints served' if not failed else 'FAILED'}")
+            if failed:
+                for p in failed:
+                    print(f"    {p.kind}: state={p.state} error={p.error}",
+                          file=sys.stderr)
+                return 1
+            try:
+                if args.duration > 0:
+                    end = mono_now_s() + args.duration
+                    while mono_now_s() < end:
+                        time.sleep(min(0.2, max(0.0, end - mono_now_s())))
+                else:
+                    print("pool serving until interrupted (Ctrl-C) ...")
+                    while True:
+                        time.sleep(0.5)
+            except KeyboardInterrupt:
+                print("\ninterrupted — draining the fleet")
+            acct = router.accounting()
+            viols = router.invariant_violations()
+        finally:
+            sup.stop()
+            router.channels.close()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    summary = sup.summary()
+    print(f"pool accounting: {acct}")
+    print(f"availability: {router.availability()}")
+    print(f"fleet: kills {summary['kills']}, restarts "
+          f"{summary['restarts']}, rolls {summary['rolls_completed']}")
+    for v in viols:
+        print(f"INVARIANT VIOLATION: {v}", file=sys.stderr)
+    return 1 if viols else 0
+
+
+def _kill_w0_after(sup, kill_after: float):
+    """The ``concurrent`` action of a pool run: SIGKILL worker ``w0``
+    ``kill_after`` seconds in, then wait (up to 120 s, the ready
+    timeout) for its replacement to demonstrate ready, so the artifact
+    is built from a settled fleet."""
+    import time
+
+    from csmom_tpu_torch.utils.deadline import mono_now_s
+
+    def concurrent():
+        time.sleep(kill_after)
+        victim = sup.handles[0].worker_id
+        print(f"  [chaos] SIGKILL worker {victim} ({kill_after:g}s into "
+              "the run)", flush=True)
+        sup.kill_worker(victim)
+        give_up = mono_now_s() + sup.config.ready_timeout_s
+        while mono_now_s() < give_up:
+            if any(h.generation >= 1 and h.state == "ready"
+                   for h in sup.handles):
+                return
+            if sup.handles[0].state == "failed":
+                return  # parked: the artifact reports it
+            time.sleep(0.05)
+
+    return concurrent
+
+
+def _cmd_loadgen_pool(args, schedule: str, run_id: str,
+                      schedule_kind: str = "custom",
+                      preset: dict | None = None) -> int:
+    """Pool-mode loadgen: drive the router, land GPU_SERVE_POOL_<run>.json."""
+    import shutil
+    import tempfile
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig,
+        run_pool_loadgen,
+        write_artifact,
+    )
+
+    run_dir = tempfile.mkdtemp(prefix="csmom-pool-")
+    try:
+        started = _start_pool(args, run_dir)
+        if isinstance(started, int):
+            return started
+        sup, router = started
+        try:
+            _print_pool_ready(sup, router)
+            # a named schedule's preset applies where the pool loadgen
+            # implements it (the class mix); cache reuse and version bumps
+            # are single-process shapes, dropped loudly so the artifact's
+            # schedule_kind never overclaims
+            preset = dict(preset or {})
+            class_mix = preset.pop("class_mix", None)
+            preset.pop("use_class_deadlines", None)  # pool deadlines are
+            # per-request floats through the router, not class budgets
+            if args.reuse_fraction is not None:
+                preset["reuse_fraction"] = args.reuse_fraction
+            if preset:
+                print(f"note: named-schedule preset keys {sorted(preset)} "
+                      "apply to the single-process loadgen only; this pool "
+                      "run uses the schedule + class mix")
+            load = LoadConfig(
+                schedule=schedule,
+                schedule_kind=schedule_kind,
+                seed=args.seed,
+                class_mix=class_mix,
+                deadline_s=(None if args.deadline_ms == 0
+                            else 0.5 if args.deadline_ms is None
+                            else args.deadline_ms / 1e3),
+                run_id=run_id,
+            )
+            kill_after = args.kill_worker_after or 0.0
+            concurrent = (_kill_w0_after(sup, kill_after) if kill_after > 0
+                          else None)
+            print(f"offering (pool): schedule {schedule} (seed {load.seed}, "
+                  f"deadline {load.deadline_s}s"
+                  + (f", worker kill @{kill_after:g}s" if kill_after else "")
+                  + ") ...")
+            art = run_pool_loadgen(router, sup, load, concurrent=concurrent)
+        finally:
+            # a Ctrl-C or a loadgen failure must not leak live workers
+            sup.stop()
+            router.channels.close()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out_dir = args.out or os.getcwd()
+    path = write_artifact(out_dir, art, prefix="GPU_SERVE_POOL")
+
+    req = art["requests"]
+    lat = art["latency_ms"]["total"]
+    print(f"\nthroughput: {art['value']} req/s achieved vs "
+          f"{art['offered']['offered_rps']} req/s offered over "
+          f"{art['wall_s']}s wall"
+          + (" (offered-load-limited)" if art["offered_limited"] else ""))
+    print(f"requests: admitted {req['admitted']} -> served {req['served']}, "
+          f"rejected {req['rejected']} (infra {req['rejected_infra']}), "
+          f"expired {req['expired']}")
+    print(f"availability: {art['availability']}  hedge rate: "
+          f"{art['hedge']['rate']} ({req['hedged']} hedged, "
+          f"{req['hedge_wins']} wins, {req['duplicates_suppressed']} "
+          f"suppressed), retries {req['retries']}, worker connection "
+          f"failures {req['worker_conn_failures']}")
+    print(f"latency total ms: p50 {lat['p50']}  p95 {lat['p95']}  "
+          f"p99 {lat['p99']}")
+    print(f"fleet: kills {art['pool']['kills']}, restarts "
+          f"{art['pool']['restarts']}, rolls "
+          f"{art['pool']['rolls_completed']}, ready at the end "
+          f"{art['pool']['ready_workers_end']}")
+    print(f"in-window fresh compiles: "
+          f"{art['compile']['in_window_fresh_compiles']!r}")
+    print(f"artifact: {path}")
+
+    viols = inv.validate_file(path)
+    if viols:
+        print("ARTIFACT INVALID:", file=sys.stderr)
+        for v in viols:
+            print(f"  - {v}", file=sys.stderr)
+        return 1
+    fresh = art["compile"]["in_window_fresh_compiles"]
+    if isinstance(fresh, int) and fresh > 0 and not args.allow_fresh_compiles:
+        print(f"error: {fresh} kernel build(s) or load(s) inside the serving "
+              "window across the fleet — a worker missed what its warm-up "
+              "built; rerun with --allow-fresh-compiles to land anyway",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def cmd_serve(args) -> int:
-    """Run the in-process signal service: warm every bucket shape,
-    self-probe every endpoint, serve."""
+    """Run the signal service: in-process (default) or the multi-process
+    pool (``--workers N``); warm every bucket shape, self-probe every
+    endpoint, serve."""
     import time
 
     import numpy as np
@@ -131,7 +420,12 @@ def cmd_serve(args) -> int:
     from csmom_tpu_torch.registry import serve_endpoints
     from csmom_tpu_torch.utils.deadline import mono_now_s
 
-    rc = _deferred_flag(args) or _check_cache_honesty(args)
+    rc = _deferred_flag(args)
+    if rc:
+        return rc
+    if args.workers > 0:
+        return _cmd_serve_pool(args)
+    rc = _check_cache_honesty(args)
     if rc:
         return rc
     svc = _mk_service(args)
@@ -182,8 +476,9 @@ def cmd_serve(args) -> int:
 
 
 def cmd_loadgen(args) -> int:
-    """Open-loop load generation against an in-process service; lands
-    GPU_SERVE_<run>.json."""
+    """Open-loop load generation against an in-process service (or the
+    pool with ``--pool``); lands GPU_SERVE_<run>.json or
+    GPU_SERVE_POOL_<run>.json."""
     from csmom_tpu_torch.chaos import invariants as inv
     from csmom_tpu_torch.serve.loadgen import (
         LoadConfig,
@@ -208,6 +503,9 @@ def cmd_loadgen(args) -> int:
     except ValueError as e:
         print(f"--schedule: {e}", file=sys.stderr)
         return 2
+    if args.pool:
+        return _cmd_loadgen_pool(args, schedule, run_id, schedule_kind,
+                                 preset)
     if args.reuse_fraction is not None:
         preset["reuse_fraction"] = args.reuse_fraction
     rc = _check_cache_honesty(args)
@@ -312,10 +610,17 @@ def _common_flags(sp) -> None:
                     help="serve even when a kernel the serve path "
                          "launches is not built yet (default: exit 3 "
                          "with a build pointer)")
+    sp.add_argument("--workers", type=int, default=0,
+                    help="run the MULTI-PROCESS pool with N supervised "
+                         "worker processes behind a hedging router "
+                         "(0 = the in-process single service; default 0; "
+                         "loadgen --pool: default 2)")
+    sp.add_argument("--hedge-fraction", dest="hedge_fraction", type=float,
+                    default=0.35,
+                    help="pool mode: hedge a request after this fraction "
+                         "of its remaining deadline (default 0.35)")
     # the reference's flags the port does not have yet: exit 2
-    for flag, kw in (("--workers", dict(type=int)),
-                     ("--hedge-fraction", dict(type=float)),
-                     ("--mesh", dict(action="store_true", default=None)),
+    for flag, kw in (("--mesh", dict(action="store_true", default=None)),
                      ("--devices-per-worker", dict(type=int))):
         sp.add_argument(flag, help="not ported yet (exits 2)", **kw)
 
@@ -367,12 +672,19 @@ def register(sub) -> None:
                     help="land the artifact even when a kernel was built "
                          "or loaded inside the serving window (default: "
                          "exit 1)")
-    for flag, kw in (("--pool", dict(action="store_true", default=None)),
-                     ("--fabric", dict(action="store_true", default=None)),
+    lg.add_argument("--pool", action="store_true",
+                    help="drive the multi-process pool (--workers N, "
+                         "default 2) instead of the in-process service; "
+                         "lands GPU_SERVE_POOL_<run>.json (kind serve_pool)")
+    lg.add_argument("--kill-worker-after", dest="kill_worker_after",
+                    type=float, default=0.0, metavar="SEC",
+                    help="pool mode: SIGKILL worker w0 SEC seconds into "
+                         "the run and wait for its warm replacement "
+                         "(0 = no kill)")
+    for flag, kw in (("--fabric", dict(action="store_true", default=None)),
                      ("--routers", dict(type=int)),
                      ("--transport", dict(choices=["unix", "tcp"])),
                      ("--kill-router-after", dict(type=float)),
-                     ("--kill-worker-after", dict(type=float)),
                      ("--trace", dict(action="store_true", default=None)),
                      ("--fleet", dict(action="store_true", default=None)),
                      ("--spares", dict(type=int)),

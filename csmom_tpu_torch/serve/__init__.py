@@ -15,13 +15,32 @@ Counterpart of ``csmom_tpu.serve``'s in-process half:
   batch scorers on the card) and the numpy ``StubEngine``;
 - :mod:`~csmom_tpu_torch.serve.service`: ``SignalService``;
 - :mod:`~csmom_tpu_torch.serve.loadgen`: the seeded open-loop load
-  generator and its ``GPU_SERVE_<run>.json`` artifact.
+  generator and its ``GPU_SERVE_<run>.json`` and
+  ``GPU_SERVE_POOL_<run>.json`` artifacts.
 
-The multi-process pool, the router, the fabric and the fleet are not
-ported yet (ROADMAP.md, Queue 1).
+and the multi-process pool over it:
+
+- :mod:`~csmom_tpu_torch.serve.proto`: the wire protocol (framed JSON and
+  raw arrays, byte for byte the reference's) and its multiplexed
+  channels;
+- :mod:`~csmom_tpu_torch.serve.health`: liveness, readiness, the cache
+  version and the cold-build check;
+- :mod:`~csmom_tpu_torch.serve.worker`: one ``SignalService`` behind a
+  socket, a process of its own;
+- :mod:`~csmom_tpu_torch.serve.supervisor`: spawn, probe, restart and
+  roll the workers;
+- :mod:`~csmom_tpu_torch.serve.router`: admission, hedged dispatch and
+  closed books across the processes.
+
+The fabric (the router as replicated processes) and the fleet are not
+ported yet (ROADMAP.md, Queue 1 item 6c).  Nothing here imports torch
+at import time: the stub workers and the supervisor never load it.
 """
 
 from csmom_tpu_torch.registry import serve_endpoints
 from csmom_tpu_torch.serve.buckets import BucketSpec, bucket_spec
+from csmom_tpu_torch.serve.router import Router, RouterConfig
+from csmom_tpu_torch.serve.supervisor import PoolConfig, PoolSupervisor
 
-__all__ = ["BucketSpec", "bucket_spec", "serve_endpoints"]
+__all__ = ["BucketSpec", "PoolConfig", "PoolSupervisor", "Router",
+           "RouterConfig", "bucket_spec", "serve_endpoints"]

@@ -25,6 +25,13 @@ and per endpoint, the cache book, p50/p95/p99 queue, service and total
 latency, the batch-size histogram with padding and fire reasons, the
 in-window kernel-build count, and bounded per-request latency samples.
 Its ``extra.platform`` is ``"gpu"``, ``"cpu"`` or ``"stub"``.
+
+:func:`run_pool_loadgen` drives the multi-process pool through its
+router with the same seeded stream and lands ``GPU_SERVE_POOL_<run>.json``
+(the reference's ``serve_pool`` schema v1): the router's closed
+cross-process books, availability, the hedge arithmetic, total latency,
+the fleet's lifecycle events, each worker's stats, and the sum of the
+workers' in-window kernel builds.
 """
 
 from __future__ import annotations
@@ -43,13 +50,16 @@ from csmom_tpu_torch.serve.service import ServeConfig, SignalService
 from csmom_tpu_torch.utils.deadline import mono_now_s
 
 __all__ = ["LoadConfig", "NAMED_SCHEDULES", "arrival_offsets",
-           "build_artifact", "parse_schedule", "resolve_schedule",
-           "run_loadgen", "synth_panel", "write_artifact"]
+           "build_artifact", "build_pool_artifact", "parse_schedule",
+           "resolve_schedule", "run_loadgen", "run_pool_loadgen",
+           "synth_panel", "write_artifact"]
 
 # the reference's serve schema: v3 added per-endpoint books and latency
 # (endpoint names validated against the registry), v4 per-class error-
 # budget burn and bounded per-request latency samples
 SCHEMA_VERSION = 4
+# the reference's serve_pool schema
+POOL_SCHEMA_VERSION = 1
 
 # the default class mix
 _DEFAULT_MIX = (("interactive", 0.6), ("standard", 0.15), ("bulk", 0.25))
@@ -513,6 +523,219 @@ def build_artifact(service: SignalService, load: LoadConfig,
             "class_mix": {name: w for name, w in load.mix()},
             "reuse_fraction": load.reuse_fraction,
             "version_bumps": load.version_bumps,
+        },
+        "extra": extra,
+    }
+
+
+# ------------------------------------------------------------------ pool ---
+
+def _open_loop_drive(offsets, submit_arrival, concurrent=None) -> tuple:
+    """The open-loop scaffold of a pool run: run ``concurrent`` in a side
+    thread, fire ``submit_arrival(i)`` at each schedule offset (open
+    loop: the schedule's clock rules, not the service's), wait every
+    request terminal within 60 s, then join the side thread with its own
+    budget (a restart can outlast the request drain) and refuse to
+    return from a still-mutating fleet rather than let the caller land a
+    mid-restart snapshot as evidence.  A ``concurrent`` exception is
+    raised after the join, never lost.  Returns ``(requests, wall_s)``."""
+    import threading
+
+    side = None
+    side_exc: list = []
+    if concurrent is not None:
+        def _side():
+            try:
+                concurrent()
+            except BaseException as e:  # surfaced after join, not lost
+                side_exc.append(e)
+
+        side = threading.Thread(target=_side, daemon=True)
+
+    requests = []
+    t_start = mono_now_s()
+    if side is not None:
+        side.start()
+    for i, off in enumerate(offsets):
+        delay = (t_start + off) - mono_now_s()
+        if delay > 0:
+            time.sleep(delay)  # open loop: the schedule's clock rules
+        requests.append(submit_arrival(i))
+    give_up = mono_now_s() + 60.0
+    for r in requests:
+        r.wait(timeout=max(0.0, give_up - mono_now_s()))
+    wall_s = mono_now_s() - t_start
+    if side is not None:
+        side.join(timeout=300.0)
+        if side.is_alive():
+            raise RuntimeError(
+                "concurrent action still running after 300s — refusing "
+                "to build the pool artifact from an unsettled fleet")
+        if side_exc:
+            raise side_exc[0]
+    return requests, wall_s
+
+
+def run_pool_loadgen(router, supervisor, load: LoadConfig,
+                     concurrent=None) -> dict:
+    """Drive the multi-process pool with the SAME seeded open-loop
+    schedule as :func:`run_loadgen`, through the router.
+
+    The pool is NOT stopped here (the caller may still want to kill /
+    roll / inspect workers); the books close once every admitted request
+    reaches a terminal state — which the router guarantees per request,
+    so waiting on the handles IS the drain.
+
+    ``concurrent`` (optional callable) runs in a thread alongside the
+    load stream — the chaos lever for "do X UNDER load" scenarios
+    (rolling restart, a mid-run kill).  The artifact is built only after
+    BOTH the load's requests are terminal AND ``concurrent`` returned,
+    so worker stats and fleet events are read from a settled pool."""
+    rng = random.Random(load.seed)
+    segments = parse_schedule(load.schedule)
+    offsets = arrival_offsets(segments, rng)
+    spec = router.spec
+    max_assets = min(load.max_assets or spec.max_assets, spec.max_assets)
+    mix = load.mix()
+    kinds = list(load.resolved_kinds())  # hoisted out of the timed loop
+
+    def submit_arrival(_i):
+        kind = rng.choice(kinds)
+        n_assets = rng.randint(2, max_assets)
+        values, mask = synth_panel(rng, n_assets, spec.months, kind)
+        return router.submit(kind, values, mask,
+                             priority=_pick_class(mix, rng),
+                             deadline_s=load.deadline_s)
+
+    requests, wall_s = _open_loop_drive(offsets, submit_arrival, concurrent)
+    return build_pool_artifact(router, supervisor, load, requests, wall_s)
+
+
+def _pool_fresh_compiles(workers: list):
+    """Aggregate in-window fresh compiles across the fleet: the SUM of
+    every live worker's count.  A worker that cannot report (dead slot,
+    stats error) degrades the total to a reason string — "unknown" must
+    never be spelled 0."""
+    total = 0
+    gaps = []
+    for w in workers:
+        if w.get("state") != "ready":
+            # a replaced slot's history lives in the replacement; a dead/
+            # failed slot has no count to contribute — named, not zeroed
+            gaps.append(f"{w['worker_id']}: {w.get('state')}")
+            continue
+        fc = w.get("fresh_compiles")
+        if isinstance(fc, int) and not isinstance(fc, bool):
+            total += fc
+        else:
+            gaps.append(f"{w['worker_id']}: {fc!r}")
+    if gaps:
+        return (f"{total} across reporting workers; not measurable for "
+                f"[{'; '.join(gaps)}]")
+    return total
+
+
+def build_pool_artifact(router, supervisor, load: LoadConfig,
+                        requests: list, wall_s: float) -> dict:
+    """The SERVE_POOL artifact: the router's closed cross-process books,
+    hedging/availability headline, and the fleet's evidence."""
+    acct = router.accounting()
+    served = [r for r in requests if r.state == "served"]
+    throughput = round(acct["served"] / wall_s, 3) if wall_s > 0 else 0.0
+    segments = parse_schedule(load.schedule)
+    duration = schedule_duration_s(segments)
+    offered_rps = round(len(requests) / duration, 3) if duration else 0.0
+    lat = {"total": _percentiles(
+        [r.total_s for r in served if r.total_s is not None])}
+    workers = supervisor.worker_stats()
+    summary = supervisor.summary()
+    fresh = _pool_fresh_compiles(workers)
+    spec = router.spec
+    cfg = supervisor.config
+    ready = [w for w in workers if w.get("state") == "ready"]
+    platform = None
+    for h in supervisor.handles:
+        rep = h.ready_report or {}
+        if isinstance(rep.get("platform"), str):
+            platform = rep["platform"]
+            break
+    workload = (
+        f"pool open-loop {load.schedule} rps seed {load.seed}, "
+        f"{'/'.join(load.resolved_kinds())} mix, {cfg.n_workers} workers, buckets "
+        f"B({','.join(map(str, spec.batch_buckets))})x"
+        f"A({','.join(map(str, spec.asset_buckets))})x{spec.months}m "
+        f"({spec.dtype}, {cfg.engine} engine)"
+    )
+    extra = {
+        "platform": platform,
+        "engine": cfg.engine,
+        "workload": workload,
+        "hedge_policy": {
+            "fraction": router.config.hedge_fraction,
+            "floor_ms": round(1e3 * router.config.hedge_floor_s, 3),
+            "max_attempts": router.config.max_attempts,
+        },
+        "cache_version": summary["expect_cache_version"],
+        # same CI backing as the single-process artifact: bounded
+        # per-request total-latency samples for the pool p99 rows
+        "samples": {"serve_pool_total_ms": _bounded_samples(
+            [1e3 * r.total_s for r in served if r.total_s is not None],
+            SAMPLE_CAP, load.seed)},
+    }
+    if spec.name == "serve-smoke":
+        extra["smoke"] = ("smoke-bucket pool run: pipeline-shaped, "
+                          "workload reduced — NOT a performance capture")
+    admitted = max(1, acct["admitted"])
+    return {
+        "kind": "serve_pool",
+        "schema_version": POOL_SCHEMA_VERSION,
+        "run_id": load.run_id,
+        "metric": "serve_pool_throughput_rps",
+        "value": throughput,
+        "unit": "req/s",
+        "vs_baseline": 1.0,
+        "wall_s": round(wall_s, 4),
+        # same honesty flag as the single-process artifact: a run the
+        # pool fully kept up with measured the LOAD, not the ceiling
+        "offered_limited": bool(acct["rejected"] == 0
+                                and acct["expired"] == 0),
+        "requests": acct,
+        "availability": router.availability(),
+        "hedge": {
+            "hedged": acct["hedged"],
+            "rate": round(acct["hedged"] / admitted, 4),
+            "wins": acct["hedge_wins"],
+            "suppressed": acct["duplicates_suppressed"],
+        },
+        "latency_ms": lat,
+        "pool": {
+            "n_workers": cfg.n_workers,
+            "ready_workers_end": len(ready),
+            "kills": summary["kills"],
+            "restarts": summary["restarts"],
+            "rolls_completed": summary["rolls_completed"],
+            "events": summary["events"][:200],
+        },
+        "workers": workers,
+        "compile": {
+            "in_window_fresh_compiles": fresh,
+            "note": "sum of per-worker kernel libraries built or loaded "
+                    "since each worker's own warm-up (ops.build): 0 = no "
+                    "worker built or loaded a kernel inside the serving "
+                    "window (warm-before-ready held across spawns, "
+                    "restarts and rolls)",
+        },
+        "offered": {
+            "schedule": load.schedule,
+            "schedule_kind": load.schedule_kind,
+            "seed": load.seed,
+            "n_arrivals": len(requests),
+            "duration_s": round(duration, 4),
+            "offered_rps": offered_rps,
+            "kinds": list(load.resolved_kinds()),
+            "deadline_ms": (None if load.deadline_s is None
+                            else round(1e3 * load.deadline_s, 3)),
+            "class_mix": {name: w for name, w in load.mix()},
         },
         "extra": extra,
     }

@@ -122,6 +122,10 @@ class SignalService:
         self.batch_size_hist: dict = {}
         self._pad_lanes = 0
         self._used_lanes = 0
+        # engine calls and their summed wall, by endpoint: a worker's
+        # stats reply holds its kernel launches against these
+        self._engine_calls: dict = {}
+        self._engine_s: dict = {}
         self._state_lock = threading.Lock()
         # live-panel version gate (streaming mode): None = batch panels,
         # no versioning.  See attach_live_version.
@@ -364,7 +368,15 @@ class SignalService:
                     "injected worker crash (chaos 'fail' at serve.dispatch)")
             with span("serve.dispatch", phase="row", kind=mb.kind,
                       b=mb.batch_bucket, a=mb.asset_bucket) as sp:
-                out = self.engine.score(mb.kind, mb.values, mb.mask)
+                try:
+                    out = self.engine.score(mb.kind, mb.values, mb.mask)
+                finally:
+                    with self._state_lock:
+                        self._engine_calls[mb.kind] = (
+                            self._engine_calls.get(mb.kind, 0) + 1)
+                        self._engine_s[mb.kind] = (
+                            self._engine_s.get(mb.kind, 0.0)
+                            + mono_now_s() - t_engine)
                 sp.set(n=len(live))
             # stamp the engine-wall boundary for every request BEFORE the
             # fan-out loop, so one request's unpack/cache time is never
@@ -430,6 +442,9 @@ class SignalService:
                               if self.n_batches else None),
                 "pad_fraction": (round(self._pad_lanes / total, 4)
                                  if total else None),
+                "engine_calls": dict(self._engine_calls),
+                "engine_ms": {k: round(1e3 * v, 3)
+                              for k, v in self._engine_s.items()},
             }
         stats["fire_reasons"] = self.batcher.fire_reason_counts()
         return stats

@@ -79,6 +79,8 @@ def test_the_scan_covers_the_serving_tier():
     for sub in ("registry", "serve", "obs", "chaos", "utils"):
         assert os.path.join("csmom_tpu_torch", sub, "__init__.py") in rel
     assert os.path.join("csmom_tpu_torch", "cli", "serve.py") in rel
+    for mod in ("proto", "health", "worker", "supervisor", "router"):
+        assert os.path.join("csmom_tpu_torch", "serve", f"{mod}.py") in rel
 
 
 def test_port_names_no_file_of_the_reference():
@@ -244,3 +246,21 @@ def test_entry_points_raise_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pool_worker_raises_without_a_card(tmp_path):
+    """A pool worker on its default ``--device cuda`` with no card exits
+    non-zero naming ``--device cpu`` before it binds; nothing runs on the
+    CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from csmom_tpu_torch.serve.worker import RC_NO_DEVICE
+
+    p = subprocess.run(
+        [sys.executable, "-m", "csmom_tpu_torch.serve.worker",
+         "--socket", str(tmp_path / "w.sock")],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+        env={**os.environ, "PYTHONPATH": _REPO})
+    assert p.returncode == RC_NO_DEVICE, p.stderr
+    assert "--device cpu" in p.stderr
+    assert not (tmp_path / "w.sock").exists()

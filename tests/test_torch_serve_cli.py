@@ -1,9 +1,12 @@
-"""The port's ``serve`` and ``loadgen`` commands on the CPU, in-process:
+"""The port's ``serve`` and ``loadgen`` commands on the CPU:
 ``loadgen --smoke --device cpu`` lands a ``GPU_SERVE_smoke.json`` valid
 under both packages' validators with no kernel built in the window,
-``serve --stub`` self-probes every endpoint, the reference's flags the
-port does not have yet exit 2 naming their ROADMAP item, the cold-cache
-gate exits 3, and no card means exit 2 naming ``--device cpu``."""
+``serve --stub`` self-probes every endpoint, the pool (``serve --workers
+N``, ``loadgen --pool``, ``--kill-worker-after``) runs on stub and CPU
+workers and lands a valid ``GPU_SERVE_POOL_*.json``, the reference's
+flags the port does not have yet exit 2 naming their ROADMAP item, the
+cold-cache gate exits 3, and no card means exit 2 naming ``--device
+cpu``."""
 
 import json
 
@@ -62,14 +65,61 @@ def test_serve_on_the_cpu(capsys):
     assert "self-probe: all endpoints served" in capsys.readouterr().out
 
 
+def test_serve_pool_of_stub_workers(capsys):
+    assert main(["serve", "--workers", "2", "--stub", "--duration", "0.5",
+                 "--hedge-fraction", "0.3"]) == 0
+    out = capsys.readouterr().out
+    assert "serving pool ready: 2/2 workers (engine stub" in out
+    assert "hedging: fraction 0.3" in out
+    assert "self-probe: all endpoints served" in out
+    assert "availability: 1.0" in out
+
+
+def test_serve_pool_on_the_cpu(capsys):
+    assert main(["serve", "--workers", "2", "--device", "cpu", "--profile",
+                 "serve-smoke", "--duration", "0.2"]) == 0
+    out = capsys.readouterr().out
+    assert "serving pool ready: 2/2 workers (engine torch" in out
+    assert out.count("platform cpu fresh_compiles 0") == 2
+    assert "self-probe: all endpoints served" in out
+
+
+def test_loadgen_pool_lands_a_valid_artifact(tmp_path, capsys):
+    assert main(["loadgen", "--pool", "--stub", "--smoke", "--schedule",
+                 "0.6x60", "--out", str(tmp_path), "--run-id", "pool"]) == 0
+    path = tmp_path / "GPU_SERVE_POOL_pool.json"
+    assert inv.validate_file(str(path)) == []
+    assert ref_inv.validate_file(str(path)) == []
+    art = json.loads(path.read_text())
+    assert art["kind"] == "serve_pool" and art["pool"]["n_workers"] == 2
+    assert art["hedge"] == {"hedged": art["requests"]["hedged"],
+                            "rate": art["hedge"]["rate"],
+                            "wins": art["requests"]["hedge_wins"],
+                            "suppressed":
+                                art["requests"]["duplicates_suppressed"]}
+    assert art["compile"]["in_window_fresh_compiles"] == 0
+
+
+def test_loadgen_pool_survives_a_worker_kill(tmp_path, capsys):
+    assert main(["loadgen", "--pool", "--stub", "--smoke", "--schedule",
+                 "1.2x50", "--kill-worker-after", "0.5", "--out",
+                 str(tmp_path), "--run-id", "kill"]) == 0
+    out = capsys.readouterr().out
+    assert "[chaos] SIGKILL worker w0" in out
+    art = json.loads((tmp_path / "GPU_SERVE_POOL_kill.json").read_text())
+    req = art["requests"]
+    assert req["served"] + req["rejected"] + req["expired"] == req["admitted"]
+    assert req["rejected_infra"] == 0 and art["availability"] == 1.0
+    assert art["pool"]["kills"] == 1 and art["pool"]["restarts"] == 1
+    assert art["pool"]["ready_workers_end"] == 2
+    assert inv.validate_file(str(tmp_path / "GPU_SERVE_POOL_kill.json")) == []
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--workers", "2"], "6b"),
-    (["serve", "--hedge-fraction", "0.3"], "6b"),
     (["serve", "--mesh"], "item 7"),
     (["serve", "--devices-per-worker", "2"], "item 7"),
-    (["loadgen", "--pool"], "6b"),
-    (["loadgen", "--kill-worker-after", "1"], "6b"),
     (["loadgen", "--fabric"], "6c"),
+    (["loadgen", "--pool", "--transport", "tcp"], "6c"),
     (["loadgen", "--routers", "3"], "6c"),
     (["loadgen", "--fleet"], "6c"),
     (["loadgen", "--spares", "1"], "6c"),
