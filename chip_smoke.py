@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--out DIR]
 
-``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json`` artifacts there
-(by default they go to a temporary directory, removed at the end).
+``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json`` and phase 13's
+``GPU_SERVE_FABRIC_*.json`` artifacts there (by default they go to a
+temporary directory, removed at the end).
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -74,10 +75,12 @@ any phase fails (nothing is caught).  Phases:
    same call, ``kernels_per_call`` how many kernels it launched,
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
    ``research_launches``, ``data_in_launches``, ``cli_launches``,
-   ``intraday_launches``, ``serve_launches`` and ``pool_launches`` the
-   counts of phases 6, 7, 8, 9, 11 and 12 (12's in the worker
-   processes), and K1's ``serve_device_ms`` and ``serve_bound_ms`` at
-   the serve shape ``serve_shape``;
+   ``intraday_launches``, ``serve_launches``, ``pool_launches`` and
+   ``fabric_launches`` the counts of phases 6, 7, 8, 9, 11, 12 and 13
+   (12's and 13's in the worker processes; 13's over its serving
+   windows, equal to the workers' ``backtest`` batches), and K1's
+   ``serve_device_ms`` and ``serve_bound_ms`` at the serve shape
+   ``serve_shape``;
 11. serve (run before phase 9): (a) each of the five endpoints'
    ``TorchEngine`` on the card against ``TorchEngine(device="cpu")`` at
    all six shapes of profile ``serve`` (B in {1, 4, 8} x A in {32, 128} x
@@ -113,6 +116,25 @@ any phase fails (nothing is caught).  Phases:
    then ``serve --workers 2`` and ``loadgen --pool --kill-worker-after 1``
    in subprocesses; the kernels line's ``pool_launches`` the workers'
    counts;
+13. fabric (run after phase 12 and before phase 9): two router-replica
+   processes over tcp in front of three torch workers, the fabric client
+   in this process: (a) the workers ready with platform ``gpu``, no
+   kernel built and this process's cache version, each replica's
+   ``stats`` saying it never loaded torch, each tier's spawn -> ready
+   wall and the card's memory; (b) every endpoint at all six shapes
+   through client -> replica -> worker, each result equal to this
+   process's engine alone, K1 launches equal to ``backtest`` batches;
+   (c) the JAX package's ``SERVE_FABRIC_r20.json`` cell (its bursty
+   schedule, seed 0, five endpoints, class mix, reuse and version bump,
+   500 ms deadlines) with router ``r0`` SIGKILLed 1.0 s and worker
+   ``w0`` 1.6 s in, both replacements awaited: books closed per class
+   and per replica, no infra rejection, one kill and one restart in each
+   tier, no kernel built, every served result equal to the engine alone,
+   a valid ``GPU_SERVE_FABRIC_*.json``; (d) phase 12's ceiling offer
+   (its rate, reused) behind two routers through one worker and through
+   three, with each router process's and this process's CPU and the
+   submission wall; (e) ``loadgen --fabric --kill-router-after 1`` in a
+   subprocess;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -2041,30 +2063,15 @@ def pool_deltas(before: dict, after: dict) -> dict:
     return d
 
 
-def pool_phase(smi, out_dir) -> dict:
-    """Phase 12: the pool on the card.  Returns the workers' kernel
-    launches over the phase, read through their ``stats`` replies."""
-    import random as pyrandom
-    import resource
-    import shutil
-    import threading
-
-    import torch
-
-    from csmom_tpu_torch.chaos import invariants as inv
-    from csmom_tpu_torch.cli.serve import _kill_w0_after
-    from csmom_tpu_torch.registry import serve_endpoints
-    from csmom_tpu_torch.serve import health
+def result_holder():
+    """``hold_result(result, kind, values, mask, what)``: a served result
+    against this process's own engine on the card scoring the request
+    alone, padded to its bucket as a worker's batcher pads it (phases 12
+    and 13)."""
     from csmom_tpu_torch.serve.batcher import Batcher
     from csmom_tpu_torch.serve.buckets import bucket_spec
     from csmom_tpu_torch.serve.engine import TorchEngine, unpack_result
-    from csmom_tpu_torch.serve.loadgen import (
-        LoadConfig, run_pool_loadgen, synth_panel, write_artifact,
-    )
     from csmom_tpu_torch.serve.queue import Request
-    from csmom_tpu_torch.serve.router import Router, RouterConfig
-    from csmom_tpu_torch.serve.supervisor import PoolConfig, PoolSupervisor, pick_transport
-    from csmom_tpu_torch.serve.worker import RC_VERSION_SKEW
 
     spec = bucket_spec("serve")
     card = TorchEngine(device="cuda")
@@ -2072,8 +2079,6 @@ def pool_phase(smi, out_dir) -> dict:
     batcher = Batcher(spec)
 
     def alone(kind, values, mask):
-        """The smoke's own engine scoring one request alone, padded to its
-        bucket as a worker's batcher pads it."""
         mb = batcher.pad([Request(kind=kind, values=values, mask=mask,
                                   n_assets=values.shape[0])])
         return unpack_result(kind, card.score(kind, mb.values, mb.mask), 0,
@@ -2085,6 +2090,33 @@ def pool_phase(smi, out_dir) -> dict:
             return hold_scores(np.array(list(result.values())),
                                np.array(list(want.values())), what, False)
         return hold_scores(np.asarray(result), want, what, False)
+
+    return hold_result
+
+
+def pool_phase(smi, out_dir) -> dict:
+    """Phase 12: the pool on the card.  Returns the workers' kernel
+    launches over the phase, read through their ``stats`` replies, and
+    the ceiling runs' offered rate (phase 13 offers the same)."""
+    import random as pyrandom
+    import resource
+    import shutil
+    import threading
+
+    import torch
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.cli.serve import _kill_w0_after
+    from csmom_tpu_torch.registry import serve_endpoints
+    from csmom_tpu_torch.serve import health
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig, run_pool_loadgen, synth_panel, write_artifact,
+    )
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.supervisor import PoolConfig, PoolSupervisor, pick_transport
+    from csmom_tpu_torch.serve.worker import RC_VERSION_SKEW
+
+    hold_result = result_holder()
 
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -2336,7 +2368,358 @@ def pool_phase(smi, out_dir) -> dict:
                     + f" | {smi}")
     if launches["decile_partial_sums"] < 1 or launches["cohort_partial_sums"]:
         raise AssertionError(f"pool: worker launches {launches}, expected K1 > 0, K2 0")
-    return {"launches": launches}
+    return {"launches": launches, "ceiling_rate": rate}
+
+
+# phase 13: the serving fabric on the card.  The JAX package's r20 fabric
+# (SERVE_FABRIC_r20.json): two router-replica processes over tcp in front
+# of three torch workers sharing the card, the fabric client in this
+# process; profile "serve" as in phases 11 and 12
+FABRIC_ROUTERS = 2
+FABRIC_WORKERS = 3
+# SERVE_FABRIC_r20.json's own configuration: the bursty schedule, seed 0,
+# the five endpoints, its class mix, panel reuse and one version bump,
+# 500 ms deadlines
+FABRIC_R20 = dict(schedule="0.5x8,0.3x240,0.5x8,0.3x300,0.5x10,0.3x260,0.4x8",
+                  schedule_kind="bursty", seed=0,
+                  class_mix=(("interactive", 0.45), ("standard", 0.15),
+                             ("bulk", 0.4)),
+                  reuse_fraction=0.35, version_bumps=1, deadline_s=0.5)
+# one router and one worker SIGKILLed mid-burst, at the offsets of the
+# reference's fabric capture command (--kill-router-after 1.0
+# --kill-worker-after 1.6)
+FABRIC_KILL_ROUTER_S = 1.0
+FABRIC_KILL_WORKER_S = 1.6
+
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of a live process (``/proc/<pid>/stat``)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def fabric_phase(smi, out_dir, ceiling_rate: int) -> dict:
+    """Phase 13: the fabric on the card.  ``ceiling_rate`` is phase 12's
+    ceiling offer, reused.  Returns the workers' kernel launches and
+    ``backtest`` batches over the phase's serving windows, read through
+    their ``stats`` replies (each process from its first read after it
+    became ready, so warm-ups are not counted)."""
+    import random as pyrandom
+    import resource
+    import shutil
+    import threading
+
+    import torch
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.registry import serve_endpoints
+    from csmom_tpu_torch.serve import health
+    from csmom_tpu_torch.serve.fabric import (
+        FabricClient, RoutesPublisher, build_fabric, kill_mid_burst, stop_fabric,
+        write_routes,
+    )
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig, run_fabric_loadgen, synth_panel, write_artifact,
+    )
+    from csmom_tpu_torch.serve.supervisor import PoolConfig
+
+    hold_result = result_holder()
+    first: dict = {}   # pid -> the process's first stats reply
+    last: dict = {}    # pid -> its latest
+
+    def read_workers(wsup) -> dict:
+        now = pool_stats(wsup)
+        for pid, st in now.items():
+            first.setdefault(pid, st)
+            last[pid] = st
+        return now
+
+    run_dir = tempfile.mkdtemp(prefix="csmom-fabric-")
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    wsup = publisher = rsup = client = None
+    try:
+        # -- (a) three tiers ready ----------------------------------------
+        t0 = time.perf_counter()
+        wsup, publisher, rsup, client = build_fabric(
+            PoolConfig(n_workers=FABRIC_WORKERS, profile="serve", engine="torch",
+                       device="cuda", transport="tcp", require_warm_cache=True),
+            PoolConfig(n_workers=FABRIC_ROUTERS, profile="serve", engine="stub",
+                       transport="tcp"),
+            run_dir, deadline_ms=1e3 * FABRIC_R20["deadline_s"],
+            client_deadline_s=FABRIC_R20["deadline_s"])
+        spawn_s = time.perf_counter() - t0
+        free1, _ = torch.cuda.mem_get_info()
+        want_version = health.aot_cache_version("serve")
+        for h in wsup.handles:
+            rep = h.ready_report or {}
+            if (h.state != "ready" or rep.get("platform") != "gpu"
+                    or rep.get("fresh_compiles") != 0
+                    or rep.get("cache_version") != want_version):
+                raise AssertionError(f"fabric (a): {h.worker_id} {h.state}: {rep} "
+                                     f"{h.reason}")
+        replicas = rsup.router_stats()
+        if (len(replicas) != FABRIC_ROUTERS
+                or any(r["state"] != "ready" or r.get("torch_loaded") is not False
+                       or r.get("accounting") is None for r in replicas)):
+            raise AssertionError(f"fabric (a): router replicas {replicas}")
+        walls = {h.worker_id: round(h.t_ready_s - h.t_spawned_s, 3)
+                 for h in rsup.handles + wsup.handles}
+        log("fabric", f"(a) {FABRIC_ROUTERS} router replicas (stub engine, "
+                      f"torch_loaded false) and {FABRIC_WORKERS} torch workers ready "
+                      f"in {spawn_s:.2f} s over tcp: platform gpu, fresh_compiles 0, "
+                      f"cache version {want_version}; spawn -> ready walls "
+                      f"{json.dumps(walls)}; worker walls "
+                      f"{json.dumps({h.worker_id: h.ready_report['walls'] for h in wsup.handles})}; "
+                      f"card memory free {free0 / 2**20:.0f} -> {free1 / 2**20:.0f} "
+                      f"MiB of {total / 2**20:.0f} | {smi}")
+
+        # -- (b) parity through the fabric ---------------------------------
+        # a client of its own: the measured client's books are (c)'s ledger
+        probe = FabricClient(rsup.ready_workers, client.config)
+        base0 = read_workers(wsup)
+        rng = pyrandom.Random(20261018)
+        n_held = 0
+        try:
+            for kind in serve_endpoints():
+                for B, A in SERVE_SHAPES:
+                    group = [synth_panel(rng, A - 3 if b == 0 else
+                                         rng.randint(2 if A == 32 else 33, A),
+                                         SERVE_MONTHS, kind) for b in range(B)]
+                    reqs = [probe.submit(kind, v, m, deadline_s=10.0)
+                            for v, m in group]
+                    for (v, m), req in zip(group, reqs):
+                        if not req.wait(60.0) or req.state != "served":
+                            raise AssertionError(f"fabric (b) {kind} B={B} A={A}: "
+                                                 f"{req.state} {req.error}")
+                        hold_result(req.result, kind, v, m,
+                                    f"fabric (b) {kind} B={B} A={A}")
+                        n_held += 1
+        finally:
+            probe.close()
+        d = pool_deltas(base0, read_workers(wsup))
+        if d["k1"] != d["backtest_calls"] or d["k1"] < 1 or d["k2"] or d["libraries"]:
+            raise AssertionError(f"fabric (b): the workers' K1 launches {d['k1']} != "
+                                 f"their backtest batches {d['backtest_calls']} "
+                                 f"(K2 {d['k2']}, libraries {d['libraries']})")
+        log("fabric", f"(b) {n_held} requests (5 endpoints x 6 serve shapes) through "
+                      f"client -> replica -> worker == the smoke's engine scoring "
+                      f"each alone (f32 {SERVE_F32}); the workers' K1 launches "
+                      f"{d['k1']} == their backtest batches {d['backtest_calls']}, "
+                      f"K2 0, 0 libraries loaded")
+
+        # -- (c) the reference's r20 cell ----------------------------------
+        submitted = []
+        lock = threading.Lock()
+        submit = client.submit
+
+        def recording_submit(kind, values, mask, **kw):
+            req = submit(kind, values, mask, **kw)
+            with lock:
+                submitted.append((kind, values, mask, req))
+            return req
+
+        client.submit = recording_submit
+
+        def double_kill():
+            if not kill_mid_burst([(FABRIC_KILL_ROUTER_S, rsup, "router"),
+                                   (FABRIC_KILL_WORKER_S, wsup, "worker")],
+                                  settle_timeout_s=wsup.config.ready_timeout_s):
+                raise AssertionError("fabric (c): a killed tier never demonstrated "
+                                     "ready again")
+
+        read_workers(wsup)
+        art = run_fabric_loadgen(client, rsup, wsup, LoadConfig(
+            run_id="chip-r20", **FABRIC_R20), concurrent=double_kill)
+        read_workers(wsup)
+        path = write_artifact(out_dir, art, prefix="GPU_SERVE_FABRIC")
+        viols = inv.validate(art) + client.invariant_violations()
+        by_class: dict = {}
+        for _, _, _, req in submitted:
+            book = by_class.setdefault(req.priority, {"admitted": 0, "served": 0,
+                                                      "rejected": 0, "expired": 0})
+            book["admitted"] += 1
+            if req.state in ("served", "rejected", "expired"):
+                book[req.state] += 1
+        for name, book in by_class.items():
+            if book["served"] + book["rejected"] + book["expired"] != book["admitted"]:
+                viols.append(f"client class {name} books open: {book}")
+        for r in art["routers"]["replicas"]:
+            a = r.get("accounting")
+            if a is None:
+                viols.append(f"replica {r['router_id']} reported no books: {r}")
+                continue
+            if a["served"] + a["rejected"] + a["expired"] != a["admitted"]:
+                viols.append(f"replica {r['router_id']} books open: {a}")
+            viols += [f"replica {r['router_id']}: {v}" for v in r["invariant_violations"]]
+            for name, book in r["classes"].items():
+                if book["served"] + book["rejected"] + book["expired"] != book["admitted"]:
+                    viols.append(f"replica {r['router_id']} class {name} open: {book}")
+        req_c = art["requests"]
+        tiers = {t: {k: art[t][k] for k in ("kills", "restarts", "ready_end")}
+                 for t in ("routers", "workers")}
+        if (viols or req_c["rejected_infra"] or art["availability"] != 1.0
+                or tiers != {"routers": {"kills": 1, "restarts": 1,
+                                         "ready_end": FABRIC_ROUTERS},
+                             "workers": {"kills": 1, "restarts": 1,
+                                         "ready_end": FABRIC_WORKERS}}
+                or art["compile"]["in_window_fresh_compiles"] != 0
+                or len(submitted) != req_c["admitted"]):
+            raise AssertionError(f"fabric (c): {viols}; requests {req_c}; tiers "
+                                 f"{tiers}; fresh "
+                                 f"{art['compile']['in_window_fresh_compiles']!r}")
+        n_c = 0
+        for kind, v, m, req in submitted:
+            if req.state == "served":
+                hold_result(req.result, kind, v, m, f"fabric (c) a served {kind}")
+                n_c += 1
+        respawn = {t: [e.get("wall_s") for e in art[t]["events"]
+                       if e["event"] == "ready" and e.get("generation") == 1]
+                   for t in ("routers", "workers")}
+        lat = art["latency_ms"]["total"]
+        log("fabric", f"(c) r20 bursty seed 0, {FABRIC_ROUTERS} routers x "
+                      f"{FABRIC_WORKERS} workers over tcp, r0 SIGKILLed "
+                      f"{FABRIC_KILL_ROUTER_S} s and w0 {FABRIC_KILL_WORKER_S} s in: "
+                      f"{art['value']} req/s achieved vs {art['offered']['offered_rps']} "
+                      f"offered over {art['wall_s']} s; p50 {lat['p50']} p95 "
+                      f"{lat['p95']} p99 {lat['p99']} ms; requests {json.dumps(req_c)}; "
+                      f"by class {json.dumps(by_class)}; availability "
+                      f"{art['availability']}, pool cache hit rate "
+                      f"{art['cache']['pool_hit_rate']}, hedge rate "
+                      f"{art['hedge']['rate']}; tiers {json.dumps(tiers)}, "
+                      f"replacements ready in {json.dumps(respawn)} s; books closed "
+                      f"per class and per replica, 0 fresh compiles, artifact valid "
+                      f"({path}); {n_c} served results == the engine alone | {smi}")
+
+        # -- (d) phase 12's ceiling behind two routers ---------------------
+        # the routes file names one worker, then all three: the replicas
+        # route from it (the publisher paused meanwhile)
+        routes_path = os.path.join(run_dir, "routes.json")
+        ceiling = {}
+        for n in (1, FABRIC_WORKERS):
+            publisher.stop()
+            chosen = wsup.ready_workers()[:n]
+            write_routes(routes_path, [(h.worker_id, h.socket_path) for h in chosen],
+                         None, wsup.expect_cache_version)
+            for h in rsup.ready_workers():
+                if health.readiness(h.socket_path, timeout_s=5.0).get("workers") != n:
+                    raise AssertionError(f"fabric (d): {h.worker_id} does not route "
+                                         f"to {n} worker(s)")
+            c_n = FabricClient(rsup.ready_workers, client.config)
+            stamps = []
+            submit_n = c_n.submit
+
+            def stamping_submit(*a, submit_n=submit_n, stamps=stamps, **kw):
+                stamps.append(time.perf_counter())
+                return submit_n(*a, **kw)
+
+            c_n.submit = stamping_submit
+            s0 = read_workers(wsup)
+            cpu0 = {h.worker_id: proc_cpu_s(h.proc.pid)
+                    for h in rsup.handles + wsup.handles}
+            ru0 = resource.getrusage(resource.RUSAGE_SELF)
+            try:
+                art_n = run_fabric_loadgen(c_n, rsup, wsup, LoadConfig(
+                    schedule=f"{POOL_CEILING_S}x{ceiling_rate}", seed=12,
+                    kinds=("backtest",), class_mix=(("interactive", 1.0),),
+                    deadline_s=FABRIC_R20["deadline_s"],
+                    run_id=f"chip-fabric-ceiling-{n}"))
+            finally:
+                c_n.close()
+            ru1 = resource.getrusage(resource.RUSAGE_SELF)
+            cpu1 = {h.worker_id: proc_cpu_s(h.proc.pid)
+                    for h in rsup.handles + wsup.handles}
+            s1 = read_workers(wsup)
+            dn = pool_deltas(s0, s1)
+            wall = art_n["wall_s"]
+            client_cpu = (ru1.ru_utime - ru0.ru_utime) + (ru1.ru_stime - ru0.ru_stime)
+            cores = {w: round((cpu1[w] - cpu0[w]) / wall, 2) for w in cpu0}
+            # requests that reached a worker and expired in its queue
+            queue_expired = {s1[pid]["worker_id"]: s1[pid]["accounting"]["expired"]
+                             - s0[pid]["accounting"]["expired"]
+                             for pid in s1 if pid in s0}
+            busy = {s1[pid]["worker_id"]: round(
+                (s1[pid]["batches"]["engine_ms"].get("backtest", 0.0)
+                 - s0[pid]["batches"]["engine_ms"].get("backtest", 0.0))
+                / 1e3 / wall, 3) for pid in s1 if pid in s0}
+            if (c_n.invariant_violations() or inv.validate(art_n)
+                    or dn["k1"] != dn["backtest_calls"]):
+                raise AssertionError(f"fabric (d) {n} worker(s): "
+                                     f"{c_n.invariant_violations()} "
+                                     f"{inv.validate(art_n)} {dn}")
+            write_artifact(out_dir, art_n, prefix="GPU_SERVE_FABRIC")
+            rq = art_n["requests"]
+            ceiling[n] = art_n["value"]
+            log("fabric", f"(d) {FABRIC_ROUTERS} routers x {n} worker(s): "
+                          f"{art_n['value']} req/s achieved of "
+                          f"{art_n['offered']['offered_rps']} offered over {wall} s; "
+                          f"p50 {art_n['latency_ms']['total']['p50']} p99 "
+                          f"{art_n['latency_ms']['total']['p99']} ms; served "
+                          f"{rq['served']} ({rq['served_cache_hits']} from a "
+                          f"worker's cache), rejected {rq['rejected']} (infra "
+                          f"{rq['rejected_infra']}), expired {rq['expired']}; "
+                          f"{dn['backtest_calls']} backtest batches "
+                          f"({dn['backtest_ms'] / max(1, dn['backtest_calls']):.3f} ms "
+                          f"each); engine-busy share by worker {json.dumps(busy)}; "
+                          f"expired in a worker's queue {json.dumps(queue_expired)}; "
+                          f"router and worker processes {json.dumps(cores)} cores; "
+                          f"the client (this process) {client_cpu:.2f} s of CPU "
+                          f"({client_cpu / wall:.2f} cores), the {POOL_CEILING_S} s "
+                          f"schedule submitted over {stamps[-1] - stamps[0]:.3f} s; "
+                          f"the fabric's processes "
+                          f"{sum(cores.values()) + client_cpu / wall:.2f} cores in "
+                          f"all, of the {len(os.sched_getaffinity(0))} this process "
+                          f"may run on | {smi}")
+            publisher = RoutesPublisher(wsup, routes_path, interval_s=0.05).start()
+        log("fabric", f"(d) ceiling behind {FABRIC_ROUTERS} routers: "
+                      f"{ceiling[FABRIC_WORKERS]} req/s through {FABRIC_WORKERS} "
+                      f"workers against {ceiling[1]} through 1 "
+                      f"({ceiling[FABRIC_WORKERS] / max(ceiling[1], 1e-9):.2f}x), "
+                      f"{ceiling_rate} req/s offered (phase 12's rate)")
+    finally:
+        stop_fabric(publisher, rsup, wsup)
+        if client is not None:
+            client.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    if wsup is not None and any(h.proc.poll() is None
+                                for h in rsup.handles + wsup.handles):
+        raise AssertionError("fabric: a process outlived the supervisors' stop")
+
+    # -- (e) the CLI, in a subprocess --------------------------------------
+    argv = ["loadgen", "--fabric", "--routers", "2", "--workers", "2", "--transport",
+            "tcp", "--kill-router-after", "1", "--out", out_dir, "--run-id",
+            "chip-cli-fabric"]
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", *argv],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    cli_path = os.path.join(out_dir, "GPU_SERVE_FABRIC_chip-cli-fabric.json")
+    if (p.returncode != 0 or "artifact: " not in p.stdout
+            or inv.validate_file(cli_path)):
+        raise AssertionError(f"fabric cli: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    log("fabric", f"(cli) {' '.join(argv)}: exit 0 in {wall:.2f} s, artifact valid; "
+                  + " / ".join(ln.strip() for ln in p.stdout.splitlines()
+                               if ln.startswith(("fabric ready", "throughput",
+                                                 "latency", "  self-probe",
+                                                 "availability", "routers:",
+                                                 "in-window")))
+                  + f" | {smi}")
+
+    launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    batches = 0
+    for pid, st in last.items():
+        for name in launches:
+            launches[name] += (st["kernel_launches"][name]
+                               - first[pid]["kernel_launches"][name])
+        batches += (st["batches"]["engine_calls"].get("backtest", 0)
+                    - first[pid]["batches"]["engine_calls"].get("backtest", 0))
+    if (launches["decile_partial_sums"] != batches or batches < 1
+            or launches["cohort_partial_sums"]):
+        raise AssertionError(f"fabric: worker launches {launches} against "
+                             f"{batches} backtest batches")
+    return {"launches": launches, "backtest_batches": batches}
 
 
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
@@ -2383,8 +2766,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--out", help="keep phase 12's pool artifacts in this "
-                                  "directory (default: a temporary one)")
+    ap.add_argument("--out", help="keep phase 12's pool and phase 13's fabric "
+                                  "artifacts in this directory (default: a "
+                                  "temporary one)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2974,6 +3358,17 @@ def main(argv=None) -> int:
                 f"launches {pool['launches']} | {smi}")
     for row in rows:
         row["pool_launches"] = pool["launches"][row["name"]]
+
+    # -- 13. fabric: router replicas as processes, after phase 12 and before
+    # phase 9 ---------------------------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="csmom_fabric_") as tmp:
+        fab = fabric_phase(smi, args.out or tmp, pool["ceiling_rate"])
+    log("fabric", f"phase wall {time.perf_counter() - t_phase:.1f} s; the workers' "
+                  f"launches in the serving windows {fab['launches']}, "
+                  f"{fab['backtest_batches']} backtest batches | {smi}")
+    for row in rows:
+        row["fabric_launches"] = fab["launches"][row["name"]]
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()

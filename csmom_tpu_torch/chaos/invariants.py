@@ -1,7 +1,14 @@
 """The serving artifacts' contracts: closed books, ordered percentiles.
 
-Counterpart of ``csmom_tpu.chaos.invariants`` for the two artifact kinds
-the port lands, both written by :mod:`csmom_tpu_torch.serve.loadgen`.
+Counterpart of ``csmom_tpu.chaos.invariants`` for the three artifact
+kinds the port lands, all written by :mod:`csmom_tpu_torch.serve.loadgen`.
+
+``serve_fabric`` (``GPU_SERVE_FABRIC_<run>.json``, schema v1, the
+reference's rules copied): closed client-tier books, an availability, a
+pool-level cache hit rate and a hedge rate that reconcile with them, no
+stale cache hit anywhere in the fleet, at least two router replicas,
+ordered total-latency percentiles and each tier's per-process records
+and counters.
 
 ``serve_pool`` (``GPU_SERVE_POOL_<run>.json``, schema v1, the
 reference's rules copied): request books that close across the process
@@ -28,22 +35,31 @@ from __future__ import annotations
 
 import json
 
-__all__ = ["KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
+__all__ = ["KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
+           "KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
            "detect_kind", "validate", "validate_file"]
 
 KNOWN_SERVE_SCHEMA_VERSIONS = (1, 2, 3, 4)
 KNOWN_SERVE_POOL_SCHEMA_VERSIONS = (1,)
+KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS = (1,)
 
 _NUM = (int, float)
 
 
 def detect_kind(obj: dict) -> str | None:
-    """``"serve_pool"`` or ``"serve"`` by the artifact's ``kind`` or key
-    signature (the pool's requests/availability/hedge, the service's
-    requests/latency_ms/batches), else None.  Pool before serve: the
-    reference's order."""
+    """``"serve_fabric"``, ``"serve_pool"`` or ``"serve"`` by the
+    artifact's ``kind`` or key signature (the fabric's requests/
+    availability/routers/transport, the pool's requests/availability/
+    hedge, the service's requests/latency_ms/batches), else None.  The
+    reference's order: each kind carries the next one's signature plus
+    its own, so the fabric is tested before the pool and the pool before
+    the service."""
     if not isinstance(obj, dict):
         return None
+    if obj.get("kind") == "serve_fabric" or {"requests", "availability",
+                                             "routers",
+                                             "transport"} <= set(obj):
+        return "serve_fabric"
     if obj.get("kind") == "serve_pool" or {"requests", "availability",
                                            "hedge"} <= set(obj):
         return "serve_pool"
@@ -571,21 +587,192 @@ def _validate_serve_pool(obj: dict) -> list:
     return out
 
 
+def _validate_serve_fabric(obj: dict) -> list:
+    """The three-tier fabric contract: closed CLIENT-tier
+    books (the outermost ledger — the one a SIGKILLed router replica
+    cannot take with it), availability reconciling with its own infra
+    counter, a pool-level cache book whose hit rate reconciles with the
+    client's cache-hit count and whose fleet-aggregated ``stale_hits``
+    is structurally zero across rebalances, hedge arithmetic, and at
+    least TWO router replicas (replication is the kind's point)."""
+    out: list = []
+    _require(obj, "run_id", str, "serve_fabric", out)
+    ver = _require(obj, "schema_version", int, "serve_fabric", out)
+    if ver is not None and ver not in KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS:
+        out.append(
+            f"serve_fabric: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS)}) — "
+            "the artifact is from a different era of the code; do not "
+            "half-parse it")
+    _require(obj, "wall_s", _NUM, "serve_fabric", out, "a number")
+    out += _validate_record(obj, kind="serve_fabric")
+
+    trans = _require(obj, "transport", dict, "serve_fabric", out)
+    if isinstance(trans, dict):
+        if trans.get("scheme") not in ("unix", "tcp"):
+            out.append(f"serve_fabric: transport.scheme "
+                       f"{trans.get('scheme')!r} must be 'unix' or 'tcp'")
+        nr = trans.get("routers")
+        if not isinstance(nr, int) or isinstance(nr, bool) or nr < 2:
+            out.append(f"serve_fabric: transport.routers {nr!r} — the "
+                       "fabric requires >= 2 router replicas (one "
+                       "router is the r11 pool, not a fabric)")
+        nw = trans.get("workers")
+        if not isinstance(nw, int) or isinstance(nw, bool) or nw < 1:
+            out.append(f"serve_fabric: transport.workers must be a "
+                       f"positive int, got {nw!r}")
+
+    req = _require(obj, "requests", dict, "serve_fabric", out)
+    if isinstance(req, dict):
+        counters = ("admitted", "served", "rejected", "expired",
+                    "rejected_infra", "served_cache_hits",
+                    "served_hedged", "router_conn_failures", "failovers")
+        ok = True
+        for k in counters:
+            v = req.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"serve_fabric: requests.{k} must be a "
+                           "non-negative int (the client-tier ledger is "
+                           "the contract)")
+                ok = False
+        if not ok:
+            # malformed counters: the availability/cache/hedge reconcile
+            # blocks below divide by these values — a violation must stay
+            # a violation, not become a TypeError out of validate()
+            req = None
+        else:
+            total = req["served"] + req["rejected"] + req["expired"]
+            if total != req["admitted"]:
+                out.append(
+                    f"serve_fabric: client books broken — served "
+                    f"{req['served']} + rejected {req['rejected']} + "
+                    f"expired {req['expired']} = {total} != admitted "
+                    f"{req['admitted']} (a request died with a replica)")
+            if req["rejected_infra"] > req["rejected"]:
+                out.append("serve_fabric: rejected_infra exceeds rejected")
+            if req["served_cache_hits"] > req["served"]:
+                out.append("serve_fabric: served_cache_hits exceeds served")
+            if req["served_hedged"] > req["served"]:
+                out.append("serve_fabric: served_hedged exceeds served")
+
+    avail = _require(obj, "availability", _NUM, "serve_fabric", out,
+                     "a number")
+    if isinstance(avail, _NUM) and not isinstance(avail, bool):
+        if not 0.0 <= avail <= 1.0:
+            out.append(f"serve_fabric: availability {avail} outside [0, 1]")
+        elif isinstance(req, dict) and req.get("admitted"):
+            want = round(1.0 - req.get("rejected_infra", 0)
+                         / req["admitted"], 6)
+            if abs(avail - want) > 1e-6:
+                out.append(
+                    f"serve_fabric: availability {avail} does not "
+                    f"reconcile with 1 - rejected_infra/admitted = {want}")
+
+    cache = _require(obj, "cache", dict, "serve_fabric", out)
+    if isinstance(cache, dict):
+        hr = cache.get("pool_hit_rate")
+        if not isinstance(hr, _NUM) or isinstance(hr, bool) \
+                or not 0.0 <= hr <= 1.0:
+            out.append(f"serve_fabric: cache.pool_hit_rate {hr!r} must "
+                       "be a number in [0, 1]")
+        elif isinstance(req, dict) and req.get("served"):
+            want = round(req.get("served_cache_hits", 0)
+                         / req["served"], 4)
+            if abs(hr - want) > 1e-4:
+                out.append(
+                    f"serve_fabric: cache.pool_hit_rate {hr} does not "
+                    f"reconcile with served_cache_hits/served = {want}")
+        wagg = cache.get("workers")
+        if not isinstance(wagg, dict):
+            out.append("serve_fabric: cache.workers (the fleet-aggregated "
+                       "worker cache book) must be a dict")
+        else:
+            sh = wagg.get("stale_hits")
+            if not isinstance(sh, int) or isinstance(sh, bool):
+                out.append("serve_fabric: cache.workers.stale_hits must "
+                           "be an int")
+            elif sh != 0:
+                out.append(
+                    f"serve_fabric: cache.workers.stale_hits = {sh} — a "
+                    "STALE entry was returned somewhere in the fleet; "
+                    "the version floor must make this structurally "
+                    "impossible, rebalances included")
+
+    hedge = _require(obj, "hedge", dict, "serve_fabric", out)
+    if isinstance(hedge, dict):
+        rate = hedge.get("rate")
+        if not isinstance(rate, _NUM) or isinstance(rate, bool):
+            out.append("serve_fabric: hedge.rate must be a number")
+        elif isinstance(req, dict) and req.get("admitted"):
+            want = round(req.get("served_hedged", 0)
+                         / max(1, req["admitted"]), 4)
+            if abs(rate - want) > 1e-4:
+                out.append(
+                    f"serve_fabric: hedge.rate {rate} does not reconcile "
+                    f"with served_hedged/admitted = {want}")
+        rt = hedge.get("router_tier")
+        if isinstance(rt, dict):
+            if isinstance(rt.get("wins"), int) and \
+                    isinstance(rt.get("hedged"), int) and \
+                    rt["wins"] > rt["hedged"]:
+                out.append(
+                    f"serve_fabric: router_tier hedge_wins {rt['wins']} "
+                    f"> hedged {rt['hedged']} — a hedge cannot win more "
+                    "than it fired")
+
+    lat = _require(obj, "latency_ms", dict, "serve_fabric", out)
+    if isinstance(lat, dict):
+        _validate_latency_side(lat.get("total"), "total", "serve_fabric",
+                               out)
+
+    for tier, id_key in (("routers", "router_id"), ("workers", "worker_id")):
+        block = _require(obj, tier, dict, "serve_fabric", out)
+        if not isinstance(block, dict):
+            continue
+        rows = block.get("replicas" if tier == "routers" else "stats")
+        if not isinstance(rows, list):
+            out.append(f"serve_fabric: {tier} must carry its per-process "
+                       "stats list")
+        else:
+            for i, r in enumerate(rows):
+                if not isinstance(r, dict) or id_key not in r:
+                    out.append(f"serve_fabric: {tier} row {i} must be a "
+                               f"dict with a {id_key}")
+        for k in ("kills", "restarts"):
+            v = block.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"serve_fabric: {tier}.{k} must be a "
+                           "non-negative int")
+
+    comp = obj.get("compile")
+    if comp is not None and not isinstance(comp, dict):
+        out.append("serve_fabric: compile must be a dict when present")
+    elif isinstance(comp, dict):
+        fc = comp.get("in_window_fresh_compiles")
+        if fc is not None and not isinstance(fc, (int, str)):
+            out.append("serve_fabric: compile.in_window_fresh_compiles "
+                       "must be an int count or a reason string")
+    return out
+
+
 def validate(obj, kind: str | None = None) -> list:
-    """All contract violations of one serve or serve_pool artifact (empty
-    = valid)."""
+    """All contract violations of one serve, serve_pool or serve_fabric
+    artifact (empty = valid)."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
     if kind is None:
         return ["unrecognized artifact shape: not a serve artifact (no "
-                "kind 'serve' or 'serve_pool', no requests/latency_ms/"
-                "batches or requests/availability/hedge keys)"]
+                "kind 'serve', 'serve_pool' or 'serve_fabric', no "
+                "requests/latency_ms/batches, requests/availability/hedge "
+                "or requests/availability/routers/transport keys)"]
+    if kind == "serve_fabric":
+        return _validate_serve_fabric(obj)
     if kind == "serve_pool":
         return _validate_serve_pool(obj)
     if kind != "serve":
         return [f"unknown artifact kind {kind!r}: this validator checks "
-                "serve and serve_pool artifacts only"]
+                "serve, serve_pool and serve_fabric artifacts only"]
     return _validate_serve(obj)
 
 

@@ -1,6 +1,6 @@
 """``serve`` and ``loadgen``: the serving tier's commands.
 
-Counterpart of ``csmom_tpu.cli.serve``'s in-process and pool halves;
+Counterpart of ``csmom_tpu.cli.serve``'s in-process, pool and fabric parts;
 each prints what ``csmom`` prints.  ``serve`` starts the micro-batching
 signal service (:mod:`csmom_tpu_torch.serve`), warms every bucket shape,
 prints the readiness report, runs a self-probe of every endpoint, then
@@ -21,6 +21,13 @@ replacement.  The pool's requests carry a 500 ms deadline unless
 straggler is hedged.  On the card the cold-cache gate runs once, in this
 process, before any worker is spawned.
 
+``loadgen --fabric`` drives the three-tier fabric: ``--routers N``
+(default 2, at least 2) supervised router-replica processes in front of
+the worker pool, a fabric client in this process, and
+``GPU_SERVE_FABRIC_<run>.json``; ``--kill-router-after SEC`` SIGKILLs
+replica ``r0`` mid-burst and combines with ``--kill-worker-after``.
+``--transport {unix,tcp}`` sets the pool's and the fabric's sockets.
+
 The flags that differ from the reference's:
 
 - ``--device {cuda,cpu}`` (default cuda) takes the place of
@@ -29,9 +36,12 @@ The flags that differ from the reference's:
   serve path launches must already have its library in
   ``build/csmom_tpu_torch/`` (``ops/build.py::library_path``), else the
   command exits 3 (``--allow-cold-cache`` accepts the build pause);
-- ``--reuse-fraction`` sets the in-process run's panel reuse;
-- the fabric, fleet, tracing and mesh flags are not ported yet: each
-  exits 2 naming the ROADMAP.md item that brings it.
+- ``--reuse-fraction`` sets the in-process and fabric runs' panel reuse;
+- ``--transport`` unset picks unix sockets, or tcp when a socket path
+  under the temporary run directory would pass 107 bytes
+  (``supervisor.pick_transport``), where the reference defaults to unix;
+- the fleet, tracing and mesh flags are not ported yet: each exits 2
+  naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -44,14 +54,10 @@ __all__ = ["cmd_loadgen", "cmd_serve", "register"]
 # flags of the reference's serving tier the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them: (dest, flag, item)
 _DEFERRED = (
-    ("fabric", "--fabric", "6c, the fabric and fleet"),
-    ("routers", "--routers", "6c, the fabric and fleet"),
-    ("transport", "--transport", "6c, the fabric and fleet"),
-    ("kill_router_after", "--kill-router-after", "6c, the fabric and fleet"),
-    ("fleet", "--fleet", "6c, the fabric and fleet"),
-    ("spares", "--spares", "6c, the fabric and fleet"),
-    ("autoscale", "--autoscale", "6c, the fabric and fleet"),
-    ("prefork", "--prefork", "6c, the fabric and fleet"),
+    ("fleet", "--fleet", "6f, the fleet observatory and elastic tier"),
+    ("spares", "--spares", "6f, the fleet observatory and elastic tier"),
+    ("autoscale", "--autoscale", "6f, the fleet observatory and elastic tier"),
+    ("prefork", "--prefork", "6f, the fleet observatory and elastic tier"),
     ("trace", "--trace", "6d, tracing and replay"),
     ("mesh", "--mesh", "7, the multi-GPU layer"),
     ("devices_per_worker", "--devices-per-worker", "7, the multi-GPU layer"),
@@ -63,7 +69,8 @@ def _deferred_flag(args) -> int:
     for dest, flag, item in _DEFERRED:
         if getattr(args, dest, None) not in (None, False):
             print(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item "
-                  f"{item}); the port serves in-process or as a pool",
+                  f"{item}); the port serves in-process, as a pool or as "
+                  "a fabric",
                   file=sys.stderr)
             return 2
     return 0
@@ -127,41 +134,53 @@ def _print_ready(svc) -> None:
 
 # ------------------------------------------------------------------ pool ---
 
-def _mk_pool(args, run_dir: str):
-    """Start the supervised fleet and its router (serve and loadgen)."""
-    from csmom_tpu_torch.serve.router import Router, RouterConfig
-    from csmom_tpu_torch.serve.supervisor import (
-        PoolConfig,
-        PoolSupervisor,
-        pick_transport,
-    )
+def _transport(args, run_dir: str) -> str:
+    """``--transport``, else unix sockets unless a socket path under
+    ``run_dir`` would be too long (``pick_transport``).  ``serve`` has no
+    such flag."""
+    from csmom_tpu_torch.serve.supervisor import pick_transport
+
+    return getattr(args, "transport", None) or pick_transport(run_dir)
+
+
+def _worker_config(args, run_dir: str):
+    """The worker fleet's ``PoolConfig`` of a pool or fabric run, whose
+    sockets go under ``run_dir``."""
+    from csmom_tpu_torch.serve.supervisor import PoolConfig
 
     profile = args.profile or ("serve-smoke" if getattr(args, "smoke", False)
                                else "serve")
     engine = "stub" if args.stub else "torch"
-    # the pool's wire carries each request's deadline from the router, so
-    # the worker-side default keeps plain float semantics
-    pool_deadline_ms = 500.0 if args.deadline_ms is None else args.deadline_ms
-    cfg = PoolConfig(
+    return PoolConfig(
         # --pool without --workers means a pool: two workers is the
         # smallest fleet hedging can route around
         n_workers=args.workers if args.workers > 0 else 2,
         profile=profile,
         engine=engine,
         device=args.device,
-        transport=pick_transport(run_dir),
+        transport=_transport(args, run_dir),
         capacity=args.capacity,
         max_wait_ms=args.max_wait_ms,
-        deadline_ms=pool_deadline_ms,
+        # the pool's wire carries each request's deadline from the router,
+        # so the worker-side default keeps plain float semantics
+        deadline_ms=500.0 if args.deadline_ms is None else args.deadline_ms,
         # the parent ran the cold-cache gate; each worker checks again
         require_warm_cache=(engine == "torch" and args.device == "cuda"
                             and not args.allow_cold_cache),
     )
+
+
+def _mk_pool(args, run_dir: str):
+    """Start the supervised fleet and its router (serve and loadgen)."""
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.supervisor import PoolSupervisor
+
+    cfg = _worker_config(args, run_dir)
     sup = PoolSupervisor(cfg, run_dir).start()
     router = Router(sup.ready_workers, RouterConfig(
-        profile=profile,
-        default_deadline_s=(None if pool_deadline_ms == 0
-                            else pool_deadline_ms / 1e3),
+        profile=cfg.profile,
+        default_deadline_s=(None if cfg.deadline_ms == 0
+                            else cfg.deadline_ms / 1e3),
         hedge_fraction=args.hedge_fraction,
     ), retry_after_fn=sup.retry_after_s)
     return sup, router
@@ -170,7 +189,7 @@ def _mk_pool(args, run_dir: str):
 def _print_pool_ready(sup, router) -> None:
     print(f"serving pool ready: {len(sup.ready_workers())}/"
           f"{sup.config.n_workers} workers (engine {sup.config.engine}, "
-          f"profile {sup.config.profile})")
+          f"profile {sup.config.profile}, {sup.config.transport} sockets)")
     print(f"  cache version: {sup.expect_cache_version}")
     for h in sup.handles:
         rep = h.ready_report or {}
@@ -188,24 +207,25 @@ def _print_pool_ready(sup, router) -> None:
           f"{router.config.max_attempts}")
 
 
-def _pool_self_probe(router) -> list:
-    """One probe request per endpoint through the pool's router: the
-    tier's demonstrated-ready claim.  Returns the failed probes (empty =
-    ok)."""
+def _pool_self_probe(submitter, spec=None) -> list:
+    """One probe request per endpoint through ``submitter`` (the pool's
+    router, or a fabric client): the tier's demonstrated-ready claim.
+    Returns the failed probes (empty = ok).  ``spec`` defaults to the
+    router's bucket spec (a fabric client carries none)."""
     import numpy as np
 
     from csmom_tpu_torch.registry import serve_endpoints
 
-    spec = router.spec
+    spec = spec if spec is not None else submitter.spec
     A = spec.asset_buckets[0]
     rng = np.random.default_rng(0)
     probes = []
     for kind in serve_endpoints():
         v = 100.0 * np.exp(np.cumsum(
             rng.normal(0, 0.03, (A, spec.months)), axis=1))
-        probes.append(router.submit(kind, v.astype(np.float32),
-                                    np.ones((A, spec.months), bool),
-                                    deadline_s=10.0))
+        probes.append(submitter.submit(kind, v.astype(np.float32),
+                                       np.ones((A, spec.months), bool),
+                                       deadline_s=10.0))
     for p in probes:
         p.wait(15.0)
     return [p for p in probes if p.state != "served"]
@@ -281,29 +301,41 @@ def _cmd_serve_pool(args) -> int:
 
 def _kill_w0_after(sup, kill_after: float):
     """The ``concurrent`` action of a pool run: SIGKILL worker ``w0``
-    ``kill_after`` seconds in, then wait (up to 120 s, the ready
-    timeout) for its replacement to demonstrate ready, so the artifact
-    is built from a settled fleet."""
-    import time
-
-    from csmom_tpu_torch.utils.deadline import mono_now_s
+    ``kill_after`` seconds in, then wait (up to the ready timeout) for its
+    replacement to demonstrate ready, so the artifact is built from a
+    settled fleet (a parked slot is reported by the artifact)."""
+    from csmom_tpu_torch.serve.fabric import kill_mid_burst
 
     def concurrent():
-        time.sleep(kill_after)
-        victim = sup.handles[0].worker_id
-        print(f"  [chaos] SIGKILL worker {victim} ({kill_after:g}s into "
-              "the run)", flush=True)
-        sup.kill_worker(victim)
-        give_up = mono_now_s() + sup.config.ready_timeout_s
-        while mono_now_s() < give_up:
-            if any(h.generation >= 1 and h.state == "ready"
-                   for h in sup.handles):
-                return
-            if sup.handles[0].state == "failed":
-                return  # parked: the artifact reports it
-            time.sleep(0.05)
+        kill_mid_burst([(kill_after, sup, "worker")],
+                       settle_timeout_s=sup.config.ready_timeout_s,
+                       announce=lambda tier, victim, at_s: print(
+                           f"  [chaos] SIGKILL {tier} {victim} ({at_s:g}s "
+                           "into the run)", flush=True))
 
     return concurrent
+
+
+def _fleet_artifact_rc(args, path: str, art: dict) -> int:
+    """A pool or fabric run's exit code: 1 when its artifact fails its
+    own invariants, or when a worker built or loaded a kernel inside the
+    serving window (unless ``--allow-fresh-compiles``)."""
+    from csmom_tpu_torch.chaos import invariants as inv
+
+    viols = inv.validate_file(path)
+    if viols:
+        print("ARTIFACT INVALID:", file=sys.stderr)
+        for v in viols:
+            print(f"  - {v}", file=sys.stderr)
+        return 1
+    fresh = art["compile"]["in_window_fresh_compiles"]
+    if isinstance(fresh, int) and fresh > 0 and not args.allow_fresh_compiles:
+        print(f"error: {fresh} kernel build(s) or load(s) inside the serving "
+              "window across the fleet — a worker missed what its warm-up "
+              "built; rerun with --allow-fresh-compiles to land anyway",
+              file=sys.stderr)
+        return 1
+    return 0
 
 
 def _cmd_loadgen_pool(args, schedule: str, run_id: str,
@@ -313,7 +345,6 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
     import shutil
     import tempfile
 
-    from csmom_tpu_torch.chaos import invariants as inv
     from csmom_tpu_torch.serve.loadgen import (
         LoadConfig,
         run_pool_loadgen,
@@ -393,20 +424,189 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
           f"{art['compile']['in_window_fresh_compiles']!r}")
     print(f"artifact: {path}")
 
-    viols = inv.validate_file(path)
-    if viols:
-        print("ARTIFACT INVALID:", file=sys.stderr)
-        for v in viols:
-            print(f"  - {v}", file=sys.stderr)
-        return 1
-    fresh = art["compile"]["in_window_fresh_compiles"]
-    if isinstance(fresh, int) and fresh > 0 and not args.allow_fresh_compiles:
-        print(f"error: {fresh} kernel build(s) or load(s) inside the serving "
-              "window across the fleet — a worker missed what its warm-up "
-              "built; rerun with --allow-fresh-compiles to land anyway",
+    return _fleet_artifact_rc(args, path, art)
+
+
+# ---------------------------------------------------------------- fabric ---
+
+def _mk_fabric(args, run_dir: str):
+    """Start the three tiers: the worker supervisor, the routes
+    publisher, the router-replica supervisor and the fabric client."""
+    from csmom_tpu_torch.serve.fabric import build_fabric
+    from csmom_tpu_torch.serve.supervisor import PoolConfig
+
+    # the workers' and the routers' run dirs sit one level below run_dir
+    wcfg = _worker_config(args, os.path.join(run_dir, "workers"))
+    # replicas hold no compute: they run the stub's cache version, which
+    # build_fabric replaces with the live workers'
+    rcfg = PoolConfig(n_workers=args.routers, profile=wcfg.profile,
+                      engine="stub", transport=wcfg.transport)
+    return build_fabric(
+        wcfg, rcfg, run_dir,
+        deadline_ms=wcfg.deadline_ms,
+        hedge_fraction=args.hedge_fraction,
+        client_deadline_s=(None if wcfg.deadline_ms == 0
+                           else wcfg.deadline_ms / 1e3))
+
+
+def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
+                        schedule_kind: str = "custom",
+                        preset: dict | None = None) -> int:
+    """Fabric-mode loadgen: drive the three tiers, SIGKILL one router and
+    one worker mid-burst when asked, land GPU_SERVE_FABRIC_<run>.json."""
+    import shutil
+    import tempfile
+
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.fabric import (
+        FabricClient,
+        kill_mid_burst,
+        stop_fabric,
+    )
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig,
+        run_fabric_loadgen,
+        write_artifact,
+    )
+
+    if args.routers < 2:
+        print(f"--routers {args.routers}: the fabric needs at least 2 router "
+              "replicas (one router is the pool: use --pool)",
               file=sys.stderr)
-        return 1
-    return 0
+        return 2
+    rc = _check_cache_honesty(args)
+    if rc:
+        return rc
+    run_dir = tempfile.mkdtemp(prefix="csmom-fabric-")
+    try:
+        try:
+            wsup, publisher, rsup, client = _mk_fabric(args, run_dir)
+        except RuntimeError as e:
+            print(f"fabric failed to start: {e}", file=sys.stderr)
+            return 1
+        try:
+            print(f"fabric ready: {len(rsup.ready_workers())} router "
+                  f"replicas over {wsup.config.transport}, "
+                  f"{len(wsup.ready_workers())}/{wsup.config.n_workers} "
+                  f"workers (engine {wsup.config.engine}, profile "
+                  f"{wsup.config.profile})")
+            for h in rsup.handles + wsup.handles:
+                rep = h.ready_report or {}
+                print(f"  {h.worker_id} g{h.generation} [{h.state}] "
+                      f"{h.socket_path}"
+                      + (f" platform {rep['platform']} fresh_compiles "
+                         f"{rep.get('fresh_compiles')!r}"
+                         if "platform" in rep else ""))
+            # a demonstrated three-tier ready: one probe per endpoint
+            # through client -> replica -> worker, on a throwaway client
+            # (the measured client's books are the artifact's ledger)
+            probe_client = FabricClient(rsup.ready_workers, client.config)
+            try:
+                failed = _pool_self_probe(
+                    probe_client, spec=bucket_spec(wsup.config.profile))
+            finally:
+                probe_client.close()
+            print(f"  self-probe: "
+                  f"{'all endpoints served' if not failed else 'FAILED'}")
+            if failed:
+                for p in failed:
+                    print(f"    {p.kind}: state={p.state} error={p.error}",
+                          file=sys.stderr)
+                return 1
+
+            preset = dict(preset or {})
+            class_mix = preset.pop("class_mix", None)
+            preset_reuse = preset.pop("reuse_fraction", 0.0)
+            bumps = preset.pop("version_bumps", 0)
+            preset.pop("use_class_deadlines", None)
+            if preset:
+                print(f"note: named-schedule preset keys {sorted(preset)} "
+                      "apply to the single-process loadgen only")
+            # an explicit --reuse-fraction wins, else the named schedule's
+            # preset: the pool-level cache needs repeats to route
+            reuse = (args.reuse_fraction if args.reuse_fraction is not None
+                     else preset_reuse)
+            load = LoadConfig(
+                schedule=schedule,
+                schedule_kind=schedule_kind,
+                seed=args.seed,
+                class_mix=class_mix,
+                reuse_fraction=reuse,
+                version_bumps=bumps,
+                deadline_s=(None if args.deadline_ms == 0
+                            else 0.5 if args.deadline_ms is None
+                            else args.deadline_ms / 1e3),
+                run_id=run_id,
+            )
+            kill_router_after = args.kill_router_after or 0.0
+            kill_worker_after = args.kill_worker_after or 0.0
+            concurrent = None
+            if kill_router_after > 0 or kill_worker_after > 0:
+                def concurrent():
+                    # one router replica and one worker die mid-burst; the
+                    # client fails over, the routes view rebalances and
+                    # both supervisors respawn; the artifact is built only
+                    # after both tiers settled
+                    if not kill_mid_burst(
+                            [(kill_router_after, rsup, "router"),
+                             (kill_worker_after, wsup, "worker")],
+                            settle_timeout_s=wsup.config.ready_timeout_s,
+                            announce=lambda tier, victim, at_s: print(
+                                f"  [chaos] SIGKILL {tier} {victim} "
+                                f"({at_s:g}s into the run)", flush=True)):
+                        raise RuntimeError(
+                            "a killed tier never demonstrated ready again: "
+                            "refusing to build books from an unsettled "
+                            "fleet (a crash loop? the supervisor logs are "
+                            f"under {run_dir})")
+
+            print(f"offering (fabric): schedule {schedule} (seed "
+                  f"{load.seed}, deadline {load.deadline_s}s, reuse "
+                  f"{load.reuse_fraction}"
+                  + (f", router kill @{kill_router_after:g}s"
+                     if kill_router_after else "")
+                  + (f", worker kill @{kill_worker_after:g}s"
+                     if kill_worker_after else "")
+                  + ") ...")
+            art = run_fabric_loadgen(client, rsup, wsup, load,
+                                     concurrent=concurrent)
+        finally:
+            # every exit path stops both process tiers and the publisher
+            stop_fabric(publisher, rsup, wsup)
+            client.close()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out_dir = args.out or os.getcwd()
+    path = write_artifact(out_dir, art, prefix="GPU_SERVE_FABRIC")
+
+    req = art["requests"]
+    lat = art["latency_ms"]["total"]
+    cache = art["cache"]
+    print(f"\nthroughput: {art['value']} req/s achieved vs "
+          f"{art['offered']['offered_rps']} req/s offered over "
+          f"{art['wall_s']}s wall"
+          + (" (offered-load-limited)" if art["offered_limited"] else ""))
+    print(f"requests: admitted {req['admitted']} -> served {req['served']}, "
+          f"rejected {req['rejected']} (infra {req['rejected_infra']}), "
+          f"expired {req['expired']}; failovers {req['failovers']}, "
+          f"router connection failures {req['router_conn_failures']}")
+    print(f"availability: {art['availability']}")
+    print(f"pool cache: hit rate {cache['pool_hit_rate']} "
+          f"({cache['served_cache_hits']}/{cache['served']} served); "
+          f"worker books: stale_hits {cache['workers']['stale_hits']}")
+    print(f"hedge: served hedged {art['hedge']['served_hedged']} "
+          f"(rate {art['hedge']['rate']}), router tier hedged "
+          f"{art['hedge']['router_tier']['hedged']}")
+    print(f"latency total ms: p50 {lat['p50']}  p95 {lat['p95']}  "
+          f"p99 {lat['p99']}")
+    print(f"routers: kills {art['routers']['kills']}, restarts "
+          f"{art['routers']['restarts']}; workers: kills "
+          f"{art['workers']['kills']}, restarts {art['workers']['restarts']}")
+    print(f"in-window fresh compiles: "
+          f"{art['compile']['in_window_fresh_compiles']!r}")
+    print(f"artifact: {path}")
+
+    return _fleet_artifact_rc(args, path, art)
 
 
 def cmd_serve(args) -> int:
@@ -476,9 +676,9 @@ def cmd_serve(args) -> int:
 
 
 def cmd_loadgen(args) -> int:
-    """Open-loop load generation against an in-process service (or the
-    pool with ``--pool``); lands GPU_SERVE_<run>.json or
-    GPU_SERVE_POOL_<run>.json."""
+    """Open-loop load generation against an in-process service, the pool
+    (``--pool``) or the fabric (``--fabric``); lands GPU_SERVE_<run>.json,
+    GPU_SERVE_POOL_<run>.json or GPU_SERVE_FABRIC_<run>.json."""
     from csmom_tpu_torch.chaos import invariants as inv
     from csmom_tpu_torch.serve.loadgen import (
         LoadConfig,
@@ -503,6 +703,9 @@ def cmd_loadgen(args) -> int:
     except ValueError as e:
         print(f"--schedule: {e}", file=sys.stderr)
         return 2
+    if args.fabric:
+        return _cmd_loadgen_fabric(args, schedule, run_id, schedule_kind,
+                                   preset)
     if args.pool:
         return _cmd_loadgen_pool(args, schedule, run_id, schedule_kind,
                                  preset)
@@ -666,7 +869,8 @@ def register(sub) -> None:
     lg.add_argument("--reuse-fraction", dest="reuse_fraction",
                     type=float, default=None, metavar="F",
                     help="probability a request reuses a recent panel "
-                         "(default: the named schedule's preset, else 0)")
+                         "(in-process and fabric runs; default: the named "
+                         "schedule's preset, else 0)")
     lg.add_argument("--allow-fresh-compiles", dest="allow_fresh_compiles",
                     action="store_true",
                     help="land the artifact even when a kernel was built "
@@ -678,14 +882,27 @@ def register(sub) -> None:
                          "lands GPU_SERVE_POOL_<run>.json (kind serve_pool)")
     lg.add_argument("--kill-worker-after", dest="kill_worker_after",
                     type=float, default=0.0, metavar="SEC",
-                    help="pool mode: SIGKILL worker w0 SEC seconds into "
-                         "the run and wait for its warm replacement "
-                         "(0 = no kill)")
-    for flag, kw in (("--fabric", dict(action="store_true", default=None)),
-                     ("--routers", dict(type=int)),
-                     ("--transport", dict(choices=["unix", "tcp"])),
-                     ("--kill-router-after", dict(type=float)),
-                     ("--trace", dict(action="store_true", default=None)),
+                    help="pool and fabric modes: SIGKILL worker w0 SEC "
+                         "seconds into the run and wait for its warm "
+                         "replacement (0 = no kill)")
+    lg.add_argument("--fabric", action="store_true",
+                    help="drive the three-tier fabric: supervised "
+                         "router-replica processes (--routers N) in front "
+                         "of the worker pool, client-side failover; lands "
+                         "GPU_SERVE_FABRIC_<run>.json (kind serve_fabric)")
+    lg.add_argument("--routers", type=int, default=2,
+                    help="fabric mode: router replica count (at least 2; "
+                         "default 2)")
+    lg.add_argument("--transport", choices=["unix", "tcp"],
+                    help="pool and fabric modes: the sockets of every hop "
+                         "(default: unix, or tcp when a socket path under "
+                         "the temporary run directory would be too long)")
+    lg.add_argument("--kill-router-after", dest="kill_router_after",
+                    type=float, default=0.0, metavar="SEC",
+                    help="fabric mode: SIGKILL router replica r0 SEC seconds "
+                         "into the run and wait for its replacement "
+                         "(combines with --kill-worker-after; 0 = no kill)")
+    for flag, kw in (("--trace", dict(action="store_true", default=None)),
                      ("--fleet", dict(action="store_true", default=None)),
                      ("--spares", dict(type=int)),
                      ("--autoscale", dict(action="store_true", default=None)),

@@ -7,6 +7,8 @@ builtin registrations on first use):
 - :func:`serve_surface`: one endpoint's :class:`ServeSurface`;
 - :func:`workload_kinds`: the loadgen endpoint mix;
 - :func:`get_engine` / :func:`engine_specs`: spec access;
+- :func:`strategies`: the strategy zoo (``strategy/base.py``'s
+  registrations);
 - :func:`register_engine` / :func:`unregister_engine`: registration at
   run time (plugins, tests).
 
@@ -35,6 +37,7 @@ __all__ = [
     "register_engine",
     "serve_endpoints",
     "serve_surface",
+    "strategies",
     "unregister_engine",
     "workload_kinds",
 ]
@@ -58,6 +61,15 @@ def get_engine(name: str, kind: str | None = None) -> EngineSpec:
 
 def engine_specs(kind: str | None = None) -> tuple:
     return ensure_builtin().specs(kind)
+
+
+def strategies() -> dict:
+    """name -> Strategy class.  The port's strategies register through
+    ``strategy.base.register_strategy``, not as engine specs; importing the
+    builtin zoo (which imports torch) is what registers it."""
+    from csmom_tpu_torch.strategy.base import available_strategies
+
+    return available_strategies()
 
 
 def unregister_engine(name: str, kind: str | None = None) -> None:

@@ -32,6 +32,12 @@ router with the same seeded stream and lands ``GPU_SERVE_POOL_<run>.json``
 cross-process books, availability, the hedge arithmetic, total latency,
 the fleet's lifecycle events, each worker's stats, and the sum of the
 workers' in-window kernel builds.
+
+:func:`run_fabric_loadgen` drives the three-tier fabric through a
+:class:`~csmom_tpu_torch.serve.fabric.FabricClient` and lands
+``GPU_SERVE_FABRIC_<run>.json`` (the reference's ``serve_fabric`` schema
+v1): the client tier's closed books, per-replica router books, the
+worker fleet, and the pool-level cache hit rate.
 """
 
 from __future__ import annotations
@@ -50,9 +56,10 @@ from csmom_tpu_torch.serve.service import ServeConfig, SignalService
 from csmom_tpu_torch.utils.deadline import mono_now_s
 
 __all__ = ["LoadConfig", "NAMED_SCHEDULES", "arrival_offsets",
-           "build_artifact", "build_pool_artifact", "parse_schedule",
-           "resolve_schedule", "run_loadgen", "run_pool_loadgen",
-           "synth_panel", "write_artifact"]
+           "build_artifact", "build_fabric_artifact", "build_pool_artifact",
+           "parse_schedule", "resolve_schedule", "run_fabric_loadgen",
+           "run_loadgen", "run_pool_loadgen", "synth_panel",
+           "write_artifact"]
 
 # the reference's serve schema: v3 added per-endpoint books and latency
 # (endpoint names validated against the registry), v4 per-class error-
@@ -60,6 +67,12 @@ __all__ = ["LoadConfig", "NAMED_SCHEDULES", "arrival_offsets",
 SCHEMA_VERSION = 4
 # the reference's serve_pool schema
 POOL_SCHEMA_VERSION = 1
+FABRIC_SCHEMA_VERSION = 1
+
+# the reference's per-worker cache hit rate (its SERVE_MESH_r15.json),
+# the baseline its fabric artifact records beside the pool-level rate
+# that consistent-hash routing produces
+R15_PER_WORKER_HIT_RATE = 0.246
 
 # the default class mix
 _DEFAULT_MIX = (("interactive", 0.6), ("standard", 0.15), ("bulk", 0.25))
@@ -530,15 +543,18 @@ def build_artifact(service: SignalService, load: LoadConfig,
 
 # ------------------------------------------------------------------ pool ---
 
-def _open_loop_drive(offsets, submit_arrival, concurrent=None) -> tuple:
-    """The open-loop scaffold of a pool run: run ``concurrent`` in a side
-    thread, fire ``submit_arrival(i)`` at each schedule offset (open
-    loop: the schedule's clock rules, not the service's), wait every
-    request terminal within 60 s, then join the side thread with its own
-    budget (a restart can outlast the request drain) and refuse to
-    return from a still-mutating fleet rather than let the caller land a
-    mid-restart snapshot as evidence.  A ``concurrent`` exception is
-    raised after the join, never lost.  Returns ``(requests, wall_s)``."""
+def _open_loop_drive(offsets, submit_arrival, concurrent=None,
+                     drain_give_up_s: float = 60.0,
+                     artifact_label: str = "pool") -> tuple:
+    """The open-loop scaffold of a pool or fabric run: run ``concurrent``
+    in a side thread, fire ``submit_arrival(i)`` at each schedule offset
+    (open loop: the schedule's clock rules, not the service's), wait
+    every request terminal within ``drain_give_up_s``, then join the side
+    thread with its own budget (a restart can outlast the request drain)
+    and refuse to return from a still-mutating fleet rather than let the
+    caller land a mid-restart snapshot as evidence.  A ``concurrent``
+    exception is raised after the join, never lost.  Returns
+    ``(requests, wall_s)``."""
     import threading
 
     side = None
@@ -561,7 +577,7 @@ def _open_loop_drive(offsets, submit_arrival, concurrent=None) -> tuple:
         if delay > 0:
             time.sleep(delay)  # open loop: the schedule's clock rules
         requests.append(submit_arrival(i))
-    give_up = mono_now_s() + 60.0
+    give_up = mono_now_s() + drain_give_up_s
     for r in requests:
         r.wait(timeout=max(0.0, give_up - mono_now_s()))
     wall_s = mono_now_s() - t_start
@@ -569,8 +585,9 @@ def _open_loop_drive(offsets, submit_arrival, concurrent=None) -> tuple:
         side.join(timeout=300.0)
         if side.is_alive():
             raise RuntimeError(
-                "concurrent action still running after 300s — refusing "
-                "to build the pool artifact from an unsettled fleet")
+                f"concurrent action still running after 300s — refusing "
+                f"to build the {artifact_label} artifact from an "
+                "unsettled fleet")
         if side_exc:
             raise side_exc[0]
     return requests, wall_s
@@ -736,6 +753,245 @@ def build_pool_artifact(router, supervisor, load: LoadConfig,
             "deadline_ms": (None if load.deadline_s is None
                             else round(1e3 * load.deadline_s, 3)),
             "class_mix": {name: w for name, w in load.mix()},
+        },
+        "extra": extra,
+    }
+
+
+# ---------------------------------------------------------------- fabric ---
+
+def run_fabric_loadgen(client, router_sup, worker_sup, load: LoadConfig,
+                       concurrent=None) -> dict:
+    """Drive the three-tier fabric (load generator → router replicas →
+    workers) with the seeded open-loop schedule, through a
+    :class:`~csmom_tpu_torch.serve.fabric.FabricClient`.
+
+    The same stream as the reference's for a ``(schedule, seed)``, plus
+    the pool-level cache shape: ``reuse_fraction`` repeats recent panels
+    per endpoint, so consistent-hash routing has identical requests to
+    land on one worker's cache.  ``concurrent`` runs beside the stream
+    (a router and a worker SIGKILLed mid-burst), and the books close only
+    after every request is terminal and it returned."""
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+
+    rng = random.Random(load.seed)
+    segments = parse_schedule(load.schedule)
+    offsets = arrival_offsets(segments, rng)
+    spec = bucket_spec(worker_sup.config.profile)
+    max_assets = min(load.max_assets or spec.max_assets, spec.max_assets)
+    mix = load.mix()
+    kinds = list(load.resolved_kinds())
+    recent: dict = {k: [] for k in kinds}
+
+    state = {"epoch": 1 if load.version_bumps > 0 else None}
+    bump_at = sorted(
+        max(1, round(len(offsets) * (k + 1) / (load.version_bumps + 1)))
+        for k in range(load.version_bumps)
+    ) if load.version_bumps > 0 else []
+
+    def submit_arrival(i):
+        if bump_at and i == bump_at[0]:
+            bump_at.pop(0)
+            state["epoch"] += 1
+            # the version rides the wire to the workers; an old-epoch
+            # cache entry can only be refused (stale_hits == 0)
+            for pool in recent.values():
+                pool.clear()
+        kind = rng.choice(kinds)
+        pool = recent[kind]
+        if pool and rng.random() < load.reuse_fraction:
+            values, mask = pool[rng.randrange(len(pool))]
+        else:
+            n_assets = rng.randint(2, max_assets)
+            values, mask = synth_panel(rng, n_assets, spec.months, kind)
+            pool.append((values, mask))
+            del pool[:-8]  # a small window of reusable recents per kind
+        return client.submit(
+            kind, values, mask, priority=_pick_class(mix, rng),
+            deadline_s=load.deadline_s, panel_version=state["epoch"])
+
+    # 90 s of drain (the pool's 60 and more): a double kill can park a
+    # request behind two tiers' respawns before it settles
+    requests, wall_s = _open_loop_drive(offsets, submit_arrival,
+                                        concurrent, 90.0, "fabric")
+    return build_fabric_artifact(client, router_sup, worker_sup, load,
+                                 requests, wall_s)
+
+
+def _fleet_block(sup, stats: list) -> dict:
+    """One tier's fleet evidence (router or worker supervisor)."""
+    summary = sup.summary()
+    return {
+        "n_slots": sup.config.n_workers,
+        "ready_end": sum(1 for s in stats if s.get("state") == "ready"),
+        "kills": summary["kills"],
+        "restarts": summary["restarts"],
+        "rolls_completed": summary["rolls_completed"],
+        "events": summary["events"][:200],
+    }
+
+
+def _worker_cache_aggregate(worker_stats: list) -> dict:
+    """The fleet-wide worker cache book: sums over every reporting
+    worker, with the slots that cannot report named (a dead worker's
+    book died with it; the client's ``served_cache_hits`` survives)."""
+    agg = {k: 0 for k in ("hits", "misses", "lookups", "stale_hits",
+                          "stale_blocked", "stale_put_refused",
+                          "inserts", "evictions", "invalidated")}
+    lost = []
+    reporting = 0
+    for w in worker_stats:
+        cache = w.get("cache")
+        if not isinstance(cache, dict):
+            lost.append(f"{w.get('worker_id')}: {w.get('state')}")
+            continue
+        reporting += 1
+        for k in agg:
+            v = cache.get(k)
+            if isinstance(v, int) and not isinstance(v, bool):
+                agg[k] += v
+    agg["reporting"] = reporting
+    agg["lost"] = lost
+    return agg
+
+
+def build_fabric_artifact(client, router_sup, worker_sup,
+                          load: LoadConfig, requests: list,
+                          wall_s: float) -> dict:
+    """The SERVE_FABRIC artifact: the client tier's closed books (the
+    outermost ledger, the one a SIGKILLed replica cannot take with it),
+    per-replica router books, the worker fleet, and the pool-level cache
+    hit rate the consistent-hash routing exists to produce."""
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+
+    acct = client.accounting()
+    served = [r for r in requests if r.state == "served"]
+    throughput = round(acct["served"] / wall_s, 3) if wall_s > 0 else 0.0
+    segments = parse_schedule(load.schedule)
+    duration = schedule_duration_s(segments)
+    offered_rps = round(len(requests) / duration, 3) if duration else 0.0
+    router_stats = router_sup.router_stats()
+    worker_stats = worker_sup.worker_stats()
+    fresh = _pool_fresh_compiles(worker_stats)
+    cache_agg = _worker_cache_aggregate(worker_stats)
+    pool_hit_rate = (round(acct["served_cache_hits"] / acct["served"], 4)
+                     if acct["served"] else 0.0)
+
+    # router-tier hedge sums over the replicas still standing; a dead
+    # replica's books are reported lost, and the hedged served count the
+    # client observed is the number that cannot die with a replica
+    r_hedged = r_wins = r_suppressed = 0
+    r_lost = []
+    for r in router_stats:
+        a = r.get("accounting")
+        if isinstance(a, dict):
+            r_hedged += a.get("hedged", 0)
+            r_wins += a.get("hedge_wins", 0)
+            r_suppressed += a.get("duplicates_suppressed", 0)
+        else:
+            r_lost.append(f"{r.get('router_id')}: {r.get('state')}")
+    admitted = max(1, acct["admitted"])
+
+    platform = None
+    for h in worker_sup.handles:
+        rep = h.ready_report or {}
+        if isinstance(rep.get("platform"), str):
+            platform = rep["platform"]
+            break
+    wcfg = worker_sup.config
+    spec = bucket_spec(wcfg.profile)
+    scheme = "tcp" if wcfg.transport == "tcp" else "unix"
+    workload = (
+        f"fabric open-loop {load.schedule} rps seed {load.seed}, "
+        f"{'/'.join(load.resolved_kinds())} mix, "
+        f"{router_sup.config.n_workers} routers x {wcfg.n_workers} "
+        f"workers over {scheme}, buckets "
+        f"B({','.join(map(str, spec.batch_buckets))})x"
+        f"A({','.join(map(str, spec.asset_buckets))})x{spec.months}m "
+        f"({spec.dtype}, {wcfg.engine} engine)"
+    )
+    extra = {
+        "platform": platform,
+        "engine": wcfg.engine,
+        "workload": workload,
+        "cache_version": worker_sup.expect_cache_version,
+        # the client tier's channel books: reuses >> dials; each
+        # replica's own ride in its router stats ("channels")
+        "client_channels": client.channels.stats(),
+        "samples": {"serve_fabric_total_ms": _bounded_samples(
+            [1e3 * r.total_s for r in served if r.total_s is not None],
+            SAMPLE_CAP, load.seed)},
+    }
+    if spec.name == "serve-smoke":
+        extra["smoke"] = ("smoke-bucket fabric run: pipeline-shaped, "
+                          "workload reduced — NOT a performance capture")
+    return {
+        "kind": "serve_fabric",
+        "schema_version": FABRIC_SCHEMA_VERSION,
+        "run_id": load.run_id,
+        "metric": "serve_fabric_throughput_rps",
+        "value": throughput,
+        "unit": "req/s",
+        "vs_baseline": 1.0,
+        "wall_s": round(wall_s, 4),
+        "offered_limited": bool(acct["rejected"] == 0
+                                and acct["expired"] == 0),
+        "transport": {
+            "scheme": scheme,
+            "routers": router_sup.config.n_workers,
+            "workers": wcfg.n_workers,
+        },
+        "requests": acct,
+        "availability": client.availability(),
+        "cache": {
+            # the hit rate at pool level, counted at the client (a dead
+            # worker cannot take it along), beside the per-worker baseline
+            "pool_hit_rate": pool_hit_rate,
+            "served_cache_hits": acct["served_cache_hits"],
+            "served": acct["served"],
+            "per_worker_baseline": R15_PER_WORKER_HIT_RATE,
+            "workers": cache_agg,
+        },
+        "hedge": {
+            "served_hedged": acct["served_hedged"],
+            "rate": round(acct["served_hedged"] / admitted, 4),
+            "router_tier": {
+                "hedged": r_hedged,
+                "wins": r_wins,
+                "suppressed": r_suppressed,
+                "books_lost": r_lost,
+            },
+        },
+        "latency_ms": {"total": _percentiles(
+            [r.total_s for r in served if r.total_s is not None])},
+        "routers": {
+            "replicas": router_stats,
+            **_fleet_block(router_sup, router_stats),
+        },
+        "workers": {
+            "stats": worker_stats,
+            **_fleet_block(worker_sup, worker_stats),
+        },
+        "compile": {
+            "in_window_fresh_compiles": fresh,
+            "note": "sum of per-worker kernel libraries built or loaded "
+                    "since each worker's own warm-up (ops.build): 0 = no "
+                    "worker built or loaded a kernel inside the serving "
+                    "window (router replicas hold no kernel at all)",
+        },
+        "offered": {
+            "schedule": load.schedule,
+            "schedule_kind": load.schedule_kind,
+            "seed": load.seed,
+            "n_arrivals": len(requests),
+            "duration_s": round(duration, 4),
+            "offered_rps": offered_rps,
+            "kinds": list(load.resolved_kinds()),
+            "deadline_ms": (None if load.deadline_s is None
+                            else round(1e3 * load.deadline_s, 3)),
+            "class_mix": {name: w for name, w in load.mix()},
+            "reuse_fraction": load.reuse_fraction,
+            "version_bumps": load.version_bumps,
         },
         "extra": extra,
     }

@@ -30,9 +30,14 @@ whichever worker died, answered late or answered twice.
   admitted``).
 
 The router holds no panels and no queue: the workers' admission queues
-buffer.  The reference's router can also run as its own process behind
-the wire protocol (``RouterServer``, ``main``), in front of replicas of
-itself: that is the fabric, ROADMAP.md Queue 1 item 6c, not ported yet.
+buffer.  It also runs as its own supervised process:
+``python -m csmom_tpu_torch.serve.router --listen ADDR --routes FILE``
+runs a :class:`RouterServer` replica behind the same wire protocol as
+the workers, its worker set read from the routes file the fabric
+publishes (:mod:`csmom_tpu_torch.serve.fabric`).  Two or more replicas
+sit behind a :class:`~csmom_tpu_torch.serve.fabric.FabricClient`.  A
+replica imports neither torch nor pandas.  The fleet observatory's
+demand and emitter hooks (ROADMAP.md Queue 1 item 6f) are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
+import sys
 import threading
 
 import numpy as np
@@ -51,7 +57,8 @@ from csmom_tpu_torch.serve.slo import default_policy
 from csmom_tpu_torch.utils.deadline import mono_now_s
 
 __all__ = ["HashRing", "PoolRequest", "Router", "RouterConfig",
-           "WeightedFairGate", "no_deadline_score_give_up_s"]
+           "RouterServer", "WeightedFairGate", "main",
+           "no_deadline_score_give_up_s"]
 
 TERMINAL_STATES = ("served", "rejected", "expired")
 
@@ -843,3 +850,284 @@ def no_deadline_score_give_up_s(connect_timeout_s: float) -> float:
             + connect_timeout_s
             + _NO_DEADLINE_ATTEMPT_S        # worker-side terminal wait
             + 2 * _TERMINAL_GRACE_S)
+
+
+# ------------------------------------------------------------ the replica ---
+
+class RouterServer:
+    """One supervised router-replica process: a :class:`Router` behind
+    the pool wire protocol (unix or tcp), its worker set read from the
+    fabric's shared routes file.
+
+    The replica holds no panels and no queue, so a replica SIGKILLed
+    mid-burst loses only the requests transiting it, which the fabric
+    client fails over to a surviving replica.  Its ops mirror the
+    worker's (``ping``, ``ready``, ``score``, ``stats``, ``drain``,
+    ``stop``), so the same supervisor machinery babysits both tiers.
+
+    Tracing: a ``score`` frame carrying a ``trace`` entry gets its
+    context rebuilt here, opened into this process's book when one is
+    armed, threaded through the router's dispatch, and the closed
+    context's stage chain rides back in the reply's ``trace_half``.
+    Arming a book in a replica is ROADMAP.md Queue 1 item 6d.
+    """
+
+    def __init__(self, listen_addr: str, routes_path: str,
+                 router_id: str = "r0",
+                 config: RouterConfig | None = None,
+                 expect_cache_version: str | None = None):
+        from csmom_tpu_torch.serve.fabric import RoutesView
+
+        self.listen_addr = listen_addr
+        self.router_id = router_id
+        # the WORKER tier's cache version, echoed in stats (a replica
+        # builds and loads no kernel of its own)
+        self.expect_cache_version = expect_cache_version
+        self.routes = RoutesView(routes_path)
+        self.router = Router(self.routes.workers, config,
+                             retry_after_fn=self.routes.retry_after_s)
+        self._draining = False
+        self._stop = threading.Event()
+        self._listener = None
+
+    # ----------------------------------------------------------- lifecycle
+
+    def bind(self) -> None:
+        self._listener = proto.listen(self.listen_addr)
+        self._listener.settimeout(0.2)
+        t = threading.Thread(target=self._accept_loop,
+                             name=f"csmom-router-{self.router_id}-accept",
+                             daemon=True)
+        t.start()
+
+    def run_until_stopped(self) -> None:
+        while not self._stop.is_set():
+            self._stop.wait(0.2)
+        self._shutdown()
+
+    def _shutdown(self) -> None:
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+        self.router.channels.close()
+        proto.unlink_address(self.listen_addr)
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    # ------------------------------------------------------------- serving
+
+    def _accept_loop(self) -> None:
+        import socket as _socket
+
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except _socket.timeout:
+                continue
+            except OSError:
+                return  # listener closed under us: shutting down
+            # one persistent connection per fabric-client channel: the
+            # serve loop demuxes interleaved score frames off it, each
+            # scored on its own thread through the router's dispatch
+            t = threading.Thread(
+                target=proto.serve_connection,
+                args=(conn, self._handle),
+                kwargs={"on_stop": self.stop},
+                daemon=True)
+            t.start()
+
+    def _handle(self, obj: dict, arrays: dict) -> tuple:
+        op = obj.get("op")
+        if op == "ping":
+            return {"ok": True, "worker_id": self.router_id,
+                    "router_id": self.router_id, "pid": os.getpid()}, None
+        if op == "ready":
+            ok, reason = self.routes.status()
+            if self._draining:
+                ok, reason = False, "draining"
+            return {"ok": ok, "reason": None if ok else reason,
+                    "worker_id": self.router_id,
+                    "router_id": self.router_id,
+                    "pid": os.getpid(),
+                    "tier": "router",
+                    "workers": len(self.routes.workers()),
+                    "fresh_compiles": 0}, None
+        if op == "stats":
+            return self._stats(), None
+        if op == "score":
+            return self._score(obj, arrays)
+        if op in ("drain", "stop"):
+            self._draining = True
+            out = self._stats()
+            out["drained"] = True
+            return out, None
+        return {"ok": False, "error": f"unknown op {op!r}"}, None
+
+    def _stats(self) -> dict:
+        from csmom_tpu_torch.obs import trace as obs_trace
+
+        out = {
+            "ok": True,
+            "worker_id": self.router_id,
+            "router_id": self.router_id,
+            "tier": "router",
+            "pid": os.getpid(),
+            "accounting": self.router.accounting(),
+            "classes": self.router.class_accounting(),
+            "availability": self.router.availability(),
+            "invariant_violations": self.router.invariant_violations(),
+            "fair_gate": (self.router._fair.stats()
+                          if self.router._fair is not None else None),
+            # dials vs reuses on the worker-tier channels
+            "channels": self.router.channels.stats(),
+            "retry_after_s": self.router.retry_after_hint_s(),
+            "expect_cache_version": self.expect_cache_version,
+            # a replica holds no compute: this process never imports
+            # torch (a reply field, not part of the artifact's schema)
+            "torch_loaded": "torch" in sys.modules,
+        }
+        book = obs_trace.current_book()
+        if book is not None:
+            out["trace"] = {
+                "snapshot": book.snapshot(),
+                "invariant_violations": book.invariant_violations(),
+            }
+        return out
+
+    def _score(self, obj: dict, arrays: dict) -> tuple:
+        from csmom_tpu_torch.obs import trace as obs_trace
+
+        if self._draining:
+            return {"state": "rejected", "error": "router draining",
+                    "router_id": self.router_id}, None
+        if "values" not in arrays or "mask" not in arrays:
+            return {"state": "rejected",
+                    "error": "score frame missing values/mask arrays",
+                    "router_id": self.router_id}, None
+        rel = obj.get("deadline_rel_s")
+        pv = obj.get("panel_version")
+        trace_ctx = None
+        wire_trace = obj.get("trace")
+        if isinstance(wire_trace, dict):
+            trace_ctx = obs_trace.TraceContext.from_wire(wire_trace)
+            book = obs_trace.current_book()
+            if book is not None:
+                # the replica-tier ledger: this process's books must
+                # close over every trace it transited
+                book.open_trace(trace_ctx)
+        req = self.router.submit(
+            str(obj.get("kind")), arrays["values"], arrays["mask"],
+            priority=str(obj.get("priority", "interactive")),
+            deadline_s=float(rel) if rel is not None else None,
+            panel_version=int(pv) if pv is not None else None,
+            trace_ctx=trace_ctx,
+        )
+        # a deadline-bounded request terminates within its own budget; a
+        # deadline-less one can spend a full fair-gate wait and a full
+        # dispatch attempt before terminal, so the give-up covers both
+        wait_s = (float(rel) + _TERMINAL_GRACE_S if rel is not None
+                  else no_deadline_score_give_up_s(
+                      self.router.config.connect_timeout_s))
+        if not req.wait(wait_s):
+            return {"state": "rejected",
+                    "error": "request never reached a terminal state "
+                             f"within {wait_s:.1f}s (router defect)",
+                    "infra": True,
+                    "router_id": self.router_id}, None
+        reply = {
+            "state": req.state,
+            "error": req.error,
+            "infra": req.infra,
+            "router_id": self.router_id,
+            "worker_id": req.worker_id,
+            "cache_hit": req.cache_hit,
+            "hedged": req.hedged,
+            "attempts": req.attempts,
+            "retry_after_s": req.retry_after_s,
+            "panel_version": req.panel_version,
+        }
+        if trace_ctx is not None:
+            # the replica's closed stage chain (its route and transport
+            # plus the worker's stitched half) for the client to stitch
+            reply["trace_half"] = trace_ctx.half_record()
+        out_arrays = None
+        if req.state == "served":
+            if isinstance(req.result, dict):
+                reply["result_obj"] = {k: float(v)
+                                       for k, v in req.result.items()}
+            else:
+                out_arrays = {"result": np.asarray(req.result)}
+        return reply, out_arrays
+
+
+def main(argv=None) -> int:
+    """``python -m csmom_tpu_torch.serve.router``: one supervised replica."""
+    import argparse
+    import signal
+
+    ap = argparse.ArgumentParser(
+        prog="csmom_tpu_torch.serve.router",
+        description="router replica: hedged cache-affine dispatch behind "
+                    "a unix/tcp socket, workers from a shared routes file")
+    ap.add_argument("--listen", required=True,
+                    help="address to serve on (unix:/path or tcp:host:port)")
+    ap.add_argument("--routes", required=True,
+                    help="path to the fabric's routes file (the shared "
+                         "admission view: ready workers + backoff hints)")
+    ap.add_argument("--router-id", dest="router_id", default="r0")
+    ap.add_argument("--profile", default="serve")
+    ap.add_argument("--deadline-ms", dest="deadline_ms", type=float,
+                    default=500.0)
+    ap.add_argument("--hedge-fraction", dest="hedge_fraction", type=float,
+                    default=0.35)
+    ap.add_argument("--max-attempts", dest="max_attempts", type=int,
+                    default=3)
+    ap.add_argument("--fair-slots", dest="fair_slots", type=int, default=16)
+    ap.add_argument("--no-affinity", dest="affinity", action="store_false",
+                    help="disable consistent-hash cache routing "
+                         "(round-robin picks)")
+    ap.add_argument("--trace", action="store_true",
+                    help="not ported (arming a trace book): exits 2")
+    ap.add_argument("--expect-cache-version", dest="expect_cache_version",
+                    help="echoed in stats (a replica builds no kernel of "
+                         "its own)")
+    args = ap.parse_args(argv)
+    tag = f"[router {args.router_id}]"
+
+    if args.trace:
+        print(f"{tag} --trace is not ported yet (ROADMAP.md, Queue 1 item "
+              "6d, tracing and replay)", file=sys.stderr, flush=True)
+        return 2
+
+    cfg = RouterConfig(
+        profile=args.profile,
+        default_deadline_s=(None if args.deadline_ms in (None, 0)
+                            else args.deadline_ms / 1e3),
+        hedge_fraction=args.hedge_fraction,
+        max_attempts=args.max_attempts,
+        fair_slots=args.fair_slots,
+        affinity=args.affinity,
+    )
+    server = RouterServer(args.listen, args.routes,
+                          router_id=args.router_id, config=cfg,
+                          expect_cache_version=args.expect_cache_version)
+
+    def _term(signum, frame):  # graceful stop on SIGTERM
+        server.stop()
+
+    signal.signal(signal.SIGTERM, _term)
+
+    server.bind()
+    ok, reason = server.routes.status()
+    print(f"{tag} pid {os.getpid()} listening on {args.listen}; routes "
+          f"{'ok' if ok else reason} ({len(server.routes.workers())} "
+          "workers)", file=sys.stderr, flush=True)
+    server.run_until_stopped()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -115,7 +115,15 @@ class WorkerHandle:
 
 
 class PoolSupervisor:
-    """Spawn and babysit N workers; expose the READY set to the router."""
+    """Spawn and babysit N workers; expose the READY set to the router.
+
+    The machinery is tier-agnostic: what a slot runs comes from
+    :meth:`_slot_argv` and where it listens from :meth:`_slot_address`.
+    The router-replica supervisor
+    (:class:`csmom_tpu_torch.serve.fabric.RouterSupervisor`) overrides
+    those two hooks and inherits spawn, demonstrated-ready probing,
+    backoff restarts, crash-loop parking and rolling restarts unchanged.
+    """
 
     slot_prefix = "w"   # worker ids are "<prefix><slot>"
 
@@ -169,6 +177,10 @@ class PoolSupervisor:
                 else f"{self.slot_prefix}{slot}.g{generation}.sock")
         return os.path.join(self.run_dir, name)
 
+    def _slot_argv(self, h: WorkerHandle) -> list:
+        """The command a slot runs (the router tier overrides this)."""
+        return self._worker_argv(h)
+
     def _worker_argv(self, h: WorkerHandle) -> list:
         c = self.config
         argv = [sys.executable, "-m", "csmom_tpu_torch.serve.worker",
@@ -204,7 +216,7 @@ class PoolSupervisor:
         log = open(h.log_path, "ab")
         try:
             h.proc = subprocess.Popen(
-                self._worker_argv(h), stdout=log, stderr=log, env=env)
+                self._slot_argv(h), stdout=log, stderr=log, env=env)
         finally:
             log.close()
         h.state = "starting"

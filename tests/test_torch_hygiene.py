@@ -79,7 +79,8 @@ def test_the_scan_covers_the_serving_tier():
     for sub in ("registry", "serve", "obs", "chaos", "utils"):
         assert os.path.join("csmom_tpu_torch", sub, "__init__.py") in rel
     assert os.path.join("csmom_tpu_torch", "cli", "serve.py") in rel
-    for mod in ("proto", "health", "worker", "supervisor", "router"):
+    for mod in ("proto", "health", "worker", "supervisor", "router",
+                "fabric"):
         assert os.path.join("csmom_tpu_torch", "serve", f"{mod}.py") in rel
 
 

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 jmom = importlib.import_module("csmom_tpu.signals.momentum")
-from csmom_tpu_torch.signals import momentum
+momentum = importlib.import_module("csmom_tpu_torch.signals.momentum")
 
 torch.set_num_threads(2)
 

@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from csmom_tpu_torch.analytics import tearsheet as ts_mod
 from csmom_tpu_torch.analytics.tearsheet import (
     Tearsheet,
     annual_returns,
@@ -22,6 +21,7 @@ torch.set_num_threads(2)
 
 # the module (the package's __init__ exports the function by the same name)
 jts = importlib.import_module("csmom_tpu.analytics.tearsheet")
+ts_mod = importlib.import_module("csmom_tpu_torch.analytics.tearsheet")
 
 TOL = {torch.float64: dict(rtol=1e-10, atol=1e-13), torch.float32: dict(rtol=1e-4, atol=1e-6)}
 JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32}
