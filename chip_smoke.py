@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--out DIR]
 
-``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json`` and phase 13's
-``GPU_SERVE_FABRIC_*.json`` artifacts there (by default they go to a
-temporary directory, removed at the end).
+``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json``, phase 13's
+``GPU_SERVE_FABRIC_*.json`` and phase 14's ``GPU_FLEET_*.json`` artifacts
+there (by default they go to a temporary directory, removed at the end).
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -75,10 +75,12 @@ any phase fails (nothing is caught).  Phases:
    same call, ``kernels_per_call`` how many kernels it launched,
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
    ``research_launches``, ``data_in_launches``, ``cli_launches``,
-   ``intraday_launches``, ``serve_launches``, ``pool_launches`` and
-   ``fabric_launches`` the counts of phases 6, 7, 8, 9, 11, 12 and 13
-   (12's and 13's in the worker processes; 13's over its serving
-   windows, equal to the workers' ``backtest`` batches), and K1's
+   ``intraday_launches``, ``serve_launches``, ``pool_launches``,
+   ``fabric_launches`` and ``fleet_launches`` the counts of phases 6, 7,
+   8, 9, 11, 12, 13 and 14 (12's, 13's and 14's in the worker
+   processes; 13's over its serving windows, equal to the workers'
+   ``backtest`` batches; 14's each worker process's whole life, warm-up
+   included, spares and forked workers too), and K1's
    ``serve_device_ms`` and ``serve_bound_ms`` at the serve shape
    ``serve_shape``;
 11. serve (run before phase 9): (a) each of the five endpoints'
@@ -135,6 +137,26 @@ any phase fails (nothing is caught).  Phases:
    three, with each router process's and this process's CPU and the
    submission wall; (e) ``loadgen --fabric --kill-router-after 1`` in a
    subprocess;
+14. fleet (run after phase 13 and before phase 9): (a) the prefork parent
+   (torch and the serve stack imported, the kernel libraries read into
+   the page cache, CUDA never initialized, one native thread), a worker
+   spawned by subprocess and one forked by the parent, each one's
+   spawn -> bind -> warm -> ready walls and card memory, both answering
+   the six serve shapes equal to this process's engine; (b) phase 13's
+   r20 cell with the fleet observatory armed: a ``GPU_FLEET_*.json``
+   valid, every stream book reason-closed, both victims' streams
+   severed, no sequence gap, the demand by class equal to the client's
+   books, the kill-window capacity loss; (c) the same cell with a hot
+   spare, the autoscaler and the prefork path: the spare promoted into
+   w0's slot, no spare id in a serving book, the backfill ready, no
+   infra rejection, every served result equal to the engine alone, no
+   kernel built, every decision reasoned, quotas within [8, 64], each
+   fork at one native thread; (d) three workers (floor 3, ceiling 4)
+   under phase 12's ceiling offer for 6 s, then idle: a reasoned
+   ``scale_up``, the new worker ready with no kernel built, closed
+   books, and whether the drain brought the fleet back to the floor;
+   (e) ``loadgen --fabric --fleet --spares 1 --autoscale --prefork`` and
+   ``fleet <run>`` in subprocesses;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -2722,6 +2744,587 @@ def fabric_phase(smi, out_dir, ceiling_rate: int) -> dict:
     return {"launches": launches, "backtest_batches": batches}
 
 
+# phase 14: the fleet observatory and the elastic tier on the card.  The
+# warm paths alone (a cold worker against one forked by the prefork
+# parent), then the r20 fabric of phase 13 with the observatory armed,
+# the same cell with a hot spare, the autoscaler and the prefork path
+# (the reference's r21), the autoscaler moving under phase 12's ceiling
+# offer, and the CLI
+FLEET_SPARES = 1
+# the autoscaling cell: three workers, room for one more; the high
+# watermark is half the default 200 because one client process submits
+# ~400-550 req/s on the chip host (PR 11's ceiling runs), 130-180 a
+# worker, so 200 a worker would never be breached from one client
+FLEET_AUTOSCALE = dict(min_workers=3, max_workers=4, high_rps_per_worker=100.0)
+FLEET_OFFER_S = 6       # phase 12's ceiling rate offered this long
+FLEET_IDLE_S = 10       # then this long idle, for the drain
+FLEET_BACKFILL_S = 60   # the longest wait for a backfill spare
+
+
+class _Addr:
+    """A routable worker row for a ``Router`` over one address."""
+
+    def __init__(self, worker_id: str, socket_path: str):
+        self.worker_id = worker_id
+        self.socket_path = socket_path
+
+
+def wait_until(pred, timeout_s: float, what: str, step_s: float = 0.05):
+    give_up = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > give_up:
+            raise AssertionError(f"fleet: timed out after {timeout_s} s: {what}")
+        time.sleep(step_s)
+
+
+def land_fleet(run_id, art, wsup, rsup, window, out_dir):
+    """The cell's ``GPU_FLEET_<run>.json``, landed by the CLI's own
+    ``_land_fleet`` after the fabric stopped (it validates the artifact,
+    which must close every stream book with a reason, and disarms the
+    observatory).  Returns ``(artifact, path)``."""
+    from csmom_tpu_torch.cli.serve import _land_fleet
+
+    if _land_fleet(run_id, art, out_dir, wsup, rsup, window):
+        raise AssertionError(f"fleet {run_id}: the fleet artifact is invalid")
+    path = os.path.join(out_dir, f"GPU_FLEET_{run_id}.json")
+    with open(path) as f:
+        return json.load(f), path
+
+
+def fleet_phase(smi, out_dir, ceiling_rate: int) -> dict:
+    """Phase 14: the fleet observatory and the elastic tier on the card.
+    ``ceiling_rate`` is phase 12's ceiling offer, reused by (d).  Returns
+    the K1 and K2 launches of every worker process of the phase (warm-ups
+    included), each process's last ``stats`` read before it stopped or
+    was killed."""
+    import random as pyrandom
+    import shutil
+    import threading
+
+    import torch
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.obs import fleet as obs_fleet
+    from csmom_tpu_torch.ops import build
+    from csmom_tpu_torch.registry import serve_endpoints
+    from csmom_tpu_torch.serve import fleet as serve_fleet
+    from csmom_tpu_torch.serve import health, proto
+    from csmom_tpu_torch.serve.engine import KERNELS
+    from csmom_tpu_torch.serve.fabric import build_fabric, kill_mid_burst, stop_fabric
+    from csmom_tpu_torch.serve.fleet import FleetConfig
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig, run_fabric_loadgen, synth_panel, write_artifact,
+    )
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.supervisor import PoolConfig
+    from csmom_tpu_torch.utils.deadline import mono_now_s
+
+    hold_result = result_holder()
+    want_version = health.aot_cache_version("serve")
+    latest: dict = {}   # pid -> the process's last stats reply
+
+    def read(addrs) -> dict:
+        now = {}
+        for wid, addr in addrs:
+            obj, _ = proto.request_once(addr, {"op": "stats"}, timeout_s=10.0)
+            latest[obj["pid"]] = obj
+            now[obj["pid"]] = obj
+        return now
+
+    def fleet_addrs(wsup):
+        rows = [(h.worker_id, h.socket_path) for h in wsup.ready_workers()]
+        if wsup.fleet is not None:
+            rows += [(s.worker_id, s.socket_path) for s in wsup.fleet.spares
+                     if s.state == "ready" and s.proc.poll() is None]
+        return rows
+
+    def fabric(run_dir, fleet_config=None, n_workers=FABRIC_WORKERS):
+        return build_fabric(
+            PoolConfig(n_workers=n_workers, profile="serve", engine="torch",
+                       device="cuda", transport="tcp", require_warm_cache=True),
+            PoolConfig(n_workers=FABRIC_ROUTERS, profile="serve", engine="stub",
+                       transport="tcp"),
+            run_dir, deadline_ms=1e3 * FABRIC_R20["deadline_s"],
+            client_deadline_s=FABRIC_R20["deadline_s"], fleet_config=fleet_config)
+
+    def r20(client, rsup, wsup, run_id, what):
+        """Phase 13 (c)'s cell on this fabric: the client's books by
+        class, every served result held to the engine alone; returns the
+        artifact, its window and the victims' pids."""
+        submitted = []
+        lock = threading.Lock()
+        submit = client.submit
+
+        def recording_submit(kind, values, mask, **kw):
+            req = submit(kind, values, mask, **kw)
+            with lock:
+                submitted.append((kind, values, mask, req))
+            return req
+
+        client.submit = recording_submit
+        victims = {"router": rsup.handles[0].proc.pid,
+                   "worker": wsup.handles[0].proc.pid}
+
+        def double_kill():
+            if not kill_mid_burst([(FABRIC_KILL_ROUTER_S, rsup, "router"),
+                                   (FABRIC_KILL_WORKER_S, wsup, "worker")],
+                                  settle_timeout_s=wsup.config.ready_timeout_s):
+                raise AssertionError(f"{what}: a killed tier never demonstrated "
+                                     "ready again")
+
+        read(fleet_addrs(wsup))
+        t_load0 = mono_now_s()
+        art = run_fabric_loadgen(client, rsup, wsup, LoadConfig(
+            run_id=run_id, **FABRIC_R20), concurrent=double_kill)
+        read(fleet_addrs(wsup))
+        client.submit = submit
+        viols = inv.validate(art) + client.invariant_violations()
+        by_class: dict = {}
+        for _, _, _, req in submitted:
+            book = by_class.setdefault(req.priority, {"admitted": 0, "served": 0,
+                                                      "rejected": 0, "expired": 0})
+            book["admitted"] += 1
+            if req.state in ("served", "rejected", "expired"):
+                book[req.state] += 1
+        if (viols or art["availability"] != 1.0
+                or art["compile"]["in_window_fresh_compiles"] != 0
+                or len(submitted) != art["requests"]["admitted"]):
+            raise AssertionError(f"{what}: {viols}; requests {art['requests']}; "
+                                 f"fresh {art['compile']['in_window_fresh_compiles']!r}")
+        n = 0
+        for kind, v, m, req in submitted:
+            if req.state == "served":
+                hold_result(req.result, kind, v, m, f"{what}: a served {kind}")
+                n += 1
+        return art, (t_load0, t_load0 + art["wall_s"]), victims, by_class, n
+
+    def check_demand(fleet_art, by_class, what):
+        demand = fleet_art["demand"]["classes"]
+        for name, book in by_class.items():
+            got = demand.get(name, {})
+            if (got.get("offered") != book["admitted"]
+                    or got.get("admitted") != book["admitted"]
+                    or got.get("served", 0) != book["served"]):
+                raise AssertionError(f"{what}: class {name} demand {got} against "
+                                     f"the client's book {book}")
+
+    def severed(fleet_art, victims, what):
+        procs = fleet_art["series"]["processes"]
+        out = {}
+        for tier, pid in victims.items():
+            name = f"{tier}:{'r0' if tier == 'router' else 'w0'}@{pid}"
+            reason = (procs.get(name) or {}).get("close_reason") or ""
+            if not reason.startswith("stream severed"):
+                raise AssertionError(f"{what}: {name} closed {reason!r}, not severed")
+            out[name] = reason
+        return out
+
+    def thread_gates(events, what):
+        """The prefork parent at one native thread, CUDA untouched, at its
+        start and at every fork."""
+        forks = [e for e in events if e["event"] in ("prefork_ready", "spare_spawn")]
+        bad = [e for e in forks if e.get("native_threads", 1) != 1
+               or e.get("cuda_initialized")]
+        refused = [e for e in events if e["event"] in ("prefork_refused",
+                                                       "prefork_failed")]
+        spawns = [e for e in forks if e["event"] == "spare_spawn"]
+        if bad or refused or not spawns or any(e["via"] != "prefork" for e in spawns):
+            raise AssertionError(f"{what}: prefork events {forks} {refused}")
+        return len(spawns)
+
+    root = tempfile.mkdtemp(prefix="csmom-fleet-")
+    out = {}
+    procs = []          # (a)'s processes: the parent and the cold worker
+    forked = []         # (a)'s forked worker's pid
+    try:
+        # -- (a) the warm paths, alone -----------------------------------
+        t_a = time.perf_counter()
+        run_a = os.path.join(root, "a")
+        os.makedirs(run_a)
+        env = {**os.environ,
+               "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        p_addr = f"tcp:127.0.0.1:{proto.free_tcp_port()}"
+        libs = [str(build.library_path(n)) for n in KERNELS]
+
+        def popen(argv, name, extra_env=None):
+            log_f = open(os.path.join(run_a, f"{name}.log"), "ab")
+            try:
+                p = subprocess.Popen([sys.executable, "-m", *argv], stdout=log_f,
+                                     stderr=log_f, env={**env, **(extra_env or {})},
+                                     cwd=REPO)
+            finally:
+                log_f.close()
+            procs.append(p)
+            return p
+
+        def worker_argv(addr, wid):
+            return ["--socket", addr, "--worker-id", wid, "--profile", "serve",
+                    "--engine", "torch", "--device", "cuda",
+                    "--expect-cache-version", want_version, "--require-warm-cache"]
+
+        def ready(addr, what):
+            wait_until(lambda: health.readiness(addr, timeout_s=2.0).get("ok"),
+                       120.0, f"{what} ready", step_s=0.02)
+            return health.readiness(addr, timeout_s=5.0)
+
+        t0 = time.perf_counter()
+        parent = popen(["csmom_tpu_torch.serve.fleet", "--socket", p_addr,
+                        "--preimport", serve_fleet.PREFORK_IMPORTS["torch"],
+                        "--prewarm", ",".join(libs)], "prefork",
+                       serve_fleet.PREFORK_THREAD_ENV)
+
+        def pinged():
+            try:
+                return proto.request_once(p_addr, {"op": "ping"},
+                                          timeout_s=2.0)[0].get("state") == "ok"
+            except (OSError, proto.ProtocolError):
+                return False
+
+        wait_until(pinged, 120.0, "the prefork parent answers ping")
+        parent_s = time.perf_counter() - t0
+        ping, _ = proto.request_once(p_addr, {"op": "ping"}, timeout_s=5.0)
+        want_imports = serve_fleet.PREFORK_IMPORTS["torch"].split(",")
+        if (ping["imported"] != want_imports or ping["cuda_initialized"] is not False
+                or ping["native_threads"] != 1
+                or ping["prewarmed_files"] != len(libs)):
+            raise AssertionError(f"fleet (a): the prefork parent's ping {ping}")
+        log("fleet", f"(a) prefork parent up in {parent_s:.2f} s: imported "
+                     f"{ping['imported']}, cuda_initialized "
+                     f"{ping['cuda_initialized']}, {ping['native_threads']} native "
+                     f"thread, {ping['prewarmed_files']} kernel libraries "
+                     f"({ping['prewarmed_bytes']} bytes) read into the page cache")
+        walls = {}
+        addrs = {}
+        for path_kind in ("cold", "prefork"):
+            addr = f"tcp:127.0.0.1:{proto.free_tcp_port()}"
+            wid = f"{path_kind[0]}0"
+            torch.cuda.synchronize()
+            free0, total = torch.cuda.mem_get_info()
+            t0 = time.perf_counter()
+            if path_kind == "cold":
+                popen(["csmom_tpu_torch.serve.worker", *worker_argv(addr, wid)], wid)
+                fork = {}
+            else:
+                fork, _ = proto.request_once(p_addr, {
+                    "op": "spawn", "argv": worker_argv(addr, wid),
+                    "log_path": os.path.join(run_a, f"{wid}.log")}, timeout_s=10.0)
+                if (fork.get("state") != "ok" or fork["native_threads"] != 1
+                        or fork["cuda_initialized"] is not False):
+                    raise AssertionError(f"fleet (a): spawn {fork}")
+                child = serve_fleet._PreforkChild(int(fork["pid"]), p_addr)
+                forked.append(child.pid)
+            rep = ready(addr, f"the {path_kind} worker")
+            wall = time.perf_counter() - t0
+            free1, _ = torch.cuda.mem_get_info()
+            if rep.get("platform") != "gpu" or rep.get("fresh_compiles") != 0:
+                raise AssertionError(f"fleet (a) {path_kind}: {rep}")
+            addrs[path_kind] = (wid, addr)
+            walls[path_kind] = {"spawn_to_ready_s": round(wall, 3), **rep["walls"],
+                                "card_mib": round((free0 - free1) / 2**20)}
+            log("fleet", f"(a) {path_kind} worker ({'subprocess' if path_kind == 'cold' else 'forked by the parent, ' + json.dumps(fork)}): "
+                         f"spawn -> ready {wall:.3f} s, worker-reported "
+                         f"{json.dumps(rep['walls'])}, fresh_compiles 0, card "
+                         f"memory {(free0 - free1) / 2**20:.0f} MiB | {smi}")
+        base = read(addrs.values())
+        n_held = 0
+        rng = pyrandom.Random(20261019)
+        for path_kind, (wid, addr) in addrs.items():
+            router = Router(lambda wid=wid, addr=addr: [_Addr(wid, addr)],
+                            RouterConfig(profile="serve", default_deadline_s=10.0))
+            try:
+                for kind in serve_endpoints():
+                    for B, A in SERVE_SHAPES:
+                        group = [synth_panel(rng, A - 3 if b == 0 else
+                                             rng.randint(2 if A == 32 else 33, A),
+                                             SERVE_MONTHS, kind) for b in range(B)]
+                        reqs = [router.submit(kind, v, m) for v, m in group]
+                        for (v, m), req in zip(group, reqs):
+                            if not req.wait(60.0) or req.state != "served":
+                                raise AssertionError(f"fleet (a) {path_kind} {kind} "
+                                                     f"B={B} A={A}: {req.state} "
+                                                     f"{req.error}")
+                            hold_result(req.result, kind, v, m,
+                                        f"fleet (a) {path_kind} {kind} B={B} A={A}")
+                            n_held += 1
+            finally:
+                router.channels.close()
+        d = pool_deltas(base, read(addrs.values()))
+        if d["k1"] != d["backtest_calls"] or d["k1"] < 1 or d["k2"] or d["libraries"]:
+            raise AssertionError(f"fleet (a): K1 {d['k1']} != backtest batches "
+                                 f"{d['backtest_calls']} (K2 {d['k2']}, libraries "
+                                 f"{d['libraries']})")
+        for wid, addr in addrs.values():
+            proto.request_once(addr, {"op": "stop"}, timeout_s=30.0)
+        rc_child = child.wait(timeout=30.0)
+        proto.request_once(p_addr, {"op": "shutdown"}, timeout_s=5.0)
+        if (rc_child != 0 or parent.wait(timeout=30.0) != 0
+                or os.path.exists(f"/proc/{child.pid}")):
+            raise AssertionError(f"fleet (a): the forked worker exited {rc_child}, "
+                                 f"the parent {parent.returncode}")
+        for p in procs:
+            p.wait(timeout=30.0)
+        log("fleet", f"(a) both workers: {n_held} requests (5 endpoints x 6 serve "
+                     f"shapes) == the smoke's engine alone (f32 {SERVE_F32}); K1 "
+                     f"launches {d['k1']} == backtest batches {d['backtest_calls']}, "
+                     f"K2 0, 0 libraries loaded; the forked worker stopped (exit 0), "
+                     f"polled and reaped through the parent; walls "
+                     f"{json.dumps(walls)}; (a) {time.perf_counter() - t_a:.1f} s")
+        out["walls"] = walls
+
+        # -- (b) r20 with the observatory armed -----------------------------
+        t_b = time.perf_counter()
+        obs_fleet.arm("chip-fleet-r20", transport="tcp")
+        wsup = publisher = rsup = client = None
+        try:
+            wsup, publisher, rsup, client = fabric(os.path.join(root, "b"))
+            art_b, window, victims, by_class, n_b = r20(client, rsup, wsup,
+                                                        "chip-fleet-r20", "fleet (b)")
+        except BaseException:
+            obs_fleet.disarm("fleet (b) failed")
+            raise
+        finally:
+            stop_fabric(publisher, rsup, wsup)
+            if client is not None:
+                client.close()
+        write_artifact(out_dir, art_b, prefix="GPU_SERVE_FABRIC")
+        fl_b, path_b = land_fleet("chip-fleet-r20", art_b, wsup, rsup, window, out_dir)
+        books = fl_b["series"]["books"]
+        cut = severed(fl_b, victims, "fleet (b)")
+        if books["seq_gaps"] or art_b["extra"]["observatory_armed"] is not True:
+            raise AssertionError(f"fleet (b): books {books}")
+        check_demand(fl_b, by_class, "fleet (b)")
+        lat = art_b["latency_ms"]["total"]
+        cap = fl_b["capacity"]
+        log("fleet", f"(b) r20 armed ({FABRIC_ROUTERS} routers x {FABRIC_WORKERS} "
+                     f"workers over tcp, r0 and w0 SIGKILLed): {art_b['value']} req/s "
+                     f"of {art_b['offered']['offered_rps']} offered; p50 {lat['p50']} "
+                     f"p95 {lat['p95']} p99 {lat['p99']} ms; availability "
+                     f"{art_b['availability']}; {n_b} served results == the engine "
+                     f"alone; stream books {books['procs_opened']} opened = "
+                     f"{books['procs_closed']} reason-closed, {books['frames']} "
+                     f"frames, seq_gaps 0, {books['frames_dropped_by_emitters']} "
+                     f"dropped; severed {json.dumps(cut)}; demand by class == the "
+                     f"client's books {json.dumps(by_class)}; kill-window capacity "
+                     f"loss {cap['kill_window_loss_frac']} over "
+                     f"{json.dumps([(k['worker_id'], k['width_s']) for k in cap['kill_windows']])} "
+                     f"s, steady-state {cap['steady_state_loss_frac']}; ready walls "
+                     f"{fl_b['lifecycle']['ready_walls_s']} s; valid ({path_b}); "
+                     f"(b) {time.perf_counter() - t_b:.1f} s | {smi}")
+        out["r20"] = {"loss": cap["kill_window_loss_frac"], "p50": lat["p50"],
+                      "p99": lat["p99"]}
+
+        # -- (c) r21: a hot spare, the autoscaler, the prefork path ----------
+        t_c = time.perf_counter()
+        obs_fleet.arm("chip-fleet-r21", transport="tcp")
+        wsup = publisher = rsup = client = None
+        try:
+            wsup, publisher, rsup, client = fabric(
+                os.path.join(root, "c"), FleetConfig(
+                    spares=FLEET_SPARES, autoscale=True, prefork=True,
+                    min_workers=FABRIC_WORKERS, max_workers=FABRIC_WORKERS + 2))
+            ctl = wsup.fleet
+            if len(ctl.spares) != FLEET_SPARES:
+                raise AssertionError(f"fleet (c): spares {ctl.spares}")
+            spare0 = ctl.spares[0]
+            spare0_wall = round(spare0.t_ready_s - spare0.t_spawned_s, 3)
+            art_c, window, victims, by_class, n_c = r20(client, rsup, wsup,
+                                                        "chip-fleet-r21", "fleet (c)")
+            wait_until(lambda: any(s.state == "ready" for s in ctl.spares),
+                       FLEET_BACKFILL_S, "the backfill spare ready")
+            read(fleet_addrs(wsup))
+            events_c = wsup.summary()["events"]
+        except BaseException:
+            obs_fleet.disarm("fleet (c) failed")
+            raise
+        finally:
+            stop_fabric(publisher, rsup, wsup)
+            if client is not None:
+                client.close()
+        write_artifact(out_dir, art_c, prefix="GPU_SERVE_FABRIC")
+        fl_c, path_c = land_fleet("chip-fleet-r21", art_c, wsup, rsup, window, out_dir)
+        el = fl_c["elastic"]
+        spare_ids = set(el["spare_ids"])
+        serving_ids = ({e["worker_id"] for e in fl_c["lifecycle"]["events"]}
+                       | {k["worker_id"] for k in fl_c["capacity"]["kill_windows"]}
+                       | {w["worker_id"] for w in art_c["workers"]["stats"]})
+        promos = el["promotions"]
+        quotas = [q["quota_rps"] for q in el["quota"]["applied"]]
+        backfill = [e for e in events_c if e["event"] == "spare_ready"][1:]
+        if (len(promos) != 1 or promos[0]["victim"] != "w0"
+                or spare_ids & serving_ids
+                or not backfill or backfill[0].get("fresh_compiles") != 0
+                or any(not str(dd.get("reason") or "").strip()
+                       for dd in el["decisions"])
+                or any(not 8.0 <= q <= 64.0 for q in quotas)):
+            raise AssertionError(f"fleet (c): promotions {promos}; spares "
+                                 f"{spare_ids} in {serving_ids}; backfill "
+                                 f"{backfill}; decisions {el['decisions']}; quotas "
+                                 f"{quotas}")
+        forks = thread_gates(events_c, "fleet (c)")
+        severed(fl_c, {"router": victims["router"]}, "fleet (c)")
+        check_demand(fl_c, by_class, "fleet (c)")
+        lat = art_c["latency_ms"]["total"]
+        cap = fl_c["capacity"]
+        log("fleet", f"(c) r21 (1 hot spare, autoscaler, prefork): {art_c['value']} "
+                     f"req/s of {art_c['offered']['offered_rps']} offered; p50 "
+                     f"{lat['p50']} p95 {lat['p95']} p99 {lat['p99']} ms; availability "
+                     f"{art_c['availability']}, 0 fresh compiles, {n_c} served results "
+                     f"== the engine alone; spare s0 ready in {spare0_wall} s through "
+                     f"the parent; promotion {json.dumps(promos[0])}; kill-window "
+                     f"loss {cap['kill_window_loss_frac']} (b: "
+                     f"{out['r20']['loss']}), spare reserve "
+                     f"{cap['spare_reserve_worker_s']} worker-s; backfill "
+                     f"{backfill[0]['worker_id']} ready in {backfill[0]['wall_s']} s "
+                     f"({json.dumps(backfill[0].get('walls'))}); {forks} forks, each "
+                     f"at 1 native thread with CUDA uninitialized in the parent; "
+                     f"spare ids {sorted(spare_ids)} in no serving book; "
+                     f"{len(el['decisions'])} reasoned decisions, quotas {quotas} "
+                     f"within [8, 64]; demand by class == the client's books; valid "
+                     f"({path_c}); (c) {time.perf_counter() - t_c:.1f} s | {smi}")
+        out["r21"] = {"loss": cap["kill_window_loss_frac"],
+                      "promotion_s": promos[0]["wall_s"], "spare_s": spare0_wall,
+                      "backfill_s": backfill[0]["wall_s"]}
+
+        # -- (d) the autoscaler moving --------------------------------------
+        t_d = time.perf_counter()
+        obs_fleet.arm("chip-fleet-autoscale", transport="tcp")
+        wsup = publisher = rsup = client = None
+        try:
+            wsup, publisher, rsup, client = fabric(
+                os.path.join(root, "d"), FleetConfig(autoscale=True, **FLEET_AUTOSCALE))
+            ctl = wsup.fleet
+            read(fleet_addrs(wsup))
+            t_load0 = mono_now_s()
+            art_d = run_fabric_loadgen(client, rsup, wsup, LoadConfig(
+                schedule=f"{FLEET_OFFER_S}x{ceiling_rate}", seed=14,
+                kinds=("backtest",), class_mix=(("interactive", 1.0),),
+                deadline_s=FABRIC_R20["deadline_s"], run_id="chip-fleet-autoscale"))
+            t_idle = time.perf_counter()
+            read(fleet_addrs(wsup))
+
+            def live():
+                return [h for h in wsup.handles if h.state in ("ready", "starting")]
+
+            while time.perf_counter() - t_idle < FLEET_IDLE_S:
+                if len(wsup.handles) > FABRIC_WORKERS and \
+                        len(live()) == FABRIC_WORKERS and \
+                        any(dd["action"] == "scale_down" for dd in ctl.decisions):
+                    break
+                time.sleep(0.1)
+            idle_s = time.perf_counter() - t_idle
+            decisions = [dict(dd) for dd in ctl.decisions]
+            events_d = wsup.summary()["events"]
+            n_ready_end = len(live())
+            n_slots = len(wsup.handles)
+            read(fleet_addrs(wsup))
+            if client.invariant_violations() or inv.validate(art_d):
+                raise AssertionError(f"fleet (d): {client.invariant_violations()} "
+                                     f"{inv.validate(art_d)}")
+        except BaseException:
+            obs_fleet.disarm("fleet (d) failed")
+            raise
+        finally:
+            stop_fabric(publisher, rsup, wsup)
+            if client is not None:
+                client.close()
+        write_artifact(out_dir, art_d, prefix="GPU_SERVE_FABRIC")
+        fl_d, path_d = land_fleet("chip-fleet-autoscale", art_d, wsup, rsup,
+                                  (t_load0, t_load0 + art_d["wall_s"]), out_dir)
+        ups = [dd for dd in decisions if dd["action"] == "scale_up"]
+        downs = [dd for dd in decisions if dd["action"] == "scale_down"]
+        new_id = f"w{FABRIC_WORKERS}"
+        new_ready = [e for e in events_d if e["event"] == "ready"
+                     and e["worker_id"] == new_id]
+        if (not ups or not new_ready or new_ready[0].get("fresh_compiles") != 0
+                or n_slots > FLEET_AUTOSCALE["max_workers"]
+                or any(not str(dd.get("reason") or "").strip() for dd in decisions)):
+            raise AssertionError(f"fleet (d): decisions {decisions}; {new_id} ready "
+                                 f"{new_ready}; {n_slots} slots")
+        last = decisions[-1]
+        log("fleet", f"(d) autoscaler ({FABRIC_WORKERS} workers, floor "
+                     f"{FLEET_AUTOSCALE['min_workers']}, ceiling "
+                     f"{FLEET_AUTOSCALE['max_workers']}, high watermark "
+                     f"{FLEET_AUTOSCALE['high_rps_per_worker']:g} req/s a worker): "
+                     f"{FLEET_OFFER_S} s of {ceiling_rate} req/s backtest offered, "
+                     f"{art_d['value']} req/s served over {art_d['wall_s']} s; "
+                     f"scale_up at {ups[0]['t_s']} s: {ups[0]['reason']} "
+                     f"(reading {ups[0]['offered_rps']} req/s); {new_id} spawned by "
+                     f"the supervisor (subprocess), ready in "
+                     f"{new_ready[0]['wall_s']} s ({json.dumps(new_ready[0].get('walls'))}), "
+                     f"fresh_compiles 0; after {idle_s:.1f} s idle "
+                     + (f"scale_down at {downs[0]['t_s']} s ({downs[0]['reason']}), "
+                        if downs else "no scale_down, ")
+                     + f"{n_slots} slots over the run, {n_ready_end} ready or "
+                     f"starting at the end (floor {FLEET_AUTOSCALE['min_workers']}"
+                     f"{': back at the floor' if n_ready_end == FABRIC_WORKERS else ''}); "
+                     f"last decision: {last['action']} ({last['reason']}); "
+                     f"{len(decisions)} reasoned decisions; books closed; valid "
+                     f"({path_d}); (d) {time.perf_counter() - t_d:.1f} s | {smi}")
+        out["autoscale"] = {"up_t_s": ups[0]["t_s"], "new_ready_s": new_ready[0]["wall_s"],
+                            "back_to_floor": n_ready_end == FABRIC_WORKERS}
+
+        # -- (e) the CLI, in a subprocess -------------------------------------
+        t_e = time.perf_counter()
+        argv = ["loadgen", "--fabric", "--fleet", "--spares", "1", "--autoscale",
+                "--prefork", "--workers", "2", "--transport", "tcp", "--schedule",
+                "1x40", "--kill-worker-after", "0.5", "--out", out_dir, "--run-id",
+                "chip-cli-fleet"]
+        p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", *argv],
+                           cwd=REPO, capture_output=True, text=True, timeout=600)
+        serve_path = os.path.join(out_dir, "GPU_SERVE_FABRIC_chip-cli-fleet.json")
+        fleet_path = os.path.join(out_dir, "GPU_FLEET_chip-cli-fleet.json")
+        if (p.returncode != 0 or inv.validate_file(serve_path)
+                or inv.validate_file(fleet_path)):
+            raise AssertionError(f"fleet cli: exit {p.returncode}\n{p.stdout[-3000:]}"
+                                 f"\n{p.stderr[-3000:]}")
+        with open(serve_path) as f:
+            cli_forks = thread_gates(json.load(f)["workers"]["events"], "fleet cli")
+        with open(fleet_path) as f:
+            cli_el = json.load(f)["elastic"]
+        if len(cli_el["promotions"]) != 1:
+            raise AssertionError(f"fleet cli: promotions {cli_el['promotions']}")
+        show = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", "fleet",
+                               "chip-cli-fleet", "--root", out_dir], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        if show.returncode != 0 or "worker-tier capacity account" not in show.stdout \
+                or "stream books" not in show.stdout:
+            raise AssertionError(f"fleet cli: `fleet` exit {show.returncode}\n"
+                                 f"{show.stdout[-2000:]}\n{show.stderr[-2000:]}")
+        log("fleet", f"(e) {' '.join(argv)}: exit 0 in "
+                     f"{time.perf_counter() - t_e:.2f} s, both artifacts valid, "
+                     f"{cli_forks} fork(s) at 1 native thread; "
+                     + " / ".join(ln.strip() for ln in p.stdout.splitlines()
+                                  if ln.startswith(("throughput", "latency",
+                                                    "availability", "fleet books",
+                                                    "fleet capacity", "elastic:")))
+                     + f"; `fleet chip-cli-fleet` exit 0, "
+                       f"{len(show.stdout.splitlines())} lines | {smi}")
+    finally:
+        obs_fleet.disarm("fleet phase over")
+        shutil.rmtree(root, ignore_errors=True)
+        for pid in forked:
+            if os.path.exists(f"/proc/{pid}"):
+                try:
+                    os.kill(pid, 9)
+                except ProcessLookupError:
+                    pass
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10.0)
+
+    launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    for st in latest.values():
+        for name in launches:
+            launches[name] += st["kernel_launches"][name]
+    if launches["decile_partial_sums"] < 1 or launches["cohort_partial_sums"]:
+        raise AssertionError(f"fleet: worker launches {launches}, expected K1 > 0, "
+                             "K2 0")
+    out["launches"] = launches
+    out["processes"] = len(latest)
+    return out
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -2766,9 +3369,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--out", help="keep phase 12's pool and phase 13's fabric "
-                                  "artifacts in this directory (default: a "
-                                  "temporary one)")
+    ap.add_argument("--out", help="keep the artifacts of phases 12-14 (pool, "
+                                  "fabric, fleet) in this directory (default: "
+                                  "a temporary one)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3369,6 +3972,19 @@ def main(argv=None) -> int:
                   f"{fab['backtest_batches']} backtest batches | {smi}")
     for row in rows:
         row["fabric_launches"] = fab["launches"][row["name"]]
+
+    # -- 14. fleet: the observatory and the elastic tier, after phase 13 and
+    # before phase 9 ---------------------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="csmom_fleet_") as tmp:
+        fleet = fleet_phase(smi, args.out or tmp, pool["ceiling_rate"])
+    log("fleet", f"phase wall {time.perf_counter() - t_phase:.1f} s; the launches "
+                 f"of its {fleet['processes']} worker processes {fleet['launches']}; "
+                 f"walls {json.dumps(fleet['walls'])}; r20 armed "
+                 f"{json.dumps(fleet['r20'])}; r21 {json.dumps(fleet['r21'])}; "
+                 f"autoscale {json.dumps(fleet['autoscale'])} | {smi}")
+    for row in rows:
+        row["fleet_launches"] = fleet["launches"][row["name"]]
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()

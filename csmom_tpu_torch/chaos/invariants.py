@@ -1,7 +1,16 @@
 """The serving artifacts' contracts: closed books, ordered percentiles.
 
-Counterpart of ``csmom_tpu.chaos.invariants`` for the three artifact
-kinds the port lands, all written by :mod:`csmom_tpu_torch.serve.loadgen`.
+Counterpart of ``csmom_tpu.chaos.invariants`` for the four artifact
+kinds the port lands, written by :mod:`csmom_tpu_torch.serve.loadgen`
+and :mod:`csmom_tpu_torch.obs.fleet`.
+
+``fleet`` (``GPU_FLEET_<run>.json``, schema v1, the reference's rules
+copied, its ``elastic`` block included): reason-closed stream books, no
+orphan series, monotone counter series, demand that reconciles with its
+per-second buckets and the embedded serve request book, capacity
+arithmetic in bounds; spares held out of the lifecycle and kill-window
+books, each promotion exactly once, every autoscaler decision reasoned,
+applied quotas within their declared bounds.
 
 ``serve_fabric`` (``GPU_SERVE_FABRIC_<run>.json``, schema v1, the
 reference's rules copied): closed client-tier books, an availability, a
@@ -35,27 +44,33 @@ from __future__ import annotations
 
 import json
 
-__all__ = ["KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
+__all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS",
+           "KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
            "KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
-           "detect_kind", "validate", "validate_file"]
+           "detect_kind", "validate", "validate_file", "validate_tree"]
 
 KNOWN_SERVE_SCHEMA_VERSIONS = (1, 2, 3, 4)
 KNOWN_SERVE_POOL_SCHEMA_VERSIONS = (1,)
 KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS = (1,)
+KNOWN_FLEET_SCHEMA_VERSIONS = (1,)
 
 _NUM = (int, float)
 
 
 def detect_kind(obj: dict) -> str | None:
-    """``"serve_fabric"``, ``"serve_pool"`` or ``"serve"`` by the
-    artifact's ``kind`` or key signature (the fabric's requests/
-    availability/routers/transport, the pool's requests/availability/
-    hedge, the service's requests/latency_ms/batches), else None.  The
-    reference's order: each kind carries the next one's signature plus
-    its own, so the fabric is tested before the pool and the pool before
-    the service."""
+    """``"fleet"``, ``"serve_fabric"``, ``"serve_pool"`` or ``"serve"`` by
+    the artifact's ``kind`` or key signature (the fleet's series/demand/
+    capacity, the fabric's requests/availability/routers/transport, the
+    pool's requests/availability/hedge, the service's requests/
+    latency_ms/batches), else None.  The reference's order: the fleet
+    embeds a request book of its own, and each serve kind carries the
+    next one's signature plus its own, so the fleet is tested first, the
+    fabric before the pool and the pool before the service."""
     if not isinstance(obj, dict):
         return None
+    if obj.get("kind") == "fleet" or {"series", "demand",
+                                      "capacity"} <= set(obj):
+        return "fleet"
     if obj.get("kind") == "serve_fabric" or {"requests", "availability",
                                              "routers",
                                              "transport"} <= set(obj):
@@ -755,24 +770,341 @@ def _validate_serve_fabric(obj: dict) -> list:
     return out
 
 
+def _validate_fleet(obj: dict) -> list:
+    """The fleet observatory contract (FLEET_*.json, obs/fleet.py):
+
+    - CLOSED stream books: every process that ever streamed ends with a
+      non-empty close reason (fin on clean drain, ``stream severed`` on
+      SIGKILL) — a series that just stops without a reason is the r4
+      silent-truncation failure wearing a new coat.
+    - No orphan series: every ``points`` entry's proc has a process
+      book (data from a process the aggregator never opened is forged
+      or corrupted).
+    - Counter series are MONOTONE: the aggregator reconstructs counters
+      as ``cum += max(0, delta)``, so a decreasing counter series can
+      only mean the artifact was edited after landing.
+    - Demand reconciles three ways: per-second buckets sum to the class
+      totals, ``admitted <= offered`` per class, and the run totals
+      match the embedded serve request book — BY SCHEMA, not by eye.
+    - Capacity account arithmetic: fractions in [0, 1], available never
+      exceeds nominal, and every kill window's ready stamp is at or
+      after its kill stamp."""
+    out: list = []
+    _require(obj, "run_id", str, "fleet", out)
+    ver = _require(obj, "schema_version", int, "fleet", out)
+    if ver is not None and ver not in KNOWN_FLEET_SCHEMA_VERSIONS:
+        out.append(
+            f"fleet: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_FLEET_SCHEMA_VERSIONS)}) — the "
+            "artifact is from a different era of the code; do not "
+            "half-parse it")
+    _require(obj, "cadence_s", _NUM, "fleet", out, "a number")
+    _require(obj, "window_s", _NUM, "fleet", out, "a number")
+    out += _validate_record(obj, kind="fleet")
+
+    series = _require(obj, "series", dict, "fleet", out)
+    procs: dict = {}
+    if isinstance(series, dict):
+        books = series.get("books")
+        if not isinstance(books, dict):
+            out.append("fleet: series.books (the stream ledger) must be "
+                       "a dict")
+            books = {}
+        for k in ("procs_opened", "procs_closed", "frames",
+                  "frames_malformed", "seq_gaps",
+                  "frames_dropped_by_emitters", "series_count",
+                  "series_dropped"):
+            v = books.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"fleet: series.books.{k} must be a "
+                           "non-negative int")
+        procs = series.get("processes")
+        if not isinstance(procs, dict):
+            out.append("fleet: series.processes must be a dict of "
+                       "per-process stream books")
+            procs = {}
+        for name, book in procs.items():
+            if not isinstance(book, dict):
+                out.append(f"fleet: process book {name!r} must be a dict")
+                continue
+            if not book.get("closed") or not book.get("close_reason"):
+                out.append(
+                    f"fleet: process {name!r} stream is not reason-"
+                    "closed — every series must end with fin or a "
+                    "severed-stream reason, never silence (a SIGKILLed "
+                    "emitter reads as a reason-closed gap, not "
+                    "truncation)")
+        if isinstance(books.get("procs_opened"), int) and \
+                isinstance(books.get("procs_closed"), int) and \
+                books["procs_opened"] != books["procs_closed"]:
+            out.append(
+                f"fleet: series books not closed — procs_opened "
+                f"{books['procs_opened']} != procs_closed "
+                f"{books['procs_closed']}")
+        points = series.get("points")
+        if not isinstance(points, dict):
+            out.append("fleet: series.points must be a dict of series")
+            points = {}
+        for key, s in points.items():
+            if not isinstance(s, dict):
+                out.append(f"fleet: series point {key!r} must be a dict")
+                continue
+            if s.get("proc") not in procs:
+                out.append(
+                    f"fleet: orphan series {key!r} — proc "
+                    f"{s.get('proc')!r} has no process book (data from "
+                    "a stream the aggregator never opened)")
+            ts, vs = s.get("t_s"), s.get("v")
+            if not isinstance(ts, list) or not isinstance(vs, list) \
+                    or len(ts) != len(vs):
+                out.append(f"fleet: series {key!r} t_s/v must be "
+                           "parallel lists")
+                continue
+            if s.get("kind") == "counter":
+                for i in range(1, len(vs)):
+                    if vs[i] < vs[i - 1]:
+                        out.append(
+                            f"fleet: counter series {key!r} decreases "
+                            f"at index {i} ({vs[i - 1]} -> {vs[i]}) — "
+                            "counters are monotone by construction "
+                            "(cum += max(0, delta)); a decrease means "
+                            "the artifact was edited after landing")
+                        break
+
+    req = obj.get("requests")
+    if req is not None and not isinstance(req, dict):
+        out.append("fleet: requests (the driven serve run's book) must "
+                   "be a dict when present")
+        req = None
+    demand = _require(obj, "demand", dict, "fleet", out)
+    if isinstance(demand, dict):
+        classes = demand.get("classes")
+        per_s = demand.get("per_second")
+        if not isinstance(classes, dict):
+            out.append("fleet: demand.classes must be a dict")
+            classes = {}
+        if not isinstance(per_s, list):
+            out.append("fleet: demand.per_second must be a list")
+            per_s = []
+        bucket_sums: dict = {}
+        for row in per_s:
+            if not isinstance(row, dict):
+                out.append("fleet: demand.per_second rows must be dicts")
+                continue
+            for cls, ev in row.items():
+                if cls == "t_s" or not isinstance(ev, dict):
+                    continue
+                b = bucket_sums.setdefault(cls, {})
+                for e, n in ev.items():
+                    b[e] = b.get(e, 0) + (n if isinstance(n, int) else 0)
+        for cls, tot in classes.items():
+            if not isinstance(tot, dict):
+                out.append(f"fleet: demand.classes[{cls!r}] must be a "
+                           "dict")
+                continue
+            if bucket_sums.get(cls, {}) != tot:
+                out.append(
+                    f"fleet: demand per-second buckets for {cls!r} sum "
+                    f"to {bucket_sums.get(cls, {})} but the class total "
+                    f"says {tot} — the time series and the totals are "
+                    "the same events; they cannot disagree")
+            if tot.get("admitted", 0) > tot.get("offered", 0):
+                out.append(f"fleet: demand class {cls!r} admitted "
+                           f"{tot.get('admitted')} > offered "
+                           f"{tot.get('offered')}")
+        if isinstance(req, dict):
+            for event, book_key in (("admitted", "admitted"),
+                                    ("served", "served")):
+                d_tot = sum(tot.get(event, 0)
+                            for tot in classes.values()
+                            if isinstance(tot, dict))
+                want = req.get(book_key)
+                if isinstance(want, int) and d_tot != want:
+                    out.append(
+                        f"fleet: unreconciled demand — {event} totals "
+                        f"across classes = {d_tot} but the embedded "
+                        f"serve book says requests.{book_key} = {want} "
+                        "(demand telemetry and the request ledger "
+                        "count the same run)")
+
+    cap = _require(obj, "capacity", dict, "fleet", out)
+    if isinstance(cap, dict):
+        nom, avail = cap.get("nominal_worker_s"), cap.get(
+            "available_worker_s")
+        if isinstance(nom, _NUM) and isinstance(avail, _NUM) and \
+                not isinstance(nom, bool) and not isinstance(avail, bool):
+            if avail > nom + 1e-6:
+                out.append(
+                    f"fleet: capacity.available_worker_s {avail} > "
+                    f"nominal_worker_s {nom} — a fleet cannot serve "
+                    "more worker-seconds than it has slots")
+        for k in ("kill_window_loss_frac", "steady_state_loss_frac"):
+            v = cap.get(k)
+            if not isinstance(v, _NUM) or isinstance(v, bool) \
+                    or not 0.0 <= v <= 1.0:
+                out.append(f"fleet: capacity.{k} {v!r} must be a number "
+                           "in [0, 1]")
+        kws = cap.get("kill_windows")
+        if not isinstance(kws, list):
+            out.append("fleet: capacity.kill_windows must be a list")
+            kws = []
+        for i, kw in enumerate(kws):
+            if not isinstance(kw, dict):
+                out.append(f"fleet: kill_windows[{i}] must be a dict")
+                continue
+            tk, tr = kw.get("t_kill_s"), kw.get("t_ready_s")
+            if isinstance(tk, _NUM) and isinstance(tr, _NUM) and tr < tk:
+                out.append(
+                    f"fleet: kill_windows[{i}] t_ready_s {tr} < "
+                    f"t_kill_s {tk} — a victim cannot be ready before "
+                    "it was killed")
+            lf = kw.get("loss_frac")
+            if lf is not None and (not isinstance(lf, _NUM)
+                                   or isinstance(lf, bool)
+                                   or not 0.0 <= lf <= 1.0):
+                out.append(f"fleet: kill_windows[{i}].loss_frac {lf!r} "
+                           "must be a number in [0, 1]")
+    lc = obj.get("lifecycle")
+    if lc is not None and not isinstance(lc, dict):
+        out.append("fleet: lifecycle must be a dict when present")
+    elif isinstance(lc, dict):
+        rw = lc.get("ready_walls_s")
+        if not isinstance(rw, list) or any(
+                not isinstance(w, _NUM) or isinstance(w, bool) or w < 0
+                for w in rw):
+            out.append("fleet: lifecycle.ready_walls_s must be a list "
+                       "of non-negative numbers")
+    out += _validate_fleet_elastic(obj)
+    return out
+
+
+def _validate_fleet_elastic(obj: dict) -> list:
+    """The ``fleet.elastic`` block: spares held out of the
+    serving books BY SCHEMA, promotions exactly-once, every autoscaler
+    decision reasoned."""
+    el = obj.get("elastic")
+    if el is None:
+        return []
+    if not isinstance(el, dict):
+        return ["fleet: elastic must be a dict when present"]
+    out = []
+    spare_ids = el.get("spare_ids")
+    if not isinstance(spare_ids, list) or any(
+            not isinstance(s, str) for s in spare_ids):
+        out.append("fleet: elastic.spare_ids must be a list of strings")
+        spare_ids = []
+    # spares never enter the serving books: lifecycle samples and kill
+    # windows may not carry a spare's id (the victim's SLOT keeps its
+    # own id through a promotion)
+    spares = set(spare_ids)
+    lc = obj.get("lifecycle") or {}
+    for e in (lc.get("events") or []):
+        if isinstance(e, dict) and e.get("worker_id") in spares:
+            out.append(
+                f"fleet: spare {e['worker_id']!r} appears in "
+                "lifecycle.events — a parked spare must be held out of "
+                "the serving lifecycle book by schema")
+    cap = obj.get("capacity") or {}
+    for kw in (cap.get("kill_windows") or []):
+        if isinstance(kw, dict) and kw.get("worker_id") in spares:
+            out.append(
+                f"fleet: spare {kw['worker_id']!r} opened a kill window "
+                "— a parked spare was never serving, so its death digs "
+                "no capacity hole")
+    promos = el.get("promotions")
+    if not isinstance(promos, list):
+        out.append("fleet: elastic.promotions must be a list")
+        promos = []
+    seen_spares, seen_slots = set(), set()
+    for i, p in enumerate(promos):
+        if not isinstance(p, dict):
+            out.append(f"fleet: elastic.promotions[{i}] must be a dict")
+            continue
+        tk, tr = p.get("t_kill_s"), p.get("t_ready_s")
+        if isinstance(tk, _NUM) and isinstance(tr, _NUM) and tr < tk:
+            out.append(
+                f"fleet: elastic.promotions[{i}] t_ready_s {tr} < "
+                f"t_kill_s {tk} — a promotion cannot complete before "
+                "the kill it answers")
+        sid = p.get("spare")
+        if sid in seen_spares:
+            out.append(
+                f"fleet: spare {sid!r} promoted twice — promotion must "
+                "be exactly-once per spare (one process cannot fill two "
+                "slots)")
+        seen_spares.add(sid)
+        slot = (p.get("victim"), p.get("generation"))
+        if slot in seen_slots:
+            out.append(
+                f"fleet: slot generation {slot!r} filled by two "
+                "promotions — promotion must be exactly-once per "
+                "(victim, generation)")
+        seen_slots.add(slot)
+        if sid is not None and sid not in spares:
+            out.append(f"fleet: promotion spare {sid!r} is not a "
+                       "declared spare id")
+    sp = el.get("spares")
+    if not isinstance(sp, dict):
+        out.append("fleet: elastic.spares must be a dict of counters")
+    elif isinstance(sp.get("promoted"), int) \
+            and sp["promoted"] != len(promos):
+        out.append(
+            f"fleet: elastic.spares.promoted {sp['promoted']} != "
+            f"{len(promos)} promotion records — the counter and the "
+            "record list count the same events")
+    decisions = el.get("decisions")
+    if not isinstance(decisions, list):
+        out.append("fleet: elastic.decisions must be a list")
+        decisions = []
+    for i, d in enumerate(decisions):
+        if not isinstance(d, dict):
+            out.append(f"fleet: elastic.decisions[{i}] must be a dict")
+            continue
+        if not str(d.get("reason") or "").strip():
+            out.append(
+                f"fleet: elastic.decisions[{i}] "
+                f"({d.get('action')!r}) has no reason — every "
+                "autoscaler decision must be a reasoned event")
+        if d.get("action") not in ("scale_up", "scale_down", "hold",
+                                   "tune_quota"):
+            out.append(f"fleet: elastic.decisions[{i}].action "
+                       f"{d.get('action')!r} unknown")
+    quota = el.get("quota")
+    if isinstance(quota, dict):
+        floor, ceil = quota.get("floor_rps"), quota.get("ceiling_rps")
+        for q in (quota.get("applied") or []):
+            r = q.get("quota_rps") if isinstance(q, dict) else None
+            if isinstance(r, _NUM) and isinstance(floor, _NUM) \
+                    and isinstance(ceil, _NUM) \
+                    and not (floor - 1e-9 <= r <= ceil + 1e-9):
+                out.append(
+                    f"fleet: applied quota {r} rps outside the declared "
+                    f"floor/ceiling [{floor}, {ceil}] — auto-tuning must "
+                    "respect its declared bounds")
+    return out
+
+
 def validate(obj, kind: str | None = None) -> list:
-    """All contract violations of one serve, serve_pool or serve_fabric
-    artifact (empty = valid)."""
+    """All contract violations of one serve, serve_pool, serve_fabric or
+    fleet artifact (empty = valid)."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
     if kind is None:
-        return ["unrecognized artifact shape: not a serve artifact (no "
-                "kind 'serve', 'serve_pool' or 'serve_fabric', no "
-                "requests/latency_ms/batches, requests/availability/hedge "
-                "or requests/availability/routers/transport keys)"]
+        return ["unrecognized artifact shape: not a serve or fleet artifact "
+                "(no kind 'serve', 'serve_pool', 'serve_fabric' or 'fleet', "
+                "no requests/latency_ms/batches, requests/availability/"
+                "hedge, requests/availability/routers/transport or "
+                "series/demand/capacity keys)"]
+    if kind == "fleet":
+        return _validate_fleet(obj)
     if kind == "serve_fabric":
         return _validate_serve_fabric(obj)
     if kind == "serve_pool":
         return _validate_serve_pool(obj)
     if kind != "serve":
         return [f"unknown artifact kind {kind!r}: this validator checks "
-                "serve, serve_pool and serve_fabric artifacts only"]
+                "serve, serve_pool, serve_fabric and fleet artifacts only"]
     return _validate_serve(obj)
 
 
@@ -786,3 +1118,18 @@ def validate_file(path: str) -> list:
     except json.JSONDecodeError as e:
         return [f"not valid JSON: {e}"]
     return validate(obj)
+
+
+def validate_tree(root: str, patterns=("GPU_SERVE_*.json",
+                                       "GPU_FLEET_*.json")) -> dict:
+    """``{file name: violations}`` for every port artifact directly under
+    ``root`` matching ``patterns`` (an empty list = valid, so a caller
+    reports coverage, not just failures)."""
+    import glob
+    import os
+
+    out = {}
+    for pat in patterns:
+        for path in sorted(glob.glob(os.path.join(root, pat))):
+            out[os.path.basename(path)] = validate_file(path)
+    return out

@@ -3,8 +3,9 @@
 Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
 ``run``, ``replicate``, ``grid``, ``sweep``, ``doublesort``,
 ``intraday``, ``horizons``, ``residual``, ``strategies``, ``pack-info``
-and ``fetch``, and of the serving tier's in-process ``serve`` and
-``loadgen`` (:mod:`csmom_tpu_torch.cli.serve`).  Each prints what
+and ``fetch``, of the serving tier's ``serve`` and ``loadgen``
+(:mod:`csmom_tpu_torch.cli.serve`) and of ``fleet``
+(:mod:`csmom_tpu_torch.cli.fleet`).  Each prints what
 ``csmom`` prints for the same arguments, line for line (``intraday --threshold-sweep`` names its one
 engine run a threshold where the reference names one vmapped call); the
 subcommand table in ``--help`` is generated from the parser itself.
@@ -1473,8 +1474,10 @@ def build_parser() -> argparse.ArgumentParser:
                             action="append", metavar="K=V",
                             help="strategy parameter, repeatable")
 
+    from csmom_tpu_torch.cli.fleet import register as register_fleet
     from csmom_tpu_torch.cli.serve import register as register_serve
 
+    register_fleet(sub)
     register_serve(sub)
     p.epilog = _subcommand_epilog(sub)
     p.formatter_class = argparse.RawDescriptionHelpFormatter
@@ -1495,7 +1498,7 @@ def _subcommand_epilog(sub) -> str:
 
 
 # commands that compute nothing on a device
-_DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info"}
+_DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet"}
 
 
 def main(argv=None) -> int:

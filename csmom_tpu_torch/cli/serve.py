@@ -28,6 +28,14 @@ the worker pool, a fabric client in this process, and
 replica ``r0`` mid-burst and combines with ``--kill-worker-after``.
 ``--transport {unix,tcp}`` sets the pool's and the fabric's sockets.
 
+In pool and fabric modes, ``--fleet`` arms the fleet observatory
+(:mod:`csmom_tpu_torch.obs.fleet`) before any process spawns and lands
+``GPU_FLEET_<run>.json`` beside the serve artifact (exit 1 when its
+books are broken; ``fleet <run>`` renders it); ``--spares N``,
+``--autoscale`` and ``--prefork`` arm the elastic tier
+(:mod:`csmom_tpu_torch.serve.fleet`), with the configured worker count
+as the autoscaler's floor and two more as its ceiling.
+
 The flags that differ from the reference's:
 
 - ``--device {cuda,cpu}`` (default cuda) takes the place of
@@ -40,8 +48,9 @@ The flags that differ from the reference's:
 - ``--transport`` unset picks unix sockets, or tcp when a socket path
   under the temporary run directory would pass 107 bytes
   (``supervisor.pick_transport``), where the reference defaults to unix;
-- the fleet, tracing and mesh flags are not ported yet: each exits 2
-  naming the ROADMAP.md item that brings it.
+- the fleet artifact is ``GPU_FLEET_<run>.json``;
+- the tracing and mesh flags are not ported yet: each exits 2 naming the
+  ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -54,10 +63,6 @@ __all__ = ["cmd_loadgen", "cmd_serve", "register"]
 # flags of the reference's serving tier the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them: (dest, flag, item)
 _DEFERRED = (
-    ("fleet", "--fleet", "6f, the fleet observatory and elastic tier"),
-    ("spares", "--spares", "6f, the fleet observatory and elastic tier"),
-    ("autoscale", "--autoscale", "6f, the fleet observatory and elastic tier"),
-    ("prefork", "--prefork", "6f, the fleet observatory and elastic tier"),
     ("trace", "--trace", "6d, tracing and replay"),
     ("mesh", "--mesh", "7, the multi-GPU layer"),
     ("devices_per_worker", "--devices-per-worker", "7, the multi-GPU layer"),
@@ -338,6 +343,153 @@ def _fleet_artifact_rc(args, path: str, art: dict) -> int:
     return 0
 
 
+# ----------------------------------------------------------------- fleet ---
+
+def _arm_fleet(args, run_id: str, transport: str, run_dir: str):
+    """Arm the fleet observatory when ``--fleet`` was given
+    (:mod:`csmom_tpu_torch.obs.fleet`); returns the aggregator or None.
+
+    Runs before the supervisors spawn: arming exports the ``CSMOM_FLEET``
+    environment contract, and a worker or router replica joins the
+    aggregator only if it inherits it.  The aggregator listens on the
+    pool's transport, its unix socket under ``run_dir`` when the path
+    fits (``supervisor.pick_transport``), else on loopback tcp."""
+    if not args.fleet:
+        return None
+    from csmom_tpu_torch.obs import fleet as obs_fleet
+    from csmom_tpu_torch.serve.supervisor import pick_transport
+
+    if transport == "unix" and pick_transport(run_dir) != "unix":
+        transport = "tcp"
+    agg = obs_fleet.arm(run_id, transport=transport, scratch_dir=run_dir)
+    print(f"fleet observatory armed: aggregator at {agg.address} "
+          f"(cadence {agg.cadence_s}s)")
+    return agg
+
+
+def _disarm_fleet(agg, reason: str) -> None:
+    if agg is not None:
+        from csmom_tpu_torch.obs import fleet as obs_fleet
+
+        obs_fleet.disarm(reason)
+
+
+def _elastic_config(args, n_workers: int):
+    """The ``FleetConfig`` that ``--spares``, ``--autoscale`` and
+    ``--prefork`` ask for (None when none was given).  The configured
+    fleet size is the autoscaler's floor: a drain never shrinks the
+    fleet below what the operator asked to run."""
+    spares = args.spares or 0
+    if not (spares or args.autoscale or args.prefork):
+        return None
+    from csmom_tpu_torch.serve.fleet import FleetConfig
+
+    return FleetConfig(spares=spares, autoscale=bool(args.autoscale),
+                       prefork=bool(args.prefork), min_workers=n_workers,
+                       max_workers=n_workers + 2)
+
+
+def _arm_elastic(args, wsup, publisher=None):
+    """Pool mode: attach a ``FleetController`` to a running supervisor
+    (fabric mode passes the config to ``build_fabric``).  Returns the
+    controller or None."""
+    cfg = _elastic_config(args, wsup.config.n_workers)
+    if cfg is None:
+        return None
+    from csmom_tpu_torch.obs import fleet as obs_fleet
+    from csmom_tpu_torch.serve.fleet import FleetController
+
+    ctl = FleetController(wsup, cfg, publisher=publisher,
+                          aggregator=obs_fleet.current_aggregator())
+    ctl.start()
+    _print_elastic(ctl)
+    return ctl
+
+
+def _print_elastic(ctl) -> None:
+    cfg = ctl.config
+    print(f"  elastic: {len(ctl.spares)} hot spare(s) parked out of the ring"
+          + (", prefork warm path" if cfg.prefork else "")
+          + (", autoscaler armed" if cfg.autoscale else ""))
+    for s in ctl.spares:
+        print(f"    {s.worker_id} pid {s.proc.pid} ready in "
+              f"{s.t_ready_s - s.t_spawned_s:.2f}s")
+
+
+def _land_fleet(run_id: str, art: dict, out_dir: str, wsup, rsup,
+                window: tuple) -> int:
+    """Build, validate and land ``GPU_FLEET_<run>.json`` from the armed
+    aggregator and the serve artifact its demand book reconciles with.
+    Called after the pool or fabric stopped, so every surviving
+    emitter's fin frame is in the books (a SIGKILLed one's stream was
+    closed as severed).  Returns 1 when the fleet books are broken,
+    else 0; disarms the observatory either way."""
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.obs import fleet as obs_fleet
+    from csmom_tpu_torch.serve.loadgen import write_artifact
+
+    agg = obs_fleet.current_aggregator()
+    if agg is None:
+        return 0
+    try:
+        # fin-close this process's own emitter, then reason-close any
+        # straggler book before the snapshot freezes
+        obs_fleet.disarm_emitter("loadgen finished")
+        agg.close_all("run-end")
+        fleet_art = obs_fleet.build_artifact(
+            agg, run_id,
+            requests={k: art["requests"][k]
+                      for k in ("admitted", "served", "rejected", "expired")},
+            worker_events=obs_fleet.absolute_events(
+                wsup.summary()["events"], wsup.t0_mono_s),
+            router_events=(obs_fleet.absolute_events(
+                rsup.summary()["events"], rsup.t0_mono_s)
+                if rsup is not None else None),
+            # the autoscaler may have grown the fleet past its configured
+            # size: nominal capacity counts the slots that existed
+            n_workers=max(wsup.config.n_workers, len(wsup.handles)),
+            n_routers=(rsup.config.n_workers if rsup is not None else None),
+            window=window,
+            channels=(art.get("extra") or {}).get("client_channels"),
+            fresh_compiles=art["compile"]["in_window_fresh_compiles"],
+            platform=art["extra"].get("platform"),
+            workload=art["extra"].get("workload"),
+            elastic=(wsup.fleet.summary() if wsup.fleet is not None
+                     else None))
+    finally:
+        obs_fleet.disarm("run-end")
+    path = write_artifact(out_dir, fleet_art, prefix="GPU_FLEET")
+    books = fleet_art["series"]["books"]
+    cap = fleet_art["capacity"]
+    print(f"\nfleet books: {books['procs_opened']} stream(s) opened = "
+          f"{books['procs_closed']} reason-closed; {books['frames']} "
+          f"frames, {books['seq_gaps']} seq gap(s), "
+          f"{books['frames_dropped_by_emitters']} dropped")
+    print(f"fleet capacity: kill-window loss "
+          f"{cap['kill_window_loss_frac']} over "
+          f"{len(cap['kill_windows'])} window(s), steady-state "
+          f"{cap['steady_state_loss_frac']}; ready walls "
+          f"{fleet_art['lifecycle']['ready_walls_s']} s")
+    el = fleet_art.get("elastic")
+    if el:
+        sp = el["spares"]
+        print(f"elastic: {sp['promoted']} promotion(s) "
+              f"{[p['wall_s'] for p in el['promotions']]} s wall, "
+              f"{sp['spawned']} spare(s) spawned "
+              f"({sp['died_parked']} died parked, {sp['backfills']} "
+              f"backfill(s)), {len(el['decisions'])} reasoned "
+              "autoscaler decision(s)")
+    print(f"fleet artifact: {path} (render with "
+          f"`python -m csmom_tpu_torch.cli fleet {run_id}`)")
+    schema = inv.validate_file(path)
+    if schema:
+        print("FLEET INVALID:", file=sys.stderr)
+        for v in schema:
+            print(f"  - {v}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def _cmd_loadgen_pool(args, schedule: str, run_id: str,
                       schedule_kind: str = "custom",
                       preset: dict | None = None) -> int:
@@ -351,14 +503,25 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
         write_artifact,
     )
 
+    from csmom_tpu_torch.utils.deadline import mono_now_s
+
     run_dir = tempfile.mkdtemp(prefix="csmom-pool-")
+    fleet_agg = None
     try:
+        # the observatory arms before the spawns: workers join it through
+        # the environment they inherit
+        fleet_agg = _arm_fleet(args, run_id, _transport(args, run_dir),
+                               run_dir)
         started = _start_pool(args, run_dir)
         if isinstance(started, int):
+            _disarm_fleet(fleet_agg, "pool failed to start")
             return started
         sup, router = started
         try:
             _print_pool_ready(sup, router)
+            # pool mode has no routes publisher: a promotion is routable
+            # the moment the handle swaps (the router reads ready_workers)
+            _arm_elastic(args, sup)
             # a named schedule's preset applies where the pool loadgen
             # implements it (the class mix); cache reuse and version bumps
             # are single-process shapes, dropped loudly so the artifact's
@@ -390,7 +553,11 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
                   f"deadline {load.deadline_s}s"
                   + (f", worker kill @{kill_after:g}s" if kill_after else "")
                   + ") ...")
+            t_load0 = mono_now_s()
             art = run_pool_loadgen(router, sup, load, concurrent=concurrent)
+        except BaseException:
+            _disarm_fleet(fleet_agg, "pool run failed")
+            raise
         finally:
             # a Ctrl-C or a loadgen failure must not leak live workers
             sup.stop()
@@ -424,7 +591,11 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
           f"{art['compile']['in_window_fresh_compiles']!r}")
     print(f"artifact: {path}")
 
-    return _fleet_artifact_rc(args, path, art)
+    rc = 0
+    if fleet_agg is not None:
+        rc = _land_fleet(run_id, art, out_dir, sup, None,
+                         (t_load0, t_load0 + art["wall_s"]))
+    return max(rc, _fleet_artifact_rc(args, path, art))
 
 
 # ---------------------------------------------------------------- fabric ---
@@ -446,7 +617,8 @@ def _mk_fabric(args, run_dir: str):
         deadline_ms=wcfg.deadline_ms,
         hedge_fraction=args.hedge_fraction,
         client_deadline_s=(None if wcfg.deadline_ms == 0
-                           else wcfg.deadline_ms / 1e3))
+                           else wcfg.deadline_ms / 1e3),
+        fleet_config=_elastic_config(args, wcfg.n_workers))
 
 
 def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
@@ -474,15 +646,23 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
               "replicas (one router is the pool: use --pool)",
               file=sys.stderr)
         return 2
+    from csmom_tpu_torch.utils.deadline import mono_now_s
+
     rc = _check_cache_honesty(args)
     if rc:
         return rc
     run_dir = tempfile.mkdtemp(prefix="csmom-fabric-")
+    fleet_agg = None
     try:
+        # the observatory arms before the spawns: router replicas and
+        # workers join it through the environment they inherit
+        fleet_agg = _arm_fleet(args, run_id, _transport(args, run_dir),
+                               run_dir)
         try:
             wsup, publisher, rsup, client = _mk_fabric(args, run_dir)
         except RuntimeError as e:
             print(f"fabric failed to start: {e}", file=sys.stderr)
+            _disarm_fleet(fleet_agg, "fabric failed to start")
             return 1
         try:
             print(f"fabric ready: {len(rsup.ready_workers())} router "
@@ -497,6 +677,8 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
                       + (f" platform {rep['platform']} fresh_compiles "
                          f"{rep.get('fresh_compiles')!r}"
                          if "platform" in rep else ""))
+            if wsup.fleet is not None:
+                _print_elastic(wsup.fleet)
             # a demonstrated three-tier ready: one probe per endpoint
             # through client -> replica -> worker, on a throwaway client
             # (the measured client's books are the artifact's ledger)
@@ -512,6 +694,7 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
                 for p in failed:
                     print(f"    {p.kind}: state={p.state} error={p.error}",
                           file=sys.stderr)
+                _disarm_fleet(fleet_agg, "self-probe failed")
                 return 1
 
             preset = dict(preset or {})
@@ -568,8 +751,12 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
                   + (f", worker kill @{kill_worker_after:g}s"
                      if kill_worker_after else "")
                   + ") ...")
+            t_load0 = mono_now_s()
             art = run_fabric_loadgen(client, rsup, wsup, load,
                                      concurrent=concurrent)
+        except BaseException:
+            _disarm_fleet(fleet_agg, "fabric run failed")
+            raise
         finally:
             # every exit path stops both process tiers and the publisher
             stop_fabric(publisher, rsup, wsup)
@@ -606,7 +793,11 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
           f"{art['compile']['in_window_fresh_compiles']!r}")
     print(f"artifact: {path}")
 
-    return _fleet_artifact_rc(args, path, art)
+    rc = 0
+    if fleet_agg is not None:
+        rc = _land_fleet(run_id, art, out_dir, wsup, rsup,
+                         (t_load0, t_load0 + art["wall_s"]))
+    return max(rc, _fleet_artifact_rc(args, path, art))
 
 
 def cmd_serve(args) -> int:
@@ -902,10 +1093,32 @@ def register(sub) -> None:
                     help="fabric mode: SIGKILL router replica r0 SEC seconds "
                          "into the run and wait for its replacement "
                          "(combines with --kill-worker-after; 0 = no kill)")
-    for flag, kw in (("--trace", dict(action="store_true", default=None)),
-                     ("--fleet", dict(action="store_true", default=None)),
-                     ("--spares", dict(type=int)),
-                     ("--autoscale", dict(action="store_true", default=None)),
-                     ("--prefork", dict(action="store_true", default=None))):
-        lg.add_argument(flag, help="not ported yet (exits 2)", **kw)
+    lg.add_argument("--fleet", action="store_true",
+                    help="pool and fabric modes: arm the fleet observatory "
+                         "(obs.fleet): every process streams metrics "
+                         "snapshot deltas to a per-run aggregator; lands "
+                         "GPU_FLEET_<run-id>.json (time series, demand "
+                         "book, kill-window capacity account) next to the "
+                         "serve artifact; render with `fleet <run-id>`")
+    lg.add_argument("--spares", type=int, default=0, metavar="N",
+                    help="pool and fabric modes: park N hot spare workers "
+                         "(spawned, demonstrated ready, held out of the "
+                         "hash ring) and promote one into a dead worker's "
+                         "slot instead of re-warming it; the pool backfills "
+                         "off the hot path (0 = off)")
+    lg.add_argument("--autoscale", action="store_true",
+                    help="pool and fabric modes: arm the demand-driven "
+                         "control loop (hysteresis-banded scale up/down "
+                         "between the configured worker count and two "
+                         "more, and the bulk class's quota tuned to its "
+                         "demand); every decision lands reasoned in the "
+                         "fleet artifact's elastic block (needs --fleet "
+                         "for its demand input)")
+    lg.add_argument("--prefork", action="store_true",
+                    help="pool and fabric modes: fork spares from a prefork "
+                         "parent that has torch and the serve stack "
+                         "imported and the kernel libraries read into the "
+                         "page cache (it never initializes CUDA)")
+    lg.add_argument("--trace", action="store_true", default=None,
+                    help="not ported yet (exits 2)")
     lg.set_defaults(fn=cmd_loadgen)

@@ -1,6 +1,6 @@
-"""The in-process serving tier: admission -> coalesce -> dispatch on the card.
+"""The serving tier: admission -> coalesce -> dispatch on the card.
 
-Counterpart of ``csmom_tpu.serve``'s in-process half:
+Counterpart of ``csmom_tpu.serve``.  The in-process half:
 
 - :mod:`~csmom_tpu_torch.serve.buckets`: the closed grid of dispatch
   shapes (profiles ``serve`` and ``serve-smoke``);
@@ -19,7 +19,7 @@ Counterpart of ``csmom_tpu.serve``'s in-process half:
   ``GPU_SERVE_POOL_<run>.json`` and ``GPU_SERVE_FABRIC_<run>.json``
   artifacts.
 
-and the multi-process pool over it:
+The multi-process pool over it:
 
 - :mod:`~csmom_tpu_torch.serve.proto`: the wire protocol (framed JSON and
   raw arrays, byte for byte the reference's) and its multiplexed
@@ -32,33 +32,51 @@ and the multi-process pool over it:
   roll the workers;
 - :mod:`~csmom_tpu_torch.serve.router`: admission, hedged dispatch and
   closed books across the processes, in the caller's process or as a
-  router-replica process of its own (``RouterServer``);
+  router-replica process of its own (``RouterServer``).
 
-and the fabric over the pool:
+The fabric over the pool, and the fleet's elastic tier:
 
 - :mod:`~csmom_tpu_torch.serve.fabric`: the routes file every replica
   reads, its publisher, the router-replica supervisor and the client
-  tier (``FabricClient``) with failover and closed client books.
+  tier (``FabricClient``) with failover and closed client books;
+- :mod:`~csmom_tpu_torch.serve.fleet`: hot spares promoted into a dead
+  worker's slot, the prefork parent that forks them warm, and the
+  demand-driven autoscaler (``FleetController``); its observatory is
+  :mod:`csmom_tpu_torch.obs.fleet`.
 
-The fleet's elastic tier and its observatory are not ported yet
-(ROADMAP.md, Queue 1 item 6f).  Nothing here imports torch at import
+The names resolve on first use, and nothing here imports torch at import
 time: the stub workers, the router replicas, the supervisors and the
 fabric client never load it.
 """
 
-from csmom_tpu_torch.registry import serve_endpoints
-from csmom_tpu_torch.serve.buckets import BucketSpec, bucket_spec
-from csmom_tpu_torch.serve.fabric import (
-    FabricClient,
-    FabricClientConfig,
-    RouterSupervisor,
-    build_fabric,
-    stop_fabric,
-)
-from csmom_tpu_torch.serve.router import Router, RouterConfig, RouterServer
-from csmom_tpu_torch.serve.supervisor import PoolConfig, PoolSupervisor
+from __future__ import annotations
 
-__all__ = ["BucketSpec", "FabricClient", "FabricClientConfig", "PoolConfig",
-           "PoolSupervisor", "Router", "RouterConfig", "RouterServer",
-           "RouterSupervisor", "bucket_spec", "build_fabric",
-           "serve_endpoints", "stop_fabric"]
+_LAZY = {
+    "serve_endpoints": "csmom_tpu_torch.registry",
+    "BucketSpec": "csmom_tpu_torch.serve.buckets",
+    "bucket_spec": "csmom_tpu_torch.serve.buckets",
+    "FabricClient": "csmom_tpu_torch.serve.fabric",
+    "FabricClientConfig": "csmom_tpu_torch.serve.fabric",
+    "RouterSupervisor": "csmom_tpu_torch.serve.fabric",
+    "build_fabric": "csmom_tpu_torch.serve.fabric",
+    "stop_fabric": "csmom_tpu_torch.serve.fabric",
+    "AutoscalerPolicy": "csmom_tpu_torch.serve.fleet",
+    "FleetConfig": "csmom_tpu_torch.serve.fleet",
+    "FleetController": "csmom_tpu_torch.serve.fleet",
+    "PreforkServer": "csmom_tpu_torch.serve.fleet",
+    "Router": "csmom_tpu_torch.serve.router",
+    "RouterConfig": "csmom_tpu_torch.serve.router",
+    "RouterServer": "csmom_tpu_torch.serve.router",
+    "PoolConfig": "csmom_tpu_torch.serve.supervisor",
+    "PoolSupervisor": "csmom_tpu_torch.serve.supervisor",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'csmom_tpu_torch.serve' has no attribute {name!r}")

@@ -34,9 +34,12 @@ file::
 
 Router replicas and the client hold no compute: stdlib and numpy only,
 no torch in any fabric-control process; the workers score on the card.
-The elastic tier (hot spares, the autoscaler, prefork) and the fleet
-observatory are ROADMAP.md Queue 1 item 6f, not ported: ``build_fabric``
-refuses a ``fleet_config``.  Clock discipline: ``mono_now_s`` only.
+``build_fabric(fleet_config=...)`` attaches the elastic tier (hot spares,
+the prefork warm path, the autoscaler:
+:class:`~csmom_tpu_torch.serve.fleet.FleetController`) to the worker
+supervisor, and the client notes each request's demand for the fleet
+observatory (:mod:`csmom_tpu_torch.obs.fleet`).  Clock discipline:
+``mono_now_s`` only.
 """
 
 from __future__ import annotations
@@ -327,19 +330,18 @@ def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
     error propagates.  Tear down with :func:`stop_fabric`.  Returns
     ``(wsup, publisher, rsup, client)``.
 
-    ``trace`` (arming the replicas' trace books) is ROADMAP.md Queue 1
-    item 6d and ``fleet_config`` (hot spares, the autoscaler, prefork)
-    item 6f: neither is ported, and either raises.
+    ``fleet_config`` (a :class:`~csmom_tpu_torch.serve.fleet.FleetConfig`)
+    arms the elastic tier: hot spares, the prefork warm path and the
+    autoscaler attach to the worker supervisor as ``wsup.fleet`` after
+    the routes publisher exists (a promotion is a routes publish away),
+    reading the armed fleet aggregator's demand, and stop first on
+    teardown.  ``trace`` (arming the replicas' trace books) is
+    ROADMAP.md Queue 1 item 6d, not ported: it raises.
     """
     if trace:
         raise NotImplementedError(
             "tracing the fabric's replicas is not ported yet (ROADMAP.md, "
             "Queue 1 item 6d, tracing and replay)")
-    if fleet_config is not None:
-        raise NotImplementedError(
-            "the fleet's elastic tier (spares, autoscaler, prefork) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 6f, the fleet "
-            "observatory and elastic tier)")
     wsup = PoolSupervisor(wcfg, os.path.join(run_dir, "workers"))
     os.makedirs(wsup.run_dir, exist_ok=True)
     wsup.start()
@@ -351,6 +353,15 @@ def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
         routes_path = os.path.join(run_dir, "routes.json")
         publisher = RoutesPublisher(wsup, routes_path,
                                     interval_s=publisher_interval_s).start()
+        if fleet_config is not None and (
+                fleet_config.spares > 0 or fleet_config.autoscale
+                or fleet_config.prefork):
+            from csmom_tpu_torch.obs import fleet as obs_fleet
+            from csmom_tpu_torch.serve.fleet import FleetController
+
+            FleetController(
+                wsup, fleet_config, publisher=publisher,
+                aggregator=obs_fleet.current_aggregator()).start()
         rcfg = dataclasses.replace(
             rcfg, expect_cache_version=wsup.expect_cache_version)
         rsup = RouterSupervisor(rcfg, os.path.join(run_dir, "routers"),
@@ -368,9 +379,19 @@ def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
 
 def stop_fabric(publisher, rsup, wsup) -> None:
     """Ordered teardown: every exit path must stop both process tiers and
-    the publisher: the publisher first (stops must not churn the view),
-    then the router replicas, then the workers.  ``None`` slots are
+    the publisher: the elastic tier first (no promotion or scaling may
+    race the teardown), then the publisher (stops must not churn the
+    view), the router replicas and the workers.  ``None`` slots are
     skipped; every tier stops even when an earlier stop raises."""
+    fleet = getattr(wsup, "fleet", None)
+    try:
+        if fleet is not None:
+            fleet.stop()
+    finally:
+        _stop_fabric_rest(publisher, rsup, wsup)
+
+
+def _stop_fabric_rest(publisher, rsup, wsup) -> None:
     try:
         if publisher is not None:
             publisher.stop()
@@ -539,6 +560,7 @@ class FabricClient:
                priority: str = "interactive",
                deadline_s: float | None = None,
                panel_version: int | None = None) -> FabricRequest:
+        from csmom_tpu_torch.obs import fleet as obs_fleet
         from csmom_tpu_torch.obs import trace as obs_trace
 
         values = np.asarray(values)
@@ -555,8 +577,10 @@ class FabricClient:
                                   panel_version=panel_version))
         with self._lock:
             self.admitted += 1
-        # the fleet observatory's demand hooks ("offered", "admitted"
-        # here, "served" at the terminal) are ROADMAP.md Queue 1 item 6f
+        # fleet demand telemetry (a no-op disarmed): the client tier is
+        # where a request is offered, and every one offered is admitted
+        obs_fleet.demand("offered", priority)
+        obs_fleet.demand("admitted", priority)
         t = threading.Thread(
             target=self._drive, args=(req, values, mask),
             name=f"csmom-fabric-req-{req.req_id}", daemon=True)
@@ -730,6 +754,10 @@ class FabricClient:
                                             t_sent_s=sent)
                 req.trace.close_routed(state, req.t_done_s, reason=error)
             req._done.set()
+        if state == "served":
+            from csmom_tpu_torch.obs import fleet as obs_fleet
+
+            obs_fleet.demand("served", req.priority)
 
     # ---------------------------------------------------------- accounting
 

@@ -38,6 +38,10 @@ workers' in-window kernel builds.
 ``GPU_SERVE_FABRIC_<run>.json`` (the reference's ``serve_fabric`` schema
 v1): the client tier's closed books, per-replica router books, the
 worker fleet, and the pool-level cache hit rate.
+
+Both multi-process runs open an armed fleet observatory's demand book
+(:mod:`csmom_tpu_torch.obs.fleet`) as their load starts, and their
+artifacts say in ``extra.observatory_armed`` whether it was armed.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import time
 
 import numpy as np
 
+from csmom_tpu_torch.obs import fleet as obs_fleet
 from csmom_tpu_torch.registry import serve_surface, workload_kinds
 from csmom_tpu_torch.serve.service import ServeConfig, SignalService
 from csmom_tpu_torch.utils.deadline import mono_now_s
@@ -607,7 +612,10 @@ def run_pool_loadgen(router, supervisor, load: LoadConfig,
     load stream — the chaos lever for "do X UNDER load" scenarios
     (rolling restart, a mid-run kill).  The artifact is built only after
     BOTH the load's requests are terminal AND ``concurrent`` returned,
-    so worker stats and fleet events are read from a settled pool."""
+    so worker stats and fleet events are read from a settled pool.  An
+    armed fleet observatory's demand book opens as the load starts, so
+    it counts exactly this run's arrivals (self-probes before it stay
+    out) and reconciles with the request book."""
     rng = random.Random(load.seed)
     segments = parse_schedule(load.schedule)
     offsets = arrival_offsets(segments, rng)
@@ -624,6 +632,7 @@ def run_pool_loadgen(router, supervisor, load: LoadConfig,
                              priority=_pick_class(mix, rng),
                              deadline_s=load.deadline_s)
 
+    obs_fleet.open_demand_window()
     requests, wall_s = _open_loop_drive(offsets, submit_arrival, concurrent)
     return build_pool_artifact(router, supervisor, load, requests, wall_s)
 
@@ -702,6 +711,10 @@ def build_pool_artifact(router, supervisor, load: LoadConfig,
     if spec.name == "serve-smoke":
         extra["smoke"] = ("smoke-bucket pool run: pipeline-shaped, "
                           "workload reduced — NOT a performance capture")
+    # the observatory's provenance: an armed fleet observatory (demand
+    # hooks, every process's emitter) shares the run's CPU, so its
+    # latency rows say whether it was on
+    extra["observatory_armed"] = obs_fleet.armed()
     admitted = max(1, acct["admitted"])
     return {
         "kind": "serve_pool",
@@ -810,6 +823,7 @@ def run_fabric_loadgen(client, router_sup, worker_sup, load: LoadConfig,
             kind, values, mask, priority=_pick_class(mix, rng),
             deadline_s=load.deadline_s, panel_version=state["epoch"])
 
+    obs_fleet.open_demand_window()
     # 90 s of drain (the pool's 60 and more): a double kill can park a
     # request behind two tiers' respawns before it settles
     requests, wall_s = _open_loop_drive(offsets, submit_arrival,
@@ -925,6 +939,10 @@ def build_fabric_artifact(client, router_sup, worker_sup,
     if spec.name == "serve-smoke":
         extra["smoke"] = ("smoke-bucket fabric run: pipeline-shaped, "
                           "workload reduced — NOT a performance capture")
+    # the observatory's provenance: an armed fleet observatory (demand
+    # hooks, every process's emitter) shares the run's CPU, so its
+    # latency rows say whether it was on
+    extra["observatory_armed"] = obs_fleet.armed()
     return {
         "kind": "serve_fabric",
         "schema_version": FABRIC_SCHEMA_VERSION,

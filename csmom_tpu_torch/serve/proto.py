@@ -63,18 +63,26 @@ timestamps), and the peer's reply then carries a ``trace_half`` with
 its server-side stage chain; the channel reports when it was acquired
 and when the frame finished sending (``marks``).
 
-Ops a worker answers (:mod:`csmom_tpu_torch.serve.worker`):
+Ops a worker answers (:mod:`csmom_tpu_torch.serve.worker`); a router
+replica answers the same lifecycle set, and the fleet aggregator
+(:mod:`csmom_tpu_torch.obs.fleet`) answers ``stats_stream``:
 
-===========  ==================================================
-op           meaning
-===========  ==================================================
-ping         liveness: the process responds
-ready        readiness report (warm, self-probe, cache version)
-score        one scoring request (arrays: values, mask)
-stats        accounting, batch stats, builds and kernel launches
-drain        stop admitting, drain the queue, report accounting
-stop         drain, then exit the process
-===========  ==================================================
+============  ==================================================
+op            meaning
+============  ==================================================
+ping          liveness: the process responds
+ready         readiness report (warm, self-probe, cache version)
+score         one scoring request (arrays: values, mask)
+stats         accounting, batch stats, builds and kernel launches
+tune_quota    retune one SLO class's admission quota (the fleet's
+              autoscaler; a worker only)
+stats_stream  one metrics snapshot delta, emitter -> fleet
+              aggregator: a lifecycle op on a persistent channel,
+              never the request path, and free of chaos faults
+              (``serve.transport`` faults fire only for ``score``)
+drain         stop admitting, drain the queue, report accounting
+stop          drain, then exit the process
+============  ==================================================
 """
 
 from __future__ import annotations

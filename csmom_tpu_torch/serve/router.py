@@ -36,8 +36,10 @@ runs a :class:`RouterServer` replica behind the same wire protocol as
 the workers, its worker set read from the routes file the fabric
 publishes (:mod:`csmom_tpu_torch.serve.fabric`).  Two or more replicas
 sit behind a :class:`~csmom_tpu_torch.serve.fabric.FabricClient`.  A
-replica imports neither torch nor pandas.  The fleet observatory's
-demand and emitter hooks (ROADMAP.md Queue 1 item 6f) are not ported.
+replica imports neither torch nor pandas.  The router notes each
+request's ``offered``, ``admitted`` and ``served`` demand for the fleet
+observatory (:mod:`csmom_tpu_torch.obs.fleet`; a no-op disarmed), and a
+replica with ``CSMOM_FLEET`` set streams its metrics there.
 """
 
 from __future__ import annotations
@@ -352,6 +354,7 @@ class Router:
         (the router-replica path); without one, a context is minted iff
         this process's trace book is armed."""
         from csmom_tpu_torch.chaos.inject import checkpoint
+        from csmom_tpu_torch.obs import fleet as obs_fleet
         from csmom_tpu_torch.obs import metrics
         from csmom_tpu_torch.obs import trace as obs_trace
 
@@ -382,6 +385,11 @@ class Router:
             self.admitted += 1
             if priority in self.by_class:
                 self.by_class[priority]["admitted"] += 1
+        # fleet demand telemetry (a no-op disarmed): at this tier every
+        # offered request is admitted, and the class books reconcile with
+        # these counts by schema in the fleet artifact
+        obs_fleet.demand("offered", priority)
+        obs_fleet.demand("admitted", priority)
         checkpoint("pool.route", kind=kind, req=req.req_id)
         reason = self._unserveable_reason(kind, values, mask)
         if reason is not None:
@@ -764,6 +772,10 @@ class Router:
                 req.trace.close_routed(state, req.t_done_s,
                                        reason=error)
             req._done.set()
+        if state == "served":
+            from csmom_tpu_torch.obs import fleet as obs_fleet
+
+            obs_fleet.demand("served", req.priority)
         return True
 
     # ---------------------------------------------------------- accounting
@@ -1120,12 +1132,20 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _term)
 
+    # join the run's fleet observatory when armed (the environment
+    # inherited from the router supervisor); stdlib and numpy only, so
+    # the replica still never loads torch
+    from csmom_tpu_torch.obs import fleet as obs_fleet
+
+    obs_fleet.arm_emitter_from_env("router", args.router_id)
+
     server.bind()
     ok, reason = server.routes.status()
     print(f"{tag} pid {os.getpid()} listening on {args.listen}; routes "
           f"{'ok' if ok else reason} ({len(server.routes.workers())} "
           "workers)", file=sys.stderr, flush=True)
     server.run_until_stopped()
+    obs_fleet.disarm_emitter("router stopped (drained)")
     return 0
 
 

@@ -102,7 +102,8 @@ class WorkerHandle:
     socket_path: str
     proc: subprocess.Popen | None = None
     state: str = "starting"   # starting | ready | draining | dead | failed
-    # how the CURRENT process came to exist: cold | respawn | roll
+    # how the CURRENT process came to exist: cold | respawn | roll |
+    # spare-promotion (ready walls are kept apart by kind)
     spawn_kind: str = "cold"
     generation: int = 0
     restarts: int = 0          # consecutive young deaths (resets on uptime)
@@ -155,6 +156,32 @@ class PoolSupervisor:
         self.kills_observed = 0
         self.restarts_total = 0
         self.rolls_completed = 0
+        # the elastic tier (serve/fleet.py) attaches here when armed:
+        # death hooks run on the monitor thread before backoff or
+        # parking, and a hook that returns True claims the death (a
+        # spare promoted into the slot: no re-warm is scheduled)
+        self.fleet = None
+        self.death_hooks: list = []
+
+    @property
+    def t0_mono_s(self) -> float:
+        """The monotonic instant this supervisor's event clock started:
+        ``event["t_s"] + t0_mono_s`` puts lifecycle events on the
+        timeline the fleet observatory samples on
+        (``obs.fleet.absolute_events``)."""
+        return self._t0
+
+    def ready_walls(self) -> list:
+        """Every (re)spawn's spawn -> ready wall with the worker-reported
+        bind/warm walls, and the spawn kind it came by (``cold``,
+        ``respawn``, ``roll``, ``spare-promotion``)."""
+        with self._lock:
+            return [{"worker_id": e["worker_id"],
+                     "generation": e.get("generation"),
+                     "kind": e.get("spawn_kind") or "cold",
+                     "wall_s": e.get("wall_s"),
+                     "walls": e.get("walls")}
+                    for e in self.events if e["event"] == "ready"]
 
     # -------------------------------------------------------------- events
 
@@ -379,6 +406,15 @@ class PoolSupervisor:
                     uptime_s=round(uptime, 3), young=young,
                     consecutive=h.restarts)
         self._gauge_ready()
+        # the elastic tier's seam: a hook that promotes a hot spare into
+        # the slot returns True and the re-warm below never runs
+        for hook in list(self.death_hooks):
+            try:
+                if hook(h, now):
+                    return
+            except Exception as e:  # a broken hook must not kill the monitor
+                self._event("death_hook_error", h.worker_id,
+                            error=f"{type(e).__name__}: {e}"[:200])
         if h.restarts > self.config.max_restarts:
             h.state = "failed"
             h.reason = (f"crash loop: {h.restarts - 1} consecutive young "
@@ -495,6 +531,11 @@ class PoolSupervisor:
 
     def stop(self) -> None:
         """Drain-stop the fleet and the monitor (idempotent)."""
+        fleet = self.fleet
+        if fleet is not None:
+            # the elastic tier first: no promotion, backfill or scaling
+            # may race the drain (its stop is idempotent)
+            fleet.stop()
         self._stop.set()
         if self._monitor is not None:
             self._monitor.join(timeout=5.0)

@@ -39,6 +39,12 @@ launch counts and its library builds and loads, so a caller can hold
 "K1 once a ``backtest`` micro-batch" across the process boundary.  A
 stub worker never imports torch.
 
+The fleet's elastic tier retunes a class's admission quota through the
+``tune_quota`` op, and with ``CSMOM_FLEET`` set the worker streams its
+metrics to the run's fleet observatory from bind to drain
+(:mod:`csmom_tpu_torch.obs.fleet`).  A worker forked by the prefork
+parent (:mod:`csmom_tpu_torch.serve.fleet`) runs this same ``main``.
+
 Chaos: the service's ``serve.admit`` / ``serve.coalesce`` /
 ``serve.dispatch`` checkpoints fire inside this process (the plan
 arrives by environment from the supervisor), so a ``kill`` at
@@ -218,6 +224,17 @@ class WorkerServer:
             return report, None
         if op == "stats":
             return self._stats(), None
+        if op == "tune_quota":
+            # the fleet autoscaler's quota seam (serve/fleet.py): retune a
+            # class's admission bucket within the declared policy shape
+            applied = self.service.queue.retune_quota(
+                str(obj.get("slo_class", "")),
+                float(obj.get("quota_rps") or 0.0),
+                (float(obj["quota_burst"])
+                 if obj.get("quota_burst") else None))
+            return {"state": "ok" if applied else "rejected",
+                    "ok": applied, "worker_id": self.worker_id,
+                    "applied": applied}, None
         if op == "score":
             return self._score(obj, arrays)
         if op in ("drain", "stop"):
@@ -406,6 +423,12 @@ def main(argv=None) -> int:
 
     server.bind()
     t_bind = mono_now_s()
+    # join the run's fleet observatory when armed (CSMOM_FLEET inherited
+    # from the supervisor or the prefork parent): sampling off the
+    # request path; a disarmed environment leaves the process as it was
+    from csmom_tpu_torch.obs import fleet as obs_fleet
+
+    obs_fleet.arm_emitter_from_env("worker", args.worker_id)
     report = server.warm_and_probe(
         walls={"main_to_bind_s": round(t_bind - t_main0, 3)})
     print(f"{tag} pid {os.getpid()} "
@@ -414,6 +437,7 @@ def main(argv=None) -> int:
           f"fresh_compiles {report['fresh_compiles']!r}",
           file=sys.stderr, flush=True)
     server.run_until_stopped()
+    obs_fleet.disarm_emitter("worker stopped (drained)")
     return 0
 
 

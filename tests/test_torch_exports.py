@@ -94,3 +94,33 @@ def test_package_import_loads_neither_pandas_nor_torch(pkg):
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == "[]", (pkg, p.stdout)
+
+
+@pytest.mark.parametrize("pkg,name,module", [
+    ("serve", "FleetConfig", "csmom_tpu_torch.serve.fleet"),
+    ("serve", "FleetController", "csmom_tpu_torch.serve.fleet"),
+    ("serve", "AutoscalerPolicy", "csmom_tpu_torch.serve.fleet"),
+    ("serve", "PreforkServer", "csmom_tpu_torch.serve.fleet"),
+    ("obs", "fleet", None),
+])
+def test_the_fleet_exports_resolve(pkg, name, module):
+    """The elastic tier's classes resolve from ``csmom_tpu_torch.serve``
+    and the observatory from ``csmom_tpu_torch.obs``, each listed in the
+    package's ``__all__``; the observatory needs neither torch nor
+    pandas, so a router replica can arm it."""
+    port = importlib.import_module(f"csmom_tpu_torch.{pkg}")
+    assert name in port.__all__
+    if module is None:
+        assert getattr(port, name) is importlib.import_module(
+            f"csmom_tpu_torch.{pkg}.{name}")
+    else:
+        assert getattr(port, name) is getattr(
+            importlib.import_module(module), name)
+    code = ("import sys, csmom_tpu_torch.obs.fleet, "
+            "csmom_tpu_torch.serve.fleet, csmom_tpu_torch.cli.fleet; "
+            "print(sorted({'torch', 'pandas'} & set(sys.modules)))")
+    p = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                       env={**os.environ, "PYTHONPATH": _REPO},
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "[]"

@@ -80,8 +80,10 @@ def test_the_scan_covers_the_serving_tier():
         assert os.path.join("csmom_tpu_torch", sub, "__init__.py") in rel
     assert os.path.join("csmom_tpu_torch", "cli", "serve.py") in rel
     for mod in ("proto", "health", "worker", "supervisor", "router",
-                "fabric"):
+                "fabric", "fleet"):
         assert os.path.join("csmom_tpu_torch", "serve", f"{mod}.py") in rel
+    for sub in ("obs", "cli"):
+        assert os.path.join("csmom_tpu_torch", sub, "fleet.py") in rel
 
 
 def test_port_names_no_file_of_the_reference():

@@ -5,9 +5,11 @@ under both packages' validators with no kernel built in the window,
 N``, ``loadgen --pool``, ``--kill-worker-after``, ``--transport tcp``)
 runs on stub and CPU workers and lands a valid ``GPU_SERVE_POOL_*.json``,
 the fabric (``loadgen --fabric``, ``--kill-router-after``) lands a valid
-``GPU_SERVE_FABRIC_*.json`` through a router and a worker kill, the
-reference's flags the port does not have yet exit 2 naming their
-ROADMAP item, the
+``GPU_SERVE_FABRIC_*.json`` through a router and a worker kill, the fleet
+flags (``--fleet``, ``--spares``, ``--autoscale``, ``--prefork``) land a
+``GPU_FLEET_*.json`` valid under both packages' validators and ``fleet
+<run>`` renders it, the reference's flags the port does not have yet
+exit 2 naming their ROADMAP item, the
 cold-cache gate exits 3, and no card means exit 2 naming ``--device
 cpu``."""
 
@@ -173,16 +175,127 @@ def test_loadgen_fabric_survives_a_router_and_a_worker_kill(tmp_path,
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--mesh"], "item 7"),
     (["serve", "--devices-per-worker", "2"], "item 7"),
-    (["loadgen", "--fleet"], "6f"),
-    (["loadgen", "--spares", "1"], "6f"),
-    (["loadgen", "--autoscale"], "6f"),
-    (["loadgen", "--prefork"], "6f"),
     (["loadgen", "--trace"], "6d"),
 ])
 def test_deferred_flags_exit_2_naming_their_item(argv, item, capsys):
     assert main([*argv, "--stub"]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and item in err
+
+
+def _fleet_art(tmp_path, run_id):
+    """The landed ``GPU_FLEET_<run_id>.json`` and its serve artifact, each
+    checked under both packages' validators."""
+    path = tmp_path / f"GPU_FLEET_{run_id}.json"
+    assert inv.validate_file(str(path)) == []
+    assert ref_inv.validate_file(str(path)) == []
+    fleet = json.loads(path.read_text())
+    serve = json.loads(next(tmp_path.glob(
+        f"GPU_SERVE_*_{run_id}.json")).read_text())
+    assert ref_inv.validate(serve) == []
+    return fleet, serve
+
+
+def test_loadgen_fabric_fleet_lands_a_valid_fleet_artifact(tmp_path, capsys):
+    assert main(["loadgen", "--fabric", "--stub", "--smoke", "--fleet",
+                 "--schedule", "0.6x50", "--out", str(tmp_path), "--run-id",
+                 "fl"]) == 0
+    out = capsys.readouterr().out
+    assert "fleet observatory armed: aggregator at" in out
+    assert "reason-closed" in out and "fleet artifact:" in out
+    fleet, serve = _fleet_art(tmp_path, "fl")
+    assert serve["extra"]["observatory_armed"] is True
+    books = fleet["series"]["books"]
+    # the load generator, two replicas and two workers streamed, and
+    # every stream closed with a fin
+    assert books["procs_opened"] == books["procs_closed"] == 5
+    assert books["seq_gaps"] == 0
+    assert all(b["close_reason"].startswith("fin:")
+               for b in fleet["series"]["processes"].values())
+    demand = fleet["demand"]["classes"]
+    assert (sum(c.get("offered", 0) for c in demand.values())
+            == serve["requests"]["admitted"])
+    assert fleet["elastic"] is None and fleet["extra"]["platform"] == "stub"
+
+
+def test_loadgen_spares_promotes_a_spare_on_a_kill(tmp_path, capsys):
+    assert main(["loadgen", "--fabric", "--stub", "--smoke", "--fleet",
+                 "--spares", "1", "--schedule", "1.0x40",
+                 "--kill-worker-after", "0.3", "--out", str(tmp_path),
+                 "--run-id", "spare"]) == 0
+    out = capsys.readouterr().out
+    assert "elastic: 1 hot spare(s) parked out of the ring" in out
+    assert "elastic: 1 promotion(s)" in out
+    fleet, serve = _fleet_art(tmp_path, "spare")
+    el = fleet["elastic"]
+    (promo,) = el["promotions"]
+    assert promo["victim"] == "w0" and promo["spare"] == "s0"
+    assert el["spares"]["promoted"] == 1 and el["spare_ids"][0] == "s0"
+    kinds = {(e["worker_id"], e["kind"]) for e in fleet["lifecycle"]["events"]}
+    assert ("w0", "spare-promotion") in kinds
+    assert serve["availability"] == 1.0
+    # the promotion refills the reserve off the hot path
+    assert el["spares"]["backfills"] == 1 and el["spares"]["spawned"] >= 1
+
+
+def test_loadgen_autoscale_fills_a_reasoned_elastic_block(tmp_path, capsys):
+    assert main(["loadgen", "--pool", "--stub", "--smoke", "--fleet",
+                 "--autoscale", "--schedule", "2.5x20", "--out",
+                 str(tmp_path), "--run-id", "auto"]) == 0
+    fleet, _ = _fleet_art(tmp_path, "auto")
+    el = fleet["elastic"]
+    assert el["autoscale"] is True and el["spares_configured"] == 0
+    assert el["bounds"] == {"min_workers": 2, "max_workers": 4}
+    assert el["decisions"], "the control loop ran"
+    assert all(d["reason"].strip() for d in el["decisions"])
+    assert {d["action"] for d in el["decisions"]} <= {
+        "scale_up", "scale_down", "hold", "tune_quota"}
+    for q in el["quota"]["applied"]:
+        assert 8.0 <= q["quota_rps"] <= 64.0
+
+
+def test_loadgen_prefork_spawns_spares_through_the_parent(tmp_path, capsys):
+    assert main(["loadgen", "--pool", "--stub", "--smoke", "--fleet",
+                 "--spares", "1", "--prefork", "--schedule", "0.6x30",
+                 "--out", str(tmp_path), "--run-id", "pre"]) == 0
+    out = capsys.readouterr().out
+    assert "prefork warm path" in out
+    fleet, serve = _fleet_art(tmp_path, "pre")
+    assert fleet["elastic"]["prefork"] is True
+    events = serve["pool"]["events"]
+    (ready,) = [e for e in events if e["event"] == "prefork_ready"]
+    assert ready["native_threads"] == 1 and ready["cuda_initialized"] is False
+    spawns = [e for e in events if e["event"] == "spare_spawn"]
+    assert spawns and all(e["via"] == "prefork" and e["native_threads"] == 1
+                          for e in spawns)
+
+
+def test_fleet_command_renders_a_landed_artifact(tmp_path, capsys):
+    assert main(["loadgen", "--fabric", "--stub", "--smoke", "--fleet",
+                 "--schedule", "0.5x40", "--kill-worker-after", "0.2",
+                 "--out", str(tmp_path), "--run-id", "show"]) == 0
+    capsys.readouterr()
+    assert main(["fleet", "show", "--root", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    for header in ("worker-tier capacity account", "lifecycle walls",
+                   "demand book", "stream books"):
+        assert header in out
+    assert "stream severed" in out, "the killed worker's book"
+    path = tmp_path / "GPU_FLEET_show.json"
+    bad = json.loads(path.read_text())
+    bad["capacity"]["kill_window_loss_frac"] = 1.5
+    path.write_text(json.dumps(bad))
+    assert main(["fleet", str(path)]) == 1
+    assert "kill_window_loss_frac" in capsys.readouterr().err
+    assert main(["fleet", "nothing-here", "--root", str(tmp_path)]) == 2
+
+
+def test_fleet_flags_without_a_card_exit_2_naming_device_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    assert main(["loadgen", "--fabric", "--fleet", "--spares", "1",
+                 "--autoscale", "--prefork"]) == 2
+    assert "--device cpu" in capsys.readouterr().err
 
 
 def test_cold_cache_gate_exits_3(tmp_path, monkeypatch, capsys):

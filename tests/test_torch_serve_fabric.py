@@ -426,14 +426,56 @@ def test_fabric_three_tiers_over_tcp_survive_double_kill(tmp_path):
 
 
 def test_build_fabric_refuses_what_is_not_ported(tmp_path):
-    """Arming the replicas' trace books is item 6d and the elastic tier
-    item 6f: both raise before any process is spawned."""
-    for kw, item in ((dict(trace=True), "6d"),
-                     (dict(fleet_config=object()), "6f")):
-        with pytest.raises(NotImplementedError, match=item):
-            fabric.build_fabric(PoolConfig(**_SMOKE), PoolConfig(**_SMOKE),
-                                str(tmp_path), deadline_ms=500.0, **kw)
+    """Arming the replicas' trace books is item 6d: it raises before any
+    process is spawned."""
+    with pytest.raises(NotImplementedError, match="6d"):
+        fabric.build_fabric(PoolConfig(**_SMOKE), PoolConfig(**_SMOKE),
+                            str(tmp_path), deadline_ms=500.0, trace=True)
     assert not os.listdir(tmp_path)
+
+
+def test_build_fabric_fleet_config_promotes_a_spare_on_a_worker_kill(
+        tmp_path):
+    """``fleet_config`` attaches the elastic tier: a parked spare fills a
+    SIGKILLed worker's slot, the routes file names the promoted process
+    under the victim's id, the client keeps serving through it, and the
+    teardown stops every process, the spares included."""
+    from csmom_tpu_torch.serve.fleet import FleetConfig
+
+    wsup, publisher, rsup, client = fabric.build_fabric(
+        PoolConfig(n_workers=2, **_SMOKE), PoolConfig(**_SMOKE),
+        str(tmp_path), deadline_ms=5000.0,
+        fleet_config=FleetConfig(spares=1, min_workers=2, max_workers=3))
+    spare_pids = []
+    try:
+        ctl = wsup.fleet
+        assert ctl is not None and len(ctl.spares) == 1
+        spare = ctl.spares[0]
+        spare_pids.append(spare.proc.pid)
+        routes = RoutesView(publisher.path)
+        assert spare.socket_path not in [w.socket_path
+                                         for w in routes.workers()]
+        assert wsup.kill_worker("w0")
+        _wait_for(lambda: ctl.counts["promoted"] == 1, 10.0, "promotion")
+        assert wsup.handles[0].proc.pid == spare.proc.pid
+        assert wsup.handles[0].spawn_kind == "spare-promotion"
+        _wait_for(lambda: ("w0", spare.socket_path) in
+                  [(w.worker_id, w.socket_path)
+                   for w in RoutesView(publisher.path).workers()], 10.0,
+                  "the routes name the promoted spare as w0")
+        v, m = _panel(5, 24)
+        req = client.submit("momentum", v, m, deadline_s=5.0)
+        assert req.wait(10.0) and req.state == "served", req.error
+        _wait_for(lambda: any(s.state == "ready" for s in ctl.spares), 20.0,
+                  "the backfill spare ready")
+        spare_pids += [s.proc.pid for s in ctl.spares]
+    finally:
+        fabric.stop_fabric(publisher, rsup, wsup)
+        client.close()
+    procs = [h.proc for h in rsup.handles + wsup.handles]
+    assert all(p.poll() is not None for p in procs)
+    _wait_for(lambda: not any(os.path.exists(f"/proc/{p}")
+                              for p in spare_pids), 10.0, "spares stopped")
 
 
 # -------------------------------------------------------------- contracts ----
