@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--out DIR]
 
 ``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json``, phase 13's
-``GPU_SERVE_FABRIC_*.json`` and phase 14's ``GPU_FLEET_*.json`` artifacts
-there (by default they go to a temporary directory, removed at the end).
+``GPU_SERVE_FABRIC_*.json``, phase 14's ``GPU_FLEET_*.json`` and phase
+15's ``GPU_TRACE_*.json`` and ``GPU_REPLAY_*.json`` artifacts there (by
+default they go to a temporary directory, removed at the end).
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -76,11 +77,14 @@ any phase fails (nothing is caught).  Phases:
    ``wrapper_ms`` the difference and ``bound_share`` = bound / device;
    ``research_launches``, ``data_in_launches``, ``cli_launches``,
    ``intraday_launches``, ``serve_launches``, ``pool_launches``,
-   ``fabric_launches`` and ``fleet_launches`` the counts of phases 6, 7,
-   8, 9, 11, 12, 13 and 14 (12's, 13's and 14's in the worker
-   processes; 13's over its serving windows, equal to the workers'
-   ``backtest`` batches; 14's each worker process's whole life, warm-up
-   included, spares and forked workers too), and K1's
+   ``fabric_launches``, ``fleet_launches``, ``trace_launches`` and
+   ``replay_launches`` the counts of phases 6, 7, 8, 9, 11, 12, 13, 14
+   and 15 (12's, 13's and 14's in the worker processes; 13's over its
+   serving windows, equal to the workers' ``backtest`` batches; 14's
+   each worker process's whole life, warm-up included, spares and forked
+   workers too; 15's traced runs in this process and the workers, equal
+   to their ``backtest`` batches, and its replay windows, warm-ups
+   excluded), and K1's
    ``serve_device_ms`` and ``serve_bound_ms`` at the serve shape
    ``serve_shape``;
 11. serve (run before phase 9): (a) each of the five endpoints'
@@ -157,6 +161,31 @@ any phase fails (nothing is caught).  Phases:
    books, and whether the drain brought the fleet back to the floor;
    (e) ``loadgen --fabric --fleet --spares 1 --autoscale --prefork`` and
    ``fleet <run>`` in subprocesses;
+15. trace and replay (run after phase 14 and before phase 9): each
+   serving cell with the trace book armed once its tier is ready, its
+   ``GPU_TRACE_*.json`` valid with books that close against the run's
+   request books (complete == served, partial == rejected + expired) and
+   stage sums within epsilon: (a) ``SignalService`` on the card under
+   ``bursty``, K1 launches equal to its ``backtest`` batches; (b) the
+   JAX package's ``TRACE_r17.json`` pool cell (two torch workers, the
+   bursty schedule, ``w0`` SIGKILLed 2 s in): the stitched route and
+   transport stages, orphan halves equal to the router's worker
+   connection failures, each naming ``w0``; (c) its ``TRACE_r19.json``
+   fabric cell (phase 13's r20 with every router replica traced): every
+   trace reason-closed through the router and worker kills, orphan
+   halves equal to the client's router connection failures, each naming
+   ``r0``, the surviving replicas' books closed, torch never loaded
+   there, and the armed p50/p99 against phase 13's disarmed run; the
+   workers' K1 launches equal to their ``backtest`` batches; (d) the
+   replay of ``REPLAY_r12.json``'s configuration with builtin chaos on
+   the card: its tick, panel and version books equal to the file's, no
+   drift, no kernel built, the engine reconcile's largest difference;
+   (e) a full session, 128 assets x 390 one-minute bars with the ring
+   wrapping: closed books, no drift, no kernel built, ticks/s and
+   staleness; neither replay window launches K1 or K2; (f) ``loadgen
+   --trace`` in a subprocess, ``trace <run>`` on each landed artifact
+   (two renderings, equal), ``replay --chaos builtin`` and ``registry
+   list [--endpoints]`` in-process;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -1821,7 +1850,8 @@ def k1_inputs_of(engine, values, mask):
 
 def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
     """Phase 11: the serving tier on the card.  Returns the service runs'
-    launch counts and K1's time and bound at the serve shape."""
+    launch counts, their total-latency percentiles by schedule (phase 15
+    runs ``bursty`` traced) and K1's time and bound at the serve shape."""
     import contextlib
     import io
 
@@ -1925,6 +1955,7 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
     # -- (b) the service on the card, the main path ------------------------
     # telemetry disarmed, as the CLI's loadgen runs it
     launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    total_ms = {}   # each schedule's total-latency percentiles
     for sched in SERVE_SCHEDULES:
         schedule, schedule_kind, preset = resolve_schedule(sched)
         # the main path: counts from 0 at the service's start (its
@@ -1987,6 +2018,7 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
                             f"serve {sched}: a served {r.kind}", False)
             n_held += 1
         lat = art["latency_ms"]
+        total_ms[sched] = lat["total"]
         log("serve", f"(b) {sched}: {art['value']} req/s achieved vs "
                      f"{art['offered']['offered_rps']} offered over {art['wall_s']} s; "
                      f"requests {json.dumps(art['requests'])}; invariants closed, "
@@ -2028,7 +2060,7 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
                                   if ln.startswith(("throughput", "latency", "  self-probe",
                                                     "in-window"))) + f" | {smi}")
 
-    return {"launches": launches, "serve_shape": k1_shape,
+    return {"launches": launches, "latency_ms": total_ms, "serve_shape": k1_shape,
             "serve_device_ms": d_ms, "serve_bound_ms": b_ms, "serve_bound_by": b_by}
 
 
@@ -2426,7 +2458,8 @@ def fabric_phase(smi, out_dir, ceiling_rate: int) -> dict:
     ceiling offer, reused.  Returns the workers' kernel launches and
     ``backtest`` batches over the phase's serving windows, read through
     their ``stats`` replies (each process from its first read after it
-    became ready, so warm-ups are not counted)."""
+    became ready, so warm-ups are not counted), and the r20 cell's
+    total-latency percentiles (phase 15 runs the cell traced)."""
     import random as pyrandom
     import resource
     import shutil
@@ -2599,7 +2632,7 @@ def fabric_phase(smi, out_dir, ceiling_rate: int) -> dict:
         respawn = {t: [e.get("wall_s") for e in art[t]["events"]
                        if e["event"] == "ready" and e.get("generation") == 1]
                    for t in ("routers", "workers")}
-        lat = art["latency_ms"]["total"]
+        lat = r20_lat = art["latency_ms"]["total"]
         log("fabric", f"(c) r20 bursty seed 0, {FABRIC_ROUTERS} routers x "
                       f"{FABRIC_WORKERS} workers over tcp, r0 SIGKILLed "
                       f"{FABRIC_KILL_ROUTER_S} s and w0 {FABRIC_KILL_WORKER_S} s in: "
@@ -2741,7 +2774,7 @@ def fabric_phase(smi, out_dir, ceiling_rate: int) -> dict:
             or launches["cohort_partial_sums"]):
         raise AssertionError(f"fabric: worker launches {launches} against "
                              f"{batches} backtest batches")
-    return {"launches": launches, "backtest_batches": batches}
+    return {"launches": launches, "backtest_batches": batches, "r20": r20_lat}
 
 
 # phase 14: the fleet observatory and the elastic tier on the card.  The
@@ -3325,6 +3358,421 @@ def fleet_phase(smi, out_dir, ceiling_rate: int) -> dict:
     return out
 
 
+# phase 15: tracing and replay on the card.  Three traced serving cells
+# (in-process, the JAX package's TRACE_r17.json pool and TRACE_r19.json
+# fabric), each with the trace book armed once its tier is ready; the
+# replay of REPLAY_r12.json and of a full session; and the CLI
+TRACE_POOL_WORKERS = 2
+# TRACE_r17.json's capture: loadgen --pool --workers 2 --schedule bursty
+# --trace --kill-worker-after 2
+TRACE_POOL_KILL_S = 2.0
+# REPLAY_r12.json's configuration (its capacity == bars: no eviction);
+# its tick, panel and version books are set by event time and the seed
+REPLAY_R12 = dict(seed=12, n_assets=32, bars=96, capacity=96, serve_every_bars=6,
+                  reconcile_every_bars=16, profile="serve")
+# a full US session of one-minute bars over the largest serve bucket; the
+# default capacity (3/4 of the log) wraps the ring
+REPLAY_DAY = dict(seed=12, n_assets=128, bars=390, serve_every_bars=6,
+                  reconcile_every_bars=16, profile="serve")
+TRACE_STITCHED = ("route", "transport", "queue_wait", "dispatch", "finalize")
+
+
+def armed_cost(cell: dict, lat: dict, off, what: str) -> str:
+    """Armed minus disarmed p50/p99 of one cell, recorded in ``cell``;
+    the text for its log line."""
+    if off is None:
+        return "armed - disarmed: not measured (the disarmed run did not run)"
+    cell["cost_ms"] = {q: round(lat[q] - off[q], 3) for q in ("p50", "p99")}
+    return (f"armed - disarmed: p50 {cell['cost_ms']['p50']:+.3f} ms, p99 "
+            f"{cell['cost_ms']['p99']:+.3f} ms against {what} p50 {off['p50']} "
+            f"p99 {off['p99']} ms")
+
+
+def stage_table(tart) -> dict:
+    """``{stage: [p50, p95, p99]}`` of a trace artifact, and the stage with
+    the largest p99 (the one that sets the tail)."""
+    rows = {k: [v["p50"], v["p95"], v["p99"]] for k, v in tart["stages"].items()}
+    tail = max(rows, key=lambda k: rows[k][2] or 0.0) if rows else None
+    return {"stages": rows, "tail": tail}
+
+
+def trace_replay_phase(smi, out_dir, disarmed) -> dict:
+    """Phase 15: tracing and replay on the card.  ``disarmed`` holds the
+    total latency of the same cells run with tracing disarmed earlier in
+    the call, ``{"inproc": phase 11's bursty, "fabric": phase 13's r20}``
+    (None when the phase runs alone).
+    Returns the K1/K2 launches of the traced runs (this process's and the
+    workers', through their ``stats``) and of the replay windows, and
+    each cell's figures."""
+    import contextlib
+    import io
+    import shutil
+
+    from csmom_tpu_torch.chaos import inject
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.chaos.plan import PLAN_ENV
+    from csmom_tpu_torch.cli.main import main as cli
+    from csmom_tpu_torch.cli.serve import _kill_w0_after, _land_trace
+    from csmom_tpu_torch.obs import trace as obs_trace
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.registry import serve_endpoints
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.fabric import build_fabric, kill_mid_burst, stop_fabric
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig, resolve_schedule, run_fabric_loadgen, run_loadgen,
+        run_pool_loadgen, write_artifact,
+    )
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.service import ServeConfig, SignalService
+    from csmom_tpu_torch.serve.supervisor import (
+        PoolConfig, PoolSupervisor, pick_transport,
+    )
+    from csmom_tpu_torch.stream.replay import (
+        ReplayConfig, builtin_fault_plan, run_replay,
+    )
+
+    out = {}
+    first: dict = {}   # pid -> a worker's first stats reply of the phase
+    last: dict = {}    # pid -> its latest
+
+    def read_workers(sup) -> dict:
+        now = pool_stats(sup)
+        for pid, st in now.items():
+            first.setdefault(pid, st)
+            last[pid] = st
+        return now
+
+    def land(book, run_id, art, what):
+        if _land_trace(book, run_id, art, out_dir):
+            raise AssertionError(f"{what}: the trace books are broken")
+        path = os.path.join(out_dir, f"GPU_TRACE_{run_id}.json")
+        with open(path) as f:
+            tart = json.load(f)
+        req, books = art["requests"], tart["books"]
+        if (books["opened"] != req["admitted"] or books["complete"] != req["served"]
+                or books["partial"] != req["rejected"] + req["expired"]
+                or tart["reconcile"]["violations"]
+                or tart["reconcile"]["max_abs_residual_ms"] > obs_trace.EPSILON_MS):
+            raise AssertionError(f"{what}: books {books} against requests {req}; "
+                                 f"reconcile {tart['reconcile']}")
+        return tart, path
+
+    schedule, schedule_kind, preset = resolve_schedule("bursty")
+    t_phase = time.perf_counter()
+
+    # -- (a) in-process: SignalService on the card, traced ------------------
+    t_a = time.perf_counter()
+    svc = SignalService(ServeConfig(profile="serve", engine="torch"))
+    svc.start()
+    kernels.reset_launches()
+    book = obs_trace.arm_tracing(seed=0)
+    try:
+        art = run_loadgen(svc, LoadConfig(schedule=schedule, schedule_kind=schedule_kind,
+                                          seed=0, run_id="chip-trace-inproc", **preset))
+    except BaseException:
+        obs_trace.disarm_tracing()
+        raise
+    k1 = kernels.decile_partial_sums.launches
+    k2 = kernels.cohort_partial_sums.launches
+    batches = svc.batch_stats()["engine_calls"].get("backtest", 0)
+    write_artifact(out_dir, art, prefix="GPU_SERVE")
+    tart, path = land(book, "chip-trace-inproc", art, "trace (a)")
+    if (inv.validate(art) or art["compile"]["in_window_fresh_compiles"] != 0
+            or k1 != batches or batches < 1 or k2):
+        raise AssertionError(f"trace (a): {inv.validate(art)}; fresh "
+                             f"{art['compile']['in_window_fresh_compiles']!r}; K1 {k1} "
+                             f"against {batches} backtest batches, K2 {k2}")
+    launches = {"decile_partial_sums": k1, "cohort_partial_sums": 0}
+    st = stage_table(tart)
+    lat = art["latency_ms"]["total"]
+    out["inproc"] = {"p50": lat["p50"], "p99": lat["p99"], "tail": st["tail"]}
+    cost = armed_cost(out["inproc"], lat, disarmed and disarmed["inproc"],
+                      "phase 11's disarmed bursty")
+    log("trace", f"(a) in-process bursty seed 0, traced: {art['value']} req/s of "
+                 f"{art['offered']['offered_rps']} offered; p50 {lat['p50']} p95 "
+                 f"{lat['p95']} p99 {lat['p99']} ms ({cost}); books {json.dumps(tart['books'])} "
+                 f"== requests; reconcile {json.dumps(tart['reconcile'])}; stage "
+                 f"p50/p95/p99 ms {json.dumps(st['stages'])}, the tail's stage "
+                 f"{st['tail']}; padding {json.dumps({k: v['pad_fraction'] for k, v in tart['padding'].items()})}; "
+                 f"K1 {k1} == backtest batches {batches}, K2 0; valid ({path}); "
+                 f"(a) {time.perf_counter() - t_a:.1f} s | {smi}")
+
+    # -- (b) TRACE_r17.json's pool: 2 torch workers, w0 SIGKILLed 2 s in ----
+    t_b = time.perf_counter()
+    run_dir = tempfile.mkdtemp(prefix="csmom-trace-pool-")
+    sup = PoolSupervisor(PoolConfig(
+        n_workers=TRACE_POOL_WORKERS, profile="serve", engine="torch", device="cuda",
+        transport=pick_transport(run_dir), require_warm_cache=True), run_dir)
+    router = book = None
+    pool_preset = {"class_mix": preset.get("class_mix")}
+    try:
+        sup.start()
+        router = Router(sup.ready_workers, RouterConfig(
+            profile="serve", default_deadline_s=0.5, hedge_fraction=POOL_HEDGE_FRACTION),
+            retry_after_fn=sup.retry_after_s)
+        before = read_workers(sup)
+        book = obs_trace.arm_tracing(seed=0)
+        art = run_pool_loadgen(router, sup, LoadConfig(
+            schedule=schedule, schedule_kind=schedule_kind, seed=0, deadline_s=0.5,
+            run_id="chip-trace-pool", **pool_preset),
+            concurrent=_kill_w0_after(sup, TRACE_POOL_KILL_S))
+        after = read_workers(sup)
+    except BaseException:
+        obs_trace.disarm_tracing()
+        raise
+    finally:
+        sup.stop()
+        if router is not None:
+            router.channels.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    write_artifact(out_dir, art, prefix="GPU_SERVE_POOL")
+    tart, path = land(book, "chip-trace-pool", art, "trace (b)")
+    d = pool_deltas(before, after)
+    conn = router.accounting()["worker_conn_failures"]
+    orphans = tart["orphans"]
+    pool = art["pool"]
+    missing = [s for s in TRACE_STITCHED if s not in tart["stages"]]
+    if (inv.validate(art) or router.invariant_violations() or missing
+            or art["compile"]["in_window_fresh_compiles"] != 0
+            or art["requests"]["rejected_infra"] or pool["kills"] != 1
+            or orphans["count"] != conn
+            or any(not r.startswith("w0:") for r in orphans["reasons"])
+            or d["k1"] != d["backtest_calls"] or d["k2"] or d["libraries"]):
+        raise AssertionError(f"trace (b): {inv.validate(art)} "
+                             f"{router.invariant_violations()}; stitched stages "
+                             f"missing {missing}; requests {art['requests']}; kills "
+                             f"{pool['kills']}; orphans {orphans} against {conn} "
+                             f"connection failures; workers {d}")
+    st = stage_table(tart)
+    lat = art["latency_ms"]["total"]
+    out["pool"] = {"p50": lat["p50"], "p99": lat["p99"], "tail": st["tail"],
+                   "orphans": orphans["count"]}
+    log("trace", f"(b) r17 pool, {TRACE_POOL_WORKERS} torch workers (the reference "
+                 f"ran jax-mesh workers, the multi-GPU layer), bursty seed 0, w0 "
+                 f"SIGKILLed {TRACE_POOL_KILL_S} s in: {art['value']} req/s of "
+                 f"{art['offered']['offered_rps']} offered; p50 {lat['p50']} p95 "
+                 f"{lat['p95']} p99 {lat['p99']} ms; requests "
+                 f"{json.dumps(art['requests'])}; books {json.dumps(tart['books'])}; "
+                 f"orphan halves {json.dumps(orphans)} == the router's {conn} worker "
+                 f"connection failures; reconcile {json.dumps(tart['reconcile'])}; "
+                 f"stage p50/p95/p99 ms {json.dumps(st['stages'])}, the tail's stage "
+                 f"{st['tail']}; the surviving workers' K1 {d['k1']} == their backtest "
+                 f"batches {d['backtest_calls']}; valid ({path}); "
+                 f"(b) {time.perf_counter() - t_b:.1f} s | {smi}")
+
+    # -- (c) TRACE_r19.json's fabric: r20's cell with the books armed -------
+    t_c = time.perf_counter()
+    run_dir = tempfile.mkdtemp(prefix="csmom-trace-fabric-")
+    wsup = publisher = rsup = client = book = None
+    try:
+        wsup, publisher, rsup, client = build_fabric(
+            PoolConfig(n_workers=FABRIC_WORKERS, profile="serve", engine="torch",
+                       device="cuda", transport="tcp", require_warm_cache=True),
+            PoolConfig(n_workers=FABRIC_ROUTERS, profile="serve", engine="stub",
+                       transport="tcp"),
+            run_dir, deadline_ms=1e3 * FABRIC_R20["deadline_s"], trace=True,
+            client_deadline_s=FABRIC_R20["deadline_s"])
+
+        def double_kill():
+            if not kill_mid_burst([(FABRIC_KILL_ROUTER_S, rsup, "router"),
+                                   (FABRIC_KILL_WORKER_S, wsup, "worker")],
+                                  settle_timeout_s=wsup.config.ready_timeout_s):
+                raise AssertionError("trace (c): a killed tier never demonstrated "
+                                     "ready again")
+
+        before = read_workers(wsup)
+        book = obs_trace.arm_tracing(seed=0)
+        art = run_fabric_loadgen(client, rsup, wsup, LoadConfig(
+            run_id="chip-trace-fabric", **FABRIC_R20), concurrent=double_kill)
+        after = read_workers(wsup)
+    except BaseException:
+        obs_trace.disarm_tracing()
+        raise
+    finally:
+        stop_fabric(publisher, rsup, wsup)
+        if client is not None:
+            client.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    write_artifact(out_dir, art, prefix="GPU_SERVE_FABRIC")
+    tart, path = land(book, "chip-trace-fabric", art, "trace (c)")
+    d = pool_deltas(before, after)
+    orphans = tart["orphans"]
+    conn = art["requests"]["router_conn_failures"]
+    tiers = {t: {k: art[t][k] for k in ("kills", "restarts", "ready_end")}
+             for t in ("routers", "workers")}
+    replicas = {}
+    viols = inv.validate(art)
+    for r in art["routers"]["replicas"]:
+        tr = r.get("trace")
+        if r["state"] != "ready":
+            continue
+        if tr is None or r.get("torch_loaded") is not False:
+            viols.append(f"replica {r['router_id']}: trace {tr}, torch_loaded "
+                         f"{r.get('torch_loaded')}")
+            continue
+        b = tr["snapshot"]["books"]
+        viols += [f"replica {r['router_id']}: {v}" for v in tr["invariant_violations"]]
+        if b["opened"] != b["complete"] + b["partial"]:
+            viols.append(f"replica {r['router_id']} trace books open: {b}")
+        replicas[f"{r['router_id']}g{r['generation']}"] = {
+            "books": b, "orphans": tr["snapshot"]["orphans"]["count"],
+            "worker_conn_failures": r["accounting"]["worker_conn_failures"]}
+    missing = [s for s in TRACE_STITCHED if s not in tart["stages"]]
+    if (viols or missing or art["availability"] != 1.0
+            or art["compile"]["in_window_fresh_compiles"] != 0
+            or tiers["routers"]["kills"] != 1 or tiers["workers"]["kills"] != 1
+            or orphans["count"] != conn
+            or any(not r.startswith("r0:") for r in orphans["reasons"])
+            or d["k1"] != d["backtest_calls"] or d["k2"] or d["libraries"]):
+        raise AssertionError(f"trace (c): {viols}; stitched stages missing "
+                             f"{missing}; requests {art['requests']}; tiers {tiers}; "
+                             f"orphans {orphans} against {conn} router connection "
+                             f"failures; workers {d}")
+    st = stage_table(tart)
+    lat = art["latency_ms"]["total"]
+    out["fabric"] = {"p50": lat["p50"], "p99": lat["p99"], "tail": st["tail"],
+                     "orphans": orphans["count"]}
+    cost = armed_cost(out["fabric"], lat, disarmed and disarmed["fabric"],
+                      "phase 13's disarmed r20")
+    log("trace", f"(c) r19 fabric ({FABRIC_ROUTERS} traced routers x {FABRIC_WORKERS} "
+                 f"workers over tcp, r0 SIGKILLed {FABRIC_KILL_ROUTER_S} s and w0 "
+                 f"{FABRIC_KILL_WORKER_S} s in): {art['value']} req/s of "
+                 f"{art['offered']['offered_rps']} offered; p50 {lat['p50']} p95 "
+                 f"{lat['p95']} p99 {lat['p99']} ms ({cost}); requests "
+                 f"{json.dumps(art['requests'])}; availability {art['availability']}; "
+                 f"tiers {json.dumps(tiers)}; client books "
+                 f"{json.dumps(tart['books'])}, every trace reason-closed; orphan "
+                 f"halves {json.dumps(orphans)} == the client's {conn} router "
+                 f"connection failures; replica books {json.dumps(replicas)}, torch "
+                 f"never loaded; reconcile {json.dumps(tart['reconcile'])}; stage "
+                 f"p50/p95/p99 ms {json.dumps(st['stages'])}, the tail's stage "
+                 f"{st['tail']}; the surviving workers' K1 {d['k1']} == their backtest "
+                 f"batches {d['backtest_calls']}; valid ({path}); "
+                 f"(c) {time.perf_counter() - t_c:.1f} s | {smi}")
+    for pid, st_last in last.items():
+        for name in launches:
+            launches[name] += (st_last["kernel_launches"][name]
+                               - first[pid]["kernel_launches"][name])
+
+    # -- (d) and (e) replay: REPLAY_r12.json's configuration and a session --
+    with open(os.path.join(REPO, "REPLAY_r12.json")) as f:
+        ref = json.load(f)
+    warm_k1 = len(bucket_spec("serve").shapes())   # the warm-up's backtest shapes
+    replay_launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    for label, run_id, kw in (("(d) r12", "chip-replay-r12", REPLAY_R12),
+                              ("(e) day", "chip-replay-day", REPLAY_DAY)):
+        t_r = time.perf_counter()
+        cfg = ReplayConfig(run_id=run_id, engine="torch", **kw)
+        saved = os.environ.get(PLAN_ENV)
+        os.environ[PLAN_ENV] = builtin_fault_plan(cfg).to_toml()
+        inject.reset()
+        kernels.reset_launches()
+        try:
+            rep = run_replay(cfg)
+        finally:
+            if saved is None:
+                os.environ.pop(PLAN_ENV, None)
+            else:
+                os.environ[PLAN_ENV] = saved
+            inject.reset()
+        k1 = kernels.decile_partial_sums.launches - warm_k1
+        k2 = kernels.cohort_partial_sums.launches
+        replay_launches["decile_partial_sums"] += k1
+        replay_launches["cohort_partial_sums"] += k2
+        path = write_artifact(out_dir, rep, prefix="GPU_REPLAY")
+        rec = rep["reconcile"]
+        viols = inv.validate(rep)
+        if label.startswith("(d)"):
+            for block in ("ticks", "panel", "versions"):
+                if rep[block] != ref[block]:
+                    viols.append(f"{block} {rep[block]} != REPLAY_r12.json's "
+                                 f"{ref[block]}")
+        elif not (rep["panel"]["evictions"] and rec["reanchors"]):
+            viols.append(f"the ring never wrapped: panel {rep['panel']}, reconcile "
+                         f"{rec}")
+        if (viols or rec["drift_events"] or not rec["engine_checks"]
+                or rep["compile"]["in_window_fresh_compiles"] != 0 or k1 or k2
+                or rep["extra"]["platform"] != "gpu"):
+            raise AssertionError(f"replay {label}: {viols}; reconcile {rec}; fresh "
+                                 f"{rep['compile']['in_window_fresh_compiles']!r}; "
+                                 f"window launches K1 {k1} K2 {k2}; platform "
+                                 f"{rep['extra']['platform']}")
+        out[run_id] = {"ticks_per_s": rep["value"], "staleness_ms": rep["staleness_ms"],
+                       "reconcile": rec, "wall_s": rep["wall_s"]}
+        log("replay", f"{label}: {rep['extra']['workload']}, capacity "
+                      f"{rep['panel']['capacity']}, builtin chaos: {rep['value']} "
+                      f"ticks/s over {rep['wall_s']} s; ticks {json.dumps(rep['ticks'])}; "
+                      f"panel {json.dumps(rep['panel'])}; versions "
+                      f"{json.dumps(rep['versions'])}"
+                      + (" == REPLAY_r12.json's" if label.startswith("(d)") else "")
+                      + f"; reconcile {json.dumps(rec)}"
+                      + (f" (the reference's CPU engine_max_abs_diff "
+                         f"{ref['reconcile']['engine_max_abs_diff']})"
+                         if label.startswith("(d)") else "")
+                      + f"; staleness ms {json.dumps(rep['staleness_ms'])}; serve "
+                        f"{json.dumps(rep['serve'])}; 0 kernels built, window "
+                        f"launches K1 0 K2 0 (warm-up K1 {warm_k1}); valid ({path}); "
+                        f"{time.perf_counter() - t_r:.1f} s | {smi}")
+
+    # -- (f) the CLI ---------------------------------------------------------
+    t_f = time.perf_counter()
+    argv = ["loadgen", "--trace", "--schedule", "bursty", "--out", out_dir,
+            "--run-id", "chip-cli-trace"]
+    p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", *argv], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    if (p.returncode != 0 or "trace artifact: " not in p.stdout
+            or inv.validate_file(os.path.join(out_dir, "GPU_TRACE_chip-cli-trace.json"))):
+        raise AssertionError(f"trace cli: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    log("trace", f"(f) {' '.join(argv)}: exit 0 in {time.perf_counter() - t_f:.2f} s; "
+                 + " / ".join(ln.strip() for ln in p.stdout.splitlines()
+                              if ln.startswith(("throughput", "latency", "trace books")))
+                 + f" | {smi}")
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        return rc, buf.getvalue()
+
+    rendered = {}
+    for run_id in ("chip-trace-inproc", "chip-trace-pool", "chip-trace-fabric",
+                   "chip-cli-trace"):
+        a = run_cli(["trace", run_id, "--root", out_dir])
+        b = run_cli(["trace", os.path.join(out_dir, f"GPU_TRACE_{run_id}.json")])
+        if a[0] != 0 or a != b or "per-stage decomposition" not in a[1]:
+            raise AssertionError(f"trace cli: `trace {run_id}` exit {a[0]}/{b[0]}, "
+                                 f"renderings equal {a == b}\n{a[1][-2000:]}")
+        rendered[run_id] = len(a[1].splitlines())
+    t_r = time.perf_counter()
+    rc, text = run_cli(["replay", "--chaos", "builtin", "--out-dir", out_dir,
+                        "--run-id", "chip-cli-replay"])
+    if (rc != 0 or "stale request(s) refused" not in text
+            or inv.validate_file(os.path.join(out_dir, "GPU_REPLAY_chip-cli-replay.json"))):
+        raise AssertionError(f"replay cli: exit {rc}\n{text[-3000:]}")
+    replay_wall = time.perf_counter() - t_r
+    rc1, listing = run_cli(["registry", "list"])
+    rc2, endpoints = run_cli(["registry", "list", "--endpoints"])
+    if (rc1 or rc2 or endpoints.split() != list(serve_endpoints())
+            or "serve (5):" not in listing or "strategy (" not in listing):
+        raise AssertionError(f"registry cli: exit {rc1}/{rc2}\n{listing}\n{endpoints}")
+    swept = inv.validate_tree(out_dir, ("GPU_TRACE_*.json", "GPU_REPLAY_*.json"))
+    if len(swept) < 7 or any(swept.values()):
+        raise AssertionError(f"trace and replay artifacts: {swept}")
+    log("trace", f"(f) `trace <run>` on {len(rendered)} artifacts, each rendered twice "
+                 f"(by run id and by path) to the same text, lines {json.dumps(rendered)}; "
+                 f"`replay --chaos builtin` exit 0 in {replay_wall:.2f} s ("
+                 + " / ".join(ln.strip() for ln in text.splitlines()
+                              if ln.startswith(("ticks:", "versions:", "throughput")))
+                 + f"); `registry list` {len(listing.splitlines())} lines, "
+                   f"`--endpoints` {endpoints.split()}; {len(swept)} GPU_TRACE_/"
+                   f"GPU_REPLAY_ artifacts valid | {smi}")
+    out["launches"] = launches
+    out["replay_launches"] = replay_launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -3369,9 +3817,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--out", help="keep the artifacts of phases 12-14 (pool, "
-                                  "fabric, fleet) in this directory (default: "
-                                  "a temporary one)")
+    ap.add_argument("--out", help="keep the artifacts of phases 12-15 (pool, "
+                                  "fabric, fleet, trace and replay) in this "
+                                  "directory (default: a temporary one)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3985,6 +4433,19 @@ def main(argv=None) -> int:
                  f"autoscale {json.dumps(fleet['autoscale'])} | {smi}")
     for row in rows:
         row["fleet_launches"] = fleet["launches"][row["name"]]
+
+    # -- 15. trace and replay, after phase 14 and before phase 9 -------------
+    with tempfile.TemporaryDirectory(prefix="csmom_trace_") as tmp:
+        tr = trace_replay_phase(smi, args.out or tmp,
+                                {"inproc": serve["latency_ms"]["bursty"],
+                                 "fabric": fab["r20"]})
+    log("trace", f"phase wall {tr['wall_s']:.1f} s; traced runs' launches "
+                 f"{tr['launches']}, replay windows' {tr['replay_launches']}; "
+                 f"cells {json.dumps({k: v for k, v in tr.items() if k not in ('launches', 'replay_launches', 'wall_s')})} "
+                 f"| {smi}")
+    for row in rows:
+        row["trace_launches"] = tr["launches"][row["name"]]
+        row["replay_launches"] = tr["replay_launches"][row["name"]]
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()

@@ -1,8 +1,25 @@
 """The serving artifacts' contracts: closed books, ordered percentiles.
 
-Counterpart of ``csmom_tpu.chaos.invariants`` for the four artifact
-kinds the port lands, written by :mod:`csmom_tpu_torch.serve.loadgen`
-and :mod:`csmom_tpu_torch.obs.fleet`.
+Counterpart of ``csmom_tpu.chaos.invariants`` for the six artifact
+kinds the port lands, written by :mod:`csmom_tpu_torch.serve.loadgen`,
+:mod:`csmom_tpu_torch.obs.fleet`, :mod:`csmom_tpu_torch.obs.trace` and
+:mod:`csmom_tpu_torch.stream.replay`.
+
+``trace`` (``GPU_TRACE_<run>.json``, schema v1, the reference's rules
+copied): closed trace books (every opened trace complete or partial with
+a reason), reason-counted orphan halves, stage sums that reconcile with
+each request wall within ``epsilon_ms``, slowest-k critical paths that
+reconcile too, per-class burn arithmetic, and the books held to the
+driven run's request book (``complete == served``, ``partial ==
+rejected + expired``).
+
+``replay`` (``GPU_REPLAY_<run>.json``, schema v1, the reference's rules
+copied): the closed tick book (``applied + merged_late + quarantined +
+deduped == offered == generated + duplicated - dropped_gap``), the
+embedded serve book, ingest-vs-serve version reconciliation (no response
+from a version ingest never issued; skew refusals equal the service's
+``rejected_version_skew``), reconcile counters and ordered staleness
+percentiles.
 
 ``fleet`` (``GPU_FLEET_<run>.json``, schema v1, the reference's rules
 copied, its ``elastic`` block included): reason-closed stream books, no
@@ -44,33 +61,45 @@ from __future__ import annotations
 
 import json
 
-__all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS",
+__all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS", "KNOWN_REPLAY_SCHEMA_VERSIONS",
            "KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
            "KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
-           "detect_kind", "validate", "validate_file", "validate_tree"]
+           "KNOWN_TRACE_SCHEMA_VERSIONS", "detect_kind", "validate",
+           "validate_file", "validate_tree"]
 
 KNOWN_SERVE_SCHEMA_VERSIONS = (1, 2, 3, 4)
 KNOWN_SERVE_POOL_SCHEMA_VERSIONS = (1,)
 KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS = (1,)
 KNOWN_FLEET_SCHEMA_VERSIONS = (1,)
+KNOWN_TRACE_SCHEMA_VERSIONS = (1,)
+KNOWN_REPLAY_SCHEMA_VERSIONS = (1,)
 
 _NUM = (int, float)
 
 
 def detect_kind(obj: dict) -> str | None:
-    """``"fleet"``, ``"serve_fabric"``, ``"serve_pool"`` or ``"serve"`` by
-    the artifact's ``kind`` or key signature (the fleet's series/demand/
-    capacity, the fabric's requests/availability/routers/transport, the
-    pool's requests/availability/hedge, the service's requests/
-    latency_ms/batches), else None.  The reference's order: the fleet
-    embeds a request book of its own, and each serve kind carries the
-    next one's signature plus its own, so the fleet is tested first, the
-    fabric before the pool and the pool before the service."""
+    """``"fleet"``, ``"trace"``, ``"replay"``, ``"serve_fabric"``,
+    ``"serve_pool"`` or ``"serve"`` by the artifact's ``kind`` or key
+    signature (the fleet's series/demand/capacity, the trace's books/
+    stages/reconcile, the replay's ticks/panel/reconcile, the fabric's
+    requests/availability/routers/transport, the pool's requests/
+    availability/hedge, the service's requests/latency_ms/batches), else
+    None.  The reference's order: the fleet and the trace embed a request
+    book of their own, and each serve kind carries the next one's
+    signature plus its own, so the fleet is tested first, the trace and
+    the replay before the serve kinds, the fabric before the pool and the
+    pool before the service."""
     if not isinstance(obj, dict):
         return None
     if obj.get("kind") == "fleet" or {"series", "demand",
                                       "capacity"} <= set(obj):
         return "fleet"
+    if obj.get("kind") == "trace" or {"books", "stages",
+                                      "reconcile"} <= set(obj):
+        return "trace"
+    if obj.get("kind") == "replay" or {"ticks", "panel",
+                                       "reconcile"} <= set(obj):
+        return "replay"
     if obj.get("kind") == "serve_fabric" or {"requests", "availability",
                                              "routers",
                                              "transport"} <= set(obj):
@@ -1084,27 +1113,378 @@ def _validate_fleet_elastic(obj: dict) -> list:
     return out
 
 
+def _validate_replay(obj: dict) -> list:
+    """The replay artifact contract: closed tick books, closed serve
+    books, and ingest-vs-serve panel-version reconciliation."""
+    out: list = []
+    _require(obj, "run_id", str, "replay", out)
+    ver = _require(obj, "schema_version", int, "replay", out)
+    if ver is not None and ver not in KNOWN_REPLAY_SCHEMA_VERSIONS:
+        out.append(
+            f"replay: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_REPLAY_SCHEMA_VERSIONS)}) — the "
+            "artifact is from a different era of the code; do not "
+            "half-parse it")
+    _require(obj, "wall_s", _NUM, "replay", out, "a number")
+    out += _validate_record(obj, kind="replay")
+
+    ticks = _require(obj, "ticks", dict, "replay", out)
+    if ticks is not None:
+        keys = ("generated", "offered", "applied", "merged_late",
+                "quarantined", "deduped", "dropped_gap", "duplicated")
+        for k in keys:
+            v = ticks.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"replay: ticks.{k} must be a non-negative int "
+                           "(the tick ledger is the contract)")
+                ticks = None
+                break
+    if ticks is not None:
+        landed = (ticks["applied"] + ticks["merged_late"]
+                  + ticks["quarantined"] + ticks["deduped"])
+        if landed != ticks["offered"]:
+            out.append(
+                f"replay: tick accounting broken — applied "
+                f"{ticks['applied']} + merged_late {ticks['merged_late']} "
+                f"+ quarantined {ticks['quarantined']} + deduped "
+                f"{ticks['deduped']} = {landed} != offered "
+                f"{ticks['offered']} (a tick vanished between the feed "
+                "and the ledger)")
+        want_offered = (ticks["generated"] + ticks["duplicated"]
+                        - ticks["dropped_gap"])
+        if ticks["offered"] != want_offered:
+            out.append(
+                f"replay: feed accounting broken — offered "
+                f"{ticks['offered']} != generated {ticks['generated']} + "
+                f"duplicated {ticks['duplicated']} - dropped_gap "
+                f"{ticks['dropped_gap']} = {want_offered}")
+
+    panel = _require(obj, "panel", dict, "replay", out)
+    if panel is not None:
+        for k in ("version_final", "bars_appended", "gap_bars",
+                  "stale_bars", "unfilled_cells"):
+            v = panel.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"replay: panel.{k} must be a non-negative int")
+
+    serve = _require(obj, "serve", dict, "replay", out)
+    req = None
+    if serve is not None:
+        sreq = serve.get("requests")
+        if not isinstance(sreq, dict):
+            out.append("replay: serve.requests must be a dict (the serve "
+                       "book rides inside the replay artifact)")
+        else:
+            req = _validate_serve_requests(sreq, "replay serve", out)
+        _validate_latency_side((serve.get("latency_ms") or {}).get("total"),
+                               "total", "replay", out)
+
+    versions = _require(obj, "versions", dict, "replay", out)
+    if versions is not None and panel is not None:
+        vf = versions.get("ingest_final")
+        if not isinstance(vf, int) or isinstance(vf, bool):
+            out.append("replay: versions.ingest_final must be an int")
+        elif isinstance(panel.get("version_final"), int) \
+                and vf != panel["version_final"]:
+            out.append(
+                f"replay: versions.ingest_final {vf} != "
+                f"panel.version_final {panel['version_final']} — the "
+                "ingest side must agree with itself")
+        smax = versions.get("serve_max")
+        smin = versions.get("serve_min")
+        for name, v in (("serve_min", smin), ("serve_max", smax)):
+            if v is not None and (not isinstance(v, int)
+                                  or isinstance(v, bool) or v < 0):
+                out.append(f"replay: versions.{name} must be a "
+                           "non-negative int or null")
+        if (isinstance(smax, int) and isinstance(vf, int)
+                and smax > vf):
+            out.append(
+                f"replay: version reconciliation broken — serve answered "
+                f"from panel version {smax} but ingest only ever issued "
+                f"up to {vf} (a response was computed from a version "
+                "that never existed)")
+        if (isinstance(smin, int) and isinstance(smax, int)
+                and smin > smax):
+            out.append("replay: versions.serve_min > serve_max")
+        for name in ("skew_events", "skew_attempts", "skew_refusals"):
+            v = versions.get(name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"replay: versions.{name} must be a "
+                           "non-negative int")
+        sk = versions.get("skew_refusals")
+        ska = versions.get("skew_attempts")
+        if isinstance(sk, int) and isinstance(ska, int) and sk > ska:
+            out.append(
+                f"replay: skew_refusals {sk} > skew_attempts {ska} — "
+                "more refusals than stale requests were ever submitted")
+        if (isinstance(sk, int) and req is not None
+                and sk != req.get("rejected_version_skew", 0)):
+            out.append(
+                f"replay: versions.skew_refusals {sk} does not reconcile "
+                f"with serve.requests.rejected_version_skew "
+                f"{req.get('rejected_version_skew', 0)}")
+
+    rec = _require(obj, "reconcile", dict, "replay", out)
+    if rec is not None:
+        for k in ("count", "drift_events", "rebuilds"):
+            v = rec.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"replay: reconcile.{k} must be a non-negative "
+                           "int")
+        # r14's window-slide counter: optional (pre-r14 artifacts lack
+        # it) but typed like its sibling counters when present
+        v = rec.get("reanchors")
+        if v is not None and (not isinstance(v, int) or isinstance(v, bool)
+                              or v < 0):
+            out.append("replay: reconcile.reanchors must be a "
+                       "non-negative int when present")
+        if (isinstance(rec.get("count"), int)
+                and isinstance(rec.get("drift_events"), int)
+                and rec["drift_events"] > rec["count"]):
+            out.append("replay: reconcile.drift_events exceeds "
+                       "reconcile.count")
+
+    stale = _require(obj, "staleness_ms", dict, "replay", out)
+    if stale is not None:
+        vals = []
+        for q in ("p50", "p95", "p99"):
+            v = stale.get(q)
+            if v is None:
+                continue
+            if not isinstance(v, _NUM) or isinstance(v, bool):
+                out.append(f"replay: staleness_ms.{q} must be a number "
+                           "(milliseconds) or null")
+            else:
+                vals.append(v)
+        if vals != sorted(vals):
+            out.append("replay: staleness_ms percentiles must be "
+                       "non-decreasing")
+
+    comp = obj.get("compile")
+    if comp is not None and not isinstance(comp, dict):
+        out.append("replay: compile must be a dict when present")
+    elif isinstance(comp, dict):
+        fc = comp.get("in_window_fresh_compiles")
+        if fc is not None and not isinstance(fc, (int, str)):
+            out.append("replay: compile.in_window_fresh_compiles must be "
+                       "an int count or a reason string")
+    return out
+
+
+def _validate_trace(obj: dict) -> list:
+    """The trace artifact contract (``TRACE_*.json``, obs.trace): CLOSED
+    trace books (every opened trace ends complete or reasoned-partial),
+    telescoping stage reconciliation under epsilon, per-class burn
+    arithmetic, and reconciliation against the driven serve run's
+    request book (``complete == served``, ``partial == rejected +
+    expired``) — the decomposition is only evidence if it covers every
+    request the serve books admitted."""
+    out: list = []
+    _require(obj, "run_id", str, "trace", out)
+    ver = _require(obj, "schema_version", int, "trace", out)
+    if ver is not None and ver not in KNOWN_TRACE_SCHEMA_VERSIONS:
+        out.append(
+            f"trace: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_TRACE_SCHEMA_VERSIONS)}) — the "
+            "artifact is from a different era of the code; do not "
+            "half-parse it")
+        return out
+    out += _validate_record(obj, kind="trace")
+
+    books = _require(obj, "books", dict, "trace", out)
+    if books is not None:
+        for k in ("opened", "complete", "partial"):
+            v = books.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"trace: books.{k} must be a non-negative int "
+                           "(the closed trace books are the contract)")
+                books = None
+                break
+    if books is not None:
+        if books["complete"] + books["partial"] != books["opened"]:
+            out.append(
+                f"trace: books broken — complete {books['complete']} + "
+                f"partial {books['partial']} = "
+                f"{books['complete'] + books['partial']} != opened "
+                f"{books['opened']} (a request's trace never closed)")
+        reasons = books.get("partial_reasons")
+        if not isinstance(reasons, dict):
+            out.append("trace: books.partial_reasons must be a dict of "
+                       "reason -> count")
+        elif books["partial"] and sum(reasons.values()) != books["partial"]:
+            out.append(
+                f"trace: partial_reasons sum to {sum(reasons.values())} "
+                f"but partial is {books['partial']} — a partial trace "
+                "closed without a reason")
+
+    orphans = _require(obj, "orphans", dict, "trace", out)
+    if isinstance(orphans, dict):
+        oc = orphans.get("count")
+        if not isinstance(oc, int) or isinstance(oc, bool) or oc < 0:
+            out.append("trace: orphans.count must be a non-negative int")
+        reasons = orphans.get("reasons")
+        if not isinstance(reasons, dict):
+            out.append("trace: orphans.reasons must be a dict of "
+                       "reason -> count")
+        elif isinstance(oc, int) and sum(reasons.values()) != oc:
+            out.append(
+                f"trace: orphan reasons sum to {sum(reasons.values())} "
+                f"but count is {oc} — an orphan half was closed without "
+                "its reason")
+
+    stages = _require(obj, "stages", dict, "trace", out)
+    if isinstance(stages, dict):
+        if not stages and books and books.get("complete"):
+            out.append("trace: complete traces exist but the stage "
+                       "decomposition is empty")
+        for name, s in stages.items():
+            if not isinstance(s, dict):
+                out.append(f"trace: stages[{name!r}] must be a dict")
+                continue
+            c = s.get("count")
+            if not isinstance(c, int) or isinstance(c, bool) or c < 0:
+                out.append(f"trace: stages[{name!r}].count must be a "
+                           "non-negative int")
+            _validate_latency_side(
+                {q: s.get(q) for q in ("p50", "p95", "p99")},
+                f"stages.{name}", "trace", out)
+
+    rec = _require(obj, "reconcile", dict, "trace", out)
+    if isinstance(rec, dict):
+        for k in ("checked", "violations"):
+            v = rec.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"trace: reconcile.{k} must be a non-negative "
+                           "int")
+        eps = rec.get("epsilon_ms")
+        res = rec.get("max_abs_residual_ms")
+        for name, v in (("epsilon_ms", eps), ("max_abs_residual_ms", res)):
+            if not isinstance(v, _NUM) or isinstance(v, bool) or v < 0:
+                out.append(f"trace: reconcile.{name} must be a "
+                           "non-negative number")
+        if rec.get("violations"):
+            out.append(
+                f"trace: {rec['violations']} trace(s) whose stage walls "
+                "do not sum to the request wall within epsilon — the "
+                "decomposition lost track of where the time went; "
+                "invalid evidence, full stop")
+        if (isinstance(eps, _NUM) and isinstance(res, _NUM)
+                and not isinstance(eps, bool) and res > eps):
+            out.append(
+                f"trace: reconcile.max_abs_residual_ms {res} exceeds "
+                f"epsilon_ms {eps} but violations claims none — the "
+                "reconcile block disagrees with itself")
+
+    slowest = _require(obj, "slowest", list, "trace", out)
+    if isinstance(slowest, list) and isinstance(rec, dict):
+        eps = rec.get("epsilon_ms")
+        for i, e in enumerate(slowest):
+            if not isinstance(e, dict) or not isinstance(
+                    e.get("stages"), dict):
+                out.append(f"trace: slowest[{i}] must be a dict with a "
+                           "stages breakdown")
+                continue
+            wall = e.get("wall_ms")
+            if not isinstance(wall, _NUM) or isinstance(wall, bool):
+                out.append(f"trace: slowest[{i}].wall_ms must be a number")
+                continue
+            ssum = sum(v for v in e["stages"].values()
+                       if isinstance(v, _NUM) and not isinstance(v, bool))
+            if isinstance(eps, _NUM) and abs(ssum - wall) > eps:
+                out.append(
+                    f"trace: slowest[{i}] stage walls sum to {ssum:.3f} "
+                    f"ms but wall_ms is {wall:.3f} (off by more than "
+                    f"epsilon {eps} ms) — the critical path does not "
+                    "reconcile")
+
+    classes = _require(obj, "classes", dict, "trace", out)
+    if isinstance(classes, dict):
+        for name, book in classes.items():
+            if not isinstance(book, dict):
+                out.append(f"trace: classes[{name!r}] must be a dict")
+                continue
+            for k in ("count", "served", "violations"):
+                v = book.get(k)
+                if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                    out.append(f"trace: classes[{name!r}].{k} must be a "
+                               "non-negative int")
+                    break
+            else:
+                if book["violations"] > book["served"]:
+                    out.append(f"trace: classes[{name!r}].violations "
+                               f"{book['violations']} > served "
+                               f"{book['served']}")
+                burn = book.get("budget_burn")
+                if burn is not None and (not isinstance(burn, _NUM)
+                                         or isinstance(burn, bool)
+                                         or burn < 0):
+                    out.append(f"trace: classes[{name!r}].budget_burn "
+                               "must be a non-negative number or null")
+
+    req = _require(obj, "requests", dict, "trace", out)
+    if isinstance(req, dict):
+        ok = True
+        for k in ("admitted", "served", "rejected", "expired"):
+            v = req.get(k)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                out.append(f"trace: requests.{k} must be a non-negative "
+                           "int (the serve book this trace run must "
+                           "reconcile against)")
+                ok = False
+        if ok and books is not None:
+            if books["complete"] != req["served"]:
+                out.append(
+                    f"trace: books.complete {books['complete']} != "
+                    f"requests.served {req['served']} — a served request "
+                    "has no complete trace (or a trace claims a serve "
+                    "that never happened)")
+            if books["partial"] != req["rejected"] + req["expired"]:
+                out.append(
+                    f"trace: books.partial {books['partial']} != "
+                    f"rejected {req['rejected']} + expired "
+                    f"{req['expired']} — the partial ledger does not "
+                    "cover every non-served request")
+
+    comp = obj.get("compile")
+    if comp is not None and not isinstance(comp, dict):
+        out.append("trace: compile must be a dict when present")
+    elif isinstance(comp, dict):
+        fc = comp.get("in_window_fresh_compiles")
+        if fc is not None and not isinstance(fc, (int, str)):
+            out.append("trace: compile.in_window_fresh_compiles must be "
+                       "an int count or a reason string")
+    return out
+
+
 def validate(obj, kind: str | None = None) -> list:
-    """All contract violations of one serve, serve_pool, serve_fabric or
-    fleet artifact (empty = valid)."""
+    """All contract violations of one serve, serve_pool, serve_fabric,
+    fleet, trace or replay artifact (empty = valid)."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
     if kind is None:
-        return ["unrecognized artifact shape: not a serve or fleet artifact "
-                "(no kind 'serve', 'serve_pool', 'serve_fabric' or 'fleet', "
-                "no requests/latency_ms/batches, requests/availability/"
-                "hedge, requests/availability/routers/transport or "
-                "series/demand/capacity keys)"]
+        return ["unrecognized artifact shape: not a serve, fleet, trace or "
+                "replay artifact (no kind 'serve', 'serve_pool', "
+                "'serve_fabric', 'fleet', 'trace' or 'replay', no "
+                "requests/latency_ms/batches, requests/availability/hedge, "
+                "requests/availability/routers/transport, series/demand/"
+                "capacity, books/stages/reconcile or ticks/panel/reconcile "
+                "keys)"]
     if kind == "fleet":
         return _validate_fleet(obj)
+    if kind == "trace":
+        return _validate_trace(obj)
+    if kind == "replay":
+        return _validate_replay(obj)
     if kind == "serve_fabric":
         return _validate_serve_fabric(obj)
     if kind == "serve_pool":
         return _validate_serve_pool(obj)
     if kind != "serve":
         return [f"unknown artifact kind {kind!r}: this validator checks "
-                "serve, serve_pool, serve_fabric and fleet artifacts only"]
+                "serve, serve_pool, serve_fabric, fleet, trace and replay "
+                "artifacts only"]
     return _validate_serve(obj)
 
 
@@ -1121,7 +1501,9 @@ def validate_file(path: str) -> list:
 
 
 def validate_tree(root: str, patterns=("GPU_SERVE_*.json",
-                                       "GPU_FLEET_*.json")) -> dict:
+                                       "GPU_FLEET_*.json",
+                                       "GPU_TRACE_*.json",
+                                       "GPU_REPLAY_*.json")) -> dict:
     """``{file name: violations}`` for every port artifact directly under
     ``root`` matching ``patterns`` (an empty list = valid, so a caller
     reports coverage, not just failures)."""

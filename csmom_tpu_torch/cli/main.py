@@ -4,8 +4,11 @@ Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
 ``run``, ``replicate``, ``grid``, ``sweep``, ``doublesort``,
 ``intraday``, ``horizons``, ``residual``, ``strategies``, ``pack-info``
 and ``fetch``, of the serving tier's ``serve`` and ``loadgen``
-(:mod:`csmom_tpu_torch.cli.serve`) and of ``fleet``
-(:mod:`csmom_tpu_torch.cli.fleet`).  Each prints what
+(:mod:`csmom_tpu_torch.cli.serve`), of ``fleet``
+(:mod:`csmom_tpu_torch.cli.fleet`), ``trace``
+(:mod:`csmom_tpu_torch.cli.trace`), ``replay``
+(:mod:`csmom_tpu_torch.cli.replay`) and ``registry``
+(:mod:`csmom_tpu_torch.cli.registry`).  Each prints what
 ``csmom`` prints for the same arguments, line for line (``intraday --threshold-sweep`` names its one
 engine run a threshold where the reference names one vmapped call); the
 subcommand table in ``--help`` is generated from the parser itself.
@@ -1475,10 +1478,16 @@ def build_parser() -> argparse.ArgumentParser:
                             help="strategy parameter, repeatable")
 
     from csmom_tpu_torch.cli.fleet import register as register_fleet
+    from csmom_tpu_torch.cli.registry import register as register_registry
+    from csmom_tpu_torch.cli.replay import register as register_replay
     from csmom_tpu_torch.cli.serve import register as register_serve
+    from csmom_tpu_torch.cli.trace import register as register_trace
 
     register_fleet(sub)
+    register_registry(sub)
+    register_replay(sub)
     register_serve(sub)
+    register_trace(sub)
     p.epilog = _subcommand_epilog(sub)
     p.formatter_class = argparse.RawDescriptionHelpFormatter
     return p
@@ -1498,7 +1507,8 @@ def _subcommand_epilog(sub) -> str:
 
 
 # commands that compute nothing on a device
-_DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet"}
+_DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet",
+                         "trace", "registry"}
 
 
 def main(argv=None) -> int:
@@ -1513,7 +1523,8 @@ def main(argv=None) -> int:
               "labels on one device)", file=sys.stderr)
         return 2
     if (args.command not in _DEVICE_FREE_COMMANDS and args.device == "cuda"
-            and not getattr(args, "stub", False)):
+            and not getattr(args, "stub", False)
+            and getattr(args, "engine", None) != "stub"):
         import torch
 
         if not torch.cuda.is_available():

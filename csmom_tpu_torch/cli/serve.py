@@ -28,6 +28,14 @@ the worker pool, a fabric client in this process, and
 replica ``r0`` mid-burst and combines with ``--kill-worker-after``.
 ``--transport {unix,tcp}`` sets the pool's and the fabric's sockets.
 
+``loadgen --trace`` arms a per-request trace book
+(:mod:`csmom_tpu_torch.obs.trace`) once the tier is ready, in all three
+modes (the fabric's router replicas arm their own with ``--trace``), and
+lands ``GPU_TRACE_<run>.json`` beside the serve artifact: the stage
+decomposition, the closed trace books, the orphan halves of a killed
+worker or replica, the padding goodput; it exits 1 when the trace books
+are broken (``trace <run>`` renders the artifact).
+
 In pool and fabric modes, ``--fleet`` arms the fleet observatory
 (:mod:`csmom_tpu_torch.obs.fleet`) before any process spawns and lands
 ``GPU_FLEET_<run>.json`` beside the serve artifact (exit 1 when its
@@ -48,9 +56,10 @@ The flags that differ from the reference's:
 - ``--transport`` unset picks unix sockets, or tcp when a socket path
   under the temporary run directory would pass 107 bytes
   (``supervisor.pick_transport``), where the reference defaults to unix;
-- the fleet artifact is ``GPU_FLEET_<run>.json``;
-- the tracing and mesh flags are not ported yet: each exits 2 naming the
-  ROADMAP.md item that brings it.
+- the fleet and trace artifacts are ``GPU_FLEET_<run>.json`` and
+  ``GPU_TRACE_<run>.json``;
+- the mesh flags are not ported yet: each exits 2 naming the ROADMAP.md
+  item that brings it.
 """
 
 from __future__ import annotations
@@ -63,7 +72,6 @@ __all__ = ["cmd_loadgen", "cmd_serve", "register"]
 # flags of the reference's serving tier the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them: (dest, flag, item)
 _DEFERRED = (
-    ("trace", "--trace", "6d, tracing and replay"),
     ("mesh", "--mesh", "7, the multi-GPU layer"),
     ("devices_per_worker", "--devices-per-worker", "7, the multi-GPU layer"),
 )
@@ -135,6 +143,61 @@ def _print_ready(svc) -> None:
           f"{svc.config.max_wait_s * 1e3:g} ms, default deadline "
           f"{svc.config.default_deadline_s}")
     print(f"  warmup: {svc.warm_report}")
+
+
+# ----------------------------------------------------------------- trace ---
+
+def _arm_trace(args):
+    """Arm the request-trace book when ``--trace`` was given; returns it,
+    or None.  Called once the tier is ready, so probe traffic never
+    enters the books."""
+    if not args.trace:
+        return None
+    from csmom_tpu_torch.obs import trace as obs_trace
+
+    return obs_trace.arm_tracing(seed=args.seed)
+
+
+def _disarm_trace(book) -> None:
+    if book is not None:
+        from csmom_tpu_torch.obs import trace as obs_trace
+
+        obs_trace.disarm_tracing()
+
+
+def _land_trace(book, run_id: str, art: dict, out_dir: str) -> int:
+    """Build, validate and land ``GPU_TRACE_<run>.json`` from an armed
+    book and the serve artifact its books must reconcile with; disarms
+    the book.  Returns 1 when the trace books are broken, else 0."""
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.obs import trace as obs_trace
+    from csmom_tpu_torch.serve.loadgen import write_artifact
+
+    viols = book.invariant_violations()
+    trace_art = obs_trace.build_artifact(
+        book, run_id,
+        requests={k: art["requests"][k]
+                  for k in ("admitted", "served", "rejected", "expired")},
+        fresh_compiles=art["compile"]["in_window_fresh_compiles"],
+        platform=art["extra"].get("platform"),
+        workload=art["extra"].get("workload"),
+    )
+    obs_trace.disarm_tracing()
+    path = write_artifact(out_dir, trace_art, prefix="GPU_TRACE")
+    books = trace_art["books"]
+    print(f"\ntrace books: opened {books['opened']} = complete "
+          f"{books['complete']} + partial {books['partial']}; orphan "
+          f"halves {trace_art['orphans']['count']}; max stage-sum "
+          f"residual {trace_art['reconcile']['max_abs_residual_ms']} ms")
+    print(f"trace artifact: {path} (render with "
+          f"`python -m csmom_tpu_torch.cli trace {run_id}`)")
+    schema = inv.validate_file(path)
+    if viols or schema:
+        print("TRACE INVALID:", file=sys.stderr)
+        for v in viols + schema:
+            print(f"  - {v}", file=sys.stderr)
+        return 1
+    return 0
 
 
 # ------------------------------------------------------------------ pool ---
@@ -506,7 +569,7 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
     from csmom_tpu_torch.utils.deadline import mono_now_s
 
     run_dir = tempfile.mkdtemp(prefix="csmom-pool-")
-    fleet_agg = None
+    fleet_agg = trace_book = None
     try:
         # the observatory arms before the spawns: workers join it through
         # the environment they inherit
@@ -549,14 +612,17 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
             kill_after = args.kill_worker_after or 0.0
             concurrent = (_kill_w0_after(sup, kill_after) if kill_after > 0
                           else None)
+            trace_book = _arm_trace(args)
             print(f"offering (pool): schedule {schedule} (seed {load.seed}, "
                   f"deadline {load.deadline_s}s"
+                  + (", trace armed" if trace_book is not None else "")
                   + (f", worker kill @{kill_after:g}s" if kill_after else "")
                   + ") ...")
             t_load0 = mono_now_s()
             art = run_pool_loadgen(router, sup, load, concurrent=concurrent)
         except BaseException:
             _disarm_fleet(fleet_agg, "pool run failed")
+            _disarm_trace(trace_book)
             raise
         finally:
             # a Ctrl-C or a loadgen failure must not leak live workers
@@ -592,9 +658,11 @@ def _cmd_loadgen_pool(args, schedule: str, run_id: str,
     print(f"artifact: {path}")
 
     rc = 0
+    if trace_book is not None:
+        rc = _land_trace(trace_book, run_id, art, out_dir)
     if fleet_agg is not None:
-        rc = _land_fleet(run_id, art, out_dir, sup, None,
-                         (t_load0, t_load0 + art["wall_s"]))
+        rc = max(rc, _land_fleet(run_id, art, out_dir, sup, None,
+                                 (t_load0, t_load0 + art["wall_s"])))
     return max(rc, _fleet_artifact_rc(args, path, art))
 
 
@@ -616,6 +684,7 @@ def _mk_fabric(args, run_dir: str):
         wcfg, rcfg, run_dir,
         deadline_ms=wcfg.deadline_ms,
         hedge_fraction=args.hedge_fraction,
+        trace=args.trace,
         client_deadline_s=(None if wcfg.deadline_ms == 0
                            else wcfg.deadline_ms / 1e3),
         fleet_config=_elastic_config(args, wcfg.n_workers))
@@ -652,7 +721,7 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
     if rc:
         return rc
     run_dir = tempfile.mkdtemp(prefix="csmom-fabric-")
-    fleet_agg = None
+    fleet_agg = trace_book = None
     try:
         # the observatory arms before the spawns: router replicas and
         # workers join it through the environment they inherit
@@ -696,6 +765,7 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
                           file=sys.stderr)
                 _disarm_fleet(fleet_agg, "self-probe failed")
                 return 1
+            trace_book = _arm_trace(args)
 
             preset = dict(preset or {})
             class_mix = preset.pop("class_mix", None)
@@ -746,6 +816,7 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
             print(f"offering (fabric): schedule {schedule} (seed "
                   f"{load.seed}, deadline {load.deadline_s}s, reuse "
                   f"{load.reuse_fraction}"
+                  + (", trace armed" if trace_book is not None else "")
                   + (f", router kill @{kill_router_after:g}s"
                      if kill_router_after else "")
                   + (f", worker kill @{kill_worker_after:g}s"
@@ -756,6 +827,7 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
                                      concurrent=concurrent)
         except BaseException:
             _disarm_fleet(fleet_agg, "fabric run failed")
+            _disarm_trace(trace_book)
             raise
         finally:
             # every exit path stops both process tiers and the publisher
@@ -794,9 +866,11 @@ def _cmd_loadgen_fabric(args, schedule: str, run_id: str,
     print(f"artifact: {path}")
 
     rc = 0
+    if trace_book is not None:
+        rc = _land_trace(trace_book, run_id, art, out_dir)
     if fleet_agg is not None:
-        rc = _land_fleet(run_id, art, out_dir, wsup, rsup,
-                         (t_load0, t_load0 + art["wall_s"]))
+        rc = max(rc, _land_fleet(run_id, art, out_dir, wsup, rsup,
+                                 (t_load0, t_load0 + art["wall_s"])))
     return max(rc, _fleet_artifact_rc(args, path, art))
 
 
@@ -918,11 +992,16 @@ def cmd_loadgen(args) -> int:
         run_id=run_id,
         **preset,
     )
+    trace_book = _arm_trace(args)
     print(f"offering: schedule {schedule_kind} = {schedule} (seed "
           f"{load.seed}, deadline "
           f"{'class budgets' if load.use_class_deadlines else load.deadline_s}"
-          ") ...")
-    art = run_loadgen(svc, load)
+          + (", trace armed" if trace_book is not None else "") + ") ...")
+    try:
+        art = run_loadgen(svc, load)
+    except BaseException:
+        _disarm_trace(trace_book)
+        raise
     out_dir = args.out or os.getcwd()
     path = write_artifact(out_dir, art)
 
@@ -958,6 +1037,9 @@ def cmd_loadgen(args) -> int:
           f"{art['compile']['in_window_fresh_compiles']}")
     print(f"artifact: {path}")
 
+    rc = 0
+    if trace_book is not None:
+        rc = _land_trace(trace_book, run_id, art, out_dir)
     viols = inv.validate_file(path)
     if viols:
         print("ARTIFACT INVALID:", file=sys.stderr)
@@ -971,7 +1053,7 @@ def cmd_loadgen(args) -> int:
               "rerun with --allow-fresh-compiles to land anyway",
               file=sys.stderr)
         return 1
-    return 0
+    return rc
 
 
 def _common_flags(sp) -> None:
@@ -1119,6 +1201,11 @@ def register(sub) -> None:
                          "parent that has torch and the serve stack "
                          "imported and the kernel libraries read into the "
                          "page cache (it never initializes CUDA)")
-    lg.add_argument("--trace", action="store_true", default=None,
-                    help="not ported yet (exits 2)")
+    lg.add_argument("--trace", action="store_true",
+                    help="arm per-request tracing (obs.trace) once the tier "
+                         "is ready and land GPU_TRACE_<run-id>.json beside "
+                         "the serve artifact (telescoping per-stage walls, "
+                         "closed trace books, orphan halves, padding "
+                         "goodput); in fabric mode each router replica arms "
+                         "its own book; render with `trace <run-id>`")
     lg.set_defaults(fn=cmd_loadgen)

@@ -9,20 +9,27 @@ per-stage walls sum to the request wall by construction::
 
     admit -> queue_wait -> coalesce -> pad -> dispatch -> serialize
 
-The router-side stages (route, connect, send, recv_wait, transport,
-finalize) belong to the multi-process tier, which the port does not
-have yet; the book keeps their vocabulary so a trace stitched across a
-process boundary reads the same.
+and the pool and the fabric add the router-side half across the
+process boundary (``serve/proto.py`` frames carry the context)::
+
+    route -> connect -> send -> recv_wait -> <worker half> -> finalize
+
+where the wire wall (``connect``, ``send``, ``recv_wait``) is also
+aggregated as the derived ``transport`` stage.
 
 Closed trace books: every request a book opened ends in exactly one
 ``complete`` (served) or one ``partial`` (rejected / expired / crashed,
-closed with the reason); :meth:`TraceBook.invariant_violations` is the
-check.
+closed with the reason); a dispatch whose worker or router replica died
+before replying is an orphan half, closed with the connection failure
+as its reason.  :meth:`TraceBook.invariant_violations` is the check,
+and the ``trace`` kind of :mod:`csmom_tpu_torch.chaos.invariants` holds
+the artifact to the run's request books.
 
 Zero-cost disarmed: with no book armed, :func:`begin` returns one shared
 no-op singleton and every mark or close is a method call on it.  The
 service calls :func:`begin` and :func:`note_batch` on every request;
-arming a book from the command line is not ported yet.
+``loadgen --trace`` (:mod:`csmom_tpu_torch.cli.serve`) and a router
+replica's ``--trace`` arm a book.
 
 Stdlib-only and ``mono_now_s``-only: one clock rules deadlines, recorded
 latencies and the trace decomposition.

@@ -181,8 +181,9 @@ class ResultCache:
     def set_version_floor(self, floor: int) -> int:
         """Raise the version floor (monotone; a lower floor is ignored)
         and drop every entry stamped below it.  Returns how many entries
-        were invalidated.  This is the ``panel_version``-bump hook the
-        stream ingestion side calls (ROADMAP item 4's primitive)."""
+        were invalidated.  This is the ``panel_version``-bump hook of the
+        live-panel side, :mod:`csmom_tpu_torch.stream` (ROADMAP.md, Queue
+        1 item 6d), whose ring bumps a version on every mutation."""
         with self._lock:
             if floor <= self.version_floor:
                 return 0

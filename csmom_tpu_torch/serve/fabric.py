@@ -263,11 +263,13 @@ class RouterSupervisor(PoolSupervisor):
     slot_prefix = "r"
 
     def __init__(self, config: PoolConfig, run_dir: str, routes_path: str,
-                 deadline_ms: float = 500.0, hedge_fraction: float = 0.35):
+                 deadline_ms: float = 500.0, hedge_fraction: float = 0.35,
+                 trace: bool = False):
         super().__init__(config, run_dir)
         self.routes_path = routes_path
         self.deadline_ms = deadline_ms
         self.hedge_fraction = hedge_fraction
+        self.trace = trace
 
     def _slot_argv(self, h: WorkerHandle) -> list:
         argv = [sys.executable, "-m", "csmom_tpu_torch.serve.router",
@@ -278,6 +280,8 @@ class RouterSupervisor(PoolSupervisor):
                 "--deadline-ms", str(self.deadline_ms),
                 "--hedge-fraction", str(self.hedge_fraction),
                 "--expect-cache-version", self.expect_cache_version]
+        if self.trace:
+            argv.append("--trace")
         return argv
 
     def router_stats(self) -> list:
@@ -335,13 +339,10 @@ def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
     autoscaler attach to the worker supervisor as ``wsup.fleet`` after
     the routes publisher exists (a promotion is a routes publish away),
     reading the armed fleet aggregator's demand, and stop first on
-    teardown.  ``trace`` (arming the replicas' trace books) is
-    ROADMAP.md Queue 1 item 6d, not ported: it raises.
+    teardown.  ``trace`` arms each router replica's own trace book
+    (``--trace``); its snapshot rides the replica's ``stats`` reply into
+    the fabric artifact's replica rows.
     """
-    if trace:
-        raise NotImplementedError(
-            "tracing the fabric's replicas is not ported yet (ROADMAP.md, "
-            "Queue 1 item 6d, tracing and replay)")
     wsup = PoolSupervisor(wcfg, os.path.join(run_dir, "workers"))
     os.makedirs(wsup.run_dir, exist_ok=True)
     wsup.start()
@@ -366,7 +367,7 @@ def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
             rcfg, expect_cache_version=wsup.expect_cache_version)
         rsup = RouterSupervisor(rcfg, os.path.join(run_dir, "routers"),
                                 routes_path, deadline_ms=deadline_ms,
-                                hedge_fraction=hedge_fraction)
+                                hedge_fraction=hedge_fraction, trace=trace)
         os.makedirs(rsup.run_dir, exist_ok=True)
         rsup.start()
         client = FabricClient(rsup.ready_workers, FabricClientConfig(

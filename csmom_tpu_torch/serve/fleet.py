@@ -1009,6 +1009,10 @@ class FleetController:
             self.wsup._event("spare_stopped", s.worker_id)
         for h in list(self.wsup.handles):
             if isinstance(h.proc, _PreforkChild) and h.proc.poll() is None:
+                # the supervisor's monitor still runs: a handle left
+                # "ready" whose process exits would be booked a death
+                # (and a kill window) and respawned mid-teardown
+                h.state = "draining"
                 self.wsup._drain_stop(h)
         self._stop_prefork()
 

@@ -881,7 +881,7 @@ class RouterServer:
     context rebuilt here, opened into this process's book when one is
     armed, threaded through the router's dispatch, and the closed
     context's stage chain rides back in the reply's ``trace_half``.
-    Arming a book in a replica is ROADMAP.md Queue 1 item 6d.
+    ``main --trace`` arms this process's book.
     """
 
     def __init__(self, listen_addr: str, routes_path: str,
@@ -1102,7 +1102,8 @@ def main(argv=None) -> int:
                     help="disable consistent-hash cache routing "
                          "(round-robin picks)")
     ap.add_argument("--trace", action="store_true",
-                    help="not ported (arming a trace book): exits 2")
+                    help="arm the replica's trace book (obs.trace); its "
+                         "snapshot rides the stats reply")
     ap.add_argument("--expect-cache-version", dest="expect_cache_version",
                     help="echoed in stats (a replica builds no kernel of "
                          "its own)")
@@ -1110,9 +1111,9 @@ def main(argv=None) -> int:
     tag = f"[router {args.router_id}]"
 
     if args.trace:
-        print(f"{tag} --trace is not ported yet (ROADMAP.md, Queue 1 item "
-              "6d, tracing and replay)", file=sys.stderr, flush=True)
-        return 2
+        from csmom_tpu_torch.obs import trace as obs_trace
+
+        obs_trace.arm_tracing(seed=0)
 
     cfg = RouterConfig(
         profile=args.profile,

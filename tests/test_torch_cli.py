@@ -376,10 +376,10 @@ def test_config_backend_tpu_means_the_card_engine(inputs, tmp_path):
 def test_help_lists_the_ported_commands():
     rc, out, _ = _run(port_main, [], [])
     assert rc == 0
-    assert "subcommands (14):" in out
+    assert "subcommands (17):" in out
     for name in ("doublesort", "fetch", "fleet", "grid", "horizons", "intraday",
-                 "loadgen", "pack-info", "replicate", "residual", "run", "serve",
-                 "strategies", "sweep"):
+                 "loadgen", "pack-info", "registry", "replay", "replicate",
+                 "residual", "run", "serve", "strategies", "sweep", "trace"):
         assert f"\n  {name}" in out
 
 

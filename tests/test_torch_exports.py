@@ -40,7 +40,7 @@ OWNED = {
 
 PACKAGES = ("analytics", "backtest", "backends", "costs", "ops", "signals",
             "utils", "registry", "obs", "parallel", "serve", "strategy",
-            "models", "panel")
+            "models", "panel", "stream")
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -85,7 +85,7 @@ def test_registry_strategies_are_the_strategy_zoo():
 @pytest.mark.parametrize("pkg", ("analytics", "backtest", "backends",
                                  "costs", "ops", "signals", "utils",
                                  "registry", "obs", "parallel", "serve",
-                                 "chaos", "panel", "cli"))
+                                 "chaos", "panel", "cli", "stream"))
 def test_package_import_loads_neither_pandas_nor_torch(pkg):
     code = (f"import sys, csmom_tpu_torch.{pkg}; "
             "print(sorted({'torch', 'pandas'} & set(sys.modules)))")

@@ -643,7 +643,11 @@ def test_spawn_refuses_to_fork_while_a_second_thread_is_alive():
 def test_prefork_spare_is_promoted_and_every_process_stops(tmp_path):
     """``--prefork`` with one spare: the spare comes from the parent,
     fills a SIGKILLed slot, and the controller's stop drains the
-    promoted child and shuts the parent down, leaving no process."""
+    promoted child and shuts the parent down, leaving no process.  The
+    drain happens while the supervisor's monitor still runs, so the
+    handle is out of "ready" first: the planned stop books no death (a
+    death there opened a kill window after the measured one and made a
+    fleet artifact invalid)."""
     cfg = PoolConfig(n_workers=1, **_SMOKE_POOL)
     sup = PoolSupervisor(cfg, str(tmp_path)).start()
     fleet = None
@@ -667,6 +671,19 @@ def test_prefork_spare_is_promoted_and_every_process_stops(tmp_path):
         assert _poll(lambda: any(s.state == "ready" for s in fleet.spares))
         pids.append(fleet.spares[0].proc.pid)
         assert fleet.summary()["prefork"] is True
+        drained = []
+        drain_stop = sup._drain_stop
+
+        def recording_drain_stop(h, *a, **kw):
+            drained.append((h.worker_id, h.state))
+            return drain_stop(h, *a, **kw)
+
+        sup._drain_stop = recording_drain_stop
+        deaths = len(_events(sup, "death"))
+        fleet.stop()
+        time.sleep(3 * _SMOKE_POOL["poll_interval_s"])
+        assert ("w0", "draining") in drained, drained
+        assert len(_events(sup, "death")) == deaths
     finally:
         if fleet is not None:
             fleet.stop()

@@ -84,6 +84,22 @@ def test_the_scan_covers_the_serving_tier():
         assert os.path.join("csmom_tpu_torch", "serve", f"{mod}.py") in rel
     for sub in ("obs", "cli"):
         assert os.path.join("csmom_tpu_torch", sub, "fleet.py") in rel
+    for mod in ("__init__", "ring", "ingest", "incremental", "replay"):
+        assert os.path.join("csmom_tpu_torch", "stream", f"{mod}.py") in rel
+    for mod in ("trace", "replay", "registry"):
+        assert os.path.join("csmom_tpu_torch", "cli", f"{mod}.py") in rel
+
+
+def test_stream_import_loads_neither_torch_nor_pandas():
+    """The stream data plane (ring, ingest, incremental) is numpy only, as
+    the reference keeps it free of its engine: a replay with the stub
+    engine never needs torch."""
+    code = ("import sys, csmom_tpu_torch.stream; "
+            "print(sorted({'torch', 'pandas'} & set(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
+                         env={**os.environ, "PYTHONPATH": _REPO},
+                         capture_output=True, text=True, timeout=60).stdout
+    assert out.strip() == "[]"
 
 
 def test_port_names_no_file_of_the_reference():
@@ -229,6 +245,7 @@ def test_entry_points_raise_without_a_card():
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
     from csmom_tpu_torch.serve.engine import TorchEngine, make_engine
     from csmom_tpu_torch.serve.service import ServeConfig, SignalService
+    from csmom_tpu_torch.stream.replay import ReplayConfig, run_replay
     from csmom_tpu_torch.workloads import month_panel
 
     panel = Panel(values=np.ones((3, 4)), mask=np.ones((3, 4), bool),
@@ -245,7 +262,8 @@ def test_entry_points_raise_without_a_card():
                  lambda: ElasticNetFit.from_numpy(coef=np.zeros(2)),
                  lambda: OnlineRidgeFit.from_numpy(coef=np.zeros(2)),
                  lambda: TorchEngine(), lambda: make_engine("torch"),
-                 lambda: SignalService(ServeConfig(engine="torch"))):
+                 lambda: SignalService(ServeConfig(engine="torch")),
+                 lambda: run_replay(ReplayConfig(engine="torch"))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -175,12 +175,26 @@ def test_loadgen_fabric_survives_a_router_and_a_worker_kill(tmp_path,
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--mesh"], "item 7"),
     (["serve", "--devices-per-worker", "2"], "item 7"),
-    (["loadgen", "--trace"], "6d"),
 ])
 def test_deferred_flags_exit_2_naming_their_item(argv, item, capsys):
     assert main([*argv, "--stub"]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and item in err
+
+
+def test_loadgen_trace_lands_a_valid_trace_artifact(tmp_path, capsys):
+    """``--trace`` arms the book once the service is ready and lands
+    ``GPU_TRACE_<run>.json`` beside the serve artifact, valid under both
+    packages' validators, its books equal to the run's request books."""
+    assert main(["loadgen", "--stub", "--smoke", "--trace", "--out",
+                 str(tmp_path), "--run-id", "traced"]) == 0
+    assert "trace artifact: " in capsys.readouterr().out
+    path = tmp_path / "GPU_TRACE_traced.json"
+    assert inv.validate_file(str(path)) == []
+    assert ref_inv.validate_file(str(path)) == []
+    books = json.loads(path.read_text())["books"]
+    req = json.loads((tmp_path / "GPU_SERVE_traced.json").read_text())["requests"]
+    assert (books["opened"], books["complete"]) == (req["admitted"], req["served"])
 
 
 def _fleet_art(tmp_path, run_id):

@@ -426,11 +426,12 @@ def test_fabric_three_tiers_over_tcp_survive_double_kill(tmp_path):
 
 
 def test_build_fabric_refuses_what_is_not_ported(tmp_path):
-    """Arming the replicas' trace books is item 6d: it raises before any
-    process is spawned."""
-    with pytest.raises(NotImplementedError, match="6d"):
-        fabric.build_fabric(PoolConfig(**_SMOKE), PoolConfig(**_SMOKE),
-                            str(tmp_path), deadline_ms=500.0, trace=True)
+    """A worker pinned to several cards is the multi-GPU layer (item 7):
+    it raises before any process is spawned."""
+    with pytest.raises(NotImplementedError, match="item 7"):
+        fabric.build_fabric(PoolConfig(devices_per_worker=2, **_SMOKE),
+                            PoolConfig(**_SMOKE), str(tmp_path),
+                            deadline_ms=500.0, trace=True)
     assert not os.listdir(tmp_path)
 
 
@@ -781,11 +782,25 @@ def test_router_replica_never_imports_torch(tmp_path):
 
 
 def test_router_replica_trace_flag_exits_2_naming_6d(tmp_path):
-    p = subprocess.run(
+    """A replica's ``--trace`` arms its own trace book: its ``stats``
+    reply carries the book's snapshot (closed, empty), and the replica
+    still never loads torch."""
+    write_routes(str(tmp_path / "routes.json"), [], None, "v0")
+    addr = f"unix:{tmp_path / 'r.sock'}"
+    p = subprocess.Popen(
         [sys.executable, "-m", "csmom_tpu_torch.serve.router", "--listen",
-         str(tmp_path / "r.sock"), "--routes", str(tmp_path / "x.json"),
-         "--trace"], env=_ENV, capture_output=True, text=True, timeout=60)
-    assert p.returncode == 2 and "6d" in p.stderr
+         addr, "--routes", str(tmp_path / "routes.json"), "--trace"],
+        env=_ENV, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        _wait_for(lambda: (tmp_path / "r.sock").exists(), 60.0, "replica bind")
+        obj, _ = proto.request_once(addr, {"op": "stats"}, timeout_s=10.0)
+        tr = obj["trace"]
+        assert tr["invariant_violations"] == []
+        assert tr["snapshot"]["books"]["opened"] == 0
+        assert obj["torch_loaded"] is False
+    finally:
+        p.terminate()
+        p.wait(timeout=30)
 
 
 @pytest.fixture(scope="module")
