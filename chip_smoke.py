@@ -79,7 +79,8 @@ any phase fails (nothing is caught).  Phases:
    ``intraday_launches``, ``serve_launches``, ``pool_launches``,
    ``fabric_launches``, ``fleet_launches``, ``trace_launches`` and
    ``replay_launches`` the counts of phases 6, 7, 8, 9, 11, 12, 13, 14
-   and 15 (12's, 13's and 14's in the worker processes; 13's over its
+   and 15, ``warmup_launches`` and ``examples_launches`` phase 16's
+   (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
    workers too; 15's traced runs in this process and the workers, equal
@@ -186,6 +187,25 @@ any phase fails (nothing is caught).  Phases:
    --trace`` in a subprocess, ``trace <run>`` on each landed artifact
    (two renderings, equal), ``replay --chaos builtin`` and ``registry
    list [--endpoints]`` in-process;
+16. warm-start and examples (run last, after phase 9; no profiler trace):
+   (a) cold: ``warmup --profiles bench-gpu,golden,serve,stream --strict``
+   in a process of its own from a copy of the package in a temporary
+   directory, whose build directory starts empty: exit 0, both kernel
+   libraries built, 0 errors, every entry's allocator peak and first- and
+   warm-call walls logged; (b) warm: the same in the tree (phase 2 built
+   the libraries): every entry a cache hit, 0 built, the report read back;
+   (c) K1 and K2 against their plain versions on the warm-up's own inputs
+   at a warmed shape (K1 at ``monthly.spread@20x60`` f64, K2 at
+   ``grid.jk16.rank.kernel@3000x696`` f32), and the two warm-ups' launches
+   (each record's own count); (d) ``examples.north_star_grid --assets 3000
+   --years 60 --impl kernel`` (K2) and its default run, whose table equals
+   the same script's with ``--device cpu``; (e) ``examples.pack_at_scale``
+   (its own bit-identity assert) and the four ``--data-dir`` examples on a
+   synthetic 20-ticker directory, each printout on the card equal to the
+   ``--device cpu`` one (``replicate_reference`` stops at its golden mean
+   on both: the data is not the reference's); launch counts read around
+   (d)-(e); the kernels line gains ``warmup_launches`` and
+   ``examples_launches``;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -193,6 +213,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3773,6 +3794,322 @@ def trace_replay_phase(smi, out_dir, disarmed) -> dict:
     return out
 
 
+# phase 16: the warm-start and the examples on the card.  The profiles
+# both warm-ups run (the bench and golden shapes, the serving grid, the
+# replay's reconcile shapes) and the report namespace they write under
+WARM_PROFILES = "bench-gpu,golden,serve,stream"
+WARM_SUBDIR = "smoke"
+# the golden-event leg's entries on the card: threshold, hysteresis and
+# the 32-wide batch (compile/manifest.py::golden_event_entries)
+GOLDEN_EVENT_ENTRIES = 3
+# the four --data-dir examples, run on one synthetic 20-ticker directory
+DATA_DIR_EXAMPLES = ("replicate_reference", "strategy_zoo", "cost_frontier",
+                     "causal_scoring")
+_NUMBER = re.compile(r"[-+]?\d[\d,]*(?:\.\d+)?(?:e[-+]?\d+)?")
+
+
+def printed_equal(a: str, b: str, what: str) -> None:
+    """Two printouts agree: the same words around their numbers, integers
+    equal, and every other number within one unit of its last printed
+    digit (so a rounding boundary between two devices' sums passes, and
+    nothing more)."""
+    na, nb = _NUMBER.findall(a), _NUMBER.findall(b)
+    if _NUMBER.split(a) != _NUMBER.split(b) or len(na) != len(nb):
+        raise AssertionError(f"{what}: the printouts differ in their words:\n"
+                             f"{a}\n---\n{b}")
+    for x, y in zip(na, nb):
+        mant, _, exp = x.lower().partition("e")
+        dec = len(mant.partition(".")[2])
+        tol = 0.0 if not dec and not exp else 1.01 * 10.0 ** (int(exp or 0) - dec)
+        if abs(float(x.replace(",", "")) - float(y.replace(",", ""))) > tol:
+            raise AssertionError(f"{what}: {x} against {y} (limit {tol})")
+
+
+def run_example(name: str, argv: list):
+    """``csmom_tpu_torch.examples.<name>.main(argv)`` with its stdout
+    captured: ``(stdout, AssertionError or None, wall s)``."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"csmom_tpu_torch.examples.{name}")
+    buf, err = io.StringIO(), None
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv)
+    except AssertionError as e:  # a golden assert of the reference data
+        err = e
+    return buf.getvalue(), err, time.perf_counter() - t0
+
+
+def run_warmup(cwd: str, tmpdir: str) -> tuple:
+    """``warmup --profiles WARM_PROFILES --strict`` in a process of its own
+    whose package is the one under ``cwd`` (its kernel libraries in
+    ``cwd/build/csmom_tpu_torch``): ``(report, stdout, wall s)``."""
+    env = {**os.environ, "PYTHONPATH": cwd, "TMPDIR": tmpdir}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", "warmup",
+                        "--profiles", WARM_PROFILES, "--strict",
+                        "--cache-subdir", WARM_SUBDIR],
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"warmup in {cwd} exited {p.returncode}:\n"
+                             f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    path = os.path.join(cwd, "build", "csmom_tpu_torch", "warmup", WARM_SUBDIR,
+                        "warmup_report.json")
+    with open(path) as f:
+        return json.load(f), p.stdout, wall
+
+
+def check_warm_report(report, want_entries: int, what: str) -> None:
+    """A warm-up report lists every manifest entry and the golden-event
+    entries, and its grid input build and golden-event leg both ran."""
+    golden = sum(r.get("profile") == "golden-event" for r in report["entries"])
+    if (report["n_entries"] != want_entries or golden != GOLDEN_EVENT_ENTRIES
+            or not report["input_builders"].startswith("grid month panels built")
+            or report["golden_event"] != "resolved from the golden input build"):
+        raise AssertionError(
+            f"{what}: {report['n_entries']} entries ({golden} golden-event), "
+            f"want {want_entries} ({GOLDEN_EVENT_ENTRIES}); inputs: "
+            f"{report['input_builders']}; golden event: {report['golden_event']}")
+
+
+def warm_launches(report) -> dict:
+    """The kernels' launches over a warm-up's entries (each record counts
+    its own process's launches over its two calls)."""
+    out = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    for r in report["entries"]:
+        for k, v in r.get("launches", {}).items():
+            out[k] += v
+    return out
+
+
+NORTH_STAR_REPS = 9
+
+
+def north_star_grid_ms(dev) -> float:
+    """What ``examples.north_star_grid --assets 3000 --years 60 --impl
+    kernel`` times, at finer resolution than the 1 ms it prints: the
+    median wall of one grid call whose mean spreads are fetched to the
+    host, over ``NORTH_STAR_REPS`` synchronized reps after one untimed."""
+    import statistics
+
+    import torch
+
+    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
+    from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
+    from csmom_tpu_torch.panel.panel import to_tensors
+    from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
+    from csmom_tpu_torch.utils.profiling import fetch, wall
+
+    # the example's own panel (seed 7, staggered listings) and call
+    panel = synthetic_daily_panel(3000, 60 * 252, seed=7, listing_gaps=True)
+    seg, ends = month_end_segments(panel.times)
+    v, m = to_tensors(panel.values, panel.mask, device=dev, dtype=torch.float32)
+    pm, mm = month_end_aggregate(v, m, seg, len(ends))
+    Js = Ks = np.array([3, 6, 9, 12])
+
+    def grid_means():
+        return fetch(jk_grid_backtest(pm, mm, Js, Ks, skip=1, mode="rank",
+                                      impl="kernel").mean_spread)
+
+    walls = [wall(grid_means, warmup=1 if i == 0 else 0)[1]
+             for i in range(NORTH_STAR_REPS)]
+    return statistics.median(walls) * 1e3
+
+
+def warmup_phase(smi, assert_sums) -> dict:
+    """Phase 16: the warm-start and the examples on the card.  Returns the
+    phase's kernel launches, its numbers and its wall."""
+    import shutil
+
+    import torch
+
+    from csmom_tpu_torch.backtest.monthly import formation_labels
+    from csmom_tpu_torch.compile.aot import read_warmup_report
+    from csmom_tpu_torch.compile.manifest import build_manifest
+    from csmom_tpu_torch.examples._synthetic_data import write_data_dir
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.ops.ranking import decile_assign_panel
+    from csmom_tpu_torch.signals.momentum import (
+        formation_listed_mask, momentum_dynamic, monthly_returns,
+    )
+    from csmom_tpu_torch.workloads import GRID_JS, GRID_SKIP
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="csmom_warm_") as tmp:
+        tmpdir = os.path.join(tmp, "tmp")
+        os.makedirs(tmpdir)
+        # (a) cold: a copy of the package whose build directory is empty
+        pkg = os.path.join(tmp, "pkg")
+        shutil.copytree(os.path.join(REPO, "csmom_tpu_torch"),
+                        os.path.join(pkg, "csmom_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        cold, _, cold_s = run_warmup(pkg, tmpdir)
+        want_entries = GOLDEN_EVENT_ENTRIES + sum(
+            len(build_manifest(p)) for p in WARM_PROFILES.split(","))
+        check_warm_report(cold, want_entries, "warmup (a) cold")
+        built = cold["totals"]["libraries_built"]
+        if cold["n_errors"] or built != 2:
+            raise AssertionError(f"warmup (a) cold: {cold['n_errors']} errors, "
+                                 f"{built} libraries built (want 0 and 2)")
+        if sorted(r["name"] for r in cold["entries"] if not r["cache_hit"]) != sorted(
+                r["name"] for r in cold["entries"] if r["libraries_built"]):
+            raise AssertionError("warmup (a) cold: cache_hit disagrees with the builds")
+        for r in cold["entries"]:
+            mem = r["memory"]
+            if not isinstance(mem, dict) or not isinstance(mem.get("peak_bytes"), int):
+                raise AssertionError(f"warmup (a): {r['name']} has no memory peak: {mem}")
+            log("warm", f"cold {r['name']}: peak {mem['peak_bytes']} B (args "
+                        f"{mem['argument_size_in_bytes']}, out "
+                        f"{mem['output_size_in_bytes']}, temp "
+                        f"{mem['temp_size_in_bytes']}), build {r['build_s']:.3f} s, "
+                        f"first call {r['first_call_s'] * 1e3:.3f} ms, warm call "
+                        f"{r['warm_call_s'] * 1e3:.3f} ms, launches {r['launches']}")
+        log("warm", f"(a) cold: {cold['n_entries']} entries, {built} libraries "
+                    f"built, 0 errors; command wall {cold_s:.1f} s, report wall "
+                    f"{cold['wall_s']} s; {cold['input_builders']}; golden event: "
+                    f"{cold['golden_event']}; max peak {json.dumps(cold['memory'])} | {smi}")
+
+        # (b) warm: the same in the tree, whose libraries phase 2 built
+        warm, warm_out, warm_s = run_warmup(REPO, tmpdir)
+        check_warm_report(warm, want_entries, "warmup (b) warm")
+        n = warm["n_entries"]
+        if (warm["n_errors"] or warm["n_cache_hits"] != n
+                or warm["totals"]["libraries_built"] != 0
+                or [r["name"] for r in warm["entries"]]
+                != [r["name"] for r in cold["entries"]]):
+            raise AssertionError(f"warmup (b) warm: {warm['n_cache_hits']} of {n} hit, "
+                                 f"{warm['n_errors']} errors, "
+                                 f"{warm['totals']['libraries_built']} built")
+        if read_warmup_report(WARM_SUBDIR) != warm:
+            raise AssertionError("warmup (b): the report read back differs")
+        if f"{n} entries, {n} served from cache, 0 errors" not in warm_out:
+            raise AssertionError("warmup (b): the CLI's summary line is missing")
+        for r in warm["entries"]:
+            log("warm", f"warm {r['name']}: peak {r['memory']['peak_bytes']} B, "
+                        f"first call {r['first_call_s'] * 1e3:.3f} ms, warm call "
+                        f"{r['warm_call_s'] * 1e3:.3f} ms")
+        log("warm", f"(b) warm: {n} of {n} entries hit, 0 built; command wall "
+                    f"{warm_s:.1f} s, report wall {warm['wall_s']} s | {smi}")
+        launches = {k: v + warm_launches(warm)[k]
+                    for k, v in warm_launches(cold).items()}
+        if min(launches.values()) < 1:
+            raise AssertionError(f"warmup: a kernel was not launched: {launches}")
+        out.update(warmup_cold_s=cold_s, warmup_warm_s=warm_s,
+                   warmup_max_peak_bytes=warm["memory"]["max_peak_bytes"],
+                   warmup_launches=launches,
+                   warmup_entries={r["name"]: {
+                       "cold_first_call_ms": c["first_call_s"] * 1e3,
+                       "warm_first_call_ms": r["first_call_s"] * 1e3,
+                       "warm_call_ms": r["warm_call_s"] * 1e3,
+                       "peak_bytes": r["memory"]["peak_bytes"]}
+                       for c, r in zip(cold["entries"], warm["entries"])})
+
+        # (c) each kernel against its plain version at one warmed shape, on
+        # the warm-up's own inputs (seed 0)
+        gpu = {e.name: e for e in build_manifest("bench-gpu")}
+        grid_e = gpu["grid.jk16.rank.kernel@3000x696"]
+        (p, m), _ = grid_e.materialize(dev, np.random.default_rng(0))
+        ret, ret_valid = monthly_returns(p, m)
+        mom, mv = momentum_dynamic(p, m, torch.tensor(GRID_JS, device=dev), GRID_SKIP)
+        mv = mv & formation_listed_mask(m, GRID_SKIP)
+        lab, _ = decile_assign_panel(torch.where(mv, mom, torch.nan), mv,
+                                     n_bins=10, mode="rank")
+        s2, c2 = kernels.cohort_partial_sums(ret, ret_valid, lab, 10, 12)
+        p2, pc2 = kernels.cohort_partial_sums_plain(ret, ret_valid, lab, 10, 12)
+        ab2, _ = kernels.cohort_partial_sums_plain(
+            torch.where(ret_valid, torch.nan_to_num(ret), 0.0).abs(), ret_valid, lab, 10, 12)
+        if not torch.equal(c2, pc2):
+            raise AssertionError("warmup (c): K2 counts differ from plain")
+        assert_sums(s2, p2, ab2, ret.dtype, "warmup (c): K2 sums at 3000x696")
+        mon_e = {e.name: e for e in build_manifest("golden")}["monthly.spread@20x60"]
+        (p, m), kw = mon_e.materialize(dev, np.random.default_rng(0))
+        ret, ret_valid, labels = formation_labels(p, m, kw["lookback"], kw["skip"],
+                                                  kw["n_bins"], kw["mode"])
+        nxt = torch.roll(ret, -1, dims=1)
+        nv = torch.roll(ret_valid, -1, dims=1)
+        nv[:, -1] = False
+        lab1 = torch.where(nv & (labels >= 0), labels, -1)
+        r1 = torch.where(lab1 >= 0, torch.nan_to_num(nxt), 0.0)
+        s1, c1 = kernels.decile_partial_sums(r1, lab1, 10)
+        p1, pc1 = kernels.decile_partial_sums_plain(r1, lab1, 10)
+        ab1, _ = kernels.decile_partial_sums_plain(r1.abs(), lab1, 10)
+        if not torch.equal(c1, pc1):
+            raise AssertionError("warmup (c): K1 counts differ from plain")
+        assert_sums(s1, p1, ab1, r1.dtype, "warmup (c): K1 sums at 20x60 f64")
+        out["warm_shape_errors"] = {"decile_partial_sums": (s1 - p1).abs().max().item(),
+                                    "cohort_partial_sums": (s2 - p2).abs().max().item()}
+        log("warm", f"(c) launches over (a)-(b) {launches}; at warmed shapes K1 "
+                    f"[20, 60] f64 and K2 [4, 3000, 696] f32 equal their plain "
+                    f"versions (max |err| {out['warm_shape_errors']})")
+
+        # (d) and (e): the examples, launch counts read around them
+        data = os.path.join(tmp, "data")
+        write_data_dir(data)
+        kernels.reset_launches()
+        ns_argv = ["--assets", "3000", "--years", "60"]
+        ns, err, ns_s = run_example("north_star_grid", ns_argv + ["--impl", "kernel"])
+        k2_ns = kernels.cohort_partial_sums.launches
+        default, err2, _ = run_example("north_star_grid", [])
+        if err or err2 or k2_ns < 1 or "walk-forward" not in ns:
+            raise AssertionError(f"examples (d): north_star_grid failed ({err}, "
+                                 f"{err2}; K2 launches {k2_ns})")
+        ns_plain, err4, _ = run_example("north_star_grid", ns_argv + ["--impl", "plain"])
+        if err4:
+            raise AssertionError(f"examples (d): the plain north-star run failed: {err4}")
+        printed_equal("\n".join(ns.splitlines()[1:]),
+                      "\n".join(ns_plain.splitlines()[1:]),
+                      "examples (d): north_star_grid 3000x60 kernel against plain")
+        cpu_run, err3, _ = run_example("north_star_grid", ["--device", "cpu"])
+        if err3:
+            raise AssertionError(f"examples (d): the CPU run failed: {err3}")
+        printed_equal("\n".join(default.splitlines()[1:]),
+                      "\n".join(cpu_run.splitlines()[1:]),
+                      "examples (d): north_star_grid 512x15 cuda against cpu")
+        log("examples", f"(d) north_star_grid 3000 x 60 yr, impl kernel: "
+                        f"{ns.splitlines()[0]} (K2 launches {k2_ns}; script wall "
+                        f"{ns_s:.1f} s); its table equals --impl plain's; its 512 x "
+                        f"15 table on cuda equals --device cpu | {smi}")
+        for line in ns.splitlines()[1:]:
+            if line.strip():
+                log("examples", f"north_star_grid 3000x60: {line}")
+        pk, err, pk_s = run_example("pack_at_scale", [])
+        if err or "bit-identical" not in pk:
+            raise AssertionError(f"examples (e): pack_at_scale: {err}")
+        log("examples", f"(e) pack_at_scale: {' | '.join(pk.splitlines())}")
+        for name in DATA_DIR_EXAMPLES:
+            got, gerr, g_s = run_example(name, ["--data-dir", data])
+            want, werr, w_s = run_example(name, ["--data-dir", data, "--device", "cpu"])
+            stop = "golden mean drifted" if name == "replicate_reference" else None
+            if (str(gerr) if gerr else None) != stop or (str(werr) if werr else None) != stop:
+                raise AssertionError(f"examples (e): {name} stopped on {gerr!r} "
+                                     f"(cuda) and {werr!r} (cpu), expected {stop!r}")
+            printed_equal(got, want, f"examples (e): {name} cuda against cpu")
+            log("examples", f"(e) {name} on the synthetic data dir: cuda {g_s:.2f} s, "
+                            f"cpu {w_s:.2f} s, printouts equal"
+                            + (f", both stopped at {stop!r}" if stop else "")
+                            + f": {' | '.join(got.splitlines()[:3])}")
+        torch.cuda.synchronize()
+        ex_launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                       "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+        if min(ex_launches.values()) < 1:
+            raise AssertionError(f"examples: a kernel was not launched: {ex_launches}")
+        wall_ms = north_star_grid_ms(dev)
+        log("examples", f"(d) the example's fetched 16-cell grid at 3000 x 60 yr, "
+                        f"impl kernel: {wall_ms:.4f} ms (median of "
+                        f"{NORTH_STAR_REPS} synchronized reps) | {smi}")
+        out.update(examples_launches=ex_launches,
+                   example_north_star_grid_ms=wall_ms)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -3780,7 +4117,7 @@ CARDS = (
     ("H200", 4.8e12, 67e12),
     ("H100 NVL", 3.9e12, 60e12),
     ("H100 PCIe", 2.0e12, 51e12),
-    ("H100", 3.35e12, 67e12),
+    ("H100", None, 67e12),  # HBM rate: utils.profiling.PEAK_HBM_GBPS
 )
 
 # The first versions of K1 (one thread per month over asset chunks) and
@@ -3843,6 +4180,7 @@ def main(argv=None) -> int:
     from csmom_tpu_torch.phases import REPS, time_call, time_kernels
     from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
+    from csmom_tpu_torch.utils.profiling import PEAK_HBM_GBPS, count_dispatches
     from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
     from csmom_tpu_torch.signals.momentum import (
         formation_listed_mask, momentum_dynamic, monthly_returns,
@@ -3865,7 +4203,9 @@ def main(argv=None) -> int:
     count = torch.cuda.device_count()
     bw, f32_peak = next(((b, f) for frag, b, f in CARDS if frag in kind),
                         (None, None))
-    if bw is None:
+    if bw is None and kind in PEAK_HBM_GBPS:
+        bw = PEAK_HBM_GBPS[kind] * 1e9
+    if bw is None or f32_peak is None:
         raise RuntimeError(f"no memory/compute peak known for {kind!r}")
     log("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"
                   f" | peaks {bw / 1e12:.2f} TB/s, f32 {f32_peak / 1e12:.0f} TFLOP/s")
@@ -4375,10 +4715,22 @@ def main(argv=None) -> int:
     for name, per in per_call.items():
         if per != 1:
             raise AssertionError(f"{name} launched {per} kernels per call, not 1")
+    # every CUDA kernel of one wrapper call, named or not (a profiler
+    # trace: before phase 9, like the timings above)
+    dispatches = {}
+    for name, fn in (("decile_partial_sums", lambda: kernels.decile_partial_sums(r1, lab1, B)),
+                     ("cohort_partial_sums",
+                      lambda: kernels.cohort_partial_sums(ret, ret_valid, lab2, B, H))):
+        with count_dispatches() as d:
+            fn()
+        dispatches[name] = d["dispatches"]
+    if dispatches != {"decile_partial_sums": 1, "cohort_partial_sums": 1}:
+        raise AssertionError(f"count_dispatches: one wrapper call dispatched "
+                             f"{dispatches} CUDA kernels, not 1 each")
     log("kernels", f"main-path shapes: K1 labels/ret {tuple(lab1.shape)} f32, "
                    f"K2 labels {tuple(lab2.shape)} H={H} f32; times are medians "
                    f"of {REPS} reps with L2 flushed before each; kernels per "
-                   f"call {per_call}")
+                   f"call {per_call}; count_dispatches of one call {dispatches}")
     for row, first in ((rows[0], K1_FIRST_VERSION_DEVICE_MS),
                        (rows[1], K2_FIRST_VERSION_DEVICE_MS)):
         log("kernels", f"{row['name']} device time {row['device_ms']:.6f} ms in "
@@ -4457,6 +4809,16 @@ def main(argv=None) -> int:
                              f"(run's replicate) and K2 0")
     for row in rows:
         row["intraday_launches"] = intraday_launches[row["name"]]
+
+    # -- 16. the warm-start and the examples ----------------------------------
+    warm = warmup_phase(smi, assert_sums)
+    log("warm", f"phase wall {warm['wall_s']:.1f} s; warm-up launches "
+                f"{warm['warmup_launches']}, examples' {warm['examples_launches']}; "
+                f"{json.dumps({k: warm[k] for k in ('warmup_cold_s', 'warmup_warm_s', 'warmup_max_peak_bytes', 'example_north_star_grid_ms')})} | {smi}")
+    log("warm", f"per entry (ms, bytes): {json.dumps(warm['warmup_entries'])}")
+    for row in rows:
+        row["warmup_launches"] = warm["warmup_launches"][row["name"]]
+        row["examples_launches"] = warm["examples_launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

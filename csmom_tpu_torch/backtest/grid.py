@@ -243,10 +243,10 @@ def _require_build_params(grid: GridResult, what: str):
         )
 
 
-def _netted(grid: GridResult, net, Ks_c: tuple, freq: int) -> GridResult:
-    """A GridResult of the netted spreads, with the gross grid's validity,
-    parameters and HAC bandwidth (lag = K)."""
-    valid = grid.spread_valid
+def _netted(net, valid, Js, Ks_c: tuple, skip, n_bins: int, mode: str,
+            freq: int) -> GridResult:
+    """A GridResult of the netted spreads ``net`` with the gross grid's
+    validity, parameters and HAC bandwidth (lag = K)."""
     Ks = torch.as_tensor(Ks_c, device=net.device)
     return GridResult(
         spreads=net,
@@ -255,12 +255,47 @@ def _netted(grid: GridResult, net, Ks_c: tuple, freq: int) -> GridResult:
         ann_sharpe=sharpe(net, valid, freq_per_year=freq),
         tstat=t_stat(net, valid),
         tstat_nw=nw_t_stat(net, valid, lags=Ks[None, :], max_lag=max(Ks_c)),
-        Js=grid.Js,
+        Js=Js,
         Ks=Ks,
-        skip=grid.skip,
-        n_bins=grid.n_bins,
-        mode=grid.mode,
+        skip=skip,
+        n_bins=n_bins,
+        mode=mode,
     )
+
+
+def _grid_net_core(prices, mask, Js, spreads, spread_valid, half_spread,
+                   Ks_c: tuple, skip: int, n_bins: int, mode: str,
+                   freq: int) -> GridResult:
+    """The netting pass of :func:`grid_net_of_costs` on a gross grid's
+    ``spreads``/``spread_valid`` (``[nJ, nK, M]``), with the grid's
+    parameters given explicitly (counterpart of the reference's
+    ``_grid_net_core``, its ``--tc-bps`` pass, with the same signature).
+    ``Js`` is a tensor of the lookbacks; ``Ks_c`` a tuple of the holding
+    periods."""
+    M = prices.shape[1]
+    mom, mom_valid = momentum_dynamic(prices, mask, Js, skip)   # [nJ, A, M]
+    labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
+    # long_short_weights reads only the two extreme bins' counts
+    counts = torch.zeros((labels.shape[0], n_bins, M), dtype=torch.int32,
+                         device=labels.device)
+    counts[:, 0] = (labels == 0).sum(dim=1)
+    counts[:, n_bins - 1] = (labels == n_bins - 1).sum(dim=1)
+    w_f = long_short_weights(labels, counts, n_bins, dtype=spreads.dtype)
+
+    # one prefix sum serves every K's trailing window
+    c = torch.cumsum(w_f, dim=-1)
+    c = torch.cat([torch.zeros_like(c[..., :1]), c], dim=-1)
+    t1 = torch.arange(M, device=w_f.device) + 1
+    costs = []
+    for K in Ks_c:
+        S = c[..., 1:] - c[..., (t1 - K).clamp(min=0)]
+        # book held in month m = mean of the cohorts formed at m-K .. m-1
+        w_pf = torch.nn.functional.pad(S, (1, 0))[..., :M] / K
+        costs.append(turnover_cost(w_pf, half_spread))               # [nJ, M]
+    cost = torch.stack(costs, dim=1)                                 # [nJ, nK, M]
+    net = torch.where(spread_valid, spreads - cost, torch.nan)
+    return _netted(net, spread_valid, Js, Ks_c,
+                   torch.tensor(skip, device=net.device), n_bins, mode, freq)
 
 
 def grid_net_of_costs(prices, mask, grid: GridResult,
@@ -286,32 +321,10 @@ def grid_net_of_costs(prices, mask, grid: GridResult,
     parameters).
     """
     _require_build_params(grid, "grid_net_of_costs")
-    Ks_c = tuple(int(k) for k in grid.Ks.tolist())
-    skip = int(grid.skip)
-    n_bins = grid.n_bins
-    M = prices.shape[1]
-    mom, mom_valid = momentum_dynamic(prices, mask, grid.Js, skip)   # [nJ, A, M]
-    labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=grid.mode)
-    # long_short_weights reads only the two extreme bins' counts
-    counts = torch.zeros((labels.shape[0], n_bins, M), dtype=torch.int32,
-                         device=labels.device)
-    counts[:, 0] = (labels == 0).sum(dim=1)
-    counts[:, n_bins - 1] = (labels == n_bins - 1).sum(dim=1)
-    w_f = long_short_weights(labels, counts, n_bins, dtype=grid.spreads.dtype)
-
-    # one prefix sum serves every K's trailing window
-    c = torch.cumsum(w_f, dim=-1)
-    c = torch.cat([torch.zeros_like(c[..., :1]), c], dim=-1)
-    t1 = torch.arange(M, device=w_f.device) + 1
-    costs = []
-    for K in Ks_c:
-        S = c[..., 1:] - c[..., (t1 - K).clamp(min=0)]
-        # book held in month m = mean of the cohorts formed at m-K .. m-1
-        w_pf = torch.nn.functional.pad(S, (1, 0))[..., :M] / K
-        costs.append(turnover_cost(w_pf, half_spread))               # [nJ, M]
-    cost = torch.stack(costs, dim=1)                                 # [nJ, nK, M]
-    net = torch.where(grid.spread_valid, grid.spreads - cost, torch.nan)
-    return _netted(grid, net, Ks_c, freq)
+    return _grid_net_core(prices, mask, grid.Js, grid.spreads, grid.spread_valid,
+                          half_spread, Ks_c=tuple(int(k) for k in grid.Ks.tolist()),
+                          skip=int(grid.skip), n_bins=grid.n_bins, mode=grid.mode,
+                          freq=freq)
 
 
 def grid_break_even_bps(prices, mask, grid: GridResult,
@@ -340,4 +353,6 @@ def grid_net_from_unit(grid: GridResult, unit: GridResult, half_spread: float,
     cost_unit = grid.spreads - unit.spreads
     net = torch.where(grid.spread_valid, grid.spreads - half_spread * cost_unit,
                       torch.nan)
-    return _netted(grid, net, tuple(int(k) for k in grid.Ks.tolist()), freq)
+    return _netted(net, grid.spread_valid, grid.Js,
+                   tuple(int(k) for k in grid.Ks.tolist()), grid.skip,
+                   grid.n_bins, grid.mode, freq)

@@ -2,8 +2,8 @@
 
 Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
 ``run``, ``replicate``, ``grid``, ``sweep``, ``doublesort``,
-``intraday``, ``horizons``, ``residual``, ``strategies``, ``pack-info``
-and ``fetch``, of the serving tier's ``serve`` and ``loadgen``
+``intraday``, ``horizons``, ``residual``, ``strategies``, ``pack-info``,
+``fetch`` and ``warmup``, of the serving tier's ``serve`` and ``loadgen``
 (:mod:`csmom_tpu_torch.cli.serve`), of ``fleet``
 (:mod:`csmom_tpu_torch.cli.fleet`), ``trace``
 (:mod:`csmom_tpu_torch.cli.trace`), ``replay``
@@ -23,7 +23,10 @@ The flags that differ are the device's and the kernels':
 - ``grid --impl {kernel,plain,matmul,matmul_bf16}``, the reference's
   ``pallas`` and ``xla`` accepted as ``kernel`` and ``plain``;
 - ``grid --shards N`` (N > 1) and ``--mode rank_hist`` need the
-  multi-device layer, which the port does not have yet: they exit 2.
+  multi-device layer, which the port does not have yet: they exit 2;
+- ``warmup`` warms by running each manifest entry on the device (its
+  profile ``bench-gpu`` takes the place of ``bench-tpu``, which it
+  accepts), and has no ``--platform``; the mesh profiles exit 2.
 
 ``--config file.toml`` loads a :class:`~csmom_tpu_torch.config.RunConfig`;
 flags given on the command line override the file.
@@ -1232,6 +1235,112 @@ def cmd_run(args) -> int:
     return cmd_intraday(args)
 
 
+def cmd_warmup(args) -> int:
+    """Warm the hot-path shape manifest: build and run every entry once.
+
+    For each entry of the profiles' manifests (csmom_tpu_torch.compile
+    .manifest) it builds or loads the kernel libraries the entry launches
+    and calls the entry twice on seeded inputs at its shapes, then writes
+    a per-shape report (build wall, first- and warm-call walls, peak
+    device memory, whether any library had to be built) under
+    build/csmom_tpu_torch/warmup/.  A later process finds every kernel
+    built; this one has the CUDA context, the libraries and the
+    allocator warm.
+    """
+    from csmom_tpu_torch.registry.core import canonical_profile
+
+    profiles = [p.strip() for p in (args.profiles or "").split(",") if p.strip()]
+    if not profiles:
+        profiles = (["bench-cpu", "golden"] if args.device == "cpu"
+                    else ["bench-gpu", "golden"])
+    try:  # bench-tpu is bench-gpu; a mesh profile needs item 7
+        profiles = [canonical_profile(p) for p in profiles]
+    except NotImplementedError as e:
+        print(e, file=sys.stderr)
+        return 2
+
+    from csmom_tpu_torch.compile.manifest import PROFILES, build_manifest
+
+    unknown = [p for p in profiles if p not in PROFILES]
+    if unknown:
+        print(f"unknown profile(s) {unknown}: choose from {list(PROFILES)}",
+              file=sys.stderr)
+        return 2
+
+    if args.list:
+        # enumerate and validate without running (a drifted manifest
+        # raises TypeError here, naming the stale entry)
+        for profile in profiles:
+            for e in build_manifest(profile):
+                e.validate()
+                print(f"{profile:10s} {e.name:44s} {e.shape_summary()}")
+        return 0
+
+    from csmom_tpu_torch import obs
+    from csmom_tpu_torch.compile.aot import warmup
+
+    # spans arm only through the env contract (CSMOM_TELEMETRY)
+    tel_col = obs.arm_policy("warmup-cli")
+    with obs.span("warmup.cli", root=True, profiles=",".join(profiles)):
+        report = warmup(
+            profiles=tuple(profiles),
+            subdir=args.cache_subdir,
+            include_golden_event=not args.no_golden_event,
+            device=args.device,
+        )
+    if tel_col is not None:
+        print(f"telemetry: spans went to {tel_col.path or 'memory'}; the "
+              "timeline sidecar is not ported yet (ROADMAP.md, Queue 1 item "
+              "8c)", file=sys.stderr)
+    for r in report["entries"]:
+        status = ("HIT" if r.get("cache_hit")
+                  else ("ERROR " + r["error"] if "error" in r else "built"))
+        print(f"{r.get('name', '?'):44s} build {r.get('build_s', 0.0):7.2f}s "
+              f"first {r.get('first_call_s', 0.0):8.4f}s "
+              f"warm {r.get('warm_call_s', 0.0):8.4f}s  {status}")
+    print(f"\n{report['n_entries']} entries, {report['n_cache_hits']} served "
+          f"from cache, {report['n_errors']} errors in {report['wall_s']}s "
+          f"(platform {report['platform']})")
+    print(f"cache: {report['cache_dir']}")
+    print(f"inputs: {report['input_builders']}")
+    print(f"golden event: {report['golden_event']}")
+    # an input builder or the golden-event leg that failed is an error too
+    failed = [k for k in ("input_builders", "golden_event")
+              if report[k].startswith("failed")]
+    if (report["n_errors"] or failed) and args.strict:
+        return 1
+    return 0
+
+
+def _add_warmup(sub) -> None:
+    sp = sub.add_parser("warmup", help=cmd_warmup.__doc__.splitlines()[0])
+    sp.set_defaults(fn=cmd_warmup)
+    sp.add_argument("--profiles",
+                    help="comma-separated warmup profiles (bench-cpu, "
+                         "bench-gpu, golden, smoke, serve, serve-smoke, "
+                         "stream, stream-smoke; bench-tpu means bench-gpu; "
+                         "default: bench-gpu,golden, or bench-cpu,golden "
+                         "with --device cpu)")
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where to warm (default cuda; without a card it "
+                         "exits 2: pass --device cpu to warm the plain "
+                         "PyTorch versions of every kernel)")
+    sp.add_argument("--cache-subdir", dest="cache_subdir", default="bench",
+                    help="report namespace under build/csmom_tpu_torch/"
+                         "warmup/ (default 'bench')")
+    sp.add_argument("--list", action="store_true",
+                    help="print the manifest (validated against the live "
+                         "signatures) without running it")
+    sp.add_argument("--no-golden-event", dest="no_golden_event",
+                    action="store_true",
+                    help="skip warming the event engines at the golden "
+                         "event workload's shapes (skips the intraday "
+                         "pipeline build)")
+    sp.add_argument("--strict", action="store_true",
+                    help="exit 1 when any manifest entry, the grid's input "
+                         "build or the golden-event leg fails")
+
+
 def _add_common(p, tickers: bool = True):
     p.add_argument("--config", help="TOML RunConfig file")
     p.add_argument("--data-dir", help="CSV cache directory, or a packed "
@@ -1483,6 +1592,7 @@ def build_parser() -> argparse.ArgumentParser:
     from csmom_tpu_torch.cli.serve import register as register_serve
     from csmom_tpu_torch.cli.trace import register as register_trace
 
+    _add_warmup(sub)
     register_fleet(sub)
     register_registry(sub)
     register_replay(sub)
@@ -1523,6 +1633,7 @@ def main(argv=None) -> int:
               "labels on one device)", file=sys.stderr)
         return 2
     if (args.command not in _DEVICE_FREE_COMMANDS and args.device == "cuda"
+            and not getattr(args, "list", False)
             and not getattr(args, "stub", False)
             and getattr(args, "engine", None) != "stub"):
         import torch

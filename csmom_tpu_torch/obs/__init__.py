@@ -10,6 +10,8 @@ Counterpart of the parts of ``csmom_tpu.obs`` the serving tier uses:
   kernel-build count in its snapshots;
 - :mod:`~csmom_tpu_torch.obs.trace`: per-request stage clocks and
   closed trace books;
+- :mod:`~csmom_tpu_torch.obs.memstats`: the device memory of each
+  warm-up entry, read from the CUDA caching allocator;
 - :mod:`~csmom_tpu_torch.obs.fleet`: the fleet observatory, every pool
   or fabric process streaming its metrics to one aggregator, and the
   ``GPU_FLEET_<run>.json`` artifact (demand book, lifecycle walls, the
@@ -25,7 +27,7 @@ pandas.
 
 from __future__ import annotations
 
-_SUBMODULES = ("fleet", "metrics", "spans", "trace")
+_SUBMODULES = ("fleet", "memstats", "metrics", "spans", "trace")
 
 _LAZY = {
     "arm": "csmom_tpu_torch.obs.spans",

@@ -6,8 +6,10 @@ process, keyed by dotted metric name; handles are cached, and every
 mutator checks the telemetry arming flag first: disarmed,
 ``inc()``/``set()``/``observe()`` are one global load and one compare.
 
-:func:`snapshot` returns every registered value, plus the CUDA caching
-allocator's statistics when torch has initialized a card, and the
+:func:`snapshot` returns every registered value, plus the warm-up's
+per-shape device memory (:mod:`csmom_tpu_torch.obs.memstats`) under
+``memory`` as the reference does, the CUDA caching allocator's
+statistics under ``allocator`` when torch has initialized a card, and the
 number of kernel libraries built or loaded in this process
 (:mod:`csmom_tpu_torch.ops.build`).  Every snapshot is sequence-numbered
 and stamped with the process identity (:func:`set_identity`);
@@ -230,9 +232,12 @@ def reset() -> None:
 def snapshot(include_compile: bool = True) -> dict:
     """All registered metrics as one JSON-ready dict.
 
-    ``memory`` holds the CUDA caching allocator's current and peak
-    allocated and reserved bytes and its segment count, present only
-    once torch has initialized a card in this process.  ``compile``
+    ``memory`` holds the per-shape device memory the warm-up captured
+    (:mod:`csmom_tpu_torch.obs.memstats`: entry name -> bytes dict or
+    reason), in the reference's form, present only when something was
+    captured.  ``allocator`` holds the CUDA caching allocator's current
+    and peak allocated and reserved bytes and its segment count, present
+    only once torch has initialized a card in this process.  ``compile``
     holds the number of kernel libraries built or loaded in this process
     (:func:`csmom_tpu_torch.ops.build.libraries_built_or_loaded`), or
     the reason it is absent when the kernel layer was never imported.
@@ -251,13 +256,18 @@ def snapshot(include_compile: bool = True) -> dict:
             "histograms": {m.name: m.summary() for m in _REGISTRY.values()
                            if isinstance(m, Histogram)},
         }
+    from csmom_tpu_torch.obs import memstats as _memstats
+
+    mem = _memstats.snapshot()
+    if mem:
+        out["memory"] = mem
     # read lazily, and only when already imported: a process that never
     # touched a card or a kernel snapshots its registry without paying
     # for either
     torch = sys.modules.get("torch")
     if torch is not None and torch.cuda.is_initialized():
         st = torch.cuda.memory_stats()
-        out["memory"] = {k: st.get(k, 0) for k in (
+        out["allocator"] = {k: st.get(k, 0) for k in (
             "allocated_bytes.all.current", "allocated_bytes.all.peak",
             "reserved_bytes.all.current", "reserved_bytes.all.peak",
             "segment.all.current")}

@@ -14,7 +14,8 @@ import time; a missing or failing ``nvcc`` raises with its output.
 :func:`libraries_built_or_loaded` counts, over the process's life, each
 library compiled and each library loaded: the serving tier's
 in-window build count (``TorchEngine.fresh_compiles``) is its change
-since the engine warmed.
+since the engine warmed.  :func:`libraries_built` counts the fresh
+builds alone, which the warm-up (``compile/aot.py``) reports per entry.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ _LIBS: dict = {}
 _LOCK = threading.Lock()
 # libraries compiled or loaded by this process (libraries_built_or_loaded)
 _EVENTS = 0
+# libraries compiled by this process (libraries_built)
+_BUILT = 0
 
 
 def find_nvcc() -> str:
@@ -73,6 +76,12 @@ def libraries_built_or_loaded() -> int:
     return _EVENTS
 
 
+def libraries_built() -> int:
+    """How many kernel libraries this process has compiled (fresh
+    builds only; a load of an existing build does not count)."""
+    return _BUILT
+
+
 def build(names=KERNELS) -> dict:
     """Compile every named kernel whose library is missing, all at once.
 
@@ -80,7 +89,7 @@ def build(names=KERNELS) -> dict:
     call (the ``-Xptxas -v`` register and shared-memory report); raises
     ``RuntimeError`` with the compiler's output if any build fails.
     """
-    global _EVENTS
+    global _EVENTS, _BUILT
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -102,6 +111,7 @@ def build(names=KERNELS) -> dict:
         else:
             os.replace(tmp, library_path(n))  # atomic: never a half-written .so
             _EVENTS += 1
+            _BUILT += 1
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -6,6 +6,10 @@ builtin registrations on first use):
 - :func:`serve_endpoints`: the serving tier's endpoint names;
 - :func:`serve_surface`: one endpoint's :class:`ServeSurface`;
 - :func:`workload_kinds`: the loadgen endpoint mix;
+- :func:`manifest_entries` / :func:`manifest_profiles` /
+  :func:`manifest_entry_names`: the warm-up manifest
+  (``compile/manifest.py`` builds from these);
+- :func:`entry_factory`: a compile engine's shared entry factory;
 - :func:`get_engine` / :func:`engine_specs`: spec access;
 - :func:`strategies`: the strategy zoo (``strategy/base.py``'s
   registrations);
@@ -33,7 +37,11 @@ __all__ = [
     "REGISTRY",
     "ServeSurface",
     "engine_specs",
+    "entry_factory",
     "get_engine",
+    "manifest_entries",
+    "manifest_entry_names",
+    "manifest_profiles",
     "register_engine",
     "serve_endpoints",
     "serve_surface",
@@ -53,6 +61,29 @@ def serve_surface(name: str) -> ServeSurface:
 
 def workload_kinds() -> tuple:
     return ensure_builtin().workload_kinds()
+
+
+def manifest_profiles() -> tuple:
+    return ensure_builtin().manifest_profiles()
+
+
+def manifest_entries(profile: str, dtype=None) -> list:
+    return ensure_builtin().manifest_entries(profile, dtype)
+
+
+def manifest_entry_names(profile: str) -> set:
+    """The entry names the profile's engines declare without building
+    their entries (``EngineSpec.manifest_names_fn``)."""
+    return ensure_builtin().manifest_entry_names(profile)
+
+
+def entry_factory(name: str):
+    """A compile engine's shared (``lru_cache``d) entry factory, so
+    every caller in one process runs one callable."""
+    spec = ensure_builtin().get(name, kind="compile")
+    if spec.entry_fn is None:
+        raise KeyError(f"engine {name!r} declares no entry factory")
+    return spec.entry_fn
 
 
 def get_engine(name: str, kind: str | None = None) -> EngineSpec:

@@ -1,10 +1,19 @@
-"""Builtin engine registrations: the five serve endpoints.
+"""Builtin engine registrations: the five serve endpoints and the eight
+compile (warm-up) engines.
 
 Counterpart of ``csmom_tpu.registry.builtin``'s serve registrations, in
 the same order and with the same ``output``, ``summary_fields`` and
 ``panel_family``: ``momentum``, ``turnover``, ``backtest``,
 ``low_volatility`` and ``zscore_combo``.  The numpy stubs are the
 reference's, copied.
+
+Its compile registrations follow, by the reference's names and with its
+profiles and shapes: ``grid.jk``, ``grid.net_core``, ``monthly.kernels``,
+``event.panel``, ``parallel.histrank``, ``parallel.online_ridge``,
+``serve.buckets`` and ``stream.signals``.  Profile ``bench-gpu`` takes
+the place of ``bench-tpu`` (f32; every other profile is f64 unless its
+engine fixes a type), impls take the port's names, there are no donated
+entries (ROADMAP.md, known difference 12) and no mesh engines (item 7).
 
 Each ``batch_fn(params)`` returns a scorer of the whole micro-batch,
 ``fn(values f[B, A, M], mask bool[B, A, M])``, where the reference's
@@ -258,4 +267,270 @@ REGISTRY.register(EngineSpec(
     serve=ServeSurface(
         batch_fn=_strategy_last_column(_mk_zscore_combo),
         stub_fn=_zscore_combo_stub, panel_family="price"),
+))
+
+
+# ---------------------------------------------------------------------------
+# compile engines: each declares its warm-up profiles and its entries
+# there; REGISTRY.manifest_entries(profile) aggregates them
+# ---------------------------------------------------------------------------
+
+# the kernel libraries each serve endpoint's scorer launches on the card
+_SERVE_KERNELS = {"backtest": ("decile_partial_sums",)}
+
+
+def _dt(profile: str, dtype):
+    """The profile's default float type (f32 for the card's bench
+    profile, f64 otherwise), overridable."""
+    if dtype is not None:
+        return np.dtype(dtype)
+    return np.dtype(np.float32 if profile == "bench-gpu" else np.float64)
+
+
+def _manifest_mod():
+    from csmom_tpu_torch.compile import manifest as m
+
+    return m
+
+
+def _grid_manifest(profile: str, dtype) -> list:
+    from csmom_tpu_torch.compile import workloads as wl
+
+    m = _manifest_mod()
+    dt = _dt(profile, dtype)
+    A_r, T_r = wl.REDUCED_GRID
+    A_f, T_f = wl.NORTH_STAR_GRID
+    if profile == "bench-cpu":
+        M_r, M_f = m.months_of(T_r), m.months_of(T_f)
+        entries = m.grid_entries(
+            A_r, M_r, dt, tag=f"{A_r}x{M_r}",
+            modes_impls=[("rank", "plain"), ("qcut", "plain"),
+                         ("rank", "matmul")])
+        entries += m.grid_entries(
+            A_f, M_f, dt, tag=f"{A_f}x{M_f}",
+            modes_impls=[("rank", "plain"), ("rank", "matmul")])
+        return entries
+    if profile == "bench-gpu":
+        M_f = m.months_of(T_f)
+        return m.grid_entries(
+            A_f, M_f, dt, tag=f"{A_f}x{M_f}",
+            modes_impls=[("rank", "plain"), ("qcut", "plain"),
+                         ("rank", "matmul"), ("rank", "matmul_bf16"),
+                         ("rank", "kernel")])
+    # smoke: tiny shapes, the grid's code path
+    return m.grid_entries(16, 48, dt, tag="16x48",
+                          modes_impls=[("rank", "plain")])
+
+
+def _grid_net_manifest(profile: str, dtype) -> list:
+    from csmom_tpu_torch.compile import workloads as wl
+
+    m = _manifest_mod()
+    dt = _dt(profile, dtype)
+    if profile == "bench-cpu":
+        A, T = wl.REDUCED_GRID
+    elif profile == "bench-gpu":
+        A, T = wl.NORTH_STAR_GRID
+    else:  # smoke
+        return [m.grid_net_entry(16, 48, dt, tag="16x48")]
+    M = m.months_of(T)
+    return [m.grid_net_entry(A, M, dt, tag=f"{A}x{M}")]
+
+
+def _monthly_manifest(profile: str, dtype) -> list:
+    m = _manifest_mod()
+    dt = _dt(profile, dtype)
+    if profile == "golden":
+        A, M = 20, 60  # the 20-ticker demo universe, ~5y of months
+    else:  # smoke
+        A, M = 8, 24
+    return m.monthly_entries(A, M, dt, tag=f"{A}x{M}")
+
+
+def _event_manifest(profile: str, dtype) -> list:
+    # the golden-shape event entries depend on the data and resolve via
+    # manifest.golden_event_entries; the smoke profile pins tiny shapes
+    return _manifest_mod().event_entries(4, 32, _dt(profile, dtype),
+                                         tag="4x32")
+
+
+def _histrank_manifest(profile: str, dtype) -> list:
+    m = _manifest_mod()
+    if profile == "golden":
+        return [m.histrank_entry(4096, 120, np.float32, tag="4096x120")]
+    return [m.histrank_entry(32, 6, np.float32, tag="32x6")]
+
+
+def _online_ridge_manifest(profile: str, dtype) -> list:
+    m = _manifest_mod()
+    dt = _dt(profile, dtype)
+    if profile == "golden":
+        return [m.online_ridge_entry(64, 8, 4, dt, tag="64x8x4")]
+    return [m.online_ridge_entry(12, 3, 2, dt, tag="12x3x2")]
+
+
+def _grid_entry_factory(*args, **kwargs):
+    from csmom_tpu_torch.compile.entries import grid_scalar_fn
+
+    return grid_scalar_fn(*args, **kwargs)
+
+
+def _batched_event_factory(*args, **kwargs):
+    from csmom_tpu_torch.compile.entries import batched_event_fn
+
+    return batched_event_fn(*args, **kwargs)
+
+
+def _histrank_factory(*args, **kwargs):
+    from csmom_tpu_torch.compile.entries import histrank_labels_fn
+
+    return histrank_labels_fn(*args, **kwargs)
+
+
+REGISTRY.register(EngineSpec(
+    name="grid.jk", kind="compile",
+    description="the J x K grid backtest hot entry (the whole grid summed "
+                "to one scalar; the benchmarks' grid legs)",
+    axes="prices f[A,M], mask bool[A,M] -> scalar",
+    profiles=("bench-cpu", "bench-gpu", "smoke"),
+    manifest_fn=_grid_manifest,
+    entry_fn=_grid_entry_factory,
+))
+
+REGISTRY.register(EngineSpec(
+    name="grid.net_core", kind="compile",
+    description="the --tc-bps netting pass over a precomputed grid",
+    axes="prices f[A,M] + per-cell label planes -> net grid",
+    profiles=("bench-cpu", "bench-gpu", "smoke"),
+    manifest_fn=_grid_net_manifest,
+))
+
+REGISTRY.register(EngineSpec(
+    name="monthly.kernels", kind="compile",
+    description="the three monthly engines (spread, sector-neutral, "
+                "net-of-costs) at the golden panel",
+    axes="prices f[A,M], mask bool[A,M]",
+    profiles=("golden", "smoke"),
+    manifest_fn=_monthly_manifest,
+))
+
+REGISTRY.register(EngineSpec(
+    name="event.panel", kind="compile",
+    description="the event panel engines (threshold, hysteresis) and the "
+                "batched event leg",
+    axes="price/valid/score f[A,T] minute panels",
+    profiles=("smoke",),
+    manifest_fn=_event_manifest,
+    entry_fn=_batched_event_factory,
+))
+
+REGISTRY.register(EngineSpec(
+    name="parallel.histrank", kind="compile",
+    description="sort-free histogram-rank decile labels (single device)",
+    axes="x f[A,M], valid bool[A,M] -> labels i32[A,M]",
+    profiles=("golden", "smoke"),
+    manifest_fn=_histrank_manifest,
+    entry_fn=_histrank_factory,
+))
+
+REGISTRY.register(EngineSpec(
+    name="parallel.online_ridge", kind="compile",
+    description="the online-ridge scan on one device, row-major",
+    axes="X f[R,A,F], y f[R,A], w f[R,A]",
+    profiles=("golden", "smoke"),
+    manifest_fn=_online_ridge_manifest,
+))
+
+
+def serve_profile_entries(profile: str, dtype=None) -> list:
+    """Every servable engine's scorer at every (endpoint, batch, assets)
+    bucket shape of the profile, with the service's signal parameters:
+    what ``TorchEngine.warm`` scores."""
+    from csmom_tpu_torch.compile.manifest import ManifestEntry, sds
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.service import ServeConfig
+
+    spec = bucket_spec(profile)
+    dt = np.dtype(dtype or spec.dtype)
+    cfg = ServeConfig()  # the single source of the service's signal params
+    params = dict(lookback=cfg.lookback, skip=cfg.skip, n_bins=cfg.n_bins,
+                  mode=cfg.mode)
+    out = []
+    for kind in REGISTRY.serve_endpoints():
+        fn = REGISTRY.serve_surface(kind).batch_fn(params)
+        for B, A, M in spec.shapes():
+            out.append(ManifestEntry(
+                name=f"serve.{kind}.b{B}@{A}x{M}",
+                fn=fn,
+                args=(sds((B, A, M), dt), sds((B, A, M), bool)),
+                kernels=_SERVE_KERNELS.get(kind, ()),
+            ))
+    return out
+
+
+def serve_profile_entry_names(profile: str) -> set:
+    """The entry names of :func:`serve_profile_entries`, from the bucket
+    geometry and the serve endpoints alone (torch-free)."""
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+
+    spec = bucket_spec(profile)
+    return {f"serve.{kind}.b{B}@{A}x{M}"
+            for kind in REGISTRY.serve_endpoints()
+            for B, A, M in spec.shapes()}
+
+
+def _stream_manifest(profile: str, dtype=None) -> list:
+    """The replay's reconciliation engines (momentum and turnover) at the
+    canonical replay panel shapes."""
+    from csmom_tpu_torch.compile.manifest import ManifestEntry, sds
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.signals.momentum import momentum
+    from csmom_tpu_torch.signals.turnover import turnover_features
+    from csmom_tpu_torch.stream.replay import (
+        REPLAY_BARS,
+        REPLAY_SMOKE_BARS,
+        ReplayConfig,
+    )
+
+    smoke = profile == "stream-smoke"
+    spec = bucket_spec("serve-smoke" if smoke else "serve")
+    bars = REPLAY_SMOKE_BARS if smoke else REPLAY_BARS
+    cfg = ReplayConfig()  # the single source of the replay signal params
+    dt = np.dtype(dtype or cfg.dtype)
+    out = []
+    for A in spec.asset_buckets:
+        p = sds((A, bars), dt)
+        m = sds((A, bars), bool)
+        out.append(ManifestEntry(
+            name=f"stream.momentum@{A}x{bars}",
+            fn=momentum, args=(p, m),
+            kwargs=dict(lookback=cfg.lookback, skip=cfg.skip),
+        ))
+        out.append(ManifestEntry(
+            name=f"stream.turn_avg@{A}x{bars}",
+            fn=turnover_features,
+            args=(p, m, sds((A,), dt)),
+            kwargs=dict(lookback=cfg.turn_lookback),
+        ))
+    return out
+
+
+REGISTRY.register(EngineSpec(
+    name="serve.buckets", kind="compile",
+    description="the serving tier's closed shape world: every "
+                "(endpoint, batch, assets) bucket shape, generated from "
+                "the registry's serve endpoints at call time",
+    axes="values f[B,A,M], mask bool[B,A,M] per endpoint",
+    profiles=("serve", "serve-smoke"),
+    manifest_fn=serve_profile_entries,
+    manifest_names_fn=serve_profile_entry_names,
+))
+
+REGISTRY.register(EngineSpec(
+    name="stream.signals", kind="compile",
+    description="the replay's reconciliation engines (momentum and "
+                "turnover at the canonical replay shapes)",
+    axes="prices/volumes f[A,bars], mask bool[A,bars]",
+    profiles=("stream", "stream-smoke"),
+    manifest_fn=_stream_manifest,
 ))

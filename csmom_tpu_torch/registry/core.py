@@ -15,13 +15,17 @@ What differs from the reference:
   tensors' device, where the reference's returns one request's scorer
   for ``jax.vmap`` (torch has no ``vmap`` through the hand-written
   kernels; see :mod:`csmom_tpu_torch.registry.builtin`);
-- ``serve`` is the only kind: ``compile`` and ``lint`` (warm-up
-  manifests, lint rules) are not ported yet (ROADMAP.md, Queue 1 item 8)
-  and raise, and ``strategy`` raises too, because the port's strategies
-  register with :func:`csmom_tpu_torch.strategy.base.register_strategy`;
+- the kinds are ``serve`` and ``compile`` (warm-up engines: each
+  declares the profiles it feeds and its manifest entries there, which
+  ``python -m csmom_tpu_torch.cli warmup`` runs); ``lint`` (lint rules)
+  is not ported yet (ROADMAP.md, Queue 1 item 8d) and raises, and
+  ``strategy`` raises too, because the port's strategies register with
+  :func:`csmom_tpu_torch.strategy.base.register_strategy`;
 - :meth:`EngineSpec.donated` raises: torch has no buffer donation
   (ROADMAP.md, known difference 12); :meth:`EngineSpec.sharded` raises
-  until the multi-GPU layer exists (Queue 1 item 7).
+  until the multi-GPU layer exists (Queue 1 item 7);
+- the reference's profile ``bench-tpu`` is the port's ``bench-gpu``
+  (:data:`PROFILE_ALIASES`), and its mesh profiles raise until item 7.
 
 Stdlib-only, so the artifact validator can read endpoint names without
 importing torch.  The builtin registrations live in
@@ -37,18 +41,19 @@ from typing import Callable
 __all__ = [
     "EngineRegistry",
     "EngineSpec",
+    "MESH_PROFILES",
+    "PROFILE_ALIASES",
     "REGISTRY",
     "ServeSurface",
+    "canonical_profile",
     "register_engine",
 ]
 
-KINDS = ("serve",)
+KINDS = ("serve", "compile")
 # the reference's other kinds, and where each is (or will be) served
 _OTHER_KINDS = {
-    "compile": "compile engines (warm-up manifests) are not ported yet "
-               "(ROADMAP.md, Queue 1 item 8)",
     "lint": "lint engines (lint rules) are not ported yet (ROADMAP.md, "
-            "Queue 1 item 8)",
+            "Queue 1 item 8d)",
     "strategy": "strategies register with "
                 "csmom_tpu_torch.strategy.base.register_strategy",
 }
@@ -84,13 +89,37 @@ class ServeSurface:
             raise ValueError("a summary endpoint must name its fields")
 
 
+# the reference's profile names the port runs under its own name
+PROFILE_ALIASES = {"bench-tpu": "bench-gpu"}
+# the reference's mesh profiles: they need the multi-GPU layer
+MESH_PROFILES = ("serve-mesh", "serve-mesh-smoke", "bench-mesh")
+
+
+def canonical_profile(profile: str) -> str:
+    """The port's name of a warm-up profile (``bench-tpu`` ->
+    ``bench-gpu``); a mesh profile raises, naming ROADMAP.md item 7."""
+    if profile in MESH_PROFILES:
+        raise NotImplementedError(
+            f"warm-up profile {profile!r} warms the sharded engines, which "
+            "need the multi-GPU layer the port does not have yet (ROADMAP.md, "
+            "Queue 1 item 7)")
+    return PROFILE_ALIASES.get(profile, profile)
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """One registered serve engine (a request-path endpoint).
+    """One registered engine.
 
-    ``kind`` is ``"serve"`` and ``serve``, the :class:`ServeSurface`, is
-    required.  ``workload=False`` keeps the engine out of the load
-    generator's default mix.
+    ``kind``:
+
+    - ``"serve"``: a request-path endpoint; ``serve``, the
+      :class:`ServeSurface`, is required.  ``workload=False`` keeps the
+      engine out of the load generator's default mix.
+    - ``"compile"``: a warm-up engine; ``manifest_fn(profile, dtype) ->
+      [ManifestEntry]`` declares its entries for each profile in
+      ``profiles``, ``manifest_names_fn(profile) -> set[str]`` their names
+      without building them (optional), and ``entry_fn`` is the shared
+      entry factory (:func:`csmom_tpu_torch.registry.entry_factory`).
     """
 
     name: str
@@ -98,6 +127,10 @@ class EngineSpec:
     description: str = ""
     dtype: str | None = None        # canonical compute dtype, when fixed
     axes: str | None = None         # axis semantics, e.g. "f[B,A,M] panels"
+    profiles: tuple = ()            # warm-up profiles this engine feeds
+    manifest_fn: Callable | None = None
+    manifest_names_fn: Callable | None = None
+    entry_fn: Callable | None = None
     serve: ServeSurface | None = None
     workload: bool = True           # serve engines default into loadgen
 
@@ -108,9 +141,12 @@ class EngineSpec:
         if self.kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got "
                              f"{self.kind!r}")
-        if self.serve is None:
+        if self.kind == "serve" and self.serve is None:
             raise ValueError(f"serve engine {self.name!r} needs a "
                              "ServeSurface")
+        if self.kind == "compile" and self.manifest_fn is None:
+            raise ValueError(f"compile engine {self.name!r} needs a "
+                             "manifest_fn")
 
     def donated(self, **params):
         """The reference's donated-buffer variant: torch has no buffer
@@ -128,44 +164,48 @@ class EngineSpec:
 
 
 class EngineRegistry:
-    """Ordered, thread-safe name -> :class:`EngineSpec` table.
-
-    ``kind`` arguments are kept for the reference's call signatures; the
-    only kind is ``"serve"``.
-    """
+    """Ordered, thread-safe ``(kind, name)`` -> :class:`EngineSpec`
+    table: a name is unique within its kind."""
 
     def __init__(self):
-        self._specs: dict[str, EngineSpec] = {}
+        self._specs: dict[tuple, EngineSpec] = {}
         self._lock = threading.Lock()
 
     def register(self, spec: EngineSpec, replace: bool = False) -> EngineSpec:
+        key = (spec.kind, spec.name)
         with self._lock:
-            if not replace and spec.name in self._specs \
-                    and self._specs[spec.name] != spec:
+            if not replace and key in self._specs \
+                    and self._specs[key] != spec:
                 raise ValueError(
                     f"{spec.kind} engine {spec.name!r} is already "
                     "registered; pass replace=True to overwrite "
                     "deliberately")
-            self._specs[spec.name] = spec
+            self._specs[key] = spec
         return spec
 
     def unregister(self, name: str, kind: str | None = None) -> None:
         with self._lock:
-            if kind is None or kind in KINDS:
-                self._specs.pop(name, None)
+            for key in [k for k in self._specs
+                        if k[1] == name and (kind is None or k[0] == kind)]:
+                self._specs.pop(key, None)
 
     def get(self, name: str, kind: str | None = None) -> EngineSpec:
         with self._lock:
-            spec = self._specs.get(name)
-        if spec is None or (kind is not None and kind != spec.kind):
+            matches = [s for k, s in self._specs.items() if k[1] == name
+                       and (kind is None or k[0] == kind)]
+        if not matches:
             raise KeyError(
                 f"unknown {kind or 'serve'} engine {name!r}; registered: "
-                f"{self.names()}")
-        return spec
+                f"{self.names(kind)}")
+        if len(matches) > 1:
+            raise KeyError(
+                f"engine name {name!r} exists in several kinds "
+                f"({sorted(s.kind for s in matches)}); pass kind=")
+        return matches[0]
 
     def __contains__(self, name: str) -> bool:
         with self._lock:
-            return name in self._specs
+            return any(k[1] == name for k in self._specs)
 
     def specs(self, kind: str | None = None) -> tuple:
         """Registered specs in registration order (optionally one kind),
@@ -188,6 +228,40 @@ class EngineRegistry:
         """The loadgen endpoint mix: every servable engine that opted
         into the synthetic workload."""
         return tuple(s.name for s in self.specs("serve") if s.workload)
+
+    def manifest_profiles(self) -> tuple:
+        """Every warm-up profile any engine feeds, registration-ordered."""
+        out: list = []
+        for s in self.specs():
+            for p in s.profiles:
+                if p not in out:
+                    out.append(p)
+        return tuple(out)
+
+    def manifest_entry_names(self, profile: str) -> set:
+        """The entry names the profile's engines declare without building
+        their entries (empty for a profile whose engines declare none)."""
+        profile = canonical_profile(profile)
+        out: set = set()
+        for spec in self.specs():
+            if profile in spec.profiles and spec.manifest_names_fn:
+                out |= set(spec.manifest_names_fn(profile))
+        return out
+
+    def manifest_entries(self, profile: str, dtype=None) -> list:
+        """The profile's manifest, aggregated across every engine that
+        feeds it, in registration order (``bench-tpu`` reads as
+        ``bench-gpu``; a mesh profile raises naming item 7)."""
+        profile = canonical_profile(profile)
+        if profile not in self.manifest_profiles():
+            raise ValueError(
+                f"unknown warmup profile {profile!r}: use one of "
+                f"{self.manifest_profiles()}")
+        entries: list = []
+        for spec in self.specs():
+            if profile in spec.profiles:
+                entries += spec.manifest_fn(profile, dtype)
+        return entries
 
 
 # the process-wide registry; builtins attach on the first query
@@ -212,7 +286,8 @@ def ensure_builtin() -> EngineRegistry:
 def register_engine(spec: EngineSpec | None = None, *, replace: bool = False,
                     **fields) -> EngineSpec:
     """Register one engine (a built ``EngineSpec`` or its fields); a serve
-    engine registered here warms, serves and joins the loadgen mix."""
+    engine registered here warms, serves and joins the loadgen mix, a
+    compile engine joins the warm-up manifests of its profiles."""
     if spec is None:
         spec = EngineSpec(**fields)
     ensure_builtin()

@@ -3,6 +3,7 @@ no file of csmom_tpu read by it either, its native build in its own build
 directory, and no silent CPU fallback when no card is present."""
 
 import ast
+import importlib
 import json
 import os
 import re
@@ -43,6 +44,10 @@ def _forbidden(module):
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 15
+    assert {os.path.basename(f) for f in files
+            if os.sep + "examples" + os.sep in f} >= {
+        "north_star_grid.py", "pack_at_scale.py", "replicate_reference.py",
+        "strategy_zoo.py", "cost_frontier.py", "causal_scoring.py"}
     bad = [(os.path.relpath(f, _REPO), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -247,6 +252,13 @@ def test_entry_points_raise_without_a_card():
     from csmom_tpu_torch.serve.service import ServeConfig, SignalService
     from csmom_tpu_torch.stream.replay import ReplayConfig, run_replay
     from csmom_tpu_torch.workloads import month_panel
+    from csmom_tpu_torch.compile.aot import warmup
+    from csmom_tpu_torch.compile.workloads import grid_month_inputs
+
+    examples = [importlib.import_module(f"csmom_tpu_torch.examples.{n}")
+                for n in ("north_star_grid", "pack_at_scale",
+                          "replicate_reference", "strategy_zoo",
+                          "cost_frontier", "causal_scoring")]
 
     panel = Panel(values=np.ones((3, 4)), mask=np.ones((3, 4), bool),
                   tickers=("a", "b", "c"), times=np.arange(4).astype("datetime64[D]"))
@@ -263,7 +275,10 @@ def test_entry_points_raise_without_a_card():
                  lambda: OnlineRidgeFit.from_numpy(coef=np.zeros(2)),
                  lambda: TorchEngine(), lambda: make_engine("torch"),
                  lambda: SignalService(ServeConfig(engine="torch")),
-                 lambda: run_replay(ReplayConfig(engine="torch"))):
+                 lambda: run_replay(ReplayConfig(engine="torch")),
+                 lambda: warmup(("smoke",), write_report=False),
+                 lambda: grid_month_inputs(3, 40, torch.float32),
+                 *(lambda m=m: m.main([]) for m in examples)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,7 +1,7 @@
 """The port's ``registry list`` against ``csmom registry list``: the same
-endpoint names, the same strategy zoo, and the kinds the port does not
-have yet (``compile``, ``lint``) refused with exit 2 naming their
-ROADMAP.md items."""
+endpoint names, the same strategy zoo, the compile engines (item 8a,
+ported), and the kind the port does not have yet (``lint``) refused with
+exit 2 naming its ROADMAP.md item."""
 
 import argparse
 
@@ -40,13 +40,29 @@ def _section(text, kind):
     return lines[start], names
 
 
+def _reference_builtin_section(text, kind):
+    """The reference's section without the plugins that other tests of
+    the same process register in its global strategy zoo (the reference's
+    own tests leave theirs registered): its builtin engines only."""
+    from csmom_tpu import registry as ref_registry
+
+    head, names = _section(text, kind)
+    if kind != "strategy":
+        return head, names
+    builtin = {n for n, cls in ref_registry.strategies().items()
+               if cls.__module__ == "csmom_tpu.strategy.builtin"}
+    names = [n for n in names if n in builtin]
+    return f"{kind} ({len(names)}):", names
+
+
 @pytest.mark.parametrize("kind", ["serve", "strategy"])
 def test_list_names_the_references_engines_of_each_kind(kind, capsys):
     assert main(["registry", "list", "--kind", kind]) == 0
     port = capsys.readouterr().out
     rc, ref = _ref(capsys, kind=kind)
     assert rc == 0
-    assert _section(port, kind) == _section(ref, kind)
+    assert _section(port, kind) == _reference_builtin_section(ref, kind)
+    assert len(_section(port, kind)[1]) == {"serve": 5, "strategy": 8}[kind]
     if kind == "serve":
         rows = [ln.split() for ln in port.splitlines()[1:11:2]]
         assert [r[1:] for r in rows] == [["serve", "loadgen"]] * 5
@@ -57,12 +73,20 @@ def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
     full = capsys.readouterr().out
     assert main(["registry", "list", "--terse"]) == 0
     terse = capsys.readouterr().out
-    assert "serve (5):" in full and "strategy (8):" in full
-    assert "13 engines registered" in full
-    assert len(terse.splitlines()) == len(full.splitlines()) - 13
+    assert "serve (5):" in full and "compile (8):" in full
+    assert "strategy (8):" in full
+    assert "21 engines registered" in full
+    assert len(terse.splitlines()) == len(full.splitlines()) - 21
 
 
-@pytest.mark.parametrize("kind,item", [("compile", "8a"), ("lint", "8d")])
+def test_compile_kind_lists_its_engines(capsys):
+    """Kind ``compile`` (item 8a) is ported: it lists the eight engines."""
+    assert main(["registry", "list", "--kind", "compile"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("compile (8):") and "grid.jk" in out
+
+
+@pytest.mark.parametrize("kind,item", [("lint", "8d")])
 def test_unported_kinds_exit_2_naming_their_item(kind, item, capsys):
     assert main(["registry", "list", "--kind", kind]) == 2
     err = capsys.readouterr().err

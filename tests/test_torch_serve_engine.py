@@ -144,7 +144,9 @@ def test_registry_refuses_what_is_not_ported():
         spec.donated()
     with pytest.raises(NotImplementedError, match="item 7"):
         spec.sharded()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        EngineSpec(name="x", kind="lint")
+    with pytest.raises(ValueError, match="manifest_fn"):
         EngineSpec(name="x", kind="compile")
     with pytest.raises(NotImplementedError, match="register_strategy"):
         EngineSpec(name="x", kind="strategy")
