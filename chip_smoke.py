@@ -79,7 +79,8 @@ any phase fails (nothing is caught).  Phases:
    ``intraday_launches``, ``serve_launches``, ``pool_launches``,
    ``fabric_launches``, ``fleet_launches``, ``trace_launches`` and
    ``replay_launches`` the counts of phases 6, 7, 8, 9, 11, 12, 13, 14
-   and 15, ``warmup_launches`` and ``examples_launches`` phase 16's
+   and 15, ``warmup_launches`` and ``examples_launches`` phase 16's,
+   ``mesh_launches`` phase 17's
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -206,6 +207,26 @@ any phase fails (nothing is caught).  Phases:
    on both: the data is not the reference's); launch counts read around
    (d)-(e); the kernels line gains ``warmup_launches`` and
    ``examples_launches``;
+17. the multi-GPU compute layer (run after phase 16; no profiler trace),
+   every mesh made of logical shards of ``cuda:0`` (one thread a shard,
+   :mod:`csmom_tpu_torch.parallel`): (a) the sharded monthly engine (qcut,
+   J=12, f32, the north star) at 1, 2, 4 and 8 asset shards; (b) the
+   sharded 16-cell grid at ``impl="kernel"`` in rank and in qcut on
+   ``(grid=1, assets=8)`` and ``(grid=2, assets=4)`` meshes, and
+   ``rank_hist`` on 4 asset shards; (c) the sharded banded engine and
+   the sharded bootstrap on 4 shards; (d) the golden event inputs (f64)
+   through the asset-sharded engine (market and limit) on 4 shards and
+   the time-sharded event and hysteresis engines on ``(time=4)`` and
+   ``(assets=2, time=2)`` meshes at latency 0 and 3, and the time-sharded
+   online ridge in f64 on 4 shards; (e) ``warmup --profiles bench-mesh
+   --strict`` in a process of its own.  Each is held against the
+   single-device engine on the card (f32 validity and counts exact,
+   spreads within ``SPREAD_ATOL``; the event engines' integer state
+   exact, floats within the JAX package's own limits); K1 launches once
+   per asset shard and K2 once per (grid, asset) shard pair; each item's
+   synchronized walls by shard count on a ``[mesh]`` line (logical shards
+   of one card, not speed across cards); the kernels line gains
+   ``mesh_launches``;
 then the card's name line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -3843,22 +3864,23 @@ def run_example(name: str, argv: list):
     return buf.getvalue(), err, time.perf_counter() - t0
 
 
-def run_warmup(cwd: str, tmpdir: str) -> tuple:
-    """``warmup --profiles WARM_PROFILES --strict`` in a process of its own
+def run_warmup(cwd: str, tmpdir: str, profiles: str = WARM_PROFILES,
+               subdir: str = WARM_SUBDIR) -> tuple:
+    """``warmup --profiles PROFILES --strict`` in a process of its own
     whose package is the one under ``cwd`` (its kernel libraries in
     ``cwd/build/csmom_tpu_torch``): ``(report, stdout, wall s)``."""
     env = {**os.environ, "PYTHONPATH": cwd, "TMPDIR": tmpdir}
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", "warmup",
-                        "--profiles", WARM_PROFILES, "--strict",
-                        "--cache-subdir", WARM_SUBDIR],
+                        "--profiles", profiles, "--strict",
+                        "--cache-subdir", subdir],
                        cwd=cwd, env=env, capture_output=True, text=True,
                        timeout=600)
     wall = time.perf_counter() - t0
     if p.returncode != 0:
         raise AssertionError(f"warmup in {cwd} exited {p.returncode}:\n"
                              f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
-    path = os.path.join(cwd, "build", "csmom_tpu_torch", "warmup", WARM_SUBDIR,
+    path = os.path.join(cwd, "build", "csmom_tpu_torch", "warmup", subdir,
                         "warmup_report.json")
     with open(path) as f:
         return json.load(f), p.stdout, wall
@@ -4108,6 +4130,314 @@ def warmup_phase(smi, assert_sums) -> dict:
                    example_north_star_grid_ms=wall_ms)
     out["wall_s"] = time.perf_counter() - t_phase
     return out
+
+
+# phase 17: the multi-GPU compute layer as logical shards of the one card
+MESH_SHARDS = (1, 2, 4, 8)
+MESH_REPS = 3            # timed calls after the checked one (median)
+MESH_RIDGE_ROWS = 480    # the golden frame's first rows: the walk is serial
+MESH_BOOT_SAMPLES = 1000
+MESH_SUBDIR = "mesh"
+# the JAX package's own limits between its sharded and single-device
+# event engines (tests/test_sequence_parallel.py) and online ridge
+# (tests/test_online_ridge_sharded.py), f64.  Its 1e-12 on cash and
+# portfolio value is relative to values that stay near the starting
+# cash there; the golden inputs' cash passes near 0, so here the 1e-12
+# is taken against the magnitudes the reordered sums add (the starting
+# cash, the gross notional traded and the largest marked book)
+EVENT_PNL_TOL = dict(rtol=1e-9, atol=1e-7)
+EVENT_FLOAT_RTOL = 1e-12
+EVENT_CASH0, EVENT_SIZE = 1_000_000.0, 50
+_MESH_ENTRY = re.compile(r"\.g(\d+)a(\d+)$")
+
+
+def hold_event(got, want, what: str, T0=None) -> None:
+    """A sharded event result against the single-device one: integer
+    state equal, floats within the JAX package's own limits; ``T0`` cuts
+    padded minutes."""
+    import torch
+
+    def cut(x):
+        return x[..., :T0] if T0 is not None else x
+
+    for f in ("positions", "trade_side", "bar_mask"):
+        if not torch.equal(cut(getattr(got, f)), getattr(want, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    for f in ("n_trades", "n_buys", "n_sells"):
+        if int(getattr(got, f)) != int(getattr(want, f)):
+            raise AssertionError(f"{what}: {f} {int(getattr(got, f))} != "
+                                 f"{int(getattr(want, f))}")
+    torch.testing.assert_close(cut(got.pnl), want.pnl, **EVENT_PNL_TOL, msg=what)
+    gross = EVENT_SIZE * float((want.exec_price.abs() * want.trade_side.abs()).sum())
+    scale = {"cash": EVENT_CASH0 + gross}
+    scale["portfolio_value"] = scale["cash"] + float(
+        (want.portfolio_value - want.cash).abs().max())
+    for f, sc in scale.items():
+        torch.testing.assert_close(cut(getattr(got, f)), getattr(want, f), rtol=0,
+                                   atol=EVENT_FLOAT_RTOL * sc, msg=f"{what}: {f}")
+    for f in ("exec_price", "impact"):
+        torch.testing.assert_close(cut(getattr(got, f)) if f == "exec_price"
+                                   else got.impact, getattr(want, f),
+                                   rtol=EVENT_FLOAT_RTOL, atol=0, msg=f"{what}: {f}")
+    for f in ("total_pnl", "net_notional"):
+        if abs(float(getattr(got, f)) - float(getattr(want, f))) >= 1e-6:
+            raise AssertionError(f"{what}: {f}")
+
+
+def mesh_phase(smi, pm, mm, mres, grids) -> dict:
+    """Phase 17: the sharded engines on logical shards of ``cuda:0`` at
+    the north star (``pm``/``mm`` f32 with phase 5's single-device monthly
+    ``mres`` and ``grids``), the event engines and the online ridge in
+    f64, and the ``bench-mesh`` warm-up.  Returns the launches of (a)-(d),
+    the walls by item and shard count, and the phase's wall."""
+    import statistics
+
+    import torch
+
+    from csmom_tpu_torch import random
+    from csmom_tpu_torch.analytics.bootstrap import block_bootstrap
+    from csmom_tpu_torch.backtest.banded import banded_monthly_backtest
+    from csmom_tpu_torch.backtest.event import event_backtest, hysteresis_event_backtest
+    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
+    from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
+    from csmom_tpu_torch.config import RunConfig
+    from csmom_tpu_torch.models import online_ridge_scores
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.parallel import (
+        sharded_banded_backtest, sharded_block_bootstrap, sharded_event_backtest,
+        sharded_jk_grid_backtest, sharded_monthly_spread_backtest,
+        time_sharded_event_backtest, time_sharded_hysteresis_backtest,
+        time_sharded_online_ridge_scores,
+    )
+    from csmom_tpu_torch.parallel.event import sharded_hysteresis_backtest
+    from csmom_tpu_torch.parallel.event_time import pad_time
+    from csmom_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from csmom_tpu_torch.signals.intraday import (
+        compact_minutes, minute_features, next_row_return,
+    )
+    from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP, golden_event_inputs
+
+    t_phase = time.perf_counter()
+    dev = pm.device
+    total = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    walls = {}
+
+    def mesh(n, g=1, names=("grid", "assets")):
+        return make_mesh([dev] * n, grid_axis=g, axis_names=names)
+
+    def median_ms(fn, reps=MESH_REPS):
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    def checked(fn, want_k1, want_k2, what):
+        """One call with its launches counted, then ``MESH_REPS`` timed
+        ones: ``(result, median synchronized wall ms)``."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = (kernels.decile_partial_sums.launches,
+               kernels.cohort_partial_sums.launches)
+        if got != (want_k1, want_k2):
+            raise AssertionError(f"{what}: launches K1 {got[0]}, K2 {got[1]}; "
+                                 f"want {want_k1}, {want_k2}")
+        total["decile_partial_sums"] += got[0]
+        total["cohort_partial_sums"] += got[1]
+        return out, median_ms(fn)
+
+    def hold_spread(spread, valid, want, want_valid, what):
+        if not torch.equal(valid, want_valid):
+            raise AssertionError(f"{what}: validity differs")
+        err = (spread - want).abs()[valid].max().item() if bool(valid.any()) else 0.0
+        if not err <= SPREAD_ATOL:
+            raise AssertionError(f"{what}: spread error {err} over {SPREAD_ATOL}")
+        return err
+
+    # -- (a) the monthly engine at 1, 2, 4, 8 asset shards ------------------
+    w = {"single": median_ms(lambda: monthly_spread_backtest(
+        pm, mm, lookback=12, skip=1, mode="qcut"))}
+    errs = {}
+    for n in MESH_SHARDS:
+        (spread, valid, *_), w[n] = checked(
+            lambda n=n: sharded_monthly_spread_backtest(pm, mm, mesh(n), lookback=12,
+                                                        skip=1, mode="qcut"),
+            n, 0, f"mesh (a) {n} shards")
+        errs[n] = hold_spread(spread, valid, mres.spread, mres.spread_valid,
+                              f"mesh (a) {n} shards")
+    walls["monthly_qcut_J12"] = w
+    log("mesh", f"(a) sharded monthly, qcut J=12, {tuple(pm.shape)} f32: K1 once a "
+                f"shard; max |spread - single| {errs}; walls ms (median of "
+                f"{MESH_REPS}; logical shards of one card) {json.dumps(w)} | {smi}")
+
+    # -- (b) the 16-cell grid at impl kernel, and rank_hist -----------------
+    w, errs = {}, {}
+    for mode in ("rank", "qcut"):
+        w[f"single_{mode}"] = median_ms(lambda mode=mode: jk_grid_backtest(
+            pm, mm, GRID_JS, GRID_KS, skip=GRID_SKIP, mode=mode))
+        for g, a in ((1, 8), (2, 4)):
+            res, w[f"{mode}_g{g}a{a}"] = checked(
+                lambda g=g, a=a, mode=mode: sharded_jk_grid_backtest(
+                    pm, mm, GRID_JS, GRID_KS, mesh(g * a, g), skip=GRID_SKIP,
+                    mode=mode, impl="kernel"),
+                0, g * a, f"mesh (b) {mode} {g}x{a}")
+            errs[f"{mode}_g{g}a{a}"] = hold_spread(
+                res.spreads, res.spread_valid, grids[mode].spreads,
+                grids[mode].spread_valid, f"mesh (b) {mode} {g}x{a}")
+    res, w["rank_hist_a4"] = checked(
+        lambda: sharded_jk_grid_backtest(pm, mm, GRID_JS, GRID_KS, mesh(4),
+                                         skip=GRID_SKIP, mode="rank_hist",
+                                         impl="kernel"),
+        0, 4, "mesh (b) rank_hist 4")
+    errs["rank_hist_a4"] = hold_spread(res.spreads, res.spread_valid,
+                                       grids["rank"].spreads,
+                                       grids["rank"].spread_valid,
+                                       "mesh (b) rank_hist 4")
+    walls["grid16"] = w
+    log("mesh", f"(b) sharded 16-cell grid, impl kernel, f32: K2 once a (grid, "
+                f"asset) shard pair; max |spread - single| {errs}; walls ms "
+                f"(median of {MESH_REPS}; logical shards of one card) "
+                f"{json.dumps(w)} | {smi}")
+
+    # -- (c) the banded engine and the bootstrap on 4 shards ----------------
+    w = {}
+    band = banded_monthly_backtest(pm, mm, lookback=12, skip=1, mode="qcut", band=1)
+    w["banded_single"] = median_ms(lambda: banded_monthly_backtest(
+        pm, mm, lookback=12, skip=1, mode="qcut", band=1))
+    (spread, valid, *_), w["banded_4"] = checked(
+        lambda: sharded_banded_backtest(pm, mm, mesh(4), lookback=12, skip=1,
+                                        mode="qcut", band=1),
+        0, 0, "mesh (c) banded")
+    err_band = hold_spread(spread, valid, band.spread, band.spread_valid,
+                           "mesh (c) banded")
+    key = random.PRNGKey(0)
+    boot = block_bootstrap(mres.spread, mres.spread_valid, key,
+                           n_samples=MESH_BOOT_SAMPLES)
+    w["bootstrap_single"] = median_ms(lambda: block_bootstrap(
+        mres.spread, mres.spread_valid, key, n_samples=MESH_BOOT_SAMPLES))
+    sboot, w["bootstrap_4"] = checked(
+        lambda: sharded_block_bootstrap(mres.spread, mres.spread_valid, key,
+                                        mesh(4), n_samples=MESH_BOOT_SAMPLES),
+        0, 0, "mesh (c) bootstrap")
+    err_boot = 0.0
+    for f in ("mean_samples", "sharpe_samples", "mean_ci", "sharpe_ci"):
+        d = (getattr(sboot, f) - getattr(boot, f)).abs().max().item()
+        err_boot = max(err_boot, d)
+        if not d <= SPREAD_ATOL:
+            raise AssertionError(f"mesh (c) bootstrap: {f} off by {d}")
+    walls["banded_bootstrap"] = w
+    log("mesh", f"(c) sharded banded (band 1) and bootstrap ({MESH_BOOT_SAMPLES} "
+                f"resamples) on 4 shards: max |spread - single| {err_band}, max "
+                f"|bootstrap - single| {err_boot}; walls ms {json.dumps(w)} | {smi}")
+
+    # -- (d) the event engines and the online ridge, f64 ---------------------
+    w = {}
+    price, valid, score, adv, vol, _ = golden_event_inputs(torch.float64, device=dev)
+    A, T = price.shape
+    for order in ("market", "limit"):
+        kw = {"order_type": "limit", "fill_key": key} if order == "limit" else {}
+        want = event_backtest(price, valid, score, adv, vol, **kw)
+        w[f"single_{order}"] = median_ms(
+            lambda kw=kw: event_backtest(price, valid, score, adv, vol, **kw))
+        got, w[f"assets4_{order}"] = checked(
+            lambda kw=kw: sharded_event_backtest(price, valid, score, adv, vol,
+                                                 mesh(4), **kw),
+            0, 0, f"mesh (d) asset-sharded {order}")
+        hold_event(got, want, f"mesh (d) asset-sharded {order}")
+    hyst = dict(threshold_hi=1e-4, threshold_lo=2e-5)
+    got, w["assets4_hysteresis"] = checked(
+        lambda: sharded_hysteresis_backtest(price, valid, score, adv, vol, mesh(4),
+                                            **hyst),
+        0, 0, "mesh (d) asset-sharded hysteresis")
+    hold_event(got, hysteresis_event_backtest(price, valid, score, adv, vol, **hyst),
+               "mesh (d) asset-sharded hysteresis")
+    # the time axis in 4 blocks (padded with non-event minutes), and 2 x 2
+    pp, vp, sp, T0 = pad_time(*(x.cpu().numpy() for x in (price, valid, score)), 4)
+    padded = [torch.as_tensor(x, device=dev) for x in (pp, vp, sp)]
+    layouts = {"time4": (mesh(4, 1, ("assets", "time")), None, padded, T0),
+               "assets2_time2": (mesh(4, 2, ("assets", "time")), "assets",
+                                 [price, valid, score], None)}
+    for latency in (0, 3):
+        want = event_backtest(price, valid, score, adv, vol, latency_bars=latency)
+        for name, (m, axis, (p_, v_, s_), cut) in layouts.items():
+            got, w[f"{name}_lat{latency}"] = checked(
+                lambda m=m, axis=axis, p_=p_, v_=v_, s_=s_, latency=latency:
+                time_sharded_event_backtest(p_, v_, s_, adv, vol, m, asset_axis=axis,
+                                            latency_bars=latency),
+                0, 0, f"mesh (d) time-sharded {name} latency {latency}")
+            hold_event(got, want, f"mesh (d) time-sharded {name} latency {latency}",
+                       T0=cut)
+    want = hysteresis_event_backtest(price, valid, score, adv, vol, **hyst)
+    for name, (m, axis, (p_, v_, s_), cut) in layouts.items():
+        got, w[f"{name}_hysteresis"] = checked(
+            lambda m=m, axis=axis, p_=p_, v_=v_, s_=s_:
+            time_sharded_hysteresis_backtest(p_, v_, s_, adv, vol, m, asset_axis=axis,
+                                             **hyst),
+            0, 0, f"mesh (d) time-sharded hysteresis {name}")
+        hold_event(got, want, f"mesh (d) time-sharded hysteresis {name}", T0=cut)
+    # the online ridge on the golden frame's first rows, f64, one call each
+    icfg = RunConfig().intraday
+    compact = compact_minutes(golden_minute_frame()[0])
+    cp = torch.as_tensor(compact.price, dtype=torch.float64).to(dev)
+    cv = torch.as_tensor(compact.volume, dtype=torch.float64).to(dev)
+    feats, fv = minute_features(cp, cv, torch.as_tensor(compact.row_valid).to(dev),
+                                window=icfg.window_minutes)
+    y, yv = next_row_return(cp, fv)
+    R = min(MESH_RIDGE_ROWS, feats.shape[1])
+    feats, y, yv = (x[:, :R].contiguous() for x in (feats, y, yv))
+    kw = dict(n_splits=icfg.n_splits, alpha=icfg.alpha)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk = online_ridge_scores(feats, y, yv, **kw)
+    torch.cuda.synchronize()
+    w["ridge_single"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fit = time_sharded_online_ridge_scores(feats, y, yv, Mesh([dev] * 4, ("time",)),
+                                           **kw)
+    torch.cuda.synchronize()
+    w["ridge_time4"] = (time.perf_counter() - t0) * 1e3
+    torch.testing.assert_close(fit.scores, walk.scores, rtol=1e-8, atol=1e-12,
+                               equal_nan=True, msg="mesh (d) online ridge scores")
+    torch.testing.assert_close(fit.cv_mse, walk.cv_mse, rtol=1e-8, atol=0,
+                               msg="mesh (d) online ridge cv_mse")
+    torch.testing.assert_close(fit.coef, walk.coef, rtol=1e-7, atol=1e-12,
+                               msg="mesh (d) online ridge coef")
+    if int(fit.n_train) != int(walk.n_train):
+        raise AssertionError("mesh (d) online ridge: n_train differs")
+    walls["event_ridge"] = w
+    log("mesh", f"(d) golden event inputs {A}x{T} f64: asset-sharded (4) market, "
+                f"limit and hysteresis; time-sharded (time=4, padded to "
+                f"{pp.shape[1]}; assets=2 x time=2) at latency 0 and 3 and the "
+                f"hysteresis engine: integer state exact, floats within the JAX "
+                f"package's limits; online ridge {feats.shape[0]}x{R} f64 on 4 "
+                f"time shards within rtol 1e-8; walls ms {json.dumps(w)} | {smi}")
+
+    # -- (e) the bench-mesh warm-up in a process of its own ------------------
+    with tempfile.TemporaryDirectory(prefix="csmom_mesh_") as tmp:
+        report, _, warm_s = run_warmup(REPO, tmp, profiles="bench-mesh",
+                                       subdir=MESH_SUBDIR)
+    entries = [r for r in report["entries"] if r["name"].startswith("mesh.grid.")]
+    if report["n_errors"] or len(entries) != 2:
+        raise AssertionError(f"mesh (e) bench-mesh: {report['n_errors']} errors, "
+                             f"entries {[r['name'] for r in entries]}")
+    # two calls an entry, K2 once a (grid, asset) shard pair a call
+    want_k2 = sum(2 * int(g) * int(a) for g, a in
+                  (_MESH_ENTRY.search(r["name"]).groups() for r in entries))
+    mesh_k2 = sum(r.get("launches", {}).get("cohort_partial_sums", 0) for r in entries)
+    if mesh_k2 != want_k2:
+        raise AssertionError(f"mesh (e) bench-mesh: K2 {mesh_k2}, want {want_k2}")
+    log("mesh", f"(e) warmup --profiles bench-mesh --strict: {report['n_entries']} "
+                f"entries ({[r['name'] for r in entries]} and the golden-event "
+                f"leg), 0 errors, {warm_s:.1f} s of command; K2 {mesh_k2} over the "
+                f"mesh entries' two calls each; warm calls ms "
+                f"{[round(r['warm_call_s'] * 1e3, 3) for r in entries]} | {smi}")
+    return {"launches": total, "walls": walls, "warmup_s": warm_s,
+            "wall_s": time.perf_counter() - t_phase}
 
 
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
@@ -4819,6 +5149,13 @@ def main(argv=None) -> int:
     for row in rows:
         row["warmup_launches"] = warm["warmup_launches"][row["name"]]
         row["examples_launches"] = warm["examples_launches"][row["name"]]
+
+    # -- 17. the multi-GPU compute layer, logical shards of the card ----------
+    mesh = mesh_phase(smi, pm, mm, mres, grids)
+    log("mesh", f"phase wall {mesh['wall_s']:.1f} s; launches {mesh['launches']} | "
+                f"{smi}")
+    for row in rows:
+        row["mesh_launches"] = mesh["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

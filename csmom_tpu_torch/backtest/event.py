@@ -135,25 +135,26 @@ def _apply_latency(price, valid, units, latency_bars: int):
     return units, fill_idx, exec_base
 
 
-def _segment_add(values, fill_idx, live, latency_bars: int):
-    """``out[a, s] = sum of values[a, t] over t with fill_idx[a, t] == s``,
-    adding in t order from 0, as a sequential scatter-add does, with no
-    atomics.  ``fill_idx`` does not decrease along t, so each settlement
-    row's contributions are one run of cells; at most ``latency_bars`` of
-    them are ``live`` (the nonzero decisions lie within L rows of the
-    run's first), so the sum is L rounds of gather-add-write over the
-    runs' k-th live cells."""
+def _segment_add(values, fill_idx, live, latency_bars: int, n_out=None):
+    """``out[a, s] = sum of values[a, t] over t with fill_idx[a, t] == s``
+    for ``s < n_out`` (default T), adding in t order from 0, as a
+    sequential scatter-add does, with no atomics.  ``fill_idx`` does not
+    decrease along t, so each settlement row's contributions are one run
+    of cells; at most ``latency_bars`` of them are ``live`` (the nonzero
+    decisions lie within L rows of the run's first), so the sum is L
+    rounds of gather-add-write over the runs' k-th live cells."""
     A, T = values.shape
+    n_out = T if n_out is None else n_out
     live_i = live.to(torch.int64)
     before = torch.cumsum(live_i, 1) - live_i               # live cells before t
     first = torch.searchsorted(fill_idx.contiguous(), fill_idx.contiguous())
     rank = before - torch.gather(before, 1, first)          # k of cell t in its run
-    out = torch.zeros((A, T + 1), dtype=values.dtype, device=values.device)
+    out = torch.zeros((A, n_out + 1), dtype=values.dtype, device=values.device)
     for k in range(latency_bars):
         take = live & (rank == k)
-        idx = torch.where(take, fill_idx, T)                # others: spill column
+        idx = torch.where(take, fill_idx, n_out)            # others: spill column
         out.scatter_(1, idx, torch.gather(out, 1, idx) + torch.where(take, values, 0))
-    return out[:, :T]
+    return out[:, :n_out]
 
 
 def _scatter_settle(shares, fill, fill_idx, latency_bars: int, dtype):
@@ -181,6 +182,7 @@ def event_backtest(
     order_type: str = "market",
     aggressiveness: float = 0.5,
     fill_key=None,
+    axis_name=None,
 ) -> EventResult:
     """Run the event backtest over a dense minute panel.
 
@@ -203,11 +205,17 @@ def event_backtest(
         0.5*agg*spread)``, unfilled orders dropped).
       aggressiveness: limit-order aggressiveness in [0, 1].
       fill_key: a :mod:`csmom_tpu_torch.random` key, required for limits.
+      axis_name: inside :func:`~csmom_tpu_torch.parallel.compat.shard_map`
+        with the asset axis split, the mesh axis over which the
+        cross-asset sums (order flow, marks, bar counts, trade counts)
+        are psummed, and whose shard index offsets the limit draws'
+        asset counter; None (one device) leaves the engine as it is.
     """
     A, T = price.shape
     dtype = price.dtype
     score = _like(score, price, dtype)
     adv, vol = _like(adv, price), _like(vol, price)
+    allsum, a_offset = _asset_axis(axis_name, A)
 
     side = threshold_sides(valid, score, threshold)
 
@@ -215,7 +223,9 @@ def event_backtest(
         if fill_key is None:
             raise ValueError("order_type='limit' requires fill_key")
         p_fill = limit_fill_probability(adv, size_shares, aggressiveness, dtype)
-        u = counter_uniform(_like(fill_key, price), (A, T), 0, 0, dtype)
+        # keyed by the global (asset, bar) cell: a sharded call draws the
+        # single-device fills
+        u = counter_uniform(_like(fill_key, price), (A, T), a_offset, 0, dtype)
         side = torch.where(u < p_fill[:, None], side, 0)
     elif order_type != "market":
         raise ValueError(f"unknown order_type {order_type!r}")
@@ -236,19 +246,35 @@ def event_backtest(
     shares_settle, notional_settle = _scatter_settle(
         shares, fill, fill_idx, latency_bars, dtype)
     return _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
-                                 side, fill, traded, impact, cash0)
+                                 side, fill, traded, impact, cash0, allsum)
+
+
+def _identity(x):
+    return x
+
+
+def _asset_axis(axis_name, A: int):
+    """``(allsum, asset offset)`` of a shard of an asset-sharded call:
+    the psum over ``axis_name`` and this shard's first global asset;
+    the identity and 0 on one device."""
+    if axis_name is None:
+        return _identity, 0
+    from csmom_tpu_torch.parallel.compat import axis_index, psum
+
+    return (lambda x: psum(x, axis_name)), axis_index(axis_name) * A
 
 
 def _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
-                          side, fill, traded, impact, cash0):
+                          side, fill, traded, impact, cash0, allsum=_identity):
     """Shared tail of both engines: settled shares/notional -> positions,
-    cash, forward-filled marks, portfolio value, per-bar PnL, counts."""
+    cash, forward-filled marks, portfolio value, per-bar PnL, counts.
+    ``allsum`` sums a cross-asset partial over the asset shards."""
     A, T = price.shape
     dtype = price.dtype
     t_idx = torch.arange(T, dtype=torch.int64, device=price.device)
 
     positions = torch.cumsum(shares_settle, dim=1, dtype=torch.int32)
-    flow = torch.sum(notional_settle, dim=0)         # signed notional per bar
+    flow = allsum(torch.sum(notional_settle, dim=0))  # signed notional per bar
     cash = cash0 - torch.cumsum(flow, dim=0)
 
     # forward-filled mark price: last observed row price at or before t
@@ -256,10 +282,10 @@ def _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
     mark = torch.gather(torch.nan_to_num(price), 1, torch.clamp(last_obs, 0, T - 1))
     mark = torch.where(last_obs >= 0, mark, 0.0)     # pre-history marks at 0
 
-    pv = cash + torch.sum(positions.to(dtype) * mark, dim=0)
+    pv = cash + allsum(torch.sum(positions.to(dtype) * mark, dim=0))
 
     # per-bar PnL over bar timestamps only; the first bar's is 0
-    bar_mask = torch.sum(valid, dim=0) > 0
+    bar_mask = allsum(torch.sum(valid, dim=0)) > 0
     last_bar = torch.cummax(torch.where(bar_mask, t_idx, -1), dim=0).values
     prev_bar = torch.roll(last_bar, 1)
     prev_bar[0] = -1
@@ -278,9 +304,9 @@ def _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
         exec_price=fill,
         impact=impact,
         total_pnl=torch.sum(pnl),
-        n_trades=torch.sum(traded, dtype=i32),
-        n_buys=torch.sum(side > 0, dtype=i32),
-        n_sells=torch.sum(side < 0, dtype=i32),
+        n_trades=allsum(torch.sum(traded, dtype=i32)),
+        n_buys=allsum(torch.sum(side > 0, dtype=i32)),
+        n_sells=allsum(torch.sum(side < 0, dtype=i32)),
         net_notional=torch.sum(flow),
     )
 
@@ -297,6 +323,7 @@ def hysteresis_event_backtest(
     cash0: float = 1_000_000.0,
     spread: float = 0.001,
     latency_bars: int = 0,
+    axis_name=None,
 ) -> EventResult:
     """Event backtest with a Schmitt-trigger position state per asset:
     enter long (+1 unit) when ``score > threshold_hi``, short (-1) when
@@ -308,7 +335,8 @@ def hysteresis_event_backtest(
     ``cummax`` scans and a comparison.  ``threshold_lo <= threshold_hi``
     is checked on the host.  With ``latency_bars > 0`` each trade settles
     at the next valid row >= decision + latency (the threshold engine's
-    rule); unfillable tail decisions are dropped.
+    rule); unfillable tail decisions are dropped.  ``axis_name``: as in
+    :func:`event_backtest`.
     """
     if float(threshold_lo) > float(threshold_hi):
         raise ValueError(
@@ -348,7 +376,8 @@ def hysteresis_event_backtest(
     # attribution and the trade log see the true size; the fill price
     # uses only the direction
     return _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
-                                 delta, fill, traded, impact, cash0)
+                                 delta, fill, traded, impact, cash0,
+                                 _asset_axis(axis_name, A)[0])
 
 
 def trades_dataframe(result: EventResult, tickers, times, score, size_shares: int = 50):

@@ -263,15 +263,11 @@ def _netted(net, valid, Js, Ks_c: tuple, skip, n_bins: int, mode: str,
     )
 
 
-def _grid_net_core(prices, mask, Js, spreads, spread_valid, half_spread,
-                   Ks_c: tuple, skip: int, n_bins: int, mode: str,
-                   freq: int) -> GridResult:
-    """The netting pass of :func:`grid_net_of_costs` on a gross grid's
-    ``spreads``/``spread_valid`` (``[nJ, nK, M]``), with the grid's
-    parameters given explicitly (counterpart of the reference's
-    ``_grid_net_core``, its ``--tc-bps`` pass, with the same signature).
-    ``Js`` is a tensor of the lookbacks; ``Ks_c`` a tuple of the holding
-    periods."""
+def _grid_net_core_impl(prices, mask, Js, spreads, spread_valid, half_spread,
+                        Ks_c: tuple, skip: int, n_bins: int, mode: str):
+    """The per-cell net planes ``f[nJ, nK, M]`` of the netting pass: each
+    J's books and turnover cost from its own labels, so a slice of the Js
+    nets on its own (the sharded netting pass splits them)."""
     M = prices.shape[1]
     mom, mom_valid = momentum_dynamic(prices, mask, Js, skip)   # [nJ, A, M]
     labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
@@ -293,7 +289,20 @@ def _grid_net_core(prices, mask, Js, spreads, spread_valid, half_spread,
         w_pf = torch.nn.functional.pad(S, (1, 0))[..., :M] / K
         costs.append(turnover_cost(w_pf, half_spread))               # [nJ, M]
     cost = torch.stack(costs, dim=1)                                 # [nJ, nK, M]
-    net = torch.where(spread_valid, spreads - cost, torch.nan)
+    return torch.where(spread_valid, spreads - cost, torch.nan)
+
+
+def _grid_net_core(prices, mask, Js, spreads, spread_valid, half_spread,
+                   Ks_c: tuple, skip: int, n_bins: int, mode: str,
+                   freq: int) -> GridResult:
+    """The netting pass of :func:`grid_net_of_costs` on a gross grid's
+    ``spreads``/``spread_valid`` (``[nJ, nK, M]``), with the grid's
+    parameters given explicitly (counterpart of the reference's
+    ``_grid_net_core``, its ``--tc-bps`` pass, with the same signature).
+    ``Js`` is a tensor of the lookbacks; ``Ks_c`` a tuple of the holding
+    periods."""
+    net = _grid_net_core_impl(prices, mask, Js, spreads, spread_valid,
+                              half_spread, Ks_c, skip, n_bins, mode)
     return _netted(net, spread_valid, Js, Ks_c,
                    torch.tensor(skip, device=net.device), n_bins, mode, freq)
 

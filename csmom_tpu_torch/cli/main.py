@@ -22,11 +22,13 @@ The flags that differ are the device's and the kernels':
   config files) means the card engine ``torch``;
 - ``grid --impl {kernel,plain,matmul,matmul_bf16}``, the reference's
   ``pallas`` and ``xla`` accepted as ``kernel`` and ``plain``;
-- ``grid --shards N`` (N > 1) and ``--mode rank_hist`` need the
-  multi-device layer, which the port does not have yet: they exit 2;
+- ``grid --shards N`` runs the sharded grid on a mesh of the visible
+  cards (``--device cuda``; N above their count exits 2) or of N logical
+  CPU shards (``--device cpu``, where the reference forces N host
+  devices); ``--mode rank_hist`` implies it;
 - ``warmup`` warms by running each manifest entry on the device (its
   profile ``bench-gpu`` takes the place of ``bench-tpu``, which it
-  accepts), and has no ``--platform``; the mesh profiles exit 2.
+  accepts), and has no ``--platform``; the serve mesh profiles exit 2.
 
 ``--config file.toml`` loads a :class:`~csmom_tpu_torch.config.RunConfig`;
 flags given on the command line override the file.
@@ -48,10 +50,6 @@ PROG = "python -m csmom_tpu_torch.cli"
 
 # the reference's --impl names of the same cohort sums
 _IMPL_ALIASES = {"pallas": "kernel", "xla": "plain"}
-
-_MULTI_DEVICE = ("needs the multi-GPU layer, which the port does not have yet "
-                 "(ROADMAP.md, Queue 1 item 7)")
-
 
 def _parse_tickers(s: str) -> tuple:
     """One comma-list parser for every --tickers flag (fetch included)."""
@@ -578,25 +576,61 @@ def cmd_grid(args) -> int:
             print(f"--tc-sweep {args.tc_sweep!r}: levels must be plain "
                   "numbers in bps, e.g. --tc-sweep 0,5,25", file=sys.stderr)
             return 2
-    if (getattr(args, "shards", None) or 0) > 1:
-        print(f"--shards {args.shards}: the asset-sharded grid {_MULTI_DEVICE}; "
-              "drop --shards to run on one device", file=sys.stderr)
-        return 2
+    n_shards = getattr(args, "shards", None) or 0
+    mode = getattr(args, "mode", None) or cfg.momentum.mode
+    if n_shards > 1 and mode == "hist":
+        # sharded 'hist' would gather and rerun the whole-panel histogram
+        # on every shard; its labels are rank's, so take the rank path
+        print("--mode hist under --shards: labels are identical to rank; "
+              "using the distributed rank path (rank_hist is the "
+              "comm-efficient large-A form)", file=sys.stderr)
+        mode = "rank"
+    sharded = n_shards > 1 or mode == "rank_hist"
+    if sharded:
+        # the distributed grid over an asset-sharded mesh; rank_hist has
+        # no single-device form
+        n_shards = max(n_shards, 2)
+        if args.device == "cuda":
+            import torch
+
+            n_dev = torch.cuda.device_count()
+            if n_shards > n_dev:
+                print(f"--shards {n_shards} exceeds the {n_dev} visible "
+                      f"device(s); pass --device cpu to run {n_shards} "
+                      "logical CPU shards", file=sys.stderr)
+                return 2
     prices, _ = _price_panel(cfg, args.device)
 
     v, m = prices.tensors(device=args.device)
-    mode = getattr(args, "mode", None) or cfg.momentum.mode
     impl = getattr(args, "impl", None) or "kernel"
     impl = _IMPL_ALIASES.get(impl, impl)
 
-    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
+    if sharded:
+        import torch
 
-    res = jk_grid_backtest(v, m, Js, Ks, skip=cfg.momentum.skip,
-                           n_bins=cfg.momentum.n_bins, mode=mode, impl=impl)
+        from csmom_tpu_torch.parallel.collectives import sharded_jk_grid_backtest
+        from csmom_tpu_torch.parallel.mesh import auto_mesh, pad_assets
+
+        pv, mv = v, m
+        if v.shape[0] % n_shards:  # dead lanes: masked-out NaN rows
+            pv, mv, _ = pad_assets(v.cpu().numpy(), m.cpu().numpy(), n_shards)
+            pv, mv = torch.as_tensor(pv, device=v.device), torch.as_tensor(mv, device=v.device)
+        res = sharded_jk_grid_backtest(
+            pv, mv, Js, Ks, auto_mesh(n_shards, device=args.device),
+            skip=cfg.momentum.skip, n_bins=cfg.momentum.n_bins, mode=mode, impl=impl)
+    else:
+        from csmom_tpu_torch.backtest.grid import jk_grid_backtest
+
+        res = jk_grid_backtest(v, m, Js, Ks, skip=cfg.momentum.skip,
+                               n_bins=cfg.momentum.n_bins, mode=mode, impl=impl)
 
     from csmom_tpu_torch.analytics.tables import jk_grid_table
 
-    if getattr(args, "tc_bps", None) is not None:
+    if getattr(args, "tc_bps", None) is not None and mode == "rank_hist":
+        print("--tc-bps" + ("/--tc-sweep" if tc_levels else "") + ": cost "
+              "netting recomputes labels single-device and has no rank_hist "
+              "form; rerun with --mode rank", file=sys.stderr)
+    elif getattr(args, "tc_bps", None) is not None:
         import pandas as pd
 
         from csmom_tpu_torch.backtest.grid import (
@@ -1253,7 +1287,7 @@ def cmd_warmup(args) -> int:
     if not profiles:
         profiles = (["bench-cpu", "golden"] if args.device == "cpu"
                     else ["bench-gpu", "golden"])
-    try:  # bench-tpu is bench-gpu; a mesh profile needs item 7
+    try:  # bench-tpu is bench-gpu; a serve mesh profile needs item 7b
         profiles = [canonical_profile(p) for p in profiles]
     except NotImplementedError as e:
         print(e, file=sys.stderr)
@@ -1317,8 +1351,9 @@ def _add_warmup(sub) -> None:
     sp.set_defaults(fn=cmd_warmup)
     sp.add_argument("--profiles",
                     help="comma-separated warmup profiles (bench-cpu, "
-                         "bench-gpu, golden, smoke, serve, serve-smoke, "
-                         "stream, stream-smoke; bench-tpu means bench-gpu; "
+                         "bench-gpu, bench-mesh, golden, smoke, serve, "
+                         "serve-smoke, stream, stream-smoke; bench-tpu means "
+                         "bench-gpu; "
                          "default: bench-gpu,golden, or bench-cpu,golden "
                          "with --device cpu)")
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -1366,8 +1401,8 @@ def _add_common(p, tickers: bool = True):
                    help="decile assignment: qcut (pandas parity), rank "
                         "(fast ordinal, one batched sort), hist (sort-free "
                         "radix-histogram form of rank — same labels), "
-                        "rank_hist (distributed; needs the multi-GPU layer, "
-                        "not ported yet)")
+                        "rank_hist (distributed radix-histogram rank — grid "
+                        "command only, implies a sharded mesh)")
 
 
 def _add_turnover_flags(sp):
@@ -1429,9 +1464,10 @@ def build_parser() -> argparse.ArgumentParser:
                                  "expanding-window cell selection)")
         if name == "grid":
             sp.add_argument("--shards", type=int, metavar="N",
-                            help="the asset-sharded grid over N devices "
-                                 "(needs the multi-GPU layer, not ported "
-                                 "yet: N > 1 exits 2)")
+                            help="run the grid asset-sharded over an N-shard "
+                                 "mesh: the visible cards, or N logical CPU "
+                                 "shards with --device cpu (required form "
+                                 "for --mode rank_hist)")
             sp.add_argument("--impl",
                             choices=["kernel", "plain", "matmul", "matmul_bf16",
                                      "pallas", "xla"],
@@ -1627,10 +1663,9 @@ def main(argv=None) -> int:
     if not getattr(args, "command", None):
         parser.print_help()
         return 0
-    if getattr(args, "mode", None) == "rank_hist":
-        print(f"--mode rank_hist is the distributed radix-histogram rank and "
-              f"{_MULTI_DEVICE}; use --mode rank or --mode hist (the same "
-              "labels on one device)", file=sys.stderr)
+    if getattr(args, "mode", None) == "rank_hist" and args.command != "grid":
+        print("--mode rank_hist is distributed-only: use "
+              f"`{PROG} grid --shards N --mode rank_hist`", file=sys.stderr)
         return 2
     if (args.command not in _DEVICE_FREE_COMMANDS and args.device == "cuda"
             and not getattr(args, "list", False)

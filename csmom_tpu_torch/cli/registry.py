@@ -13,9 +13,11 @@ endpoint names, one a line, exactly as the reference does.
 
 What differs from the reference: a serve engine lists no ``donated``
 variant (torch has no buffer donation, ROADMAP.md known difference 12)
-and no ``sharded`` hook (the multi-GPU layer, Queue 1 item 7), and a
-compile engine lists neither a ``donated`` variant nor a ``sharded``
-hook; kind ``lint`` is not ported (item 8d) and exits 2.
+and no ``sharded`` hook (the mesh serving engine, Queue 1 item 7b); a
+compile engine lists no ``donated`` variant, and ``sharded`` where the
+rule table of :mod:`csmom_tpu_torch.mesh.variants` resolves one (the
+reference prints ``sharded:stub`` for every engine without an explicit
+``sharded_fn``); kind ``lint`` is not ported (item 8d) and exits 2.
 """
 
 from __future__ import annotations
@@ -32,9 +34,13 @@ _NOT_PORTED = {
 
 def _compile_surfaces(spec) -> str:
     """A compile engine's surfaces, as the reference names them."""
+    from csmom_tpu_torch.mesh.variants import has_sharded
+
     out = [f"manifest({','.join(spec.profiles)})"]
     if spec.entry_fn is not None:
         out.append("entry")
+    if has_sharded(spec):
+        out.append("sharded")
     return " ".join(out)
 
 

@@ -72,8 +72,8 @@ __all__ = ["cmd_loadgen", "cmd_serve", "register"]
 # flags of the reference's serving tier the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them: (dest, flag, item)
 _DEFERRED = (
-    ("mesh", "--mesh", "7, the multi-GPU layer"),
-    ("devices_per_worker", "--devices-per-worker", "7, the multi-GPU layer"),
+    ("mesh", "--mesh", "7b, the mesh serving engine"),
+    ("devices_per_worker", "--devices-per-worker", "7b, the mesh serving engine"),
 )
 
 

@@ -11,8 +11,8 @@ exactly what a benchmark runs.  They run on their inputs' device.
   scalar.  torch has no ``vmap`` through the event engine, so it is a
   loop of single-panel calls (ROADMAP.md, known difference 10);
 - :func:`histrank_labels_fn`: the histogram-rank labels;
-- :func:`online_ridge_rows_fn`: the reference's time-sharded online
-  ridge scan on one device, on row-major inputs.
+- :func:`online_ridge_rows_fn`: the time-sharded online ridge scan on a
+  one-shard mesh, on row-major inputs.
 """
 
 from __future__ import annotations
@@ -70,52 +70,19 @@ def histrank_labels_fn(n_bins: int):
 @lru_cache(maxsize=8)
 def online_ridge_rows_fn(A: int, F: int, alpha: float, burn_in: int,
                          standardize: bool):
-    """The reference's time-sharded online-ridge scan on one device
-    (``csmom_tpu.parallel.online_ridge._compiled`` on a one-device mesh):
-    ``fn(X f[R, A, F], y f[R, A], w f[R, A]) -> (preds f[R, A], seen
-    bool[R, A], G f[F+1, F+1], b f[F+1], (cnt f[1], mean f[1, F], M2
-    f[1, F]))``.  With one block the carries into the block are zero, so
-    this is the single-device walk of
+    """The time-sharded online-ridge scan
+    (:func:`csmom_tpu_torch.parallel.online_ridge._compiled`) on a
+    one-shard mesh of its inputs' device: ``fn(X f[R, A, F], y f[R, A],
+    w f[R, A]) -> (preds f[R, A], seen bool[R, A], G f[F+1, F+1], b
+    f[F+1], (cnt f[1], mean f[1, F], M2 f[1, F]))``.  With one block the
+    carries into the block are zero, so this is the single-device walk of
     :func:`~csmom_tpu_torch.models.online_ridge.online_ridge_scores` plus
     the block's scaled Gram and label sums and its raw-feature moments."""
-    import torch
-
-    from csmom_tpu_torch.models.online_ridge import (
-        _causal_scale,
-        _make_row_step,
-        _row_moment_update,
-    )
+    from csmom_tpu_torch.parallel.mesh import Mesh
+    from csmom_tpu_torch.parallel.online_ridge import _compiled
 
     def online_ridge_rows(X, y, w):
-        dt, dev = X.dtype, X.device
-        R = X.shape[0]
-        step = _make_row_step(A, dt, burn_in, standardize)
-        zero_f = torch.zeros(F, dtype=dt, device=dev)
-        zero = torch.zeros((), dtype=dt, device=dev)
-        ones = torch.ones((A, 1), dtype=dt, device=dev)
-        G = torch.zeros((F + 1, F + 1), dtype=dt, device=dev)
-        bsum = torch.zeros(F + 1, dtype=dt, device=dev)
-        moments = (zero, zero_f, zero_f)
-        for r in range(R):  # the scaled Gram of the block, causally scaled
-            xw = torch.cat([_causal_scale(X[r], *moments, standardize), ones],
-                           dim=1) * w[r][:, None]
-            G = G + xw.T @ xw
-            bsum = bsum + xw.T @ y[r]
-            moments = _row_moment_update(*moments, X[r], w[r])
-        carry = (torch.linalg.inv(alpha * torch.eye(F + 1, dtype=dt, device=dev)),
-                 zero_f.new_zeros(F + 1), zero, zero_f, zero_f)
-        preds = torch.empty((R, A), dtype=dt, device=dev)
-        seen = torch.empty((R,), dtype=torch.bool, device=dev)
-        for r in range(R):
-            carry, preds[r], seen[r] = step(carry, X[r], y[r], w[r])
-        # the block's raw-feature moments, merged into the (zero) carry
-        cnt_b = w.sum()
-        mean_b = torch.einsum("ra,raf->f", w, X) / torch.clamp(cnt_b, min=1.0)
-        M2_b = torch.einsum("ra,raf->f", w, (X - mean_b) ** 2)
-        n = zero + cnt_b
-        mean_f = zero_f + (mean_b - zero_f) * cnt_b / torch.clamp(n, min=1.0)
-        M2_f = zero_f + M2_b + (mean_b - zero_f) ** 2 * zero * cnt_b / torch.clamp(n, min=1.0)
-        return (preds, seen[:, None].expand(R, A), G, bsum,
-                (n[None], mean_f[None], M2_f[None]))
+        mesh = Mesh([X.device], ("time",))
+        return _compiled(mesh, "time", A, F, alpha, burn_in, standardize)(X, y, w)
 
     return online_ridge_rows

@@ -12,12 +12,21 @@ kernel for CUDA tensors (``csrc/<name>.cu``, built on first use) or runs
 the plain PyTorch version beside it for CPU tensors.  Nothing falls back:
 a CUDA tensor either goes through the kernel or raises.  Each wrapper's
 ``launches`` attribute counts its kernel launches.
+
+The wrappers may be called from several threads at once (the shards of
+:func:`csmom_tpu_torch.parallel.compat.shard_map`): each launch runs
+under ``torch.cuda.device`` of its tensors (the runtime launches on the
+thread's current device), and the C call and its count are made under
+one lock, so no increment is lost and no thread changes a kernel's
+shared-memory limit between another's setting and its launch.  The
+launch is asynchronous, so the lock is held for the host side only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -69,6 +78,26 @@ def _entry(name: str, dtype: torch.dtype):
 
 def _stream(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+# held around every C launch and every change of a launch count
+_LAUNCH_LOCK = threading.RLock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under the launch lock."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
+
+
+def _launch(wrapper, lib, fn, t, what: str, *args) -> None:
+    """Call the C entry point ``fn(*args, device, stream)`` for ``t``'s
+    device under the launch lock, raise on its error code, and count
+    one launch of ``wrapper``."""
+    with _LAUNCH_LOCK, torch.cuda.device(t.device):
+        code = fn(*args, t.device.index or 0, _stream(t))
+        build.check(lib, code, what)
+        count_launch(wrapper)
 
 
 # -- K1: per-(bin, month) sums ---------------------------------------------
@@ -168,12 +197,11 @@ def decile_partial_sums(ret, labels, n_bins: int):
     if A == 0 or M == 0:
         return sums.zero_(), counts.zero_()
     lib, fn = _entry("decile_partial_sums", ret.dtype)
-    code = fn(labels.data_ptr(), ret.data_ptr(), sums.data_ptr(),
-              counts.data_ptr(), A, M, int(n_bins), plan["v"], plan["lanes"],
-              plan["groups"], plan["nb"], plan["cluster"], *plan["grid"],
-              plan["smem"], ret.device.index or 0, _stream(ret))
-    build.check(lib, code, what)
-    decile_partial_sums.launches += 1
+    _launch(decile_partial_sums, lib, fn, ret, what,
+            labels.data_ptr(), ret.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), A, M, int(n_bins), plan["v"], plan["lanes"],
+            plan["groups"], plan["nb"], plan["cluster"], *plan["grid"],
+            plan["smem"])
     return sums, counts
 
 
@@ -321,13 +349,11 @@ def cohort_partial_sums(ret, ret_valid, labels, n_bins: int = 10,
     if nJ == 0 or A == 0 or M == 0:
         return sums.zero_(), counts.zero_()
     lib, fn = _entry("cohort_partial_sums", ret.dtype)
-    code = fn(labels.data_ptr(), ret.data_ptr(), ret_valid.data_ptr(),
-              sums.data_ptr(), counts.data_ptr(), nJ, A, M, H, int(n_bins),
-              plan["ts"], plan["ta"], plan["jg"], plan["hc"], plan["groups"],
-              plan["cluster"], *plan["grid"], plan["smem"],
-              ret.device.index or 0, _stream(ret))
-    build.check(lib, code, what)
-    cohort_partial_sums.launches += 1
+    _launch(cohort_partial_sums, lib, fn, ret, what,
+            labels.data_ptr(), ret.data_ptr(), ret_valid.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), nJ, A, M, H, int(n_bins),
+            plan["ts"], plan["ta"], plan["jg"], plan["hc"], plan["groups"],
+            plan["cluster"], *plan["grid"], plan["smem"])
     return sums, counts
 
 
@@ -338,5 +364,6 @@ cohort_partial_sums.device_kernels = ("cohort_tile_kernel",)
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    decile_partial_sums.launches = 0
-    cohort_partial_sums.launches = 0
+    with _LAUNCH_LOCK:
+        decile_partial_sums.launches = 0
+        cohort_partial_sums.launches = 0

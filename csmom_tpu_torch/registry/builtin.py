@@ -10,10 +10,11 @@ reference's, copied.
 Its compile registrations follow, by the reference's names and with its
 profiles and shapes: ``grid.jk``, ``grid.net_core``, ``monthly.kernels``,
 ``event.panel``, ``parallel.histrank``, ``parallel.online_ridge``,
-``serve.buckets`` and ``stream.signals``.  Profile ``bench-gpu`` takes
-the place of ``bench-tpu`` (f32; every other profile is f64 unless its
-engine fixes a type), impls take the port's names, there are no donated
-entries (ROADMAP.md, known difference 12) and no mesh engines (item 7).
+``serve.buckets``, ``stream.signals`` and ``mesh.grid`` (profile
+``bench-mesh``).  Profile ``bench-gpu`` takes the place of ``bench-tpu``
+(f32; every other profile is f64 unless its engine fixes a type), impls
+take the port's names, there are no donated entries (ROADMAP.md, known
+difference 12) and no ``mesh.serve`` (the mesh serving engine, item 7b).
 
 Each ``batch_fn(params)`` returns a scorer of the whole micro-batch,
 ``fn(values f[B, A, M], mask bool[B, A, M])``, where the reference's
@@ -533,4 +534,52 @@ REGISTRY.register(EngineSpec(
     axes="prices/volumes f[A,bars], mask bool[A,bars]",
     profiles=("stream", "stream-smoke"),
     manifest_fn=_stream_manifest,
+))
+
+
+def _mesh_grid_manifest(profile: str, dtype=None) -> list:
+    """The grid-cell x asset sharded J x K entries (the reduced and the
+    north-star panels) on the visible cards, one logical CPU shard
+    without one: the cached callable the sharded grid runs
+    (:func:`~csmom_tpu_torch.parallel.collectives.grid_shard_fn`), K2
+    once per shard."""
+    import torch
+
+    from csmom_tpu_torch.compile import workloads as wl
+    from csmom_tpu_torch.compile.manifest import ManifestEntry, months_of, sds
+    from csmom_tpu_torch.mesh.pinning import shards_for
+    from csmom_tpu_torch.mesh.rules import grid_asset_mesh
+    from csmom_tpu_torch.parallel.collectives import grid_shard_fn
+
+    dt = _dt(profile, dtype)
+    idx = np.dtype(np.int64)
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    devices = ([torch.device("cuda", i) for i in range(n)] if n
+               else [torch.device("cpu")])
+    nJ = len(wl.GRID_JS)
+    g = shards_for(nJ, len(devices))
+    out = []
+    for A, T in (wl.REDUCED_GRID, wl.NORTH_STAR_GRID):
+        a = shards_for(A, max(1, len(devices) // g))
+        fn = grid_shard_fn(grid_asset_mesh(g, a, devices), wl.GRID_SKIP, 10,
+                           "rank", max(wl.GRID_KS), "kernel")
+        M = months_of(T)
+        out.append(ManifestEntry(
+            name=f"mesh.grid.jk16.rank.kernel@{A}x{M}.g{g}a{a}",
+            fn=fn,
+            args=(sds((A, M), dt), sds((A, M), bool),
+                  sds((nJ,), idx, value=wl.GRID_JS),
+                  sds((len(wl.GRID_KS),), idx, value=wl.GRID_KS)),
+            kernels=("cohort_partial_sums",),
+        ))
+    return out
+
+
+REGISTRY.register(EngineSpec(
+    name="mesh.grid", kind="compile",
+    description="the grid-cell x asset sharded J x K backtest entries "
+                "(reduced and north-star panels) on the visible cards",
+    axes="prices f[A,M], mask bool[A,M], Js/Ks grid-sharded",
+    profiles=("bench-mesh",),
+    manifest_fn=_mesh_grid_manifest,
 ))

@@ -22,10 +22,13 @@ What differs from the reference:
   ``strategy`` raises too, because the port's strategies register with
   :func:`csmom_tpu_torch.strategy.base.register_strategy`;
 - :meth:`EngineSpec.donated` raises: torch has no buffer donation
-  (ROADMAP.md, known difference 12); :meth:`EngineSpec.sharded` raises
-  until the multi-GPU layer exists (Queue 1 item 7);
+  (ROADMAP.md, known difference 12); :meth:`EngineSpec.sharded` resolves
+  through :func:`csmom_tpu_torch.mesh.variants.resolve_sharded`, whose
+  serve rules raise until the mesh serving engine exists (Queue 1 item
+  7b);
 - the reference's profile ``bench-tpu`` is the port's ``bench-gpu``
-  (:data:`PROFILE_ALIASES`), and its mesh profiles raise until item 7.
+  (:data:`PROFILE_ALIASES`); ``bench-mesh`` is ported, and the serve
+  mesh profiles raise until item 7b.
 
 Stdlib-only, so the artifact validator can read endpoint names without
 importing torch.  The builtin registrations live in
@@ -91,18 +94,19 @@ class ServeSurface:
 
 # the reference's profile names the port runs under its own name
 PROFILE_ALIASES = {"bench-tpu": "bench-gpu"}
-# the reference's mesh profiles: they need the multi-GPU layer
-MESH_PROFILES = ("serve-mesh", "serve-mesh-smoke", "bench-mesh")
+# the reference's serve mesh profiles: they need the mesh serving engine
+MESH_PROFILES = ("serve-mesh", "serve-mesh-smoke")
 
 
 def canonical_profile(profile: str) -> str:
     """The port's name of a warm-up profile (``bench-tpu`` ->
-    ``bench-gpu``); a mesh profile raises, naming ROADMAP.md item 7."""
+    ``bench-gpu``); a serve mesh profile raises, naming ROADMAP.md item
+    7b."""
     if profile in MESH_PROFILES:
         raise NotImplementedError(
-            f"warm-up profile {profile!r} warms the sharded engines, which "
-            "need the multi-GPU layer the port does not have yet (ROADMAP.md, "
-            "Queue 1 item 7)")
+            f"warm-up profile {profile!r} warms the sharded serve endpoints, "
+            "which need the mesh serving engine the port does not have yet "
+            "(ROADMAP.md, Queue 1 item 7b)")
     return PROFILE_ALIASES.get(profile, profile)
 
 
@@ -156,11 +160,18 @@ class EngineSpec:
             "(ROADMAP.md, known difference 12); call the scorer itself")
 
     def sharded(self, *args, **kwargs):
-        """The reference's mesh variant: not ported yet."""
-        raise NotImplementedError(
-            f"engine {self.name!r}: sharded variants need the multi-GPU "
-            "layer, which the port does not have yet (ROADMAP.md, Queue 1 "
-            "item 7)")
+        """The engine's mesh variant, resolved by the rule table of
+        :mod:`csmom_tpu_torch.mesh.variants` (a serve endpoint's raises,
+        naming item 7b) and called with ``args``/``kwargs``; an engine no
+        rule matches raises."""
+        from csmom_tpu_torch.mesh.variants import resolve_sharded
+
+        fn = resolve_sharded(self)
+        if fn is None:
+            raise NotImplementedError(
+                f"{self.kind} engine {self.name!r} has no sharded variant: no "
+                "partition rule in csmom_tpu_torch/mesh/variants.py matches it")
+        return fn(*args, **kwargs)
 
 
 class EngineRegistry:
@@ -251,7 +262,7 @@ class EngineRegistry:
     def manifest_entries(self, profile: str, dtype=None) -> list:
         """The profile's manifest, aggregated across every engine that
         feeds it, in registration order (``bench-tpu`` reads as
-        ``bench-gpu``; a mesh profile raises naming item 7)."""
+        ``bench-gpu``; a serve mesh profile raises naming item 7b)."""
         profile = canonical_profile(profile)
         if profile not in self.manifest_profiles():
             raise ValueError(

@@ -191,7 +191,7 @@ def make_engine(name: str, device=None, **kwargs):
         return StubEngine(**kwargs)
     if name == "jax-mesh":
         raise NotImplementedError(
-            "engine 'jax-mesh' needs the multi-GPU layer, which the port "
-            "does not have yet (ROADMAP.md, Queue 1 item 7)")
+            "engine 'jax-mesh' is the mesh serving engine, which the port "
+            "does not have yet (ROADMAP.md, Queue 1 item 7b)")
     raise ValueError(
         f"unknown engine {name!r}: use 'torch' (or 'jax'), or 'stub'")

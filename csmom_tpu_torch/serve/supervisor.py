@@ -132,8 +132,8 @@ class PoolSupervisor:
         if config.devices_per_worker > 0 or config.engine == "jax-mesh":
             raise NotImplementedError(
                 "pinning a worker to several cards (devices_per_worker, "
-                "the 'jax-mesh' engine) is the multi-GPU layer, which the "
-                "port does not have yet (ROADMAP.md, Queue 1 item 7)")
+                "the 'jax-mesh' engine) is the mesh serving engine, which the "
+                "port does not have yet (ROADMAP.md, Queue 1 item 7b)")
         if config.transport == "unix" and pick_transport(run_dir) != "unix":
             raise ValueError(
                 f"run dir {run_dir!r} is too long for unix socket paths "

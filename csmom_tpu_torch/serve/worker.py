@@ -369,7 +369,7 @@ def main(argv=None) -> int:
         return int(fault.split(":", 1)[1] or 1)
     if args.device_slice:
         print(f"{tag} --device-slice is not ported yet (ROADMAP.md, Queue 1 "
-              "item 7, the multi-GPU layer)", file=sys.stderr, flush=True)
+              "item 7b, the mesh serving engine)", file=sys.stderr, flush=True)
         return 2
 
     engine = "stub" if args.engine == "stub" else "torch"

@@ -353,11 +353,13 @@ def test_default_device_exits_2_without_a_card(inputs):
 
 
 def test_multi_device_flags_exit_2_naming_the_roadmap(inputs):
-    for argv in (["grid", "--shards", "2"], ["grid", "--mode", "rank_hist"],
-                 ["replicate", "--mode", "rank_hist"]):
-        rc, out, err = _run(port_main, argv + inputs["universe"], ["--device", "cpu"])
-        assert rc == 2 and out == ""
-        assert "Queue 1 item 7" in err
+    """``--mode rank_hist`` is the grid's alone (exit 2 naming the form
+    to use), as in the reference; ``grid --shards N`` runs (its tables in
+    ``test_torch_parallel_cli.py``)."""
+    rc, out, err = _run(port_main, ["replicate", "--mode", "rank_hist"]
+                        + inputs["universe"], ["--device", "cpu"])
+    assert rc == 2 and out == ""
+    assert "grid --shards N --mode rank_hist" in err
 
 
 def test_config_backend_tpu_means_the_card_engine(inputs, tmp_path):

@@ -18,20 +18,13 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # names of the reference's exports that an open Queue 1 item brings
 OWNED = {
-    "parallel": dict.fromkeys((
-        "time_sharded_online_ridge_scores", "make_mesh", "auto_mesh",
-        "make_hybrid_mesh", "mesh_topology", "distributed_init",
-        "sharded_banded_backtest", "time_sharded_hysteresis_backtest",
-        "sharded_monthly_spread_backtest", "sharded_jk_grid_backtest",
-        "sharded_block_bootstrap", "sharded_event_backtest",
-        "time_sharded_event_backtest"), "7"),
     "registry": {"lint_rules": "8d"},
     "obs": {"ledger": "8c", "regress": "8c", "timeline": "8c"},
 }
 
 PACKAGES = ("analytics", "backtest", "backends", "costs", "ops", "signals",
             "utils", "registry", "obs", "parallel", "serve", "strategy",
-            "models", "panel", "stream")
+            "models", "panel", "stream", "mesh")
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -81,7 +74,7 @@ def test_registry_strategies_are_the_strategy_zoo():
                                  "costs", "ops", "signals", "utils",
                                  "registry", "obs", "parallel", "serve",
                                  "chaos", "panel", "cli", "stream",
-                                 "compile", "examples"))
+                                 "compile", "examples", "mesh"))
 def test_package_import_loads_neither_pandas_nor_torch(pkg):
     code = (f"import sys, csmom_tpu_torch.{pkg}; "
             "print(sorted({'torch', 'pandas'} & set(sys.modules)))")
@@ -152,3 +145,66 @@ def test_the_warm_start_and_utils_exports_resolve(pkg, name, module):
     else:
         assert getattr(port, name) is getattr(importlib.import_module(module), name)
     assert hasattr(importlib.import_module(f"csmom_tpu.{pkg}"), name)
+
+
+def test_engine_spec_sharded_resolves_through_the_rule_table():
+    """``EngineSpec.sharded`` builds the grid, monthly, event, histrank and
+    online-ridge engines' mesh variants (on logical CPU shards here), each
+    equal to its single-device engine; a serve endpoint's raises naming
+    ROADMAP.md item 7b, and an engine no rule matches raises too."""
+    import numpy as np
+    import torch
+
+    from csmom_tpu_torch.backtest.event import event_backtest
+    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
+    from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
+    from csmom_tpu_torch.models.online_ridge import online_ridge_scores
+    from csmom_tpu_torch.ops.ranking import decile_assign_panel
+    from csmom_tpu_torch.registry import get_engine
+    from csmom_tpu_torch.registry.core import EngineSpec
+
+    cpu4 = ["cpu"] * 4
+    rng = np.random.default_rng(0)
+    p = torch.as_tensor(50 * np.exp(np.cumsum(rng.normal(0, 0.07, (16, 40)), 1)))
+    m = torch.ones_like(p, dtype=torch.bool)
+
+    grid = get_engine("grid.jk", kind="compile").sharded(cpu4)
+    g = grid(p, m, [3, 6], [1, 3], mode="rank")
+    want = jk_grid_backtest(p, m, [3, 6], [1, 3], mode="rank")
+    torch.testing.assert_close(g.spreads, want.spreads, equal_nan=True)
+    net = get_engine("grid.net_core", kind="compile").sharded(cpu4)
+    assert net(p, m, [3, 6], g.spreads, g.spread_valid, 0.001, (1, 3),
+               mode="rank").spreads.shape == (2, 2, 40)
+
+    spread, valid, *_ = get_engine("monthly.kernels", kind="compile").sharded(cpu4)(
+        p, m, lookback=6)
+    ref = monthly_spread_backtest(p, m, lookback=6)
+    assert torch.equal(valid, ref.spread_valid)
+    torch.testing.assert_close(spread, ref.spread, equal_nan=True)
+
+    labels = get_engine("parallel.histrank", kind="compile").sharded(10, cpu4)(p, m)
+    assert torch.equal(labels, decile_assign_panel(p, m, mode="rank")[0])
+
+    price, valid_ev = p[:, :32], torch.rand(16, 32, generator=torch.Generator().manual_seed(1)) > 0.2
+    score = torch.as_tensor(rng.normal(0, 1e-4, (16, 32)))
+    adv, vol = torch.full((16,), 1e5, dtype=torch.float64), torch.full((16,), 0.02, dtype=torch.float64)
+    ev = get_engine("event.panel", kind="compile").sharded(cpu4)(price, valid_ev, score, adv, vol)
+    assert torch.equal(ev.positions, event_backtest(price, valid_ev, score, adv, vol).positions)
+
+    X = torch.as_tensor(rng.normal(size=(3, 40, 2)))
+    y = torch.as_tensor(rng.normal(size=(3, 40)))
+    w = torch.ones((3, 40), dtype=torch.bool)
+    fit = get_engine("parallel.online_ridge", kind="compile").sharded(cpu4)(X, y, w, burn_in=5)
+    torch.testing.assert_close(fit.scores, online_ridge_scores(X, y, w, burn_in=5).scores,
+                               rtol=1e-8, atol=1e-12, equal_nan=True)
+
+    sig = get_engine("stream.signals", kind="compile").sharded(cpu4)
+    assert set(sig) == {"momentum", "turn_avg"}
+    for name in ("momentum", "backtest"):
+        with pytest.raises(NotImplementedError, match="item 7b"):
+            get_engine(name, kind="serve").sharded()
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        get_engine("serve.buckets", kind="compile").sharded()
+    toy = EngineSpec(name="toy", kind="compile", manifest_fn=lambda p, d: [])
+    with pytest.raises(NotImplementedError, match="no sharded variant"):
+        toy.sharded()

@@ -105,8 +105,12 @@ def test_sortable_bits_same_total_order(dtype):
 
 
 def test_unknown_and_unported_modes_raise():
-    """An unknown mode raises; 'hist' is ported and gives rank's labels, and
-    only its collective (asset-sharded) form is still refused."""
+    """An unknown mode raises; 'hist' gives rank's labels, and its
+    collective (asset-sharded) form runs only inside shard_map, where it
+    gives them too."""
+    from csmom_tpu_torch.parallel.compat import P, shard_map
+    from csmom_tpu_torch.parallel.mesh import auto_mesh
+
     x = torch.zeros(4, 3, dtype=torch.float64)
     v = torch.ones(4, 3, dtype=torch.bool)
     with pytest.raises(ValueError, match="unknown mode"):
@@ -114,8 +118,13 @@ def test_unknown_and_unported_modes_raise():
     hist, _ = ranking.decile_assign_panel(x, v, mode="hist")
     rank, _ = ranking.decile_assign_panel(x, v, mode="rank")
     assert torch.equal(hist, rank)
-    with pytest.raises(NotImplementedError, match="axis_name=None"):
+    with pytest.raises(RuntimeError, match="outside shard_map"):
         histogram_rank_labels(x, v, 10, axis_name="assets")
+    spec = P("assets", None)
+    sharded = shard_map(lambda a, b: histogram_rank_labels(a, b, 10, "assets"),
+                        mesh=auto_mesh(2, device="cpu"), in_specs=(spec, spec),
+                        out_specs=spec)(x, v)
+    assert torch.equal(sharded, rank)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

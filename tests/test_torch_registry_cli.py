@@ -73,17 +73,22 @@ def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
     full = capsys.readouterr().out
     assert main(["registry", "list", "--terse"]) == 0
     terse = capsys.readouterr().out
-    assert "serve (5):" in full and "compile (8):" in full
+    assert "serve (5):" in full and "compile (9):" in full
     assert "strategy (8):" in full
-    assert "21 engines registered" in full
-    assert len(terse.splitlines()) == len(full.splitlines()) - 21
+    assert "22 engines registered" in full
+    assert len(terse.splitlines()) == len(full.splitlines()) - 22
 
 
 def test_compile_kind_lists_its_engines(capsys):
-    """Kind ``compile`` (item 8a) is ported: it lists the eight engines."""
+    """Kind ``compile`` (item 8a) is ported: it lists the nine engines,
+    ``mesh.grid`` (item 7a) among them, each with a sharded variant."""
     assert main(["registry", "list", "--kind", "compile"]) == 0
     out = capsys.readouterr().out
-    assert out.startswith("compile (8):") and "grid.jk" in out
+    assert out.startswith("compile (9):") and "grid.jk" in out
+    surfaces = {ln.split()[0]: ln.split()[1:] for ln in out.splitlines()
+                if ln.startswith("  ") and not ln.startswith(" " * 24)}
+    assert [n for n, s in surfaces.items() if "sharded" not in s] == [
+        "serve.buckets"]
 
 
 @pytest.mark.parametrize("kind,item", [("lint", "8d")])
