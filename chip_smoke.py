@@ -4,9 +4,13 @@
     python3 chip_smoke.py [--out DIR]
 
 ``--out DIR`` keeps phase 12's ``GPU_SERVE_POOL_*.json``, phase 13's
-``GPU_SERVE_FABRIC_*.json``, phase 14's ``GPU_FLEET_*.json`` and phase
-15's ``GPU_TRACE_*.json`` and ``GPU_REPLAY_*.json`` artifacts there (by
-default they go to a temporary directory, removed at the end).
+``GPU_SERVE_FABRIC_*.json``, phase 14's ``GPU_FLEET_*.json``, phase
+15's ``GPU_TRACE_*.json`` and ``GPU_REPLAY_*.json`` and phase 18's
+``GPU_SERVE_MESH_*.json`` artifacts there (by default phases 12-15's go
+to a temporary directory, removed at the end, and phase 18's to
+``chiprun_out/``).  Each phase's wall is printed
+on a ``[smoke] phase N`` line as it ends, and all of them on one line
+after phase 17.
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -58,13 +62,13 @@ any phase fails (nothing is caught).  Phases:
    ridge and online-ridge pipelines reproduce its ``EVENT`` and ``ONLINE``
    fingerprints and the rest of the leg (elastic net, lasso, the MLP,
    hysteresis, latency 3 with cost attribution, limit orders, a 5-point
-   sweep) its pinned ``INTRADAY`` outputs; (b) a month of minute bars for
-   500 names (up to 4.1M rows): the pipeline's stages in f64 on the card
+   sweep) its pinned ``INTRADAY`` outputs; (b) a week of minute bars
+   for 500 names (up to 975k rows): the pipeline's stages in f64 on the card
    equal the same calls on the CPU, f32 decisions differ from f64 only
    near the threshold, the accounting identities hold, every latency path
    repeats bit for bit, each stage is timed and one f32 pipeline traced;
-   (c) online ridge at the reference's 20 x ~2,730 shape timed in both
-   types, its launches counted; (d) the CLI's ``intraday`` (each model and
+   (c) online ridge at the reference's 20 x ~2,730 shape timed in f64,
+   and on its first ``F32_WALK_ROWS`` rows in f32, its launches counted; (d) the CLI's ``intraday`` (each model and
    every flag) and ``run`` on a CSV cache, numbers and trade logs equal to
    the API's; launch counts read around the phase (``run`` launches K1
    once, nothing else launches a kernel);
@@ -80,7 +84,7 @@ any phase fails (nothing is caught).  Phases:
    ``fabric_launches``, ``fleet_launches``, ``trace_launches`` and
    ``replay_launches`` the counts of phases 6, 7, 8, 9, 11, 12, 13, 14
    and 15, ``warmup_launches`` and ``examples_launches`` phase 16's,
-   ``mesh_launches`` phase 17's
+   ``mesh_launches`` phase 17's, ``serve_mesh_launches`` phase 18 (a)'s
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -97,14 +101,15 @@ any phase fails (nothing is caught).  Phases:
    a micro-batch, one request alone against the same request in a batch
    of 8, and each endpoint's micro-batch timed and traced; (b)
    ``SignalService`` on the card, telemetry disarmed, driven by
-   ``run_loadgen`` with the schedules ``2x40``, ``bursty`` and ``10x200``
+   ``run_loadgen`` with the schedules ``2x40``, ``bursty`` and ``5x200``
    (seed 0; the last long enough for p99 to be a percentile): closed
    books, no kernel built in the window, no worker crash, a valid
    artifact, every served
    result equal to the engine scoring that request alone, its latency,
    batch and cache figures and the allocator's growth; launch counts read
    around the runs; (c) the CLI's ``serve`` and ``loadgen``; (d) K1 timed
-   at the serve shape;
+   at the serve shape ``[128, 480]`` and at ``[128, 60]`` (a B = 1 batch,
+   each batch shard's shape in phase 18), before the service runs;
 12. pool (run after phase 11 and before phase 9): three torch workers on
    the one card behind the router in this process, profile ``serve``:
    (a) each ready with platform ``gpu``, no kernel built in its window
@@ -114,8 +119,8 @@ any phase fails (nothing is caught).  Phases:
    shapes through the router, each result equal to this process's
    engine scoring the request alone, and the workers' K1 launches (read
    through their ``stats`` replies) equal to their ``backtest`` batches;
-   (c) the JAX package's ``SERVE_POOL_r11.json`` cell (``2x30,2x60,26x15``,
-   seed 11, hedging at 0.35, worker ``w0`` SIGKILLed 2 s in and its warm
+   (c) the JAX package's ``SERVE_POOL_r11.json`` cell, its 26 s tail at
+   15 req/s cut to 6 s (``2x30,2x60,6x15``, seed 11, hedging at 0.35, worker ``w0`` SIGKILLed 2 s in and its warm
    replacement awaited): books closed per class, no infra rejection, one
    kill and one restart, three workers ready at the end, no kernel built
    in the window, every served result equal to the engine alone, a valid
@@ -226,8 +231,32 @@ any phase fails (nothing is caught).  Phases:
    per asset shard and K2 once per (grid, asset) shard pair; each item's
    synchronized walls by shard count on a ``[mesh]`` line (logical shards
    of one card, not speed across cards); the kernels line gains
-   ``mesh_launches``;
-then the card's name line and, last, ``{"ok": true, "device": {...}}``.
+   ``mesh_launches``; a shard stuck at a collective raises after
+   ``MESH_BARRIER_TIMEOUT_S``;
+18. the mesh serving engine (run after phase 15 and before phase 9; no
+   profiler trace), every mesh logical shards of ``cuda:0``: (a)
+   ``SERVE_MESH_r15.json``'s configuration (bursty, seed 0, 240 arrivals,
+   the five endpoints, its class mix, reuse 0.35, one version bump,
+   profile ``serve`` f32) on ``MeshTorchEngine`` over 8 shards: the warm
+   report's 30 shapes and ``mesh`` block equal to that artifact's shard
+   for shard, books closed per class and endpoint, 0 kernels built in the
+   window, K1 launches exactly ``shards_for(B, 8)`` a ``backtest``
+   batch, every served result within ``SERVE_F32`` of the single-device
+   engine scoring it alone (bit-equality counted by endpoint), a
+   ``GPU_SERVE_MESH_r15.json`` valid, the headline beside phase 11's
+   single-device bursty; the same cell traced, every dispatched trace
+   carrying ``mesh_devices`` 8 and its bucket's ``mesh_shards``; (b) the
+   scaling probe, one ``backtest`` B = 8 dispatch at 1, 4 and 8 shards
+   (in order on this thread, and a thread a shard), each endpoint's d8
+   scorer against the single-device scorer on one batch (bit-equal flag,
+   largest difference), K1 against its plain version at ``[128, 60]``
+   and phase 11's K1 times at ``[128, 60]`` and ``[128, 480]``; (c) ``warmup --profiles serve-mesh
+   --strict`` and ``loadgen --mesh --smoke``, processes of their own; (d)
+   two ``torch-mesh`` workers pinned to 4 logical shards of ``cuda:0``
+   each under a 5 s burst: slices and d4 in the ready reports, books
+   closed across processes, ``rejected_infra`` 0, 0 built;
+then the phase walls, the card's name line and, last, ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -962,10 +991,14 @@ INTRADAY = {
 # 9.1e-15 absolute on a score (tests/test_torch_models.py), so its sums
 # take the same 1e-9 relative
 INTRADAY_RTOL = 1e-9
-# phase 9(b): one month of minute bars for an S&P-500-sized universe
-INTRADAY_SCALE = (500, 21)
+# phase 9(b): a week of minute bars for an S&P-500-sized universe (the
+# universe's width kept, the month's 21 days cut to 5)
+INTRADAY_SCALE = (500, 5)
 # phase 9(d): the CLI cache, 20 tickers of daily bars and 7 days of minutes
 CLI_CACHE = (20, 1260, 7)
+# phase 9(c): the f32 online-ridge walk is timed on this many of the
+# cache's ~2,700 rows (all of them before the smoke's depth was cut)
+F32_WALK_ROWS = 900
 
 
 def golden_minute_frame():
@@ -1659,7 +1692,9 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
     A, R = compact.price.shape
     icfg = RunConfig().intraday
 
-    # -- (c) online ridge at the reference's shape -------------------------
+    # -- (c) online ridge at the reference's shape (f64, whose walk (d)
+    # reuses) and on its first F32_WALK_ROWS rows in f32 (the walk's time
+    # is linear in its rows: a + b*R launches) -------------------------
     walls = {}
     for dtype in (torch.float64, torch.float32):
         price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
@@ -1667,14 +1702,17 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
         feats, fv = minute_features(price, volume, torch.as_tensor(compact.row_valid).to(dev),
                                     window=icfg.window_minutes)
         y, yv = next_row_return(price, fv)
+        rows = R if dtype == torch.float64 else min(R, F32_WALK_ROWS)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        walk = online_ridge_scores(feats, y, yv, n_splits=icfg.n_splits, alpha=icfg.alpha)
+        walk = online_ridge_scores(feats[:, :rows], y[:, :rows], yv[:, :rows],
+                                   n_splits=icfg.n_splits, alpha=icfg.alpha)
         end.record()
         torch.cuda.synchronize()
-        walls[str(dtype)[6:]] = {"host_ms": (time.perf_counter() - t0) * 1e3,
+        walls[str(dtype)[6:]] = {"rows": rows,
+                                 "host_ms": (time.perf_counter() - t0) * 1e3,
                                  "device_ms": start.elapsed_time(end)}
         if dtype == torch.float64:
             # the CLI's own online-ridge walk: (d) finishes the pipeline
@@ -1687,7 +1725,8 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
             per_row = (traces[40]["device_activities"] - traces[20]["device_activities"]) / 20
             fixed = traces[20]["device_activities"] - 20 * per_row
     launches = fixed + per_row * R
-    log("intraday", f"(c) online_ridge_scores at [{A}, {R}] (one call each): "
+    log("intraday", f"(c) online_ridge_scores at [{A}, {R}] in f64 and its first "
+                    f"{min(R, F32_WALK_ROWS)} rows in f32 (one call each): "
                     f"{json.dumps(walls)}; launches {launches:.0f} = {fixed:.0f} + "
                     f"{per_row:.0f} a row (profiled at 20 and 40 rows: "
                     f"{json.dumps(traces)}) | {smi}")
@@ -1824,9 +1863,9 @@ SERVE_MONTHS = 60
 SERVE_F32 = dict(rtol=1e-4, atol=1e-6)
 # the service runs: the CLI's default schedule and the named bursty one
 # (73 and 240 arrivals, where the nearest-rank p99 is the run's worst
-# request or close to it), and 10 s at a steady 200 req/s with the
-# default load (2,000 arrivals), long enough for p99 to be a percentile
-SERVE_SCHEDULES = ("2x40", "bursty", "10x200")
+# request or close to it), and 5 s at a steady 200 req/s with the
+# default load (1,000 arrivals), long enough for p99 to be a percentile
+SERVE_SCHEDULES = ("2x40", "bursty", "5x200")
 
 
 def serve_batch(rng, kind, B, A, dtype):
@@ -1888,6 +1927,16 @@ def k1_inputs_of(engine, values, mask):
     if len(seen) != 1:
         raise AssertionError(f"serve backtest: {len(seen)} K1 calls in one batch")
     return seen[0]
+
+
+def serve_metrics(art) -> dict:
+    """A serve artifact's headline under the JAX ledger's names:
+    throughput, p99 and each class's p99 of total latency."""
+    out = {"serve_throughput_rps": art["value"],
+           "serve_p99_ms": art["latency_ms"]["total"]["p99"]}
+    for name, book in art["classes"].items():
+        out[f"serve_{name}_p99_ms"] = book["latency_ms"]["p99"]
+    return out
 
 
 def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
@@ -1979,25 +2028,33 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
         tr = _trace(lambda: card.score(kind, v, m))
         log("serve", f"trace {kind} B=8 A=128: {json.dumps(tr)} | {smi}")
 
-    # -- (d) K1 at the serve shape: a full B = 8, A = 128 micro-batch ------
-    # timed before the service runs: after (b)'s ~500k launches the
-    # profiler lost one K1 record in each of three traces on an H100
-    v, m, _ = serve_batch(rng, "backtest", 8, 128, np.float32)
-    k1_ret, k1_lab, _ = k1_inputs_of(card, v, m)
-    k1_shape = list(k1_ret.shape)
-    nbytes = k1_lab.nbytes + k1_ret.nbytes + 2 * 10 * k1_shape[1] * k1_ret.element_size()
-    ops = 2 * int(((k1_lab >= 0) & (k1_lab < 10)).sum())
-    b_ms, b_by = bound(nbytes, ops)
-    d_ms, per_call = time_kernels(lambda: kernels.decile_partial_sums(k1_ret, k1_lab, 10),
-                                  kernels.decile_partial_sums.device_kernels)
-    log("serve", f"(d) K1 at the serve shape {k1_shape}, 10 bins, f32: device "
-                 f"{d_ms:.6f} ms, bound {b_ms:.6f} ms by {b_by} ({nbytes} bytes, {ops} "
-                 f"ops), kernels a call {per_call} | {smi}")
+    # -- (d) K1 at the serve shape: a full B = 8, A = 128 micro-batch, and
+    # at a B = 1 batch's [128, 60] (each batch shard's shape under phase
+    # 18's 8-way batch split); timed before the service runs: after (b)'s
+    # ~500k launches the profiler lost one K1 record in each of three
+    # traces on an H100 (and again after phase 18's service runs)
+    k1_at = {}
+    for B in (1, 8):
+        v, m, _ = serve_batch(rng, "backtest", B, 128, np.float32)
+        k1_ret, k1_lab, _ = k1_inputs_of(card, v, m)
+        k1_shape = list(k1_ret.shape)
+        nbytes = (k1_lab.nbytes + k1_ret.nbytes
+                  + 2 * 10 * k1_shape[1] * k1_ret.element_size())
+        ops = 2 * int(((k1_lab >= 0) & (k1_lab < 10)).sum())
+        b_ms, b_by = bound(nbytes, ops)
+        d_ms, per_call = time_kernels(
+            lambda: kernels.decile_partial_sums(k1_ret, k1_lab, 10),
+            kernels.decile_partial_sums.device_kernels)
+        k1_at[str(k1_shape)] = {"device_ms": d_ms, "bound_ms": b_ms, "bound_by": b_by}
+        log("serve", f"(d) K1 at the serve shape {k1_shape}, 10 bins, f32: device "
+                     f"{d_ms:.6f} ms, bound {b_ms:.6f} ms by {b_by} ({nbytes} bytes, "
+                     f"{ops} ops), kernels a call {per_call} | {smi}")
 
     # -- (b) the service on the card, the main path ------------------------
     # telemetry disarmed, as the CLI's loadgen runs it
     launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
     total_ms = {}   # each schedule's total-latency percentiles
+    cells = {}      # each schedule's headline metrics (the JAX ledger's names)
     for sched in SERVE_SCHEDULES:
         schedule, schedule_kind, preset = resolve_schedule(sched)
         # the main path: counts from 0 at the service's start (its
@@ -2061,6 +2118,7 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
             n_held += 1
         lat = art["latency_ms"]
         total_ms[sched] = lat["total"]
+        cells[sched] = serve_metrics(art)
         log("serve", f"(b) {sched}: {art['value']} req/s achieved vs "
                      f"{art['offered']['offered_rps']} offered over {art['wall_s']} s; "
                      f"requests {json.dumps(art['requests'])}; invariants closed, "
@@ -2102,7 +2160,8 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
                                   if ln.startswith(("throughput", "latency", "  self-probe",
                                                     "in-window"))) + f" | {smi}")
 
-    return {"launches": launches, "latency_ms": total_ms, "serve_shape": k1_shape,
+    return {"launches": launches, "latency_ms": total_ms, "cells": cells,
+            "k1_at": k1_at, "serve_shape": k1_shape,
             "serve_device_ms": d_ms, "serve_bound_ms": b_ms, "serve_bound_by": b_by}
 
 
@@ -2111,19 +2170,21 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
 # a SignalService with a TorchEngine of its own, behind the hedging
 # router in this process; profile "serve" as in phase 11
 POOL_WORKERS = 3
-# the reference's pool cell, SERVE_POOL_r11.json's own configuration:
-# its schedule and seed, its three endpoints, 70% interactive, 500 ms
-# deadlines, hedging at 0.35 of the budget, w0 SIGKILLed 2 s in
-POOL_R11 = dict(schedule="2x30,2x60,26x15", seed=11,
+# the reference's pool cell, SERVE_POOL_r11.json's configuration: its
+# seed, its three endpoints, 70% interactive, 500 ms deadlines, hedging at
+# 0.35 of the budget, w0 SIGKILLed 2 s in; its schedule's 26 s tail at
+# 15 req/s cut to 6 s (the kill, the failover and the respawn all fall
+# inside the first 10 s)
+POOL_R11 = dict(schedule="2x30,2x60,6x15", seed=11,
                 kinds=("momentum", "turnover", "backtest"),
                 interactive_fraction=0.7, deadline_s=0.5)
 POOL_HEDGE_FRACTION = 0.35
 POOL_KILL_AFTER_S = 2.0
 # the ceiling runs: interactive backtest traffic (no class quota to
-# reject it) for 3 s at POOL_CEILING_FACTOR times the rate one worker
+# reject it) for 2 s at POOL_CEILING_FACTOR times the rate one worker
 # sustains when every request is its own batch (1 / its mean backtest
-# engine call in (c))
-POOL_CEILING_S = 3
+# engine call in (c)); 3 s before the smoke's depth was cut
+POOL_CEILING_S = 2
 POOL_CEILING_FACTOR = 4
 
 
@@ -2827,10 +2888,12 @@ def fabric_phase(smi, out_dir, ceiling_rate: int) -> dict:
 # offer, and the CLI
 FLEET_SPARES = 1
 # the autoscaling cell: three workers, room for one more; the high
-# watermark is half the default 200 because one client process submits
-# ~400-550 req/s on the chip host (PR 11's ceiling runs), 130-180 a
-# worker, so 200 a worker would never be breached from one client
-FLEET_AUTOSCALE = dict(min_workers=3, max_workers=4, high_rps_per_worker=100.0)
+# watermark is well under the default 200 because one client process is
+# the whole offer and submits what its host lets it: ~400-550 req/s on
+# the chip hosts of PR 11's ceiling runs, ~200-320 on another (the
+# autoscaler's demand readings in PR 16's third chip run, whose 100 a
+# worker was breached for under 1.5 s), so 60 a worker (180 over three)
+FLEET_AUTOSCALE = dict(min_workers=3, max_workers=4, high_rps_per_worker=60.0)
 FLEET_OFFER_S = 6       # phase 12's ceiling rate offered this long
 FLEET_IDLE_S = 10       # then this long idle, for the drain
 FLEET_BACKFILL_S = 60   # the longest wait for a backfill spare
@@ -4138,6 +4201,9 @@ MESH_REPS = 3            # timed calls after the checked one (median)
 MESH_RIDGE_ROWS = 480    # the golden frame's first rows: the walk is serial
 MESH_BOOT_SAMPLES = 1000
 MESH_SUBDIR = "mesh"
+# a shard stuck at a collective raises after this long, naming its mesh,
+# well inside the smoke's limit (the library's default is 900 s)
+MESH_BARRIER_TIMEOUT_S = 120.0
 # the JAX package's own limits between its sharded and single-device
 # event engines (tests/test_sequence_parallel.py) and online ridge
 # (tests/test_online_ridge_sharded.py), f64.  Its 1e-12 on cash and
@@ -4209,6 +4275,7 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
         time_sharded_event_backtest, time_sharded_hysteresis_backtest,
         time_sharded_online_ridge_scores,
     )
+    from csmom_tpu_torch.parallel import compat
     from csmom_tpu_torch.parallel.event import sharded_hysteresis_backtest
     from csmom_tpu_torch.parallel.event_time import pad_time
     from csmom_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -4218,6 +4285,7 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
     from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP, golden_event_inputs
 
     t_phase = time.perf_counter()
+    compat.BARRIER_TIMEOUT_S = MESH_BARRIER_TIMEOUT_S
     dev = pm.device
     total = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
     walls = {}
@@ -4440,6 +4508,367 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+# phase 18: the mesh serving engine on the card, every mesh logical shards
+# of cuda:0.  (a) SERVE_MESH_r15.json's configuration: the bursty schedule
+# (seed 0, 240 arrivals), the five endpoints, its class mix, panel reuse and
+# version bump, profile "serve" f32, on 8 devices
+MESH_SERVE_DEVICES = 8
+MESH_SERVE_REPS = 9          # synchronized dispatch walls, median
+MESH_SERVE_SUBDIR = "mesh-serve"
+# (d) two mesh workers pinned to 4 logical shards of cuda:0 each (the form
+# auto_mesh(n, device="cuda:0") takes), a 5 s burst shaped like bursty's
+MESH_POOL = dict(workers=2, devices_per_worker=4, device="cuda:0",
+                 schedule="0.5x8,1x200,0.5x10,1.5x240,1x20,0.5x8", seed=18)
+
+
+def serve_mesh_phase(smi, out_dir, assert_sums, inproc) -> dict:
+    """Phase 18: the mesh serving engine on logical shards of ``cuda:0``.
+    ``inproc`` is phase 11's result: its single-device bursty headline,
+    printed beside (a)'s, and K1's device time at ``[128, 60]`` and
+    ``[128, 480]`` (timed there, before any service ran).  Returns (a)'s
+    launch counts (the service's warm-up and serving window) and the
+    phase's wall; it takes no profiler trace."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.mesh.pinning import shards_for
+    from csmom_tpu_torch.mesh.rules import P, named_mesh, serve_axis_for
+    from csmom_tpu_torch.mesh.variants import sharded_serve_entry_fn
+    from csmom_tpu_torch.obs import trace as obs_trace
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.parallel.compat import shard_map
+    from csmom_tpu_torch.registry import serve_endpoints
+    from csmom_tpu_torch.serve import health
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.engine import TorchEngine, serve_entry_fn, unpack_result
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig, resolve_schedule, run_loadgen, run_pool_loadgen, write_artifact,
+    )
+    from csmom_tpu_torch.serve.queue import Request
+    from csmom_tpu_torch.serve.router import Router, RouterConfig
+    from csmom_tpu_torch.serve.service import ServeConfig, SignalService
+    from csmom_tpu_torch.serve.supervisor import PoolConfig, PoolSupervisor
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    spec = bucket_spec("serve")
+    kinds = serve_endpoints()
+    rng = np.random.default_rng(18)
+    with open(os.path.join(REPO, "SERVE_MESH_r15.json")) as f:
+        ref = json.load(f)
+    ref_mesh = {k: v for k, v in ref["extra"]["mesh"].items() if k != "scaling"}
+    schedule, schedule_kind, preset = resolve_schedule("bursty")
+    if (schedule, ref["offered"]["n_arrivals"]) != (ref["offered"]["schedule"], 240):
+        raise AssertionError("serve mesh: the bursty schedule is not SERVE_MESH_r15's")
+    devices = (dev,) * MESH_SERVE_DEVICES
+
+    def launched():
+        return {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+
+    single = TorchEngine(device=dev)
+    single.warm(spec)
+
+    # -- (a) serve_mesh_r15 -----------------------------------------------------
+    def cell(run_id, armed):
+        """One service on the mesh under the bursty schedule: its artifact,
+        requests, backtest batch sizes, launches (warm-up, window) and,
+        armed, its closed traces."""
+        kernels.reset_launches()
+        svc = SignalService(ServeConfig(profile="serve", engine="torch-mesh",
+                                        devices=devices))
+        svc.start()
+        torch.cuda.synchronize()
+        warm_launches = launched()
+        score = svc.engine.score
+        batches = []
+
+        def recording_score(kind, values, mask):
+            batches.append((kind, values.shape[0], values.shape[1]))
+            return score(kind, values, mask)
+
+        svc.engine.score = recording_score
+        submitted = []
+        submit = svc.submit
+
+        def recording_submit(*a, **kw):
+            req = submit(*a, **kw)
+            submitted.append(req)
+            return req
+
+        svc.submit = recording_submit
+        closed = []
+        book = obs_trace.arm_tracing(seed=0) if armed else None
+        if book is not None:
+            record = book.record
+            book.record = lambda ctx: (closed.append(ctx), record(ctx))[1]
+        try:
+            art = run_loadgen(svc, LoadConfig(schedule=schedule, schedule_kind=schedule_kind,
+                                              seed=0, run_id=run_id, **preset))
+        finally:
+            if book is not None:
+                obs_trace.disarm_tracing()
+        torch.cuda.synchronize()
+        total = launched()
+        return svc, art, submitted, batches, warm_launches, total, closed, book
+
+    svc, art, submitted, batches, warm_l, total_l, _, _ = cell("r15", armed=False)
+    warm = svc.warm_report
+    art_mesh = {k: v for k, v in art["extra"]["mesh"].items() if k != "scaling"}
+    if warm["n_shapes_warmed"] != 30 or warm["mesh"] != ref_mesh or art_mesh != ref_mesh:
+        raise AssertionError(f"serve mesh (a): warm report {warm['n_shapes_warmed']} "
+                             f"shapes, mesh {warm['mesh']} against SERVE_MESH_r15's "
+                             f"{ref_mesh} (artifact's {art_mesh})")
+    # K1 once a batch shard: the warm-up's backtest shapes, then the window's
+    want_warm = sum(shards_for(B, MESH_SERVE_DEVICES) for B, _, _ in spec.shapes())
+    bt = [B for kind, B, _ in batches if kind == "backtest"]
+    want_window = sum(shards_for(B, MESH_SERVE_DEVICES) for B in bt)
+    window_k1 = total_l["decile_partial_sums"] - warm_l["decile_partial_sums"]
+    if (warm_l != {"decile_partial_sums": want_warm, "cohort_partial_sums": 0}
+            or window_k1 != want_window or total_l["cohort_partial_sums"]):
+        raise AssertionError(f"serve mesh (a): launches warm {warm_l} (K1 want "
+                             f"{want_warm}), window K1 {window_k1} against "
+                             f"sum shards_for(B, 8) = {want_window} over {len(bt)} "
+                             f"backtest batches {bt}")
+    viols = svc.invariant_violations() + inv.validate(art)
+    for name, b in art["classes"].items():
+        if b["served"] + b["rejected"] + b["expired"] != b["admitted"]:
+            viols.append(f"class {name} books open: {b}")
+    for name, b in art["endpoints"].items():
+        if b["served"] + b["rejected"] + b["expired"] != b["submitted"]:
+            viols.append(f"endpoint {name} books open: {b}")
+    if viols or art["compile"]["in_window_fresh_compiles"] != 0 \
+            or art["requests"]["rejected_worker_crash"]:
+        raise AssertionError(f"serve mesh (a): {viols}; fresh "
+                             f"{art['compile']['in_window_fresh_compiles']!r}; "
+                             f"requests {art['requests']}")
+    path = write_artifact(out_dir, art, prefix="GPU_SERVE_MESH")
+    if os.path.basename(path) != "GPU_SERVE_MESH_r15.json" or inv.validate_file(path):
+        raise AssertionError(f"serve mesh (a): {path}: {inv.validate_file(path)}")
+    # every served result against the single-device engine scoring it alone
+    bits = {k: {"served": 0, "bit_equal": 0, "max_abs_diff": 0.0} for k in kinds}
+    for r in submitted:
+        if r.state != "served":
+            continue
+        mb = svc.batcher.pad([Request(kind=r.kind, values=r.values, mask=r.mask,
+                                      n_assets=r.n_assets)])
+        alone = unpack_result(r.kind, single.score(r.kind, mb.values, mb.mask), 0,
+                              r.n_assets)
+        got = (np.array(list(r.result.values())) if isinstance(alone, dict)
+               else np.asarray(r.result))
+        want = np.array(list(alone.values())) if isinstance(alone, dict) else alone
+        err = hold_scores(got, want, f"serve mesh (a): a served {r.kind}", False)
+        b = bits[r.kind]
+        b["served"] += 1
+        b["bit_equal"] += int(got.tobytes() == want.tobytes())
+        b["max_abs_diff"] = max(b["max_abs_diff"], err)
+    lat = art["latency_ms"]["total"]
+    head = serve_metrics(art)
+    log("serve-mesh", f"(a) serve_mesh_r15: bursty seed 0 ({len(submitted)} arrivals) on "
+                      f"{MESH_SERVE_DEVICES} logical shards of {dev}: {art['value']} req/s "
+                      f"achieved vs {art['offered']['offered_rps']} offered over "
+                      f"{art['wall_s']} s; p50 {lat['p50']} p95 {lat['p95']} p99 "
+                      f"{lat['p99']} ms; requests {json.dumps(art['requests'])}; warm "
+                      f"report 30 shapes, its mesh block == SERVE_MESH_r15's shard for "
+                      f"shard; books closed per class and endpoint; 0 built in the "
+                      f"window; K1 warm-up {warm_l['decile_partial_sums']} + window "
+                      f"{window_k1} = sum shards_for(B, 8) over {len(bt)} backtest "
+                      f"batches; artifact valid ({path}) | {smi}")
+    log("serve-mesh", f"(a) every served result vs the single-device engine alone, "
+                      f"within {SERVE_F32}, by endpoint: {json.dumps(bits)}")
+    log("serve-mesh", f"(a) headline, the JAX ledger's names: mesh d8 "
+                      f"{json.dumps(head)}; phase 11's single-device bursty, same "
+                      f"process {json.dumps(inproc['cells']['bursty'])}")
+    eng = svc.engine
+
+    # the same cell traced: each dispatch carries the mesh's size and split
+    _, art_t, _, _, _, _, closed, book = cell("r15-traced", armed=True)
+    n_mesh = 0
+    for ctx in closed:
+        if ctx.outcome != "served" or "dispatch" not in dict(ctx.marks):
+            continue
+        B, A = (int(x) for x in ctx.attrs["bucket"].split("x"))
+        want = (MESH_SERVE_DEVICES, shards_for(
+            B if serve_axis_for(ctx.endpoint) == "batch" else A, MESH_SERVE_DEVICES))
+        got = (ctx.attrs.get("mesh_devices"), ctx.attrs.get("mesh_shards"))
+        if got != want:
+            raise AssertionError(f"serve mesh (a) traced: {ctx.endpoint} bucket "
+                                 f"{B}x{A} dispatch attrs {got}, want {want}")
+        n_mesh += 1
+    if not n_mesh or book.invariant_violations() or inv.validate(art_t):
+        raise AssertionError(f"serve mesh (a) traced: {n_mesh} dispatched traces; "
+                             f"{book.invariant_violations()} {inv.validate(art_t)}")
+    log("serve-mesh", f"(a) traced repeat: {n_mesh} dispatched traces of "
+                      f"{len(closed)} each carry mesh_devices 8 and the shard count "
+                      f"of their bucket; trace books closed; p99 "
+                      f"{art_t['latency_ms']['total']['p99']} ms armed | {smi}")
+
+    # -- (b) the scaling probe and one backtest dispatch by shard count ----------
+    probe = eng.scaling_probe(spec)
+    log("serve-mesh", f"(b) scaling probe (host to host, best of 5): {json.dumps(probe)} "
+                      f"| {smi}")
+    v, m, _ = serve_batch(rng, "backtest", 8, 128, np.float32)
+    vt, mt = torch.from_numpy(v).to(dev), torch.from_numpy(m).to(dev)
+    one = serve_entry_fn("backtest", 12, 1, 10, "rank")
+    ref8 = one(vt, mt)
+    walls = {}
+    for d in (1, 4, 8):
+        entry = sharded_serve_entry_fn("backtest", 12, 1, 10, "rank", devices=[dev] * d)
+        forms = {"serial": entry}
+        if d > 1:  # the same shards, one thread each (shard_map's default)
+            spec_b = P("batch", None, None)
+            forms["threads"] = shard_map(one, mesh=named_mesh("batch", d, [dev] * d),
+                                         in_specs=(spec_b, spec_b),
+                                         out_specs=P("batch", None))
+        for form, fn in forms.items():
+            out = fn(vt, mt)
+            kernels.reset_launches()
+            fn(vt, mt)
+            torch.cuda.synchronize()
+            k1 = kernels.decile_partial_sums.launches
+            if k1 != shards_for(8, d):
+                raise AssertionError(f"serve mesh (b) d{d} {form}: K1 {k1} a dispatch")
+            hold_scores(out.cpu().numpy(), ref8.cpu().numpy(),
+                        f"serve mesh (b) backtest d{d} {form}", False)
+            ws = []
+            for _ in range(MESH_SERVE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(vt, mt)
+                torch.cuda.synchronize()
+                ws.append((time.perf_counter() - t0) * 1e3)
+            walls[f"d{d}_{form}"] = statistics.median(ws)
+    log("serve-mesh", f"(b) one backtest B=8 A=128 dispatch (inputs on the card), "
+                      f"synchronized wall ms, median of {MESH_SERVE_REPS}: "
+                      f"{json.dumps(walls)}; K1 launches a dispatch 1 / 4 / 8 | {smi}")
+    # the sharded scorers against the single-device one on the same batch
+    eq = {}
+    for kind in kinds:
+        v, m, _ = serve_batch(rng, kind, 8, 128, np.float32)
+        vt, mt = torch.from_numpy(v).to(dev), torch.from_numpy(m).to(dev)
+        got = sharded_serve_entry_fn(kind, 12, 1, 10, "rank",
+                                     devices=devices)(vt, mt).cpu().numpy()
+        want = serve_entry_fn(kind, 12, 1, 10, "rank")(vt, mt).cpu().numpy()
+        err = hold_scores(got, want, f"serve mesh (b) {kind} d8 vs one device", False)
+        eq[kind] = {"bit_equal": got.tobytes() == want.tobytes(), "max_abs_diff": err}
+    log("serve-mesh", f"(b) each endpoint's d8 scorer vs the single-device scorer on "
+                      f"one B=8 A=128 batch, within {SERVE_F32}: {json.dumps(eq)}")
+    # K1 against its plain version at a d8 batch shard's shape
+    v, m, _ = serve_batch(rng, "backtest", 1, 128, np.float32)
+    r, lab, _ = k1_inputs_of(single, v, m)
+    s_, c_ = kernels.decile_partial_sums(r, lab, 10)
+    ps, pc = kernels.decile_partial_sums_plain(r, lab, 10)
+    absum, _ = kernels.decile_partial_sums_plain(r.abs(), lab, 10)
+    torch.cuda.synchronize()
+    if list(r.shape) != [128, 60] or not torch.equal(c_, pc):
+        raise AssertionError(f"serve mesh K1 {list(r.shape)}: counts differ")
+    assert_sums(s_, ps, absum, r.dtype, f"serve mesh K1 {list(r.shape)}")
+    log("serve-mesh", f"(b) K1 == plain at a d8 batch shard's shape [128, 60] (max "
+                      f"|err| {(s_ - ps).abs().max().item()}); K1 device time, timed "
+                      f"in phase 11 (d) before any service ran: {json.dumps(inproc['k1_at'])} "
+                      f"| {smi}")
+    # -- (c) the serve-mesh warm-up and loadgen --mesh, processes of their own ----
+    tmp = tempfile.mkdtemp(prefix="csmom_smw_")
+    try:
+        report, _, warm_s = run_warmup(REPO, tmp, profiles="serve-mesh",
+                                       subdir=MESH_SERVE_SUBDIR)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    entries = {r["name"]: r for r in report["entries"]
+               if r["name"].startswith("mesh.serve.")}
+    want_names = health.expected_entry_names("serve", mesh_devices=torch.cuda.device_count())
+    bad = [n for n, r in entries.items() if r.get("error")
+           or not (r.get("cache_hit") or r.get("libraries_built"))]
+    if report["n_errors"] or set(entries) != want_names or bad:
+        raise AssertionError(f"serve mesh (c) warm-up: {report['n_errors']} errors; "
+                             f"entries {sorted(entries)} against {sorted(want_names)}; "
+                             f"neither hit nor built {bad}")
+    wl = warm_launches({"entries": list(entries.values())})
+    log("serve-mesh", f"(c) warmup --profiles serve-mesh --strict: {len(entries)} mesh "
+                      f"entries (== the health check's names at "
+                      f"d{torch.cuda.device_count()}), all cache hits or built, 0 "
+                      f"errors, report read back; {warm_s:.1f} s of command; their "
+                      f"launches {wl} | {smi}")
+    argv = ["loadgen", "--mesh", "--smoke", "--out", out_dir, "--run-id",
+            "chip-mesh-smoke"]
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "csmom_tpu_torch.cli", *argv],
+                       capture_output=True, text=True, timeout=300, cwd=REPO,
+                       env={**os.environ, "PYTHONPATH": REPO})
+    lg_s = time.perf_counter() - t0
+    lg_path = os.path.join(out_dir, "GPU_SERVE_MESH_chip-mesh-smoke.json")
+    if p.returncode != 0 or not os.path.exists(lg_path) or inv.validate_file(lg_path):
+        raise AssertionError(f"serve mesh (c) {' '.join(argv)}: exit {p.returncode}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    log("serve-mesh", f"(c) {' '.join(argv[:3])}: exit 0 in {lg_s:.1f} s, artifact valid; "
+                      + " / ".join(ln.strip() for ln in p.stdout.splitlines()
+                                   if ln.startswith(("  mesh:", "throughput",
+                                                     "in-window"))) + f" | {smi}")
+
+    # -- (d) a pinned pool: two mesh workers, 4 logical shards of cuda:0 each ----
+    run_dir = tempfile.mkdtemp(prefix="csmom_smp_")
+    sup = PoolSupervisor(PoolConfig(
+        n_workers=MESH_POOL["workers"], profile="serve", engine="torch-mesh",
+        device=MESH_POOL["device"], devices_per_worker=MESH_POOL["devices_per_worker"],
+        require_warm_cache=True, ready_timeout_s=180.0), run_dir)
+    router = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        spawn_s = time.perf_counter() - t0
+        dpw = MESH_POOL["devices_per_worker"]
+        for h in sup.handles:
+            rep = h.ready_report or {}
+            if (h.device_slice != f"{h.slot * dpw}:{dpw}"
+                    or rep.get("device_slice") != h.device_slice
+                    or (rep.get("warm") or {}).get("mesh", {}).get("devices") != dpw
+                    or rep.get("fresh_compiles") != 0 or rep.get("platform") != "gpu"):
+                raise AssertionError(f"serve mesh (d) {h.worker_id}: slice "
+                                     f"{h.device_slice}, ready report {rep}")
+        router = Router(sup.ready_workers, RouterConfig(
+            profile="serve", default_deadline_s=0.5, hedge_fraction=0.35),
+            retry_after_fn=sup.retry_after_s)
+        art_p = run_pool_loadgen(router, sup, LoadConfig(
+            schedule=MESH_POOL["schedule"], seed=MESH_POOL["seed"],
+            class_mix=preset["class_mix"], deadline_s=0.5, run_id="chip-mesh-pool"))
+        viols = inv.validate(art_p) + router.invariant_violations()
+        for name, b in router.class_accounting().items():
+            if b["served"] + b["rejected"] + b["expired"] != b["admitted"]:
+                viols.append(f"class {name} books open: {b}")
+        stats = sup.worker_stats()
+        pool_launches = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+        for w in stats:
+            for k in pool_launches:
+                pool_launches[k] += (w.get("kernel_launches") or {}).get(k, 0)
+        if (viols or art_p["requests"]["rejected_infra"]
+                or art_p["compile"]["in_window_fresh_compiles"] != 0):
+            raise AssertionError(f"serve mesh (d): {viols}; requests "
+                                 f"{art_p['requests']}; fresh "
+                                 f"{art_p['compile']['in_window_fresh_compiles']!r}")
+        write_artifact(out_dir, art_p, prefix="GPU_SERVE_POOL")
+    finally:
+        if router is not None:
+            router.channels.close()
+        sup.stop()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    if any(h.proc.poll() is None for h in sup.handles):
+        raise AssertionError("serve mesh (d): a worker outlived the supervisor's stop")
+    lat_p = art_p["latency_ms"]["total"]
+    log("serve-mesh", f"(d) pinned pool: {MESH_POOL['workers']} torch-mesh workers on "
+                      f"slices {[h.device_slice for h in sup.handles]} of "
+                      f"{MESH_POOL['device']} (d{dpw} each, ready in {spawn_s:.1f} s), "
+                      f"{MESH_POOL['schedule']} seed {MESH_POOL['seed']}: "
+                      f"{art_p['value']} req/s over {art_p['wall_s']} s, p50 "
+                      f"{lat_p['p50']} p99 {lat_p['p99']} ms; requests "
+                      f"{json.dumps(art_p['requests'])}; books closed across "
+                      f"processes, rejected_infra 0, 0 built in the window; the "
+                      f"workers' launches {pool_launches} | {smi}")
+    return {"launches": total_l, "wall_s": time.perf_counter() - t_phase}
+
+
 # (name fragment, HBM bytes/s, f32 FLOP/s outside the tensor cores): the
 # vendor data sheets' figures; the first fragment found in the device
 # name wins
@@ -4476,6 +4905,19 @@ SPREAD_ATOL = 1e-5
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+# each phase's wall, in the order the phases ran (the [smoke] lines)
+PHASE_WALLS: dict = {}
+
+
+def phase_done(n: int, name: str, t0: float) -> float:
+    """Log phase ``n``'s wall since ``t0`` on a ``[smoke] phase`` line and
+    keep it; returns the clock for the next phase."""
+    now = time.perf_counter()
+    PHASE_WALLS[f"{n} {name}"] = round(now - t0, 1)
+    log("smoke", f"phase {n} {name} {now - t0:.1f} s")
+    return now
 
 
 def main(argv=None) -> int:
@@ -4523,6 +4965,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(20261016)
 
     # -- 1. device ---------------------------------------------------------
+    t_smoke = t_p = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -4539,6 +4982,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"no memory/compute peak known for {kind!r}")
     log("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"
                   f" | peaks {bw / 1e12:.2f} TB/s, f32 {f32_peak / 1e12:.0f} TFLOP/s")
+    t_p = phase_done(1, "device", t_p)
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4548,6 +4992,7 @@ def main(argv=None) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log("build", f"{name}: {line.strip()}")
+    t_p = phase_done(2, "build", t_p)
 
     # -- helpers ---------------------------------------------------------------
     def t(x, dtype=None):
@@ -4681,6 +5126,7 @@ def main(argv=None) -> int:
                    f"bit, in {n_checks} f64/f32 shape cases (+ all-invalid, "
                    "labels outside [-1, B), misaligned storage, inf, H > 128 "
                    "and A > MAX_ASSETS refusals)")
+    t_p = phase_done(3, "kernels", t_p)
 
     # -- 4. golden monthly, f64 --------------------------------------------
     daily = synthetic_daily_panel(40, 1260, seed=123, listing_gaps=True)
@@ -4719,6 +5165,7 @@ def main(argv=None) -> int:
                                **F64_TOL, equal_nan=True)
     log("golden", f"f64 MONTHLY fingerprints reproduced ({got}); K1 launches "
                   f"{k1_golden}; run_monthly/run_grid on cuda agree")
+    t_p = phase_done(4, "golden", t_p)
 
     # -- 5. north star, f32 -------------------------------------------------
     kernels.reset_launches()
@@ -4781,6 +5228,7 @@ def main(argv=None) -> int:
         d_ms, h_ms = time_call(fn)
         e2e[label] = {"device_ms": d_ms, "host_ms": h_ms}
     log("north", "end-to-end f32 medians of %d reps: %s" % (REPS, json.dumps(e2e)))
+    t_p = phase_done(5, "north star", t_p)
 
     # -- 6. research paths (BASELINE configs 3 and 5) -------------------------
     # (a) the JAX package's pinned outputs on the golden panel, f64
@@ -4929,15 +5377,18 @@ def main(argv=None) -> int:
         d_ms, h_ms = time_call(fn)
         log("research", f"time {label}: {d_ms:.4f} ms CUDA events, host "
                         f"{h_ms:.4f} ms (median of {REPS}) | {smi}")
+    t_p = phase_done(6, "research", t_p)
 
     with tempfile.TemporaryDirectory(prefix="csmom_smoke_") as tmp:
         # -- 7. data-in: CSV caches and packs -> month-end panels on the card
         pack_dir = os.path.join(tmp, "north_star")
         data_in_launches = data_in(dev, smi, pm, mm, ends, mres, grids, pack_dir)
+        t_p = phase_done(7, "data-in", t_p)
 
         # -- 8. cli: the port's CLI on phase 7(b)'s pack -------------------
         cli_launches = cli_phase(dev, smi, pack_dir, os.path.join(tmp, "results"),
                                  mres, grids, assert_sums, bound)
+        t_p = phase_done(8, "cli", t_p)
 
     # -- 10. kernels line at the main-path shapes, measured here, before
     # phase 9: after its traces of ~10^5 device activities, later traces
@@ -5067,6 +5518,7 @@ def main(argv=None) -> int:
                        f"this run; its first version's, recorded (not measured "
                        f"here): {first} ms on an NVIDIA H100 80GB HBM3 at 700 W "
                        f"(PERF.md, section 6)")
+    t_p = phase_done(10, "kernels line", t_p)
 
     # -- 11. serve: the in-process serving tier, before phase 9 (whose long
     # traces leave later traces losing records) --------------------------
@@ -5075,6 +5527,7 @@ def main(argv=None) -> int:
         serve = serve_phase(smi, tmp, assert_sums, bound)
     log("serve", f"phase wall {time.perf_counter() - t_phase:.1f} s; service-run "
                  f"launches {serve['launches']} | {smi}")
+    t_p = phase_done(11, "serve", t_p)
     for row in rows:
         row["serve_launches"] = serve["launches"][row["name"]]
         k1 = row["name"] == "decile_partial_sums"
@@ -5089,6 +5542,7 @@ def main(argv=None) -> int:
         pool = pool_phase(smi, args.out or tmp)
     log("pool", f"phase wall {time.perf_counter() - t_phase:.1f} s; the workers' "
                 f"launches {pool['launches']} | {smi}")
+    t_p = phase_done(12, "pool", t_p)
     for row in rows:
         row["pool_launches"] = pool["launches"][row["name"]]
 
@@ -5100,6 +5554,7 @@ def main(argv=None) -> int:
     log("fabric", f"phase wall {time.perf_counter() - t_phase:.1f} s; the workers' "
                   f"launches in the serving windows {fab['launches']}, "
                   f"{fab['backtest_batches']} backtest batches | {smi}")
+    t_p = phase_done(13, "fabric", t_p)
     for row in rows:
         row["fabric_launches"] = fab["launches"][row["name"]]
 
@@ -5113,6 +5568,7 @@ def main(argv=None) -> int:
                  f"walls {json.dumps(fleet['walls'])}; r20 armed "
                  f"{json.dumps(fleet['r20'])}; r21 {json.dumps(fleet['r21'])}; "
                  f"autoscale {json.dumps(fleet['autoscale'])} | {smi}")
+    t_p = phase_done(14, "fleet", t_p)
     for row in rows:
         row["fleet_launches"] = fleet["launches"][row["name"]]
 
@@ -5125,15 +5581,27 @@ def main(argv=None) -> int:
                  f"{tr['launches']}, replay windows' {tr['replay_launches']}; "
                  f"cells {json.dumps({k: v for k, v in tr.items() if k not in ('launches', 'replay_launches', 'wall_s')})} "
                  f"| {smi}")
+    t_p = phase_done(15, "trace and replay", t_p)
     for row in rows:
         row["trace_launches"] = tr["launches"][row["name"]]
         row["replay_launches"] = tr["replay_launches"][row["name"]]
+
+    # -- 18. the mesh serving engine, after phase 15 and before phase 9 ------
+    # its GPU_SERVE_MESH_r15.json lands under chiprun_out/ unless --out says
+    smesh = serve_mesh_phase(smi, args.out or os.path.join(REPO, "chiprun_out"),
+                             assert_sums, serve)
+    log("serve-mesh", f"phase wall {smesh['wall_s']:.1f} s; the mesh cell's "
+                      f"launches {smesh['launches']} | {smi}")
+    t_p = phase_done(18, "serve mesh", t_p)
+    for row in rows:
+        row["serve_mesh_launches"] = smesh["launches"][row["name"]]
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()
     intraday_launches = intraday_phase(dev, smi)
     log("intraday", f"phase wall {time.perf_counter() - t_phase:.1f} s; launches "
                     f"{intraday_launches} | {smi}")
+    t_p = phase_done(9, "intraday", t_p)
     if intraday_launches != {"decile_partial_sums": 1, "cohort_partial_sums": 0}:
         raise AssertionError(f"intraday: launches {intraday_launches}, expected K1 1 "
                              f"(run's replicate) and K2 0")
@@ -5146,6 +5614,7 @@ def main(argv=None) -> int:
                 f"{warm['warmup_launches']}, examples' {warm['examples_launches']}; "
                 f"{json.dumps({k: warm[k] for k in ('warmup_cold_s', 'warmup_warm_s', 'warmup_max_peak_bytes', 'example_north_star_grid_ms')})} | {smi}")
     log("warm", f"per entry (ms, bytes): {json.dumps(warm['warmup_entries'])}")
+    t_p = phase_done(16, "warm-start and examples", t_p)
     for row in rows:
         row["warmup_launches"] = warm["warmup_launches"][row["name"]]
         row["examples_launches"] = warm["examples_launches"][row["name"]]
@@ -5154,6 +5623,9 @@ def main(argv=None) -> int:
     mesh = mesh_phase(smi, pm, mm, mres, grids)
     log("mesh", f"phase wall {mesh['wall_s']:.1f} s; launches {mesh['launches']} | "
                 f"{smi}")
+    t_p = phase_done(17, "mesh", t_p)
+    log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
+                 f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     for row in rows:
         row["mesh_launches"] = mesh["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

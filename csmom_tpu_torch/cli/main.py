@@ -28,7 +28,9 @@ The flags that differ are the device's and the kernels':
   devices); ``--mode rank_hist`` implies it;
 - ``warmup`` warms by running each manifest entry on the device (its
   profile ``bench-gpu`` takes the place of ``bench-tpu``, which it
-  accepts), and has no ``--platform``; the serve mesh profiles exit 2.
+  accepts), and has no ``--platform``; the mesh profiles
+  (``serve-mesh``, ``bench-mesh``) run on the visible cards, or on one
+  CPU shard without a card.
 
 ``--config file.toml`` loads a :class:`~csmom_tpu_torch.config.RunConfig`;
 flags given on the command line override the file.
@@ -1287,11 +1289,7 @@ def cmd_warmup(args) -> int:
     if not profiles:
         profiles = (["bench-cpu", "golden"] if args.device == "cpu"
                     else ["bench-gpu", "golden"])
-    try:  # bench-tpu is bench-gpu; a serve mesh profile needs item 7b
-        profiles = [canonical_profile(p) for p in profiles]
-    except NotImplementedError as e:
-        print(e, file=sys.stderr)
-        return 2
+    profiles = [canonical_profile(p) for p in profiles]  # bench-tpu: bench-gpu
 
     from csmom_tpu_torch.compile.manifest import PROFILES, build_manifest
 

@@ -11,13 +11,13 @@ zoo (``registry.strategies()``, registered through
 ``--kind`` filters; ``--endpoints`` prints only the serving tier's
 endpoint names, one a line, exactly as the reference does.
 
-What differs from the reference: a serve engine lists no ``donated``
-variant (torch has no buffer donation, ROADMAP.md known difference 12)
-and no ``sharded`` hook (the mesh serving engine, Queue 1 item 7b); a
-compile engine lists no ``donated`` variant, and ``sharded`` where the
-rule table of :mod:`csmom_tpu_torch.mesh.variants` resolves one (the
-reference prints ``sharded:stub`` for every engine without an explicit
-``sharded_fn``); kind ``lint`` is not ported (item 8d) and exits 2.
+What differs from the reference: an engine lists no ``donated``
+variant (torch has no buffer donation, ROADMAP.md known difference 12),
+and ``sharded`` where the rule table of
+:mod:`csmom_tpu_torch.mesh.variants` resolves one (every serve engine,
+through its catch-all serve rule; the reference prints ``sharded:stub``
+for every engine without an explicit ``sharded_fn``); kind ``lint`` is
+not ported (item 8d) and exits 2.
 """
 
 from __future__ import annotations
@@ -32,13 +32,16 @@ _NOT_PORTED = {
 }
 
 
-def _compile_surfaces(spec) -> str:
-    """A compile engine's surfaces, as the reference names them."""
+def _surfaces(spec) -> str:
+    """A serve or compile engine's surfaces, as the reference names them."""
     from csmom_tpu_torch.mesh.variants import has_sharded
 
-    out = [f"manifest({','.join(spec.profiles)})"]
-    if spec.entry_fn is not None:
-        out.append("entry")
+    if spec.kind == "serve":
+        out = ["serve", "loadgen"] if spec.workload else ["serve"]
+    else:
+        out = [f"manifest({','.join(spec.profiles)})"]
+        if spec.entry_fn is not None:
+            out.append("entry")
     if has_sharded(spec):
         out.append("sharded")
     return " ".join(out)
@@ -63,12 +66,9 @@ def cmd_registry(args) -> int:
         return 0
     n = 0
     for kind in ((args.kind,) if args.kind else ("serve", "compile", "strategy")):
-        if kind == "serve":
-            rows = [(s.name, "serve loadgen" if s.workload else "serve",
-                     s.description) for s in engine_specs("serve")]
-        elif kind == "compile":
-            rows = [(s.name, _compile_surfaces(s), s.description)
-                    for s in engine_specs("compile")]
+        if kind in ("serve", "compile"):
+            rows = [(s.name, _surfaces(s), s.description)
+                    for s in engine_specs(kind)]
         else:
             # a strategy's description: its class docstring's first line
             rows = [(name, "-", (cls.__doc__ or "").strip().split("\n")[0])
@@ -84,7 +84,8 @@ def cmd_registry(args) -> int:
         print()
     print(f"{n} engines registered — one serve registration buys: a warmed "
           "shape on every bucket of the grid, a serve endpoint and a "
-          "loadgen workload leg with its per-endpoint books; a compile "
+          "loadgen workload leg with its per-endpoint books and a "
+          "sharded scorer on a mesh; a compile "
           "registration buys its entries in the warm-up manifests of its "
           "profiles (warmup); a strategy registration buys a --strategy "
           "for the monthly commands")

@@ -58,8 +58,17 @@ The flags that differ from the reference's:
   (``supervisor.pick_transport``), where the reference defaults to unix;
 - the fleet and trace artifacts are ``GPU_FLEET_<run>.json`` and
   ``GPU_TRACE_<run>.json``;
-- the mesh flags are not ported yet: each exits 2 naming the ROADMAP.md
-  item that brings it.
+- ``--mesh`` runs the mesh engine (``torch-mesh``) over the visible
+  cards, or the worker's pinned slice of them; on a machine with one
+  card that is the one-shard path, the single-device scorer itself.
+  ``--shards N`` asks for N shards: the first N visible cards with
+  ``--device cuda`` (more exits 2), or N logical shards of the CPU with
+  ``--device cpu``, the form ``grid --shards`` takes.  In a pool,
+  ``--devices-per-worker N`` pins slot k to the slice ``k*N:N`` of the
+  visible cards (more than there are exits 2), or to N logical CPU
+  shards with ``--device cpu``.  ``loadgen --mesh`` lands
+  ``GPU_SERVE_MESH_<run>.json``, with the engine's ``mesh`` block
+  (placements, shard counts, the scaling probe).
 """
 
 from __future__ import annotations
@@ -69,23 +78,68 @@ import sys
 
 __all__ = ["cmd_loadgen", "cmd_serve", "register"]
 
-# flags of the reference's serving tier the port does not have yet, by
-# the ROADMAP.md Queue 1 item that brings them: (dest, flag, item)
-_DEFERRED = (
-    ("mesh", "--mesh", "7b, the mesh serving engine"),
-    ("devices_per_worker", "--devices-per-worker", "7b, the mesh serving engine"),
-)
+def _engine_name(args) -> str:
+    """``torch-mesh`` with ``--mesh``, else ``torch``, or ``stub``."""
+    if args.stub:
+        return "stub"
+    return "torch-mesh" if getattr(args, "mesh", False) else "torch"
 
 
-def _deferred_flag(args) -> int:
-    """Exit code 2 with the item named when a deferred flag was given."""
-    for dest, flag, item in _DEFERRED:
-        if getattr(args, dest, None) not in (None, False):
-            print(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item "
-                  f"{item}); the port serves in-process, as a pool or as "
-                  "a fabric",
-                  file=sys.stderr)
-            return 2
+def _mesh_devices_arg(args):
+    """The in-process mesh engine's device list from ``--shards N`` (N
+    logical CPU shards, or the first N visible cards), or None: the
+    engine resolves ``--device``."""
+    n = args.shards
+    if not n or _engine_name(args) != "torch-mesh":
+        return None
+    return ("cpu",) * n if args.device == "cpu" else tuple(
+        f"cuda:{i}" for i in range(n))
+
+
+def _pooled(args) -> bool:
+    """Whether the command runs worker processes (a pool or a fabric)."""
+    return (args.workers > 0 or getattr(args, "pool", False)
+            or getattr(args, "fabric", False))
+
+
+def _visible_cards() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _mesh_flags_rc(args) -> int:
+    """Warn where the reference warns (``--mesh`` with ``--stub``, pinning
+    or shards without ``--mesh``); 2 when the mesh flags are out of range
+    or ask for more cards than are visible."""
+    mesh = getattr(args, "mesh", False)
+    if args.stub and mesh:
+        print("warning: --mesh has no effect with --stub (the numpy stub has "
+              "no devices to shard over)", file=sys.stderr)
+    elif not mesh and (args.devices_per_worker > 0 or args.shards):
+        print("warning: --devices-per-worker and --shards without --mesh are "
+              "no-ops (only the torch-mesh engine builds a mesh); add --mesh",
+              file=sys.stderr)
+    if args.shards is not None and args.shards < 1:
+        print("--shards must be at least 1", file=sys.stderr)
+        return 2
+    if args.devices_per_worker < 0:
+        print("--devices-per-worker must be >= 0", file=sys.stderr)
+        return 2
+    if _engine_name(args) != "torch-mesh" or args.device != "cuda":
+        return 0
+    if args.shards and args.shards > _visible_cards():
+        print(f"--shards {args.shards} exceeds the {_visible_cards()} visible "
+              f"card(s); pass --device cpu to run {args.shards} logical CPU "
+              "shards", file=sys.stderr)
+        return 2
+    need = max(args.workers, 2) * args.devices_per_worker
+    if _pooled(args) and need > _visible_cards():
+        print(f"--devices-per-worker {args.devices_per_worker} pins {need} "
+              f"cards over the workers, more than the {_visible_cards()} "
+              "visible; pass --device cpu for logical CPU shards",
+              file=sys.stderr)
+        return 2
     return 0
 
 
@@ -96,8 +150,9 @@ def _mk_service(args):
                                else "serve")
     cfg = ServeConfig(
         profile=profile,
-        engine="stub" if args.stub else "torch",
+        engine=_engine_name(args),
         device=None if args.stub else args.device,
+        devices=_mesh_devices_arg(args),
         capacity=args.capacity,
         max_wait_s=args.max_wait_ms / 1e3,
         # unset --deadline-ms = the SLO class budgets; 0 = no default
@@ -115,9 +170,17 @@ def _check_cache_honesty(args) -> int:
     instead.  Returns 0 when serving may proceed."""
     if args.stub or args.device == "cpu" or args.allow_cold_cache:
         return 0
-    from csmom_tpu_torch.serve.health import BUILD_POINTER, cache_readiness
+    from csmom_tpu_torch.serve.health import (
+        BUILD_POINTER,
+        cache_readiness,
+        mesh_devices_of,
+    )
 
-    ready, reason = cache_readiness()
+    # the device count each mesh engine meshes: the worker's slice in a
+    # pinned pool, else --shards, else every visible card
+    pinned = args.devices_per_worker if _pooled(args) else args.shards
+    ready, reason = cache_readiness(mesh_devices=mesh_devices_of(
+        _engine_name(args), args.device, pinned))
     if not ready:
         print(f"NOT READY ({reason})", file=sys.stderr)
         print("readiness is a demonstrated claim — building inside the "
@@ -218,7 +281,7 @@ def _worker_config(args, run_dir: str):
 
     profile = args.profile or ("serve-smoke" if getattr(args, "smoke", False)
                                else "serve")
-    engine = "stub" if args.stub else "torch"
+    engine = _engine_name(args)
     return PoolConfig(
         # --pool without --workers means a pool: two workers is the
         # smallest fleet hedging can route around
@@ -232,8 +295,10 @@ def _worker_config(args, run_dir: str):
         # the pool's wire carries each request's deadline from the router,
         # so the worker-side default keeps plain float semantics
         deadline_ms=500.0 if args.deadline_ms is None else args.deadline_ms,
+        devices_per_worker=(args.devices_per_worker
+                            if engine == "torch-mesh" else 0),
         # the parent ran the cold-cache gate; each worker checks again
-        require_warm_cache=(engine == "torch" and args.device == "cuda"
+        require_warm_cache=(engine != "stub" and args.device == "cuda"
                             and not args.allow_cold_cache),
     )
 
@@ -885,7 +950,7 @@ def cmd_serve(args) -> int:
     from csmom_tpu_torch.registry import serve_endpoints
     from csmom_tpu_torch.utils.deadline import mono_now_s
 
-    rc = _deferred_flag(args)
+    rc = _mesh_flags_rc(args)
     if rc:
         return rc
     if args.workers > 0:
@@ -953,7 +1018,7 @@ def cmd_loadgen(args) -> int:
         write_artifact,
     )
 
-    rc = _deferred_flag(args)
+    rc = _mesh_flags_rc(args)
     if rc:
         return rc
     if args.smoke:
@@ -982,6 +1047,14 @@ def cmd_loadgen(args) -> int:
     svc = _mk_service(args)
     svc.start()
     _print_ready(svc)
+    # the mesh branches key off the resolved engine, not the flag: a stub
+    # run never prints mesh claims or lands in the SERVE_MESH family
+    mesh_engine = svc.engine.name == "torch-mesh"
+    if mesh_engine:
+        mesh = svc.warm_report.get("mesh") or {}
+        print(f"  mesh: {mesh.get('devices')} devices, placements "
+              + ", ".join(f"{k}:{v['axis']}"
+                          for k, v in (mesh.get("endpoints") or {}).items()))
     load = LoadConfig(
         schedule=schedule,
         schedule_kind=schedule_kind,
@@ -1003,7 +1076,8 @@ def cmd_loadgen(args) -> int:
         _disarm_trace(trace_book)
         raise
     out_dir = args.out or os.getcwd()
-    path = write_artifact(out_dir, art)
+    path = write_artifact(out_dir, art, prefix=("GPU_SERVE_MESH" if mesh_engine
+                                                else "GPU_SERVE"))
 
     req = art["requests"]
     lat = art["latency_ms"]["total"]
@@ -1095,10 +1169,23 @@ def _common_flags(sp) -> None:
                     default=0.35,
                     help="pool mode: hedge a request after this fraction "
                          "of its remaining deadline (default 0.35)")
-    # the reference's flags the port does not have yet: exit 2
-    for flag, kw in (("--mesh", dict(action="store_true", default=None)),
-                     ("--devices-per-worker", dict(type=int))):
-        sp.add_argument(flag, help="not ported yet (exits 2)", **kw)
+    sp.add_argument("--mesh", action="store_true",
+                    help="the torch-mesh engine: each micro-batch split "
+                         "over the mesh (batch rows, or assets for the "
+                         "per-asset signals: csmom_tpu_torch/mesh partition "
+                         "rules) on the visible cards; GPU_SERVE_MESH_* "
+                         "artifacts")
+    sp.add_argument("--shards", type=int, metavar="N",
+                    help="with --mesh, in-process: N shards, the first N "
+                         "visible cards (--device cuda) or N logical CPU "
+                         "shards (--device cpu); default: every visible "
+                         "card, one shard with --device cpu")
+    sp.add_argument("--devices-per-worker", dest="devices_per_worker",
+                    type=int, default=0,
+                    help="with --mesh, pool mode: pin slot k to the slice "
+                         "k*N:N of the visible cards (N logical CPU shards "
+                         "with --device cpu); a replacement re-pins the "
+                         "same slice; 0 = no pinning")
 
 
 def register(sub) -> None:

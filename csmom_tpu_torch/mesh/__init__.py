@@ -9,10 +9,10 @@ of :mod:`csmom_tpu.mesh`).
   and wrapping a local function with ``shard_map``;
 - :mod:`~csmom_tpu_torch.mesh.variants`: the sharded variants that
   :meth:`csmom_tpu_torch.registry.core.EngineSpec.sharded` resolves
-  (the grid, monthly, event, histrank, online-ridge and stream-signal
-  engines; the serve endpoints wait for ROADMAP.md item 7b);
+  (the serve endpoints' sharded micro-batch scorers, the grid, monthly,
+  event, histrank, online-ridge and stream-signal engines);
 - :mod:`~csmom_tpu_torch.mesh.pinning`: stdlib-only device-slice
-  arithmetic.
+  arithmetic, which the serving pool pins its mesh workers with.
 
 Importing the package loads neither torch nor pandas.
 """

@@ -1,8 +1,8 @@
 """Device-slice pinning arithmetic — stdlib-only, shared across processes.
 
 A copy of :mod:`csmom_tpu.mesh.pinning` (the port imports nothing of the
-JAX package); the pool's use of it waits for the mesh serving engine
-(ROADMAP.md, Queue 1 item 7b).
+JAX package), used by the serving pool (``PoolConfig.devices_per_worker``)
+and the worker's ``--device-slice``.
 
 The pool's pinning contract: a worker slot owns a FIXED
 contiguous slice of the process's device list, ``slot * per : slot *

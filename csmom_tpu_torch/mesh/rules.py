@@ -21,9 +21,10 @@ panel asset rules   ``("assets",)``         ``[A, ...]`` panels and
                                             per-asset vectors
 ==================  ======================  ============================
 
-The serve tables are data for the mesh serving engine (ROADMAP.md,
-Queue 1 item 7b); the grid and panel tables place the sharded engines
-of :mod:`csmom_tpu_torch.parallel`.  Which axis a serve endpoint splits
+The serve tables place the mesh serving engine's micro-batches
+(:func:`csmom_tpu_torch.mesh.variants.sharded_serve_entry_fn`); the grid
+and panel tables place the sharded engines of
+:mod:`csmom_tpu_torch.parallel`.  Which axis a serve endpoint splits
 is itself a rule (:func:`serve_axis_for`).
 """
 

@@ -7,9 +7,11 @@ slices its inputs per call and assembles its outputs on the mesh's
 first device, so placing an input is moving it there, and gathering is
 a copy to the host.
 
-Degenerate path: with ``collective_free`` a one-shard mesh skips the
-wrapper and :func:`sharded_call` returns the function itself, the
-literal single-device program.
+With ``collective_free`` a one-shard mesh skips the wrapper and
+:func:`sharded_call` returns the function itself, the literal
+single-device program; on more shards they run one after another on
+the caller's thread (``shard_map(..., collective_free=True)``), with no
+thread started per call.
 """
 
 from __future__ import annotations
@@ -59,9 +61,11 @@ def gather(x):
 def sharded_call(fn, mesh, in_specs, out_specs, *, collective_free: bool = False):
     """``shard_map(fn)`` on ``mesh``.  With ``collective_free`` (the
     caller's word that ``fn`` uses no collective or axis query) a
-    one-shard mesh returns ``fn`` itself."""
+    one-shard mesh returns ``fn`` itself, and more shards run in order
+    on the caller's thread."""
     from csmom_tpu_torch.parallel.compat import shard_map
 
     if collective_free and mesh_size(mesh) == 1:
         return fn
-    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                     collective_free=collective_free)

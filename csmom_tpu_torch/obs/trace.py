@@ -66,7 +66,10 @@ SCHEMA_VERSION = 1
 
 # the canonical stage vocabulary, in request-path order.  The router-side
 # stages (route/connect/send/recv_wait/finalize) only appear on
-# stitched traces of a multi-process tier.  The wire wall is three
+# stitched traces of a multi-process tier.  The mesh engine's shard
+# placement rides as trace attrs (``mesh_devices``, ``mesh_shards``) set
+# at the dispatch stage: the shards of one dispatch are one engine call,
+# not a separable wall.  The wire wall is three
 # telescoping sub-stages, ``connect`` (channel acquisition), ``send``
 # (frame written) and ``recv_wait`` (reply wall minus the peer's own
 # reported wall); the book aggregates their per-trace sum under the

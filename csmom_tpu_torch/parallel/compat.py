@@ -28,6 +28,14 @@ next collective; the caller then gets that shard's own exception, after
 every thread has ended.  A barrier that waits longer than
 :data:`BARRIER_TIMEOUT_S` breaks the same way.
 
+``shard_map(..., collective_free=True)`` is the caller's word that
+``local_fn`` calls no collective: its shards never meet, so they run
+one after another on the caller's thread, each still under
+``torch.cuda.device`` of its device (kernel launches are asynchronous,
+so shards on distinct cards still overlap), with no thread started and
+no barrier; a collective called there raises.  The sharded serve
+endpoints take this path on every micro-batch.
+
 A spec is :class:`~csmom_tpu_torch.mesh.rules.P` (``PartitionSpec``):
 one entry per leading dimension, each a mesh axis name, a tuple of names
 (split over their product, the first the major one) or ``None`` (not
@@ -64,11 +72,12 @@ def _names(entry) -> tuple:
 class _Run:
     """The state one :func:`shard_map` call shares between its shards."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, collective_free: bool = False):
         self.mesh = mesh
         self.coords = [dict(zip(mesh.axis_names, np.unravel_index(k, mesh.devices.shape)))
                        for k in range(mesh.size)]
-        self.barrier = threading.Barrier(mesh.size, timeout=BARRIER_TIMEOUT_S)
+        self.barrier = (None if collective_free else
+                        threading.Barrier(mesh.size, timeout=BARRIER_TIMEOUT_S))
         self.slots: dict = {}
         self.lock = threading.Lock()
         self._groups: dict = {}
@@ -125,6 +134,9 @@ def _exchange(value, axis_name):
     ctx = _shard()
     names = _axis(axis_name)
     run, seq = ctx.run, ctx.seq
+    if run.barrier is None:
+        raise RuntimeError("a collective was called in a collective-free "
+                           "shard_map")
     ctx.seq += 1
     with run.lock:
         run.slots.setdefault(seq, {})[ctx.k] = value
@@ -253,19 +265,20 @@ def _assemble(spec: P, leaves: list, run: _Run):
     return cat(())
 
 
-def shard_map(local_fn, *, mesh, in_specs, out_specs):
+def shard_map(local_fn, *, mesh, in_specs, out_specs, collective_free: bool = False):
     """``local_fn`` mapped over ``mesh``: ``fn(*args)`` runs it once per
     shard (see the module docstring) and returns its assembled outputs.
     ``in_specs`` has one :class:`P` per positional argument; non-array
     arguments (``None``, numbers) pass to every shard as they are.
-    Nothing checks that a replicated output is replicated (the
+    With ``collective_free`` the shards run in order on the caller's
+    thread.  Nothing checks that a replicated output is replicated (the
     reference's ``check_vma``)."""
     in_specs = tuple(in_specs)
 
     def run_fn(*args):
         if len(args) != len(in_specs):
             raise TypeError(f"{len(args)} arguments for {len(in_specs)} in_specs")
-        run = _Run(mesh)
+        run = _Run(mesh, collective_free)
         n = mesh.size
         results: list = [None] * n
         errors: list = [None] * n
@@ -281,12 +294,16 @@ def shard_map(local_fn, *, mesh, in_specs, out_specs):
                     results[k] = local_fn(*local)
             except BaseException as e:  # noqa: BLE001 - re-raised by the caller
                 errors[k] = e
-                run.barrier.abort()
+                if run.barrier is not None:
+                    run.barrier.abort()
             finally:
                 _LOCAL.shard = outer
 
-        if n == 1:
-            body(0)
+        if n == 1 or collective_free:
+            for k in range(n):
+                body(k)
+                if errors[k] is not None:
+                    break
         else:
             threads = [threading.Thread(target=body, args=(k,), daemon=True,
                                         name=f"shard_map-{k}") for k in range(n)]

@@ -1,4 +1,4 @@
-"""Builtin engine registrations: the five serve endpoints and the eight
+"""Builtin engine registrations: the five serve endpoints and the ten
 compile (warm-up) engines.
 
 Counterpart of ``csmom_tpu.registry.builtin``'s serve registrations, in
@@ -10,11 +10,12 @@ reference's, copied.
 Its compile registrations follow, by the reference's names and with its
 profiles and shapes: ``grid.jk``, ``grid.net_core``, ``monthly.kernels``,
 ``event.panel``, ``parallel.histrank``, ``parallel.online_ridge``,
-``serve.buckets``, ``stream.signals`` and ``mesh.grid`` (profile
+``serve.buckets``, ``stream.signals``, ``mesh.serve`` (profiles
+``serve-mesh`` and ``serve-mesh-smoke``) and ``mesh.grid`` (profile
 ``bench-mesh``).  Profile ``bench-gpu`` takes the place of ``bench-tpu``
 (f32; every other profile is f64 unless its engine fixes a type), impls
-take the port's names, there are no donated entries (ROADMAP.md, known
-difference 12) and no ``mesh.serve`` (the mesh serving engine, item 7b).
+take the port's names, and there are no donated entries (ROADMAP.md,
+known difference 12).
 
 Each ``batch_fn(params)`` returns a scorer of the whole micro-batch,
 ``fn(values f[B, A, M], mask bool[B, A, M])``, where the reference's
@@ -537,6 +538,49 @@ REGISTRY.register(EngineSpec(
 ))
 
 
+def mesh_serve_profile_entries(profile: str, dtype=None) -> list:
+    """The sharded serve bucket grid: every (endpoint, batch, assets)
+    shape's mesh entry on the devices the mesh engine resolves (the
+    pinned slice or the visible cards; without a card, the CPU's
+    logical shards the pinned slice counts, one without a slice),
+    named ``mesh.serve.{kind}.b{B}@{A}x{M}.d{n}`` with ``n`` the
+    shape's shard count, then the scaling probe's single-device scorer
+    at the largest bucket, which :class:`~csmom_tpu_torch.serve.engine.
+    MeshTorchEngine` warms too."""
+    import torch
+
+    from csmom_tpu_torch.compile.manifest import ManifestEntry, sds
+    from csmom_tpu_torch.mesh.variants import sharded_serve_jit_for
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.engine import serve_entry_fn
+    from csmom_tpu_torch.serve.service import ServeConfig
+
+    spec = bucket_spec("serve-smoke" if profile.endswith("-smoke") else "serve")
+    dt = np.dtype(dtype or spec.dtype)
+    cfg = ServeConfig()  # the single source of the service's signal params
+    params = (cfg.lookback, cfg.skip, cfg.n_bins, cfg.mode)
+    device = None if torch.cuda.is_available() else "cpu"
+    out = []
+    for kind in REGISTRY.serve_endpoints():
+        for B, A, M in spec.shapes():
+            fn, n = sharded_serve_jit_for(kind, B, A, *params, device=device)
+            out.append(ManifestEntry(
+                name=f"mesh.serve.{kind}.b{B}@{A}x{M}.d{n}",
+                fn=fn,
+                args=(sds((B, A, M), dt), sds((B, A, M), bool)),
+                kernels=_SERVE_KERNELS.get(kind, ()),
+            ))
+    probe = REGISTRY.serve_endpoints()[0]
+    B, A, M = spec.batch_buckets[-1], spec.asset_buckets[-1], spec.months
+    out.append(ManifestEntry(
+        name=f"mesh.serve.single-probe.{probe}.b{B}@{A}x{M}",
+        fn=serve_entry_fn(probe, *params),
+        args=(sds((B, A, M), dt), sds((B, A, M), bool)),
+        kernels=_SERVE_KERNELS.get(probe, ()),
+    ))
+    return out
+
+
 def _mesh_grid_manifest(profile: str, dtype=None) -> list:
     """The grid-cell x asset sharded J x K entries (the reduced and the
     north-star panels) on the visible cards, one logical CPU shard
@@ -574,6 +618,17 @@ def _mesh_grid_manifest(profile: str, dtype=None) -> list:
         ))
     return out
 
+
+REGISTRY.register(EngineSpec(
+    name="mesh.serve", kind="compile",
+    description="the sharded serve bucket grid: batch- or asset-axis "
+                "sharded micro-batch scorers per endpoint on the mesh "
+                "engine's devices (csmom_tpu_torch/mesh partition rules)",
+    axes="values f[B,A,M], mask bool[B,A,M] per endpoint, batch or "
+         "asset axis sharded",
+    profiles=("serve-mesh", "serve-mesh-smoke"),
+    manifest_fn=mesh_serve_profile_entries,
+))
 
 REGISTRY.register(EngineSpec(
     name="mesh.grid", kind="compile",

@@ -24,11 +24,11 @@ What differs from the reference:
 - :meth:`EngineSpec.donated` raises: torch has no buffer donation
   (ROADMAP.md, known difference 12); :meth:`EngineSpec.sharded` resolves
   through :func:`csmom_tpu_torch.mesh.variants.resolve_sharded`, whose
-  serve rules raise until the mesh serving engine exists (Queue 1 item
-  7b);
+  catch-all serve rule gives every servable engine, a runtime
+  registration included, its sharded micro-batch scorer;
 - the reference's profile ``bench-tpu`` is the port's ``bench-gpu``
-  (:data:`PROFILE_ALIASES`); ``bench-mesh`` is ported, and the serve
-  mesh profiles raise until item 7b.
+  (:data:`PROFILE_ALIASES`); the mesh profiles ``bench-mesh``,
+  ``serve-mesh`` and ``serve-mesh-smoke`` keep their names.
 
 Stdlib-only, so the artifact validator can read endpoint names without
 importing torch.  The builtin registrations live in
@@ -94,19 +94,13 @@ class ServeSurface:
 
 # the reference's profile names the port runs under its own name
 PROFILE_ALIASES = {"bench-tpu": "bench-gpu"}
-# the reference's serve mesh profiles: they need the mesh serving engine
+# the serve mesh profiles: the sharded serve bucket grid (mesh.serve)
 MESH_PROFILES = ("serve-mesh", "serve-mesh-smoke")
 
 
 def canonical_profile(profile: str) -> str:
     """The port's name of a warm-up profile (``bench-tpu`` ->
-    ``bench-gpu``); a serve mesh profile raises, naming ROADMAP.md item
-    7b."""
-    if profile in MESH_PROFILES:
-        raise NotImplementedError(
-            f"warm-up profile {profile!r} warms the sharded serve endpoints, "
-            "which need the mesh serving engine the port does not have yet "
-            "(ROADMAP.md, Queue 1 item 7b)")
+    ``bench-gpu``; every other name is its own)."""
     return PROFILE_ALIASES.get(profile, profile)
 
 
@@ -161,9 +155,10 @@ class EngineSpec:
 
     def sharded(self, *args, **kwargs):
         """The engine's mesh variant, resolved by the rule table of
-        :mod:`csmom_tpu_torch.mesh.variants` (a serve endpoint's raises,
-        naming item 7b) and called with ``args``/``kwargs``; an engine no
-        rule matches raises."""
+        :mod:`csmom_tpu_torch.mesh.variants` and called with
+        ``args``/``kwargs`` (a serve endpoint's is its
+        :class:`~csmom_tpu_torch.mesh.variants.ShardedServeEntry`); an
+        engine no rule matches raises."""
         from csmom_tpu_torch.mesh.variants import resolve_sharded
 
         fn = resolve_sharded(self)
@@ -262,7 +257,7 @@ class EngineRegistry:
     def manifest_entries(self, profile: str, dtype=None) -> list:
         """The profile's manifest, aggregated across every engine that
         feeds it, in registration order (``bench-tpu`` reads as
-        ``bench-gpu``; a serve mesh profile raises naming item 7b)."""
+        ``bench-gpu``)."""
         profile = canonical_profile(profile)
         if profile not in self.manifest_profiles():
             raise ValueError(

@@ -12,12 +12,14 @@ Counterpart of ``csmom_tpu.serve``.  The in-process half:
 - :mod:`~csmom_tpu_torch.serve.batcher`: adaptive micro-batching onto
   the bucket grid;
 - :mod:`~csmom_tpu_torch.serve.engine`: ``TorchEngine`` (the registered
-  batch scorers on the card) and the numpy ``StubEngine``;
+  batch scorers on the card), ``MeshTorchEngine`` (their sharded
+  scorers over a mesh of cards or of logical shards) and the numpy
+  ``StubEngine``;
 - :mod:`~csmom_tpu_torch.serve.service`: ``SignalService``;
 - :mod:`~csmom_tpu_torch.serve.loadgen`: the seeded open-loop load
   generator and its ``GPU_SERVE_<run>.json``,
-  ``GPU_SERVE_POOL_<run>.json`` and ``GPU_SERVE_FABRIC_<run>.json``
-  artifacts.
+  ``GPU_SERVE_MESH_<run>.json``, ``GPU_SERVE_POOL_<run>.json`` and
+  ``GPU_SERVE_FABRIC_<run>.json`` artifacts.
 
 The multi-process pool over it:
 

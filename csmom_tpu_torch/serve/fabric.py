@@ -264,11 +264,15 @@ class RouterSupervisor(PoolSupervisor):
 
     def __init__(self, config: PoolConfig, run_dir: str, routes_path: str,
                  deadline_ms: float = 500.0, hedge_fraction: float = 0.35,
-                 trace: bool = False):
+                 max_attempts: int = 3, fair_slots: int = 16,
+                 affinity: bool = True, trace: bool = False):
         super().__init__(config, run_dir)
         self.routes_path = routes_path
         self.deadline_ms = deadline_ms
         self.hedge_fraction = hedge_fraction
+        self.max_attempts = max_attempts
+        self.fair_slots = fair_slots
+        self.affinity = affinity
         self.trace = trace
 
     def _slot_argv(self, h: WorkerHandle) -> list:
@@ -279,7 +283,11 @@ class RouterSupervisor(PoolSupervisor):
                 "--profile", self.config.profile,
                 "--deadline-ms", str(self.deadline_ms),
                 "--hedge-fraction", str(self.hedge_fraction),
+                "--max-attempts", str(self.max_attempts),
+                "--fair-slots", str(self.fair_slots),
                 "--expect-cache-version", self.expect_cache_version]
+        if not self.affinity:
+            argv.append("--no-affinity")
         if self.trace:
             argv.append("--trace")
         return argv
@@ -322,14 +330,18 @@ class RouterSupervisor(PoolSupervisor):
 def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
                  deadline_ms: float, hedge_fraction: float = 0.35,
                  trace: bool = False, publisher_interval_s: float = 0.05,
-                 client_deadline_s: float | None = None, fleet_config=None):
+                 client_deadline_s: float | None = None,
+                 configure_router=None, fleet_config=None):
     """The three-tier bring-up, in the one order that works: the worker
     supervisor first (the fleet the view describes), the routes
     publisher (the view every replica reads), the router supervisor (the
     replicas dial workers through the view), the fabric client last.
 
     ``rcfg.expect_cache_version`` is threaded from the live worker
-    supervisor (the caller cannot know it before the workers exist).  A
+    supervisor (the caller cannot know it before the workers exist).
+    ``configure_router(rsup)`` runs after the router supervisor is built
+    and before its replicas spawn (where a caller configures the replica
+    tier alone, such as a chaos plan scoped to the replicas' dials).  A
     failed router start stops the tiers already running before the
     error propagates.  Tear down with :func:`stop_fabric`.  Returns
     ``(wsup, publisher, rsup, client)``.
@@ -369,6 +381,8 @@ def build_fabric(wcfg: PoolConfig, rcfg: PoolConfig, run_dir: str, *,
                                 routes_path, deadline_ms=deadline_ms,
                                 hedge_fraction=hedge_fraction, trace=trace)
         os.makedirs(rsup.run_dir, exist_ok=True)
+        if configure_router is not None:
+            configure_router(rsup)
         rsup.start()
         client = FabricClient(rsup.ready_workers, FabricClientConfig(
             default_deadline_s=client_deadline_s))

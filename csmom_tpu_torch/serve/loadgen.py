@@ -479,12 +479,20 @@ def build_artifact(service: SignalService, load: LoadConfig,
     spec = service.spec
     sched_label = (load.schedule_kind if load.schedule_kind != "custom"
                    else load.schedule)
+    # the mesh engine's workload string carries its device count: d1 and
+    # d8 runs are different experiments and must never be paired
+    mesh = None
+    mesh_note = ""
+    if hasattr(service.engine, "mesh_info"):
+        mesh = service.engine.mesh_info(spec)
+        mesh["scaling"] = service.engine.scaling_probe(spec)
+        mesh_note = f", mesh d{mesh['devices']}"
     workload = (
         f"open-loop {sched_label} rps seed {load.seed}, "
         f"{'/'.join(load.resolved_kinds())} mix, buckets "
         f"B({','.join(map(str, spec.batch_buckets))})x"
         f"A({','.join(map(str, spec.asset_buckets))})x{spec.months}m "
-        f"({spec.dtype}, {service.config.engine} engine)"
+        f"({spec.dtype}, {service.config.engine} engine{mesh_note})"
     )
     extra = {
         "platform": _platform(service),
@@ -497,6 +505,8 @@ def build_artifact(service: SignalService, load: LoadConfig,
         # keyed, so each p99 has its own distribution beside it
         "samples": _latency_samples(load, requests),
     }
+    if mesh is not None:
+        extra["mesh"] = mesh
     if service.spec.name == "serve-smoke":
         extra["smoke"] = ("smoke-bucket run: pipeline-shaped, workload "
                           "reduced — NOT a performance capture")
@@ -685,12 +695,23 @@ def build_pool_artifact(router, supervisor, load: LoadConfig,
         if isinstance(rep.get("platform"), str):
             platform = rep["platform"]
             break
+    # a mesh pool's workload string carries its topology: the devices a
+    # worker when pinned, else the named slices (none: unpinned)
+    mesh_note = ""
+    if cfg.engine in ("torch-mesh", "jax-mesh"):
+        if cfg.devices_per_worker > 0:
+            mesh_note = f", {cfg.devices_per_worker} dev/worker"
+        else:
+            slices = sorted({h.device_slice for h in supervisor.handles
+                             if h.device_slice})
+            mesh_note = (f", slices {'/'.join(slices)}" if slices
+                         else ", unpinned mesh")
     workload = (
         f"pool open-loop {load.schedule} rps seed {load.seed}, "
         f"{'/'.join(load.resolved_kinds())} mix, {cfg.n_workers} workers, buckets "
         f"B({','.join(map(str, spec.batch_buckets))})x"
         f"A({','.join(map(str, spec.asset_buckets))})x{spec.months}m "
-        f"({spec.dtype}, {cfg.engine} engine)"
+        f"({spec.dtype}, {cfg.engine} engine{mesh_note})"
     )
     extra = {
         "platform": platform,

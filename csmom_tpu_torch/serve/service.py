@@ -70,15 +70,19 @@ class ServeConfig:
     explicit float gives that value to every class; ``None`` disables
     default deadlines entirely.
 
-    ``engine`` is ``"torch"`` (the card engine; the reference's name
-    ``"jax"`` means the same) or ``"stub"``; ``device`` is the torch
-    engine's device (None = cuda, raising without a card; ``"cpu"``
-    runs the kernels' plain versions).
+    ``engine`` is ``"torch"`` (the card engine), ``"torch-mesh"`` (its
+    mesh form; the reference's names ``"jax"`` and ``"jax-mesh"`` mean
+    the same) or ``"stub"``; ``device`` is the torch engines' device
+    (None = cuda, raising without a card; ``"cpu"`` runs the kernels'
+    plain versions); ``devices`` is the mesh engine's explicit device
+    list (a device may repeat: logical shards of one device), None for
+    the pinned slice or the visible cards.
     """
 
     profile: str = "serve"            # buckets.PROFILES key
-    engine: str = "torch"             # "torch" | "stub"
-    device: str | None = None         # the torch engine's device
+    engine: str = "torch"             # "torch" | "torch-mesh" | "stub"
+    device: str | None = None         # the torch engines' device
+    devices: tuple | None = None      # the mesh engine's devices
     capacity: int = 64                # admission-queue bound
     max_wait_s: float = 0.010         # idle-arrival coalescing window
     # "class" = per-class budget; a float = that value; None = none
@@ -103,10 +107,11 @@ class SignalService:
         self.queue = AdmissionQueue(capacity=self.config.capacity,
                                     policy=self.policy)
         self.batcher = Batcher(self.spec, max_wait_s=self.config.max_wait_s)
+        mesh = {"devices": self.config.devices} if self.config.devices else {}
         self.engine = make_engine(
             self.config.engine, device=self.config.device,
             lookback=self.config.lookback, skip=self.config.skip,
-            n_bins=self.config.n_bins, mode=self.config.mode)
+            n_bins=self.config.n_bins, mode=self.config.mode, **mesh)
         self.cache = (ResultCache(self.config.cache_entries,
                                   self.config.cache_bytes)
                       if self.config.cache_enabled else None)
@@ -380,12 +385,22 @@ class SignalService:
                 sp.set(n=len(live))
             # stamp the engine-wall boundary for every request BEFORE the
             # fan-out loop, so one request's unpack/cache time is never
-            # attributed to a batchmate's dispatch stage (live contexts
-            # only: the disarmed no-op singleton has `live` False)
+            # attributed to a batchmate's dispatch stage.  The mesh
+            # engine's shard lookup and mark/set run for live contexts
+            # only (the disarmed no-op singleton has `live` False), and
+            # the lookup once a micro-batch
+            shards = unresolved = object()
             for _, r in live:
                 t = r.trace
-                if t is not None and t.live:
-                    t.mark("dispatch")
+                if t is None or not t.live:
+                    continue
+                if shards is unresolved:
+                    shards = (self.engine.dispatch_shards(
+                        mb.kind, mb.batch_bucket, mb.asset_bucket)
+                        if hasattr(self.engine, "dispatch_shards") else None)
+                t.mark("dispatch")
+                if shards is not None:
+                    t.set(mesh_devices=shards[0], mesh_shards=shards[1])
             for b, r in live:
                 # per-asset vs summary unpacking is the registered
                 # engine's declaration, not a name special-case here

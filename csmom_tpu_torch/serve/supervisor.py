@@ -23,10 +23,19 @@ events the pool artifact carries:
 Workers run ``sys.executable -m csmom_tpu_torch.serve.worker`` with the
 port's checkout first on ``PYTHONPATH`` and the rest of the environment
 inherited unchanged (``CUDA_VISIBLE_DEVICES`` and fault plans
-included).  Several torch workers share one card.  Pinning a worker to
-a slice of several cards (``devices_per_worker``) is the multi-GPU
-layer, not ported: it raises.  The router reads :meth:`ready_workers`
-per dispatch attempt, so the routable set is the supervised set.
+included).  Several torch workers share one card.
+
+Pinning (``devices_per_worker`` > 0, the mesh engine): slot k owns the
+fixed slice ``k*N:N`` (:func:`~csmom_tpu_torch.mesh.pinning.
+slice_for_slot`), derived again at every spawn, respawn and roll of the
+slot, so a replacement re-pins its predecessor's devices by
+construction; the slice rides the worker's ``--device-slice``, its
+ready report and the stats.  What the slice indexes follows the pool's
+``device``: the visible cards for ``"cuda"`` (a slice past them makes
+the worker raise at start), or ``N`` logical shards of a single device
+(``"cpu"``, ``"cuda:0"``), as ``auto_mesh(n, device=...)`` reads it.
+The router reads :meth:`ready_workers` per dispatch attempt, so the
+routable set is the supervised set.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import subprocess
 import sys
 import threading
 
+from csmom_tpu_torch.mesh.pinning import slice_for_slot
 from csmom_tpu_torch.serve import health, proto
 from csmom_tpu_torch.utils.deadline import mono_now_s
 
@@ -70,17 +80,22 @@ class PoolConfig:
 
     n_workers: int = 2
     profile: str = "serve"
-    engine: str = "torch"             # "torch" | "stub"
-    device: str = "cuda"              # the torch engine's device
+    engine: str = "torch"             # "torch" | "torch-mesh" | "stub"
+    # the torch engines' device: "cuda" (the visible cards), or a single
+    # device ("cpu", "cuda:0") whose logical shards a pinned slice counts
+    device: str = "cuda"
     # wire transport for the fleet's sockets: "unix" (run-dir socket
     # files) or "tcp" (loopback ports)
     transport: str = "unix"
     capacity: int = 64
     max_wait_ms: float = 10.0
     deadline_ms: float = 500.0
-    # > 0 would pin each slot to a slice of several cards: the
-    # multi-GPU layer, not ported (raises)
+    # > 0 pins slot k to the fixed device slice k*N:N; a replacement
+    # spawned into the slot re-pins the same slice (mesh/pinning)
     devices_per_worker: int = 0
+    # the warm-up report's subdirectory the workers read their evidence
+    # from (build/csmom_tpu_torch/warmup/<cache_subdir>/)
+    cache_subdir: str = "bench"
     require_warm_cache: bool = False
     expect_cache_version: str | None = None  # None = compute from health
     ready_timeout_s: float = 120.0
@@ -113,6 +128,7 @@ class WorkerHandle:
     reason: str | None = None
     ready_report: dict | None = None
     log_path: str | None = None
+    device_slice: str | None = None   # "<start>:<count>" when pinned
 
 
 class PoolSupervisor:
@@ -129,11 +145,6 @@ class PoolSupervisor:
     slot_prefix = "w"   # worker ids are "<prefix><slot>"
 
     def __init__(self, config: PoolConfig, run_dir: str):
-        if config.devices_per_worker > 0 or config.engine == "jax-mesh":
-            raise NotImplementedError(
-                "pinning a worker to several cards (devices_per_worker, "
-                "the 'jax-mesh' engine) is the mesh serving engine, which the "
-                "port does not have yet (ROADMAP.md, Queue 1 item 7b)")
         if config.transport == "unix" and pick_transport(run_dir) != "unix":
             raise ValueError(
                 f"run dir {run_dir!r} is too long for unix socket paths "
@@ -144,8 +155,10 @@ class PoolSupervisor:
         os.makedirs(run_dir, exist_ok=True)
         self.expect_cache_version = (
             config.expect_cache_version
-            or health.aot_cache_version(config.profile,
-                                        engine=config.engine))
+            or health.aot_cache_version(
+                config.profile, engine=config.engine,
+                mesh_devices=health.mesh_devices_of(
+                    config.engine, config.device, config.devices_per_worker)))
         self.handles: list = []
         self.events: list = []      # [{t_s, event, worker_id, ...}]
         self._lock = threading.Lock()
@@ -219,9 +232,12 @@ class PoolSupervisor:
                 "--capacity", str(c.capacity),
                 "--max-wait-ms", str(c.max_wait_ms),
                 "--deadline-ms", str(c.deadline_ms),
+                "--cache-subdir", c.cache_subdir,
                 "--expect-cache-version", self.expect_cache_version,
                 "--require-warm-cache" if c.require_warm_cache
                 else "--no-require-warm-cache"]
+        if h.device_slice:
+            argv += ["--device-slice", h.device_slice]
         return argv
 
     def _spawn_env(self) -> dict:
@@ -237,6 +253,11 @@ class PoolSupervisor:
         from csmom_tpu_torch.chaos.inject import checkpoint
 
         checkpoint("pool.spawn", worker=h.worker_id, gen=h.generation)
+        dpw = self.config.devices_per_worker
+        if h.slot >= 0 and dpw > 0:
+            # derived from the slot at every (re)spawn and roll: the
+            # slot's devices, whatever process held them before
+            h.device_slice = slice_for_slot(h.slot, dpw)
         h.log_path = os.path.join(
             self.run_dir, f"{h.worker_id}.g{h.generation}.log")
         env = self._spawn_env()
@@ -251,7 +272,7 @@ class PoolSupervisor:
         h.t_ready_s = None
         h.ready_report = None
         self._event("spawn", h.worker_id, pid=h.proc.pid,
-                    generation=h.generation)
+                    generation=h.generation, device_slice=h.device_slice)
 
     def _stderr_tail(self, h: WorkerHandle, n: int = 400) -> str:
         try:
@@ -564,7 +585,8 @@ class PoolSupervisor:
         out = []
         for h in self.handles:
             rec = {"worker_id": h.worker_id, "state": h.state,
-                   "generation": h.generation, "restarts": h.restarts}
+                   "generation": h.generation, "restarts": h.restarts,
+                   "device_slice": h.device_slice}
             if h.t_ready_s is not None and h.t_spawned_s is not None:
                 rec["lifecycle"] = {
                     "ready_wall_s": round(h.t_ready_s - h.t_spawned_s, 3),

@@ -3,7 +3,7 @@
 Counterpart of ``csmom_tpu.serve.worker``::
 
     python -m csmom_tpu_torch.serve.worker --socket ADDR \\
-        --engine {torch,stub} --device {cuda,cpu} ...
+        --engine {torch,torch-mesh,stub} --device {cuda,cuda:N,cpu} ...
 
 runs the in-process micro-batching service
 (:mod:`csmom_tpu_torch.serve.service`) behind the pool's wire protocol
@@ -51,7 +51,11 @@ arrives by environment from the supervisor), so a ``kill`` at
 ``serve.dispatch`` is a real worker death mid-batch.
 ``CSMOM_SERVE_WORKER_FAULT=exit:<rc>`` makes the process exit at
 startup (a deterministic crash-looper for the backoff tests).
-``--device-slice`` (the multi-device layer) is not ported: it exits 2.
+``--device-slice <start>:<count>`` pins a mesh worker: the slice is
+exported as ``CSMOM_MESH_DEVICE_SLICE`` before the engine is built, so
+the engine meshes exactly those devices (the visible cards for
+``--device cuda``, ``count`` logical shards of a single ``--device``),
+and its count keys the cache version and the readiness check.
 """
 
 from __future__ import annotations
@@ -89,15 +93,18 @@ _NO_DEADLINE_WAIT_S = 30.0
 class WorkerServer:
     """The socket front of one in-process :class:`SignalService`."""
 
-    def __init__(self, socket_path: str, config, worker_id: str = "w0"):
+    def __init__(self, socket_path: str, config, worker_id: str = "w0",
+                 device_slice: str | None = None):
         from csmom_tpu_torch.serve.service import SignalService
 
         self.socket_path = socket_path
         self.worker_id = worker_id
+        self.device_slice = device_slice
         self.service = SignalService(config)
         self._ready_lock = threading.Lock()
         self._ready_report = {"ok": False, "reason": "warming",
-                              "worker_id": worker_id}
+                              "worker_id": worker_id,
+                              "device_slice": device_slice}
         self._draining = False
         self._stop = threading.Event()
         self._listener: socket.socket | None = None
@@ -153,6 +160,10 @@ class WorkerServer:
             "engine": self.service.engine.name,
             "profile": spec.name,
             "cache_version": self.cache_version,
+            # the pinning contract's evidence: the slice this worker's
+            # engine built its mesh over (a replacement re-pins its
+            # predecessor's)
+            "device_slice": self.device_slice,
             "warm": self.service.warm_report,
             "probes": probes,
             "fresh_compiles": fresh,
@@ -337,14 +348,20 @@ def main(argv=None) -> int:
     ap.add_argument("--worker-id", dest="worker_id", default="w0")
     ap.add_argument("--profile", default="serve")
     ap.add_argument("--engine", default="torch",
-                    choices=["torch", "jax", "stub"],
-                    help="torch: the card engine ('jax', the reference's "
-                         "name, means the same); stub: numpy, no device")
-    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="the torch engine's device (default cuda; without "
-                         "a card the worker exits naming --device cpu)")
+                    choices=["torch", "jax", "torch-mesh", "jax-mesh", "stub"],
+                    help="torch: the card engine; torch-mesh: its sharded "
+                         "form ('jax' and 'jax-mesh', the reference's names, "
+                         "mean the same); stub: numpy, no device")
+    ap.add_argument("--device", default="cuda",
+                    help="the torch engines' device: cuda (the visible "
+                         "cards; without one the worker exits naming "
+                         "--device cpu), a single card cuda:N, or cpu")
     ap.add_argument("--device-slice", dest="device_slice",
-                    help="not ported (the multi-GPU layer): exits 2")
+                    help="pin this mesh worker to the slice '<start>:<count>' "
+                         "(exported as CSMOM_MESH_DEVICE_SLICE before the "
+                         "engine is built): of the visible cards with "
+                         "--device cuda, else count logical shards of the "
+                         "single --device")
     ap.add_argument("--capacity", type=int, default=64)
     ap.add_argument("--max-wait-ms", dest="max_wait_ms", type=float,
                     default=10.0)
@@ -358,6 +375,9 @@ def main(argv=None) -> int:
                     help="exit nonzero when an engine kernel's library is "
                          "not built, instead of building it at warm "
                          "(default: on for the torch engine on cuda)")
+    ap.add_argument("--cache-subdir", dest="cache_subdir", default="bench",
+                    help="the warm-up report's subdirectory whose coverage "
+                         "the kernel check reports (default 'bench')")
     args = ap.parse_args(argv)
     t_main0 = mono_now_s()
     tag = f"[worker {args.worker_id}]"
@@ -367,13 +387,24 @@ def main(argv=None) -> int:
         print(f"{tag} chaos {FAULT_ENV}={fault}: exiting at startup",
               file=sys.stderr, flush=True)
         return int(fault.split(":", 1)[1] or 1)
-    if args.device_slice:
-        print(f"{tag} --device-slice is not ported yet (ROADMAP.md, Queue 1 "
-              "item 7b, the mesh serving engine)", file=sys.stderr, flush=True)
-        return 2
+    from csmom_tpu_torch.serve.engine import ENGINE_ALIASES
 
-    engine = "stub" if args.engine == "stub" else "torch"
-    my_version = health.aot_cache_version(args.profile, engine=engine)
+    engine = ENGINE_ALIASES.get(args.engine, args.engine)
+    pinned = None
+    if args.device_slice:
+        from csmom_tpu_torch.mesh.pinning import DEVICE_SLICE_ENV, parse_device_slice
+
+        try:
+            _, pinned = parse_device_slice(args.device_slice)
+        except ValueError as e:
+            print(f"{tag} --device-slice: {e}", file=sys.stderr, flush=True)
+            return 2
+        # exported before any engine is built: the mesh variants read the
+        # pinned slice from the environment
+        os.environ[DEVICE_SLICE_ENV] = args.device_slice
+    mesh_devices = health.mesh_devices_of(engine, args.device, pinned)
+    my_version = health.aot_cache_version(args.profile, engine=engine,
+                                          mesh_devices=mesh_devices)
     if (args.expect_cache_version
             and args.expect_cache_version != my_version):
         print(
@@ -387,7 +418,7 @@ def main(argv=None) -> int:
         )
         return RC_VERSION_SKEW
 
-    on_card = engine == "torch" and args.device == "cuda"
+    on_card = engine != "stub" and args.device.startswith("cuda")
     if on_card:
         import torch
 
@@ -398,8 +429,9 @@ def main(argv=None) -> int:
             return RC_NO_DEVICE
     require_warm = (on_card if args.require_warm_cache is None
                     else args.require_warm_cache)
-    if engine == "torch" and require_warm:
-        ready, reason = health.cache_readiness()
+    if engine != "stub" and require_warm:
+        ready, reason = health.cache_readiness(
+            args.profile, args.cache_subdir, mesh_devices=mesh_devices)
         if not ready:
             print(f"{tag} NOT READY: {reason}", file=sys.stderr, flush=True)
             return RC_COLD_CACHE
@@ -408,12 +440,13 @@ def main(argv=None) -> int:
 
     cfg = ServeConfig(
         profile=args.profile, engine=engine,
-        device=args.device if engine == "torch" else None,
+        device=args.device if engine != "stub" else None,
         capacity=args.capacity, max_wait_s=args.max_wait_ms / 1e3,
         default_deadline_s=(None if args.deadline_ms in (None, 0)
                             else args.deadline_ms / 1e3),
     )
-    server = WorkerServer(args.socket, cfg, worker_id=args.worker_id)
+    server = WorkerServer(args.socket, cfg, worker_id=args.worker_id,
+                          device_slice=args.device_slice)
     server.cache_version = my_version
 
     def _term(signum, frame):  # graceful drain on SIGTERM

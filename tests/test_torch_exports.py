@@ -150,8 +150,9 @@ def test_the_warm_start_and_utils_exports_resolve(pkg, name, module):
 def test_engine_spec_sharded_resolves_through_the_rule_table():
     """``EngineSpec.sharded`` builds the grid, monthly, event, histrank and
     online-ridge engines' mesh variants (on logical CPU shards here), each
-    equal to its single-device engine; a serve endpoint's raises naming
-    ROADMAP.md item 7b, and an engine no rule matches raises too."""
+    equal to its single-device engine; a serve endpoint's and the bucket
+    grid's resolve to the sharded micro-batch scorer, and an engine no
+    rule matches raises."""
     import numpy as np
     import torch
 
@@ -200,11 +201,17 @@ def test_engine_spec_sharded_resolves_through_the_rule_table():
 
     sig = get_engine("stream.signals", kind="compile").sharded(cpu4)
     assert set(sig) == {"momentum", "turn_avg"}
-    for name in ("momentum", "backtest"):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            get_engine(name, kind="serve").sharded()
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        get_engine("serve.buckets", kind="compile").sharded()
+    from csmom_tpu_torch.serve.engine import serve_entry_fn
+
+    v = torch.stack([p[:8, :24], p[8:, :24]]).float()
+    mv = torch.ones_like(v, dtype=torch.bool)
+    for name, axis in (("momentum", "assets"), ("backtest", "batch")):
+        entry = get_engine(name, kind="serve").sharded(devices=cpu4)
+        assert entry.axis == axis
+        assert torch.equal(entry(v, mv).nan_to_num(),
+                           serve_entry_fn(name, 12, 1, 10, "rank")(v, mv).nan_to_num())
+    assert get_engine("serve.buckets", kind="compile").sharded(
+        "turnover", devices=cpu4).n_devices == 4
     toy = EngineSpec(name="toy", kind="compile", manifest_fn=lambda p, d: [])
     with pytest.raises(NotImplementedError, match="no sharded variant"):
         toy.sharded()

@@ -65,7 +65,7 @@ def test_list_names_the_references_engines_of_each_kind(kind, capsys):
     assert len(_section(port, kind)[1]) == {"serve": 5, "strategy": 8}[kind]
     if kind == "serve":
         rows = [ln.split() for ln in port.splitlines()[1:11:2]]
-        assert [r[1:] for r in rows] == [["serve", "loadgen"]] * 5
+        assert [r[1:] for r in rows] == [["serve", "loadgen", "sharded"]] * 5
 
 
 def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
@@ -73,22 +73,23 @@ def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
     full = capsys.readouterr().out
     assert main(["registry", "list", "--terse"]) == 0
     terse = capsys.readouterr().out
-    assert "serve (5):" in full and "compile (9):" in full
+    assert "serve (5):" in full and "compile (10):" in full
     assert "strategy (8):" in full
-    assert "22 engines registered" in full
-    assert len(terse.splitlines()) == len(full.splitlines()) - 22
+    assert "23 engines registered" in full
+    assert len(terse.splitlines()) == len(full.splitlines()) - 23
 
 
 def test_compile_kind_lists_its_engines(capsys):
-    """Kind ``compile`` (item 8a) is ported: it lists the nine engines,
-    ``mesh.grid`` (item 7a) among them, each with a sharded variant."""
+    """Kind ``compile`` (item 8a) is ported: it lists the ten engines,
+    ``mesh.grid`` (item 7a) and ``mesh.serve`` (item 7b) among them, each
+    with a sharded variant."""
     assert main(["registry", "list", "--kind", "compile"]) == 0
     out = capsys.readouterr().out
-    assert out.startswith("compile (9):") and "grid.jk" in out
+    assert out.startswith("compile (10):") and "grid.jk" in out
     surfaces = {ln.split()[0]: ln.split()[1:] for ln in out.splitlines()
                 if ln.startswith("  ") and not ln.startswith(" " * 24)}
-    assert [n for n, s in surfaces.items() if "sharded" not in s] == [
-        "serve.buckets"]
+    assert "mesh.serve" in surfaces
+    assert [n for n, s in surfaces.items() if "sharded" not in s] == []
 
 
 @pytest.mark.parametrize("kind,item", [("lint", "8d")])

@@ -172,16 +172,6 @@ def test_loadgen_fabric_survives_a_router_and_a_worker_kill(tmp_path,
     assert inv.validate_file(str(tmp_path / "GPU_SERVE_FABRIC_kill.json")) == []
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["serve", "--mesh"], "item 7"),
-    (["serve", "--devices-per-worker", "2"], "item 7"),
-])
-def test_deferred_flags_exit_2_naming_their_item(argv, item, capsys):
-    assert main([*argv, "--stub"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
-
-
 def test_loadgen_trace_lands_a_valid_trace_artifact(tmp_path, capsys):
     """``--trace`` arms the book once the service is ready and lands
     ``GPU_TRACE_<run>.json`` beside the serve artifact, valid under both

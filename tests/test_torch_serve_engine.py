@@ -142,16 +142,15 @@ def test_registry_refuses_what_is_not_ported():
     spec = get_engine("momentum", kind="serve")
     with pytest.raises(NotImplementedError, match="known difference 12"):
         spec.donated()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        spec.sharded()
+    # the sharded surface is ported: the endpoint's mesh scorer
+    assert spec.sharded(devices=["cpu"] * 2).axis == "assets"
     with pytest.raises(NotImplementedError, match="item 8d"):
         EngineSpec(name="x", kind="lint")
     with pytest.raises(ValueError, match="manifest_fn"):
         EngineSpec(name="x", kind="compile")
     with pytest.raises(NotImplementedError, match="register_strategy"):
         EngineSpec(name="x", kind="strategy")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_engine("jax-mesh", device="cpu")
+    assert make_engine("jax-mesh", device="cpu").name == "torch-mesh"
     assert isinstance(make_engine("jax", device="cpu"), TorchEngine)
     assert isinstance(make_engine("torch", device="cpu"), TorchEngine)
     with pytest.raises(ValueError, match="unknown engine"):

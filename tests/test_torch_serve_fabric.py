@@ -425,14 +425,67 @@ def test_fabric_three_tiers_over_tcp_survive_double_kill(tmp_path):
     assert art["extra"]["samples"]["serve_fabric_total_ms"]
 
 
-def test_build_fabric_refuses_what_is_not_ported(tmp_path):
-    """A worker pinned to several cards is the multi-GPU layer (item 7):
-    it raises before any process is spawned."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fabric.build_fabric(PoolConfig(devices_per_worker=2, **_SMOKE),
-                            PoolConfig(**_SMOKE), str(tmp_path),
-                            deadline_ms=500.0, trace=True)
-    assert not os.listdir(tmp_path)
+@pytest.mark.parametrize("knobs", [
+    {},
+    dict(max_attempts=2, fair_slots=8, affinity=False),
+    dict(max_attempts=5, fair_slots=3, affinity=True, trace=True),
+])
+def test_router_supervisor_argv_equals_the_references(tmp_path, knobs):
+    """Fault 2 repaired: the replica argv of both packages' router
+    supervisors carries the same knobs, flag for flag, after the module
+    name (the replica parses every one of them)."""
+    cfg = PoolConfig(n_workers=1, **_SMOKE)
+    kw = dict(deadline_ms=250.0, hedge_fraction=0.2, **knobs)
+    ours = fabric.RouterSupervisor(cfg, str(tmp_path / "p"), "routes.json",
+                                   **kw)
+    ref = ref_fabric.RouterSupervisor(
+        ref_fabric.PoolConfig(n_workers=1, profile="serve-smoke",
+                              engine="stub"),
+        str(tmp_path / "r"), "routes.json", **kw)
+    ours.expect_cache_version = ref.expect_cache_version = "v0"
+    h = fabric.WorkerHandle(slot=0, worker_id="r0", socket_path="s.sock")
+    a, b = ours._slot_argv(h), ref._slot_argv(h)
+    assert a[1:3] == ["-m", "csmom_tpu_torch.serve.router"]
+    assert b[1:3] == ["-m", "csmom_tpu.serve.router"]
+    assert a[3:] == b[3:]
+
+
+def test_build_fabric_configures_the_router_tier_before_it_spawns(tmp_path):
+    """``configure_router(rsup)`` runs after the router supervisor is
+    built and before its first replica spawns (a spy on ``start``); the
+    mesh pool's pinning reaches the worker tier (slot k owns ``k*2:2``),
+    and every process stops."""
+    order = []
+
+    def hook(rsup):
+        assert isinstance(rsup, fabric.RouterSupervisor) and not rsup.handles
+        order.append("configure_router")
+        start = rsup.start
+
+        def spy(*a, **k):
+            order.append("start")
+            return start(*a, **k)
+
+        rsup.start = spy
+
+    wsup = pub = rsup = None
+    try:
+        wsup, pub, rsup, client = fabric.build_fabric(
+            PoolConfig(n_workers=2, devices_per_worker=2, **_SMOKE),
+            PoolConfig(n_workers=2, **_SMOKE), str(tmp_path),
+            deadline_ms=500.0, configure_router=hook)
+        assert order == ["configure_router", "start"]
+        assert [h.device_slice for h in wsup.handles] == ["0:2", "2:2"]
+        assert [h.device_slice for h in rsup.handles] == [None, None]
+        assert all("--device-slice" in wsup._slot_argv(h) for h in wsup.handles)
+        v, m = _panel(8, 24)
+        req = client.submit("momentum", v, m, deadline_s=5.0)
+        assert req.wait(10.0) and req.state == "served"
+    finally:
+        fabric.stop_fabric(pub, rsup, wsup)
+    for sup in (wsup, rsup):
+        assert all(h.proc is None or h.proc.poll() is not None
+                   for h in sup.handles)
 
 
 def test_build_fabric_fleet_config_promotes_a_spare_on_a_worker_kill(

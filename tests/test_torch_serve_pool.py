@@ -408,22 +408,6 @@ def test_worker_refuses_version_skew_with_pointed_message(tmp_path):
     assert not (tmp_path / "w.sock").exists(), "refused before binding"
 
 
-def test_worker_device_slice_exits_2_naming_item_7(tmp_path):
-    p = subprocess.run(
-        [sys.executable, "-m", "csmom_tpu_torch.serve.worker",
-         "--socket", str(tmp_path / "w.sock"), "--engine", "stub",
-         "--device-slice", "0:2"],
-        capture_output=True, text=True, timeout=60, cwd=str(tmp_path),
-        env=_ENV)
-    assert p.returncode == 2 and "item 7" in p.stderr
-
-
-def test_supervisor_refuses_device_slices(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PoolSupervisor(PoolConfig(devices_per_worker=2, **_SMOKE_POOL),
-                       str(tmp_path))
-
-
 def test_pick_transport_by_socket_path_length(tmp_path):
     from csmom_tpu_torch.serve.supervisor import pick_transport
 

@@ -76,12 +76,15 @@ def test_manifest_drift_raises_type_error():
 def test_unknown_and_mesh_profiles_are_refused(capsys):
     with pytest.raises(ValueError, match="unknown warmup profile"):
         manifest.build_manifest("no-such-profile")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        manifest.build_manifest("serve-mesh")
     assert "smoke" in manifest.PROFILES and "bench-tpu" not in manifest.PROFILES
+    # the serve mesh profiles are ported: the sharded serve grid on the
+    # visible cards (one logical CPU shard without a card), K1 named
     for profile in ("serve-mesh", "serve-mesh-smoke"):
-        assert main(["warmup", "--profiles", profile, "--device", "cpu"]) == 2
-        assert "item 7b" in capsys.readouterr().err
+        entries = manifest.build_manifest(profile)
+        assert len(entries) == (31 if profile == "serve-mesh" else 11)
+        assert main(["warmup", "--profiles", profile, "--device", "cpu",
+                     "--list"]) == 0
+        assert "mesh.serve.backtest.b1@" in capsys.readouterr().out
     # bench-mesh is ported: the sharded grid on the visible cards (one
     # logical CPU shard without a card), K2 named
     assert [(e.name, e.kernels) for e in manifest.build_manifest("bench-mesh")] == [
@@ -270,12 +273,10 @@ def test_registry_lists_the_eight_compile_engines(capsys):
              if ln.startswith("  ") and not ln.startswith(" " * 24)]
     want = ["grid.jk", "grid.net_core", "monthly.kernels", "event.panel",
             "parallel.histrank", "parallel.online_ridge", "serve.buckets",
-            "stream.signals", "mesh.grid"]
+            "stream.signals", "mesh.serve", "mesh.grid"]
     assert names == want == [s.name for s in engine_specs("compile")]
-    # the reference's mesh.serve is the mesh serving engine (item 7b)
-    assert [s.name for s in ref_specs("compile")
-            if s.name != "mesh.serve"] == want
-    assert out.startswith("compile (9):")
+    assert [s.name for s in ref_specs("compile")] == want
+    assert out.startswith("compile (10):")
     assert entry_factory("grid.jk")(tuple(), tuple(), 1, "rank", "plain") is \
         entry_factory("grid.jk")(tuple(), tuple(), 1, "rank", "plain")
     with pytest.raises(KeyError, match="no entry factory"):
