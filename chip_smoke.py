@@ -10,7 +10,7 @@
 to a temporary directory, removed at the end, and phase 18's to
 ``chiprun_out/``).  Each phase's wall is printed
 on a ``[smoke] phase N`` line as it ends, and all of them on one line
-after phase 17.
+after phase 19.
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -84,7 +84,9 @@ any phase fails (nothing is caught).  Phases:
    ``fabric_launches``, ``fleet_launches``, ``trace_launches`` and
    ``replay_launches`` the counts of phases 6, 7, 8, 9, 11, 12, 13, 14
    and 15, ``warmup_launches`` and ``examples_launches`` phase 16's,
-   ``mesh_launches`` phase 17's, ``serve_mesh_launches`` phase 18 (a)'s
+   ``mesh_launches`` phase 17's, ``serve_mesh_launches`` phase 18 (a)'s,
+   ``multihost_launches`` phase 19 (b)'s (the two processes' north-star
+   legs, summed)
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -218,8 +220,8 @@ any phase fails (nothing is caught).  Phases:
    J=12, f32, the north star) at 1, 2, 4 and 8 asset shards; (b) the
    sharded 16-cell grid at ``impl="kernel"`` in rank and in qcut on
    ``(grid=1, assets=8)`` and ``(grid=2, assets=4)`` meshes, and
-   ``rank_hist`` on 4 asset shards; (c) the sharded banded engine and
-   the sharded bootstrap on 4 shards; (d) the golden event inputs (f64)
+   ``rank_hist`` on 4 asset shards; (c) the sharded banded engine on 4
+   and 8 shards and the sharded bootstrap on 4 shards; (d) the golden event inputs (f64)
    through the asset-sharded engine (market and limit) on 4 shards and
    the time-sharded event and hysteresis engines on ``(time=4)`` and
    ``(assets=2, time=2)`` meshes at latency 0 and 3, and the time-sharded
@@ -255,6 +257,21 @@ any phase fails (nothing is caught).  Phases:
    two ``torch-mesh`` workers pinned to 4 logical shards of ``cuda:0``
    each under a 5 s burst: slices and d4 in the ready reports, books
    closed across processes, ``rejected_infra`` 0, 0 built;
+19. the lint sweep and meshes over two processes (run after phase 17; no
+   profiler trace; its wall is printed and held within
+   ``MULTIHOST_BUDGET_S``): (a) ``python -m csmom_tpu_torch.cli lint
+   --project --format json`` in a process of its own exits 0 with no
+   finding over more than 100 files, and ``-X importtime`` shows it
+   imported no torch, no ``csmom_tpu`` and no jax; (b)
+   ``parallel/multihost_dryrun.py``'s two controller processes, 4
+   logical shards of ``cuda:0`` each over gloo (NCCL refuses two ranks on
+   one card), read phase 5's north-star panel from a file: the sharded
+   monthly engine (qcut, J=12) and banded engine (band 1) in each process
+   bit-equal to phase 17's one-process 8-shard results, K1 once per asset
+   shard (4 a process, 8 in all; the banded engine none), and the 96 x 72
+   f64 dry run within its tolerances of the single-device engines; (c)
+   ``distributed_init`` at world size 1: the 8-shard monthly engine
+   bit-equal to phase 17's; the kernels line gains ``multihost_launches``;
 then the phase walls, the card's name line and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -4331,6 +4348,7 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
     w = {"single": median_ms(lambda: monthly_spread_backtest(
         pm, mm, lookback=12, skip=1, mode="qcut"))}
     errs = {}
+    ref8 = {}   # the one-process 8-shard results phase 19 is held to
     for n in MESH_SHARDS:
         (spread, valid, *_), w[n] = checked(
             lambda n=n: sharded_monthly_spread_backtest(pm, mm, mesh(n), lookback=12,
@@ -4338,6 +4356,8 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
             n, 0, f"mesh (a) {n} shards")
         errs[n] = hold_spread(spread, valid, mres.spread, mres.spread_valid,
                               f"mesh (a) {n} shards")
+        if n == 8:
+            ref8["monthly"] = (spread, valid)
     walls["monthly_qcut_J12"] = w
     log("mesh", f"(a) sharded monthly, qcut J=12, {tuple(pm.shape)} f32: K1 once a "
                 f"shard; max |spread - single| {errs}; walls ms (median of "
@@ -4383,6 +4403,13 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
         0, 0, "mesh (c) banded")
     err_band = hold_spread(spread, valid, band.spread, band.spread_valid,
                            "mesh (c) banded")
+    (spread, valid, *_), w["banded_8"] = checked(
+        lambda: sharded_banded_backtest(pm, mm, mesh(8), lookback=12, skip=1,
+                                        mode="qcut", band=1),
+        0, 0, "mesh (c) banded 8")
+    err_band = max(err_band, hold_spread(spread, valid, band.spread, band.spread_valid,
+                                         "mesh (c) banded 8"))
+    ref8["banded"] = (spread, valid)
     key = random.PRNGKey(0)
     boot = block_bootstrap(mres.spread, mres.spread_valid, key,
                            n_samples=MESH_BOOT_SAMPLES)
@@ -4399,8 +4426,9 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
         if not d <= SPREAD_ATOL:
             raise AssertionError(f"mesh (c) bootstrap: {f} off by {d}")
     walls["banded_bootstrap"] = w
-    log("mesh", f"(c) sharded banded (band 1) and bootstrap ({MESH_BOOT_SAMPLES} "
-                f"resamples) on 4 shards: max |spread - single| {err_band}, max "
+    log("mesh", f"(c) sharded banded (band 1) on 4 and 8 shards and bootstrap "
+                f"({MESH_BOOT_SAMPLES} resamples) on 4 shards: max |spread - single| "
+                f"{err_band}, max "
                 f"|bootstrap - single| {err_boot}; walls ms {json.dumps(w)} | {smi}")
 
     # -- (d) the event engines and the online ridge, f64 ---------------------
@@ -4505,7 +4533,155 @@ def mesh_phase(smi, pm, mm, mres, grids) -> dict:
                 f"mesh entries' two calls each; warm calls ms "
                 f"{[round(r['warm_call_s'] * 1e3, 3) for r in entries]} | {smi}")
     return {"launches": total, "walls": walls, "warmup_s": warm_s,
-            "wall_s": time.perf_counter() - t_phase}
+            "wall_s": time.perf_counter() - t_phase, "ref8": ref8}
+
+
+# phase 19: the lint sweep, and meshes over two processes on the one card
+MULTIHOST_TIMEOUT_S = 300.0   # the two processes' limit; killed past it
+MULTIHOST_BUDGET_S = 60.0     # the phase's wall, checked
+# packages a sweep must leave unimported: torch, jax and the JAX package
+LINT_FORBIDDEN = ("torch.", "jax.", "csmom_tpu.")
+
+
+def bit_equal(a, b) -> bool:
+    """Same dtype, shape and bytes (NaN payloads included)."""
+    a, b = np.atleast_1d(np.asarray(a)), np.atleast_1d(np.asarray(b))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def lint_multihost_phase(smi, pm, mm, ref8) -> dict:
+    """Phase 19: (a) the port's lint sweep in a process of its own, clean
+    and torch-free; (b) two controller processes of 4 logical shards of
+    ``cuda:0`` each, over gloo, run the sharded monthly (qcut, J=12) and
+    banded engines on phase 5's north-star panel (``pm``/``mm``, f32, read
+    from a file), bit-equal to phase 17's one-process 8-shard results
+    ``ref8``, K1 once per asset shard, and the 96 x 72 f64 dry run at its
+    tolerances; (c) joined at world size 1, the monthly engine on 8 shards
+    equals ``ref8``'s.  Returns the launches of (b)'s north-star legs and
+    the walls."""
+    import torch
+
+    from csmom_tpu_torch.parallel import multihost_dryrun as mh
+    from csmom_tpu_torch.parallel.collectives import sharded_monthly_spread_backtest
+    from csmom_tpu_torch.parallel.mesh import (
+        backend, distributed_init, distributed_shutdown, make_mesh, mesh_topology,
+    )
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    # -- (a) the lint sweep --------------------------------------------------
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "csmom_tpu_torch.cli", "lint",
+         "--project", "--format", "json"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    walls["lint_s"] = round(time.perf_counter() - t0, 2)
+    if p.returncode != 0:
+        raise AssertionError(f"lint (a): exit {p.returncode}\n{p.stdout[-3000:]}"
+                             f"\n{p.stderr[-3000:]}")
+    rep = json.loads(p.stdout)
+    if not rep["ok"] or rep["findings"] or rep["files_scanned"] <= 100:
+        raise AssertionError(f"lint (a): {len(rep['findings'])} findings over "
+                             f"{rep['files_scanned']} files: {rep['findings'][:3]}")
+    imported = {ln.rsplit("|", 1)[-1].strip() for ln in p.stderr.splitlines()
+                if ln.startswith("import time:")}
+    bad = sorted(m for m in imported if (m + ".").startswith(LINT_FORBIDDEN))
+    if bad or "csmom_tpu_torch.analysis.rules" not in imported:
+        raise AssertionError(f"lint (a): the sweep imported {bad[:5]}")
+    log("lint", f"(a) lint --project --format json: 0 findings over "
+                f"{rep['files_scanned']} files, {len(rep['suppressed'])} suppressed "
+                f"by pragma ({sorted({f['rule'] for f in rep['suppressed']})}), "
+                f"rules {rep['rules']}; {len(imported)} modules imported, none of "
+                f"torch, jax or the JAX package; {walls['lint_s']} s of command")
+
+    # -- (b) two controller processes on the one card ------------------------
+    with tempfile.TemporaryDirectory(prefix="csmom_multihost_") as tmp:
+        panel = os.path.join(tmp, "panel.npz")
+        np.savez(panel, prices=pm.cpu().numpy(), mask=mm.cpu().numpy())
+        t0 = time.perf_counter()
+        records = mh.launch(device="cuda:0", save=tmp, panel=panel,
+                            timeout=MULTIHOST_TIMEOUT_S)
+        walls["two_process_s"] = round(time.perf_counter() - t0, 2)
+        saved = [dict(np.load(os.path.join(tmp, f"rank{r}_panel.npz")))
+                 for r in range(mh.N_PROC)]
+    line = mh.summary(records, "cuda:0")
+    if line["value"] != 1.0:
+        raise AssertionError(f"multihost (b): the 96x72 f64 dry run failed: "
+                             f"{json.dumps(line)}")
+    for rec in records:
+        if (rec["backend"], rec["panel_monthly_launches"],
+                rec["panel_banded_launches"]) != ("gloo", 4, 0):
+            raise AssertionError(f"multihost (b): process {rec['rank']}: backend "
+                                 f"{rec['backend']}, K1 {rec['panel_monthly_launches']} "
+                                 f"monthly / {rec['panel_banded_launches']} banded; "
+                                 "want gloo, 4 and 0")
+        if rec["topology"]["assets"] != {"size": 8, "crosses_hosts": True,
+                                         "backend": "gloo"}:
+            raise AssertionError(f"multihost (b): topology {rec['topology']}")
+    want = {"spread": ref8["monthly"][0], "valid": ref8["monthly"][1],
+            "b_spread": ref8["banded"][0], "b_valid": ref8["banded"][1]}
+    for r, got in enumerate(saved):
+        for key, t in want.items():
+            if not bit_equal(got[key], t.cpu().numpy()):
+                raise AssertionError(f"multihost (b): process {r}'s {key} is not "
+                                     "bit-equal to phase 17's 8-shard result")
+    launches = {"decile_partial_sums": sum(rec["panel_monthly_launches"]
+                                           + rec["panel_banded_launches"]
+                                           for rec in records),
+                "cohort_partial_sums": 0}
+    if launches["decile_partial_sums"] != 8:
+        raise AssertionError(f"multihost (b): K1 {launches}, want 8")
+    log("multihost", f"(b) 2 processes x 4 logical shards of cuda:0 over "
+                     f"{records[0]['backend']}: north star {tuple(pm.shape)} f32 "
+                     f"monthly (qcut, J=12) and banded (band 1) bit-equal to phase "
+                     f"17's one-process 8-shard results in both processes; K1 "
+                     f"{[rec['panel_monthly_launches'] for rec in records]} by process "
+                     f"(monthly), banded 0; 96x72 f64 dry run: "
+                     f"{json.dumps({k: line['extra'][k] for k in ('monthly_equal', 'banded_equal', 'online_ridge_equal', 'gathered_equal')})}; "
+                     f"walls s: north star monthly "
+                     f"{[rec['panel_monthly_wall_s'] for rec in records]}, banded "
+                     f"{[rec['panel_banded_wall_s'] for rec in records]}, f64 monthly "
+                     f"{records[0]['monthly_wall_s']}, banded {records[0]['banded_wall_s']}, "
+                     f"ridge {records[0]['online_ridge_wall_s']}; the processes "
+                     f"{walls['two_process_s']} s | {smi}")
+    log("multihost", f"dry-run line {json.dumps(line)}")
+
+    # -- (c) world size 1 ----------------------------------------------------
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dev = pm.device
+    t0 = time.perf_counter()
+    if not distributed_init(f"127.0.0.1:{port}", 1, 0, devices=[dev] * 8):
+        raise AssertionError("multihost (c): distributed_init did not join")
+    try:
+        joined_backend = backend()
+        mesh = make_mesh(axis_names=("grid", "assets"))
+        topo = mesh_topology(mesh)
+        spread, valid, *_ = sharded_monthly_spread_backtest(pm, mm, mesh, lookback=12,
+                                                            skip=1, mode="qcut")
+        torch.cuda.synchronize()
+    finally:
+        distributed_shutdown()
+    walls["world1_s"] = round(time.perf_counter() - t0, 2)
+    if mesh.size != 8 or topo["assets"]["crosses_hosts"]:
+        raise AssertionError(f"multihost (c): mesh {mesh}, topology {topo}")
+    if not (bit_equal(spread.cpu().numpy(), ref8["monthly"][0].cpu().numpy())
+            and bit_equal(valid.cpu().numpy(), ref8["monthly"][1].cpu().numpy())):
+        raise AssertionError("multihost (c): world size 1 changed the monthly result")
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    log("multihost", f"(c) distributed_init at world size 1 ({joined_backend}): the "
+                     f"8-shard monthly engine bit-equal to phase 17's; "
+                     f"{walls['world1_s']} s | {smi}")
+    if walls["phase_s"] > MULTIHOST_BUDGET_S:
+        raise AssertionError(f"phase 19 took {walls['phase_s']} s, over its "
+                             f"{MULTIHOST_BUDGET_S} s")
+    return {"launches": launches, "walls": walls, "wall_s": walls["phase_s"]}
 
 
 # phase 18: the mesh serving engine on the card, every mesh logical shards
@@ -5624,10 +5800,19 @@ def main(argv=None) -> int:
     log("mesh", f"phase wall {mesh['wall_s']:.1f} s; launches {mesh['launches']} | "
                 f"{smi}")
     t_p = phase_done(17, "mesh", t_p)
+    for row in rows:
+        row["mesh_launches"] = mesh["launches"][row["name"]]
+
+    # -- 19. the lint sweep and meshes over two processes ---------------------
+    multi = lint_multihost_phase(smi, pm, mm, mesh["ref8"])
+    log("multihost", f"phase wall {multi['wall_s']:.1f} s; walls "
+                     f"{json.dumps(multi['walls'])}; launches {multi['launches']} | "
+                     f"{smi}")
+    t_p = phase_done(19, "lint and multihost", t_p)
     log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
                  f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     for row in rows:
-        row["mesh_launches"] = mesh["launches"][row["name"]]
+        row["multihost_launches"] = multi["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -206,7 +206,7 @@ def _skew_wall_clock(seconds: float) -> None:
     real_time = time.time
 
     def skewed():
-        # this wrapper IS the skew under test
+        # lint: allow[clock-discipline] this wrapper IS the skew under test
         return real_time() + seconds
 
     time.time = skewed

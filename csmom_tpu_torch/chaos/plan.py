@@ -115,6 +115,7 @@ class Fault:
         "exit",           # os._exit(code) — a crash that skips cleanup
         "sleep",          # hang for `seconds` (a stall)
         "trip_deadline",  # fire the armed deadline guard immediately
+        # lint: allow[clock-discipline] documents what the skew fault perturbs
         "clock_skew",     # jump time.time() by `seconds`; monotonic clocks
                           # must shield every deadline from this
         "corrupt_file",   # seeded byte-flips over files matching `path`

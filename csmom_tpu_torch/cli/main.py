@@ -7,8 +7,9 @@ Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
 (:mod:`csmom_tpu_torch.cli.serve`), of ``fleet``
 (:mod:`csmom_tpu_torch.cli.fleet`), ``trace``
 (:mod:`csmom_tpu_torch.cli.trace`), ``replay``
-(:mod:`csmom_tpu_torch.cli.replay`) and ``registry``
-(:mod:`csmom_tpu_torch.cli.registry`).  Each prints what
+(:mod:`csmom_tpu_torch.cli.replay`), ``registry``
+(:mod:`csmom_tpu_torch.cli.registry`) and ``lint``
+(:mod:`csmom_tpu_torch.cli.lint`).  Each prints what
 ``csmom`` prints for the same arguments, line for line (``intraday --threshold-sweep`` names its one
 engine run a threshold where the reference names one vmapped call); the
 subcommand table in ``--help`` is generated from the parser itself.
@@ -1621,6 +1622,7 @@ def build_parser() -> argparse.ArgumentParser:
                             help="strategy parameter, repeatable")
 
     from csmom_tpu_torch.cli.fleet import register as register_fleet
+    from csmom_tpu_torch.cli.lint import register as register_lint
     from csmom_tpu_torch.cli.registry import register as register_registry
     from csmom_tpu_torch.cli.replay import register as register_replay
     from csmom_tpu_torch.cli.serve import register as register_serve
@@ -1628,6 +1630,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     _add_warmup(sub)
     register_fleet(sub)
+    register_lint(sub)
     register_registry(sub)
     register_replay(sub)
     register_serve(sub)
@@ -1652,7 +1655,7 @@ def _subcommand_epilog(sub) -> str:
 
 # commands that compute nothing on a device
 _DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet",
-                         "trace", "registry"}
+                         "trace", "registry", "lint"}
 
 
 def main(argv=None) -> int:

@@ -2,22 +2,22 @@
 
 Counterpart of ``csmom_tpu.cli.registry``.  ``registry list`` prints
 every registered engine by kind with the surfaces registration bought
-it: the port's registry holds kind ``serve`` (each endpoint is warmed on
-the bucket grid, served and offered by the load generator) and kind
-``compile`` (each engine's entries join the warm-up manifests of its
-profiles, and an entry factory where it declares one), and the strategy
-zoo (``registry.strategies()``, registered through
-``strategy.base.register_strategy``) is listed as kind ``strategy``.
-``--kind`` filters; ``--endpoints`` prints only the serving tier's
-endpoint names, one a line, exactly as the reference does.
+it: kind ``serve`` (each endpoint is warmed on the bucket grid, served
+and offered by the load generator), kind ``compile`` (each engine's
+entries join the warm-up manifests of its profiles, and an entry factory
+where it declares one), kind ``strategy`` (the zoo of
+``strategy.base.register_strategy``) and kind ``lint`` (the sweep's
+rules, each with its scope).  ``--kind`` filters; ``--endpoints`` prints
+only the serving tier's endpoint names, one a line, exactly as the
+reference does.
 
 What differs from the reference: an engine lists no ``donated``
 variant (torch has no buffer donation, ROADMAP.md known difference 12),
 and ``sharded`` where the rule table of
 :mod:`csmom_tpu_torch.mesh.variants` resolves one (every serve engine,
 through its catch-all serve rule; the reference prints ``sharded:stub``
-for every engine without an explicit ``sharded_fn``); kind ``lint`` is
-not ported (item 8d) and exits 2.
+for every engine without an explicit ``sharded_fn``); a lint rule's row
+names its scope (``file`` or ``project``).
 """
 
 from __future__ import annotations
@@ -26,16 +26,15 @@ import sys
 
 __all__ = ["cmd_registry", "register"]
 
-# the reference's kinds the port does not have yet, by ROADMAP.md item
-_NOT_PORTED = {
-    "lint": "8d, lint (lint engines: lint rules)",
-}
-
-
 def _surfaces(spec) -> str:
-    """A serve or compile engine's surfaces, as the reference names them."""
+    """An engine's surfaces, as the reference names them."""
     from csmom_tpu_torch.mesh.variants import has_sharded
 
+    if spec.kind == "strategy":
+        return "-"
+    if spec.kind == "lint":
+        scope = getattr(spec.rule_cls, "scope", "file")
+        return f"lint tier-1 self-test scope:{scope}"
     if spec.kind == "serve":
         out = ["serve", "loadgen"] if spec.workload else ["serve"]
     else:
@@ -49,30 +48,31 @@ def _surfaces(spec) -> str:
 
 def cmd_registry(args) -> int:
     """List registered engines and the surfaces registration bought them."""
-    from csmom_tpu_torch.registry import engine_specs, serve_endpoints, strategies
+    from csmom_tpu_torch.registry import (
+        engine_specs,
+        lint_rules,
+        serve_endpoints,
+        strategies,
+    )
 
     if args.action != "list":
         print(f"unknown registry action {args.action!r} (try: list)",
               file=sys.stderr)
-        return 2
-    if args.kind in _NOT_PORTED:
-        print(f"registry kind {args.kind!r} is not ported yet (ROADMAP.md, "
-              f"Queue 1 item {_NOT_PORTED[args.kind]}); the port registers "
-              "kinds 'serve', 'compile' and 'strategy'", file=sys.stderr)
         return 2
     if args.endpoints:
         for name in serve_endpoints():
             print(name)
         return 0
     n = 0
-    for kind in ((args.kind,) if args.kind else ("serve", "compile", "strategy")):
-        if kind in ("serve", "compile"):
-            rows = [(s.name, _surfaces(s), s.description)
-                    for s in engine_specs(kind)]
-        else:
-            # a strategy's description: its class docstring's first line
-            rows = [(name, "-", (cls.__doc__ or "").strip().split("\n")[0])
-                    for name, cls in strategies().items()]
+    for kind in ((args.kind,) if args.kind
+                 else ("serve", "compile", "strategy", "lint")):
+        # strategies and lint rules register when their modules load
+        if kind == "strategy":
+            strategies()
+        elif kind == "lint":
+            lint_rules()
+        rows = [(s.name, _surfaces(s), s.description)
+                for s in engine_specs(kind)]
         if not rows:
             continue
         print(f"{kind} ({len(rows)}):")
@@ -88,7 +88,8 @@ def cmd_registry(args) -> int:
           "sharded scorer on a mesh; a compile "
           "registration buys its entries in the warm-up manifests of its "
           "profiles (warmup); a strategy registration buys a --strategy "
-          "for the monthly commands")
+          "for the monthly commands; a lint registration buys the lint "
+          "sweep, the tier-1 gate and the fixture self-test")
     return 0
 
 
@@ -103,8 +104,7 @@ def register(sub) -> None:
                     help="what to do (list: print the registry table)")
     sp.add_argument("--kind", choices=["serve", "compile", "strategy",
                                        "lint"],
-                    help="only this kind of engine (lint is not ported: "
-                         "exit 2)")
+                    help="only this kind of engine")
     sp.add_argument("--endpoints", action="store_true",
                     help="print only the serve endpoint names (one per "
                          "line)")

@@ -5,7 +5,11 @@ Counterpart of :mod:`csmom_tpu.mesh.shard`.  The port has no global
 sharded array: :func:`~csmom_tpu_torch.parallel.compat.shard_map`
 slices its inputs per call and assembles its outputs on the mesh's
 first device, so placing an input is moving it there, and gathering is
-a copy to the host.
+a copy to the host.  On a mesh over several processes, placing an input
+keeps only this process's blocks
+(:class:`~csmom_tpu_torch.parallel.compat.LocalBlocks`), and gathering
+gives every process the same whole array, as the reference's
+``gather_outputs`` does.
 
 With ``collective_free`` a one-shard mesh skips the wrapper and
 :func:`sharded_call` returns the function itself, the literal
@@ -26,18 +30,20 @@ def mesh_size(mesh) -> int:
 
 
 def shard_args(mesh, specs, *arrays):
-    """Inputs of a sharded call on the mesh's first device (tensors),
-    each checked against its spec: every split dimension must divide
-    over its shards."""
+    """Inputs of a sharded call, each checked against its spec (every
+    split dimension must divide over its shards): tensors on the mesh's
+    first device, or, on a mesh over several processes, each a
+    :class:`~csmom_tpu_torch.parallel.compat.LocalBlocks` holding only
+    this process's shards' blocks, each on its shard's device."""
     import math
 
     import torch
 
-    from csmom_tpu_torch.parallel.compat import _names
+    from csmom_tpu_torch.parallel.compat import LocalBlocks, _names, _Run, _split
 
     if len(specs) != len(arrays):
         raise ValueError(f"{len(specs)} specs for {len(arrays)} arrays")
-    home = mesh.device_list[0]
+    run = _Run(mesh, collective_free=True) if mesh.n_processes > 1 else None
     out = []
     for a, s in zip(arrays, specs):
         t = torch.as_tensor(a)
@@ -46,15 +52,35 @@ def shard_args(mesh, specs, *arrays):
             if t.shape[d] % n:
                 raise ValueError(f"dimension {d} of size {t.shape[d]} does "
                                  f"not divide over {n} shards")
-        out.append(t.to(home))
+        if run is None:
+            out.append(t.to(mesh.home))
+        else:
+            out.append(LocalBlocks({k: _split(t, s, run, k, mesh.device_list[k])
+                                    for k in run.local}, t.shape, s))
     return tuple(out)
 
 
-def gather(x):
-    """A host numpy copy of a result."""
+def gather(x, mesh=None):
+    """A host numpy copy of a result, or of a
+    :class:`~csmom_tpu_torch.parallel.compat.LocalBlocks` on ``mesh``
+    (every process's blocks, assembled: the same whole array on each)."""
     import numpy as np
     import torch
 
+    from csmom_tpu_torch.parallel.compat import LocalBlocks, _assemble, _Run
+
+    if isinstance(x, LocalBlocks):
+        if mesh is None:
+            raise ValueError("gathering LocalBlocks needs their mesh")
+        from csmom_tpu_torch.parallel.mesh import process_allgather
+
+        run = _Run(mesh, collective_free=True)
+        leaves = [None] * mesh.size
+        for theirs in process_allgather({k: b.detach().cpu()
+                                         for k, b in x.blocks.items()}):
+            for k, b in theirs.items():
+                leaves[k] = b
+        x = _assemble(x.spec, leaves, run)
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 

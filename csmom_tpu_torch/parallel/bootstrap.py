@@ -38,7 +38,7 @@ def sharded_block_bootstrap(returns, valid, key, mesh, n_samples: int = 1000,
     if n_samples % n_shards:
         raise ValueError(f"n_samples={n_samples} not divisible by mesh axis "
                          f"{axis_name!r} size {n_shards}")
-    home = mesh.device_list[0]
+    home = mesh.home
     returns = torch.as_tensor(returns, device=home)
     valid = torch.as_tensor(valid, device=home)
     idx = circular_block_indices(torch.as_tensor(key, device=home), n_samples,

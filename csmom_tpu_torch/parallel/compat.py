@@ -28,6 +28,27 @@ next collective; the caller then gets that shard's own exception, after
 every thread has ended.  A barrier that waits longer than
 :data:`BARRIER_TIMEOUT_S` breaks the same way.
 
+**Meshes over several processes** (:func:`~csmom_tpu_torch.parallel.mesh.
+distributed_init`).  Each process stays a single controller over its own
+shards (``mesh.local_shards``): it starts threads for those only, and
+their barrier holds those only.  A collective whose group spans
+processes adds one step: when the local shards have met, one thread (the
+barrier's action) sends the process's values to the other processes and
+takes theirs, tensors copied through host memory, in one
+``all_gather_object`` of the joined group; every shard then combines its
+whole group's values **in global shard order**, as on one process, so
+the result is bit-equal to the one-process mesh's.  ``dist.all_reduce``
+is never used: its association would break that.  The cross-process
+wait is the process group's, whose timeout is
+:data:`BARRIER_TIMEOUT_S`: a dead peer raises, it does not hang.  An
+output sharded over the mesh is assembled from every process's blocks
+(the shards' results are exchanged once at the end), so each process
+returns the same whole tensor on its first shard's device
+(``mesh.home``); a replicated output is the first local shard's copy.  An input is either the whole array, which
+each shard slices, or :class:`LocalBlocks` (what
+:func:`csmom_tpu_torch.mesh.shard.shard_args` makes on such a mesh),
+which holds this process's blocks only.
+
 ``shard_map(..., collective_free=True)`` is the caller's word that
 ``local_fn`` calls no collective: its shards never meet, so they run
 one after another on the caller's thread, each still under
@@ -55,11 +76,29 @@ import torch
 
 from csmom_tpu_torch.mesh.rules import P, PartitionSpec
 
-__all__ = ["BARRIER_TIMEOUT_S", "P", "PartitionSpec", "all_gather",
-           "axis_index", "axis_size", "ppermute", "psum", "shard_map"]
+__all__ = ["BARRIER_TIMEOUT_S", "LocalBlocks", "P", "PartitionSpec",
+           "all_gather", "axis_index", "axis_size", "ppermute", "psum",
+           "shard_map"]
 
 # the longest any shard waits at a collective for the others
 BARRIER_TIMEOUT_S = 900.0
+
+_CUDA_LINALG_LOADED = False
+
+
+def _load_cuda_linalg(devices) -> None:
+    """Load torch's CUDA linear-algebra library on the caller's thread.
+
+    torch loads it at the process's first CUDA linalg call, and that load
+    is not thread-safe: shard threads making the first call together
+    raise ("lazy wrapper should be called at most once").  One call here,
+    once a process, before any shard thread starts."""
+    global _CUDA_LINALG_LOADED
+    dev = next((d for d in devices if d.type == "cuda"), None)
+    if _CUDA_LINALG_LOADED or dev is None or not torch.cuda.is_available():
+        return
+    torch.linalg.inv(torch.ones((1, 1), device=dev))
+    _CUDA_LINALG_LOADED = True
 
 
 def _names(entry) -> tuple:
@@ -69,18 +108,74 @@ def _names(entry) -> tuple:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
+class LocalBlocks:
+    """An input of a mesh over several processes as one process holds it:
+    the blocks of its own shards (``blocks``: shard index -> tensor on the
+    shard's device) of an array of global ``shape`` split per ``spec``."""
+
+    def __init__(self, blocks: dict, shape: tuple, spec):
+        self.blocks, self.shape, self.spec = blocks, tuple(shape), spec
+
+
+def _portable(tree):
+    """A value as it travels to another process: ``tree`` (tuples, lists,
+    dicts, dataclass instances) with every tensor copied to host memory."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _portable(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_portable(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _portable(v) for k, v in tree.items()}
+    return tree
+
+
 class _Run:
     """The state one :func:`shard_map` call shares between its shards."""
 
     def __init__(self, mesh, collective_free: bool = False):
         self.mesh = mesh
+        self.local = mesh.local_shards
         self.coords = [dict(zip(mesh.axis_names, np.unravel_index(k, mesh.devices.shape)))
                        for k in range(mesh.size)]
         self.barrier = (None if collective_free else
-                        threading.Barrier(mesh.size, timeout=BARRIER_TIMEOUT_S))
+                        threading.Barrier(len(self.local), action=self._meet,
+                                          timeout=BARRIER_TIMEOUT_S))
         self.slots: dict = {}
         self.lock = threading.Lock()
         self._groups: dict = {}
+        self._crosses: dict = {}
+        self.meeting = None        # (seq, names) of the collective at the barrier
+
+    def crosses(self, names: tuple) -> bool:
+        """Does some shard's group along ``names`` hold shards of more
+        than one process?  (The same answer on every process.)"""
+        if names not in self._crosses:
+            procs = self.mesh.processes
+            self._crosses[names] = any(
+                len({procs[j] for j in self.group(k, names)}) > 1
+                for k in range(self.mesh.size))
+        return self._crosses[names]
+
+    def _meet(self):
+        """The barrier's action, run by one local shard once all have
+        arrived: for a collective that crosses processes, exchange this
+        process's slot values with the other processes'."""
+        seq, names = self.meeting
+        if not self.crosses(names):
+            return
+        from csmom_tpu_torch.parallel.mesh import process_allgather, process_count
+
+        if process_count() == 1:
+            raise RuntimeError(f"{self.mesh} spans processes but this process "
+                               "has not joined a run: call distributed_init")
+        mine = {k: _portable(self.slots[seq][k]) for k in self.local}
+        for theirs in process_allgather(mine):
+            for k, v in theirs.items():
+                self.slots[seq].setdefault(k, v)
 
     def group(self, k: int, names: tuple) -> list:
         """Shard ``k``'s group along ``names``: the shards that agree with
@@ -140,10 +235,11 @@ def _exchange(value, axis_name):
     ctx.seq += 1
     with run.lock:
         run.slots.setdefault(seq, {})[ctx.k] = value
+        run.meeting = (seq, names)
     run.barrier.wait()
     members = run.group(ctx.k, names)
     vals = [run.slots[seq][j] for j in members]
-    if ctx.k == 0:
+    if ctx.k == run.local[0]:
         # every shard has read slot seq - 1 before it deposited into seq
         with run.lock:
             run.slots.pop(seq - 1, None)
@@ -220,6 +316,8 @@ def _map_spec_tree(spec, results, leaf):
 
 def _split(x, spec: P, run: _Run, k: int, device):
     """Shard ``k``'s block of the input ``x`` on ``device``."""
+    if isinstance(x, LocalBlocks):
+        return x.blocks[k].to(device, non_blocking=True).contiguous()
     if x is None or not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
         if any(_names(e) for e in spec):
             raise TypeError(f"a sharded input must be an array, got {type(x)}")
@@ -240,12 +338,13 @@ def _split(x, spec: P, run: _Run, k: int, device):
 
 
 def _assemble(spec: P, leaves: list, run: _Run):
-    """One output from the shards' blocks, on the mesh's first device."""
+    """One output from the shards' blocks (every shard's, remote ones
+    included), on this process's first shard's device."""
     mesh = run.mesh
-    home = mesh.device_list[0]
+    home = mesh.home
     used = {a for e in spec for a in _names(e)}
     if not used:
-        v = leaves[0]
+        v = leaves[run.local[0]]
         return v.to(home) if torch.is_tensor(v) else v
     dims = [d for d, e in enumerate(spec) if _names(e)]
     blocks = {}
@@ -265,9 +364,21 @@ def _assemble(spec: P, leaves: list, run: _Run):
     return cat(())
 
 
+def _exchange_results(results: list, run: _Run) -> None:
+    """Fill the other processes' shards' results in (one exchange), so
+    a sharded output assembles whole on every process."""
+    from csmom_tpu_torch.parallel.mesh import process_allgather
+
+    for theirs in process_allgather({k: _portable(results[k]) for k in run.local}):
+        for k, r in theirs.items():
+            if results[k] is None:
+                results[k] = r
+
+
 def shard_map(local_fn, *, mesh, in_specs, out_specs, collective_free: bool = False):
     """``local_fn`` mapped over ``mesh``: ``fn(*args)`` runs it once per
-    shard (see the module docstring) and returns its assembled outputs.
+    shard of this process (see the module docstring) and returns its
+    assembled outputs.
     ``in_specs`` has one :class:`P` per positional argument; non-array
     arguments (``None``, numbers) pass to every shard as they are.
     With ``collective_free`` the shards run in order on the caller's
@@ -280,6 +391,7 @@ def shard_map(local_fn, *, mesh, in_specs, out_specs, collective_free: bool = Fa
             raise TypeError(f"{len(args)} arguments for {len(in_specs)} in_specs")
         run = _Run(mesh, collective_free)
         n = mesh.size
+        local = run.local
         results: list = [None] * n
         errors: list = [None] * n
 
@@ -299,14 +411,15 @@ def shard_map(local_fn, *, mesh, in_specs, out_specs, collective_free: bool = Fa
             finally:
                 _LOCAL.shard = outer
 
-        if n == 1 or collective_free:
-            for k in range(n):
+        if len(local) == 1 or collective_free:
+            for k in local:
                 body(k)
                 if errors[k] is not None:
                     break
         else:
+            _load_cuda_linalg(mesh.device_list[k] for k in local)
             threads = [threading.Thread(target=body, args=(k,), daemon=True,
-                                        name=f"shard_map-{k}") for k in range(n)]
+                                        name=f"shard_map-{k}") for k in local]
             for th in threads:
                 th.start()
             for th in threads:
@@ -320,6 +433,8 @@ def shard_map(local_fn, *, mesh, in_specs, out_specs, collective_free: bool = Fa
             raise TimeoutError(
                 f"a shard of {mesh} waited over {BARRIER_TIMEOUT_S} s at a "
                 "collective") from broken
+        if mesh.n_processes > 1:
+            _exchange_results(results, run)
         return _map_spec_tree(out_specs, results,
                               lambda s, leaves: _assemble(s, leaves, run))
 

@@ -138,7 +138,7 @@ def time_sharded_online_ridge_scores(features, y, valid, mesh,
     the mesh's first device."""
     A, R, F = features.shape
     dt = features.dtype
-    home = mesh.device_list[0]
+    home = mesh.home
     n_shards = mesh.shape[time_axis]
     Xr = torch.nan_to_num(torch.as_tensor(features).transpose(0, 1)).to(home)
     yr = torch.nan_to_num(torch.as_tensor(y).transpose(0, 1)).to(home)

@@ -11,8 +11,10 @@ builtin registrations on first use):
   (``compile/manifest.py`` builds from these);
 - :func:`entry_factory`: a compile engine's shared entry factory;
 - :func:`get_engine` / :func:`engine_specs`: spec access;
-- :func:`strategies`: the strategy zoo (``strategy/base.py``'s
-  registrations);
+- :func:`strategies`: the strategy zoo (kind ``strategy``; importing the
+  builtin zoo registers it);
+- :func:`lint_rules`: the lint rules (kind ``lint``; importing the
+  analysis rule modules registers them);
 - :func:`register_engine` / :func:`unregister_engine`: registration at
   run time (plugins, tests).
 
@@ -39,6 +41,7 @@ __all__ = [
     "engine_specs",
     "entry_factory",
     "get_engine",
+    "lint_rules",
     "manifest_entries",
     "manifest_entry_names",
     "manifest_profiles",
@@ -95,12 +98,24 @@ def engine_specs(kind: str | None = None) -> tuple:
 
 
 def strategies() -> dict:
-    """name -> Strategy class.  The port's strategies register through
-    ``strategy.base.register_strategy``, not as engine specs; importing the
-    builtin zoo (which imports torch) is what registers it."""
-    from csmom_tpu_torch.strategy.base import available_strategies
+    """name -> Strategy class of every kind-``strategy`` engine.
+    Importing the builtin zoo (which imports torch) is what registers it,
+    so this is the one query that is not torch-free."""
+    import csmom_tpu_torch.strategy.builtin  # noqa: F401  (registers the zoo)
 
-    return available_strategies()
+    return ensure_builtin().strategies()
+
+
+def lint_rules() -> tuple:
+    """Kind-``lint`` specs in registration order.  Importing the rule
+    modules (stdlib-only) registers the shipped set, the per-file and
+    the project-scope rules; a rule registered at run time appears here
+    at once, which enrolls it in the sweep, its CLI and the fixture
+    self-test."""
+    import csmom_tpu_torch.analysis.rules  # noqa: F401  (registers the rules)
+    import csmom_tpu_torch.analysis.project_rules  # noqa: F401, I001  (then the project set)
+
+    return ensure_builtin().specs("lint")
 
 
 def unregister_engine(name: str, kind: str | None = None) -> None:

@@ -15,12 +15,14 @@ What differs from the reference:
   tensors' device, where the reference's returns one request's scorer
   for ``jax.vmap`` (torch has no ``vmap`` through the hand-written
   kernels; see :mod:`csmom_tpu_torch.registry.builtin`);
-- the kinds are ``serve`` and ``compile`` (warm-up engines: each
-  declares the profiles it feeds and its manifest entries there, which
-  ``python -m csmom_tpu_torch.cli warmup`` runs); ``lint`` (lint rules)
-  is not ported yet (ROADMAP.md, Queue 1 item 8d) and raises, and
-  ``strategy`` raises too, because the port's strategies register with
-  :func:`csmom_tpu_torch.strategy.base.register_strategy`;
+- the kinds are the reference's four: ``serve``, ``compile`` (warm-up
+  engines: each declares the profiles it feeds and its manifest entries
+  there, which ``python -m csmom_tpu_torch.cli warmup`` runs),
+  ``strategy`` (a :class:`~csmom_tpu_torch.strategy.base.Strategy`
+  class, registered by
+  :func:`~csmom_tpu_torch.strategy.base.register_strategy`) and ``lint``
+  (a rule class of :mod:`csmom_tpu_torch.analysis`, which registration
+  enrolls in the sweep);
 - :meth:`EngineSpec.donated` raises: torch has no buffer donation
   (ROADMAP.md, known difference 12); :meth:`EngineSpec.sharded` resolves
   through :func:`csmom_tpu_torch.mesh.variants.resolve_sharded`, whose
@@ -52,14 +54,7 @@ __all__ = [
     "register_engine",
 ]
 
-KINDS = ("serve", "compile")
-# the reference's other kinds, and where each is (or will be) served
-_OTHER_KINDS = {
-    "lint": "lint engines (lint rules) are not ported yet (ROADMAP.md, "
-            "Queue 1 item 8d)",
-    "strategy": "strategies register with "
-                "csmom_tpu_torch.strategy.base.register_strategy",
-}
+KINDS = ("serve", "compile", "strategy", "lint")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +113,11 @@ class EngineSpec:
       ``profiles``, ``manifest_names_fn(profile) -> set[str]`` their names
       without building them (optional), and ``entry_fn`` is the shared
       entry factory (:func:`csmom_tpu_torch.registry.entry_factory`).
+    - ``"strategy"``: a strategy plugin class (``strategy_cls``), the
+      monthly commands' ``--strategy`` zoo.
+    - ``"lint"``: a lint rule class (``rule_cls``, a
+      :class:`csmom_tpu_torch.analysis.core.LintRule` subclass); the
+      sweep, its CLI and the fixture self-test run every registered one.
     """
 
     name: str
@@ -130,12 +130,11 @@ class EngineSpec:
     manifest_names_fn: Callable | None = None
     entry_fn: Callable | None = None
     serve: ServeSurface | None = None
+    strategy_cls: type | None = None
+    rule_cls: type | None = None    # kind "lint": the LintRule subclass
     workload: bool = True           # serve engines default into loadgen
 
     def __post_init__(self):
-        if self.kind in _OTHER_KINDS:
-            raise NotImplementedError(
-                f"engine {self.name!r}: {_OTHER_KINDS[self.kind]}")
         if self.kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got "
                              f"{self.kind!r}")
@@ -145,6 +144,10 @@ class EngineSpec:
         if self.kind == "compile" and self.manifest_fn is None:
             raise ValueError(f"compile engine {self.name!r} needs a "
                              "manifest_fn")
+        if self.kind == "strategy" and self.strategy_cls is None:
+            raise ValueError(f"strategy {self.name!r} needs strategy_cls")
+        if self.kind == "lint" and self.rule_cls is None:
+            raise ValueError(f"lint rule {self.name!r} needs rule_cls")
 
     def donated(self, **params):
         """The reference's donated-buffer variant: torch has no buffer
@@ -234,6 +237,10 @@ class EngineRegistry:
         """The loadgen endpoint mix: every servable engine that opted
         into the synthetic workload."""
         return tuple(s.name for s in self.specs("serve") if s.workload)
+
+    def strategies(self) -> dict:
+        """name -> Strategy class of every registered strategy."""
+        return {s.name: s.strategy_cls for s in self.specs("strategy")}
 
     def manifest_profiles(self) -> tuple:
         """Every warm-up profile any engine feeds, registration-ordered."""

@@ -722,6 +722,11 @@ class FleetController:
                 with self._lock:
                     if len(self.spares) >= target:
                         return
+                # the backfill lock exists to serialize slow spawns:
+                # nothing on a request path contends it (only the fill
+                # and backfill threads), so blocking under it is the
+                # design, not a hidden wait
+                # lint: allow[lock-order] backfill lock serializes slow spawns by design
                 h = self._spawn_spare(kind=kind)
                 if h is None:
                     return  # failed: stay short rather than hot-spin

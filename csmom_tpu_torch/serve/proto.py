@@ -810,6 +810,7 @@ class Channel:
                 # one socket; it guards nothing else, is a leaf, and
                 # the send is bounded by wsock's fixed SEND_TIMEOUT_S
                 with self._wlock:
+                    # lint: allow[lock-order] serializing the send IS this leaf lock's purpose
                     _send_buffers(self._wsock, buffers)
             except OSError as e:
                 self._die(f"send failed: {type(e).__name__}: {e}")
@@ -1258,6 +1259,7 @@ def serve_connection(conn: socket.socket, handler, on_stop=None,
         # socket; a leaf guarding nothing else, send bounded by wconn's
         # fixed timeout
         with wlock:
+            # lint: allow[lock-order] serializing the send IS this leaf lock's purpose
             _send_buffers(wconn, buffers)
 
     def _run_one(obj, arrays, mux):

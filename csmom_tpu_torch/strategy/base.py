@@ -11,10 +11,10 @@ named panels (e.g. ``volumes``) are passed through by the engine.  The
 engine's ranking and portfolio tail is shared by every strategy, so a new
 signal never touches an engine.
 
-Strategies register by name with :func:`register_strategy` and are built
-by name with :func:`make_strategy`.  The table behind them holds
-strategies only (the reference's registry also serves its serving tier,
-which the port does not have yet).
+Strategies register by name with :func:`register_strategy`, as
+kind-``strategy`` engines of the registry (:mod:`csmom_tpu_torch.registry`),
+and are built by name with :func:`make_strategy`: the monthly commands'
+zoo and ``registry list`` read the same row.
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ __all__ = [
     "consumed_panels",
     "xs_zscore",
 ]
-
-# name -> Strategy subclass
-_STRATEGIES: dict = {}
-
 
 @dataclasses.dataclass(frozen=True)
 class Strategy(abc.ABC):
@@ -77,13 +73,21 @@ def consumed_panels(strategy) -> frozenset:
 
 
 def register_strategy(name: str):
-    """Class decorator: make a Strategy available by ``name`` (a later
-    registration of the same name replaces it)."""
+    """Class decorator: register a Strategy as the kind-``strategy``
+    engine ``name`` (a later registration of the same name replaces
+    it)."""
 
     def deco(cls):
         if not (isinstance(cls, type) and issubclass(cls, Strategy)):
             raise TypeError(f"{cls!r} is not a Strategy subclass")
-        _STRATEGIES[name] = cls
+        from csmom_tpu_torch.registry.core import REGISTRY, EngineSpec
+
+        doc = (cls.__doc__ or "").strip().splitlines()
+        REGISTRY.register(EngineSpec(
+            name=name, kind="strategy", strategy_cls=cls,
+            description=doc[0] if doc else "",
+            axes="prices f[A,M], mask bool[A,M] -> (score, valid)",
+        ), replace=True)
         return cls
 
     return deco
@@ -103,9 +107,9 @@ def make_strategy(name: str, **params) -> Strategy:
 
 def available_strategies() -> dict:
     """``{name: Strategy subclass}`` of every registered strategy."""
-    import csmom_tpu_torch.strategy.builtin  # noqa: F401  (registers the zoo)
+    from csmom_tpu_torch.registry import strategies
 
-    return dict(_STRATEGIES)
+    return strategies()
 
 
 def xs_zscore(score, valid):

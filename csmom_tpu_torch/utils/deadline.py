@@ -194,7 +194,7 @@ def deadline_guard(
                     line = partial_line()
                     break
                 except Exception:
-                    # dying process: the dump
+                    # lint: allow[lock-discipline] dying process: the dump
                     time.sleep(0.02)  # beat retries under the emit lock on
                     # purpose — once the guard fires, no waiter may print
             if line is None:

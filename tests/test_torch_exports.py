@@ -18,13 +18,12 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # names of the reference's exports that an open Queue 1 item brings
 OWNED = {
-    "registry": {"lint_rules": "8d"},
     "obs": {"ledger": "8c", "regress": "8c", "timeline": "8c"},
 }
 
 PACKAGES = ("analytics", "backtest", "backends", "costs", "ops", "signals",
             "utils", "registry", "obs", "parallel", "serve", "strategy",
-            "models", "panel", "stream", "mesh")
+            "models", "panel", "stream", "mesh", "analysis")
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -74,7 +73,8 @@ def test_registry_strategies_are_the_strategy_zoo():
                                  "costs", "ops", "signals", "utils",
                                  "registry", "obs", "parallel", "serve",
                                  "chaos", "panel", "cli", "stream",
-                                 "compile", "examples", "mesh"))
+                                 "compile", "examples", "mesh",
+                                 "analysis"))
 def test_package_import_loads_neither_pandas_nor_torch(pkg):
     code = (f"import sys, csmom_tpu_torch.{pkg}; "
             "print(sorted({'torch', 'pandas'} & set(sys.modules)))")

@@ -101,19 +101,44 @@ def test_pad_assets_equals_the_references(A, n):
 
 
 def test_distributed_init_is_false_alone_and_refuses_a_coordinator(monkeypatch):
+    """The reference's contract: ``False`` for a plain run (a one-host
+    image's variables included); given a coordinator or a cluster
+    environment it joins (item 7c), and what it cannot join with
+    raises: no card and no devices named, or a rank it cannot find.
+    Joined, a second call is ``False``."""
+    import socket
+
+    from csmom_tpu_torch.parallel.mesh import distributed_shutdown, process_count
+
     for v in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS", "MASTER_ADDR",
               "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-              "OMPI_COMM_WORLD_SIZE", "PMI_SIZE", "SLURM_NTASKS", "WORLD_SIZE"):
+              "OMPI_COMM_WORLD_SIZE", "PMI_SIZE", "SLURM_NTASKS", "WORLD_SIZE",
+              "JAX_NUM_PROCESSES", "RANK", "OMPI_COMM_WORLD_RANK", "PMI_RANK",
+              "SLURM_PROCID", "JAX_PROCESS_ID"):
         monkeypatch.delenv(v, raising=False)
     assert distributed_init() is False
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        distributed_init("localhost:1234", num_processes=2, process_id=0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+            distributed_init("localhost:1234", num_processes=2, process_id=0)
     monkeypatch.setenv("SLURM_NTASKS", "4")
-    with pytest.raises(NotImplementedError, match="item 7c"):
+    with pytest.raises(ValueError, match="coordinator_address"):
         distributed_init()
     monkeypatch.setenv("SLURM_NTASKS", "1")
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
     assert distributed_init() is False
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(port))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    assert distributed_init(devices=["cpu"]) is True
+    try:
+        assert process_count() == 1
+        assert distributed_init(devices=["cpu"]) is False
+    finally:
+        distributed_shutdown()
 
 
 @pytest.mark.parametrize("slot,per", [(0, 1), (3, 2), (1, 4)])
@@ -317,3 +342,30 @@ def test_launch_counters_are_exact_under_threads():
     assert [w.launches for w in wrappers] == [8000, 8000]
     kernels.reset_launches()
     assert [w.launches for w in wrappers] == [0, 0]
+
+
+def test_the_first_cuda_linalg_call_is_made_before_the_shard_threads(monkeypatch):
+    """torch loads its CUDA linear-algebra library at a process's first
+    linalg call, and shard threads making that call together raise (met
+    on the card by the time-sharded online ridge in a fresh process):
+    ``shard_map`` makes one such call on the caller's thread, once a
+    process, on a CUDA device of the mesh, before its threads start."""
+    seen = []
+    monkeypatch.setattr(compat, "_load_cuda_linalg", lambda devs: seen.append(list(devs)))
+    fn = shard_map(lambda x: psum(x, "assets"), mesh=make_mesh(["cpu"] * 2),
+                   in_specs=(P("assets"),), out_specs=P())
+    assert torch.equal(fn(torch.ones(4)), torch.full((2,), 2.0))
+    assert seen == [[torch.device("cpu")] * 2]
+    monkeypatch.undo()
+
+    calls = []
+    monkeypatch.setattr(compat, "_CUDA_LINALG_LOADED", False)
+    monkeypatch.setattr(compat.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(compat.torch, "ones",
+                        lambda shape, device=None: ("ones", str(device)))
+    monkeypatch.setattr(compat.torch.linalg, "inv", calls.append)
+    compat._load_cuda_linalg([torch.device("cpu")] * 2)
+    assert calls == []
+    compat._load_cuda_linalg([torch.device("cpu"), torch.device("cuda", 1)])
+    compat._load_cuda_linalg([torch.device("cuda", 0)])
+    assert calls == [("ones", "cuda:1")]

@@ -1,7 +1,6 @@
 """The port's ``registry list`` against ``csmom registry list``: the same
 endpoint names, the same strategy zoo, the compile engines (item 8a,
-ported), and the kind the port does not have yet (``lint``) refused with
-exit 2 naming its ROADMAP.md item."""
+ported) and the lint rules (item 8d, ported), each with its scope."""
 
 import argparse
 
@@ -74,9 +73,9 @@ def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
     assert main(["registry", "list", "--terse"]) == 0
     terse = capsys.readouterr().out
     assert "serve (5):" in full and "compile (10):" in full
-    assert "strategy (8):" in full
-    assert "23 engines registered" in full
-    assert len(terse.splitlines()) == len(full.splitlines()) - 23
+    assert "strategy (8):" in full and "lint (6):" in full
+    assert "29 engines registered" in full
+    assert len(terse.splitlines()) == len(full.splitlines()) - 29
 
 
 def test_compile_kind_lists_its_engines(capsys):
@@ -94,9 +93,19 @@ def test_compile_kind_lists_its_engines(capsys):
 
 @pytest.mark.parametrize("kind,item", [("lint", "8d")])
 def test_unported_kinds_exit_2_naming_their_item(kind, item, capsys):
-    assert main(["registry", "list", "--kind", kind]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"item {item}" in err
+    """Kind ``lint`` was refused until its item (8d) ported it: it now
+    lists the six rules, each with its scope, and exits 0."""
+    assert main(["registry", "list", "--kind", kind]) == 0
+    out = capsys.readouterr().out
+    head, names = _section(out, kind)
+    assert head == "lint (6):"
+    assert names == ["clock-discipline", "lock-discipline",
+                     "enumeration-drift", "dial-discipline", "lock-order",
+                     "compile-surface"]
+    scopes = {ln.split()[0]: ln.split()[-1] for ln in out.splitlines()
+              if ln.startswith("  ") and not ln.startswith(" " * 24)}
+    assert scopes == {n: "scope:project" if n in ("lock-order", "compile-surface")
+                      else "scope:file" for n in names}
 
 
 def test_unknown_action_exits_2(capsys):

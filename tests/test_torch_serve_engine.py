@@ -144,12 +144,20 @@ def test_registry_refuses_what_is_not_ported():
         spec.donated()
     # the sharded surface is ported: the endpoint's mesh scorer
     assert spec.sharded(devices=["cpu"] * 2).axis == "assets"
-    with pytest.raises(NotImplementedError, match="item 8d"):
+    # kinds lint (item 8d) and strategy are ported: each needs its class
+    with pytest.raises(ValueError, match="rule_cls"):
         EngineSpec(name="x", kind="lint")
     with pytest.raises(ValueError, match="manifest_fn"):
         EngineSpec(name="x", kind="compile")
-    with pytest.raises(NotImplementedError, match="register_strategy"):
+    with pytest.raises(ValueError, match="strategy_cls"):
         EngineSpec(name="x", kind="strategy")
+    from csmom_tpu_torch.analysis.rules import ClockDiscipline
+    from csmom_tpu_torch.strategy.builtin import Momentum
+
+    assert EngineSpec(name="x", kind="lint", rule_cls=ClockDiscipline).rule_cls \
+        is ClockDiscipline
+    assert EngineSpec(name="x", kind="strategy",
+                      strategy_cls=Momentum).strategy_cls is Momentum
     assert make_engine("jax-mesh", device="cpu").name == "torch-mesh"
     assert isinstance(make_engine("jax", device="cpu"), TorchEngine)
     assert isinstance(make_engine("torch", device="cpu"), TorchEngine)

@@ -23,7 +23,6 @@ from csmom_tpu_torch.backtest.monthly import monthly_spread_backtest
 from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
 from csmom_tpu_torch.panel.panel import Panel, to_tensors
 from csmom_tpu_torch.panel.synthetic import synthetic_daily_panel
-from csmom_tpu_torch.strategy import base as port_base
 from csmom_tpu_torch.strategy.builtin import parse_combo_spec
 
 torch.set_num_threads(2)
@@ -246,12 +245,11 @@ def _jax_panel_of(pm, ends):
     return JaxPanel.from_dense(pm, [f"T{i:03d}" for i in range(pm.shape[0])], ends)
 
 
-def test_user_registered_strategy_runs_through_run_monthly(panel60, monkeypatch):
+def test_user_registered_strategy_runs_through_run_monthly(panel60):
     """A plugin registered by name ranks through both backends of each
     package; the port's registration leaves the built-ins alone."""
     from csmom_tpu.registry import unregister_engine
-
-    monkeypatch.setattr(port_base, "_STRATEGIES", dict(port_base._STRATEGIES))
+    from csmom_tpu_torch.registry import unregister_engine as port_unregister
 
     @TS.register_strategy("test_torch_price_level")
     @dataclasses.dataclass(frozen=True)
@@ -288,6 +286,8 @@ def test_user_registered_strategy_runs_through_run_monthly(panel60, monkeypatch)
             assert got.backend == ("torch:cpu" if backend == "torch" else "pandas")
     finally:
         unregister_engine("test_torch_price_level", kind="strategy")
+        port_unregister("test_torch_price_level", kind="strategy")
+    assert "test_torch_price_level" not in TS.available_strategies()
 
 
 def test_run_monthly_forwards_only_panels_the_signal_reads(panel60):
@@ -334,3 +334,19 @@ def test_unknown_backend_raises(panel60):
     pm, _, _, _, ends = panel60
     with pytest.raises(ValueError, match="unknown backend 'tpu2'"):
         run_monthly(_panel_of(pm, ends), device="cpu", backend="tpu2")
+
+
+def test_strategies_are_kind_strategy_registry_engines():
+    """The zoo is the registry's kind-``strategy`` rows, in registration
+    order, as in the reference: no table of its own beside them."""
+    from csmom_tpu_torch import registry
+    from csmom_tpu_torch.strategy import base
+
+    zoo = TS.available_strategies()
+    specs = registry.engine_specs("strategy")
+    assert [s.name for s in specs] == list(zoo)
+    assert sorted(zoo) == sorted(BUILTIN)
+    for s in specs:
+        assert s.strategy_cls is zoo[s.name]
+        assert s.description == (s.strategy_cls.__doc__ or "").strip().splitlines()[0]
+    assert not hasattr(base, "_STRATEGIES")
