@@ -10,7 +10,7 @@
 to a temporary directory, removed at the end, and phase 18's to
 ``chiprun_out/``).  Each phase's wall is printed
 on a ``[smoke] phase N`` line as it ends, and all of them on one line
-after phase 19.
+after phase 20.
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -86,7 +86,8 @@ any phase fails (nothing is caught).  Phases:
    and 15, ``warmup_launches`` and ``examples_launches`` phase 16's,
    ``mesh_launches`` phase 17's, ``serve_mesh_launches`` phase 18 (a)'s,
    ``multihost_launches`` phase 19 (b)'s (the two processes' north-star
-   legs, summed)
+   legs, summed), ``rehearse_launches`` phase 20 (a)'s (the healed
+   warm-up process's entries)
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -272,6 +273,23 @@ any phase fails (nothing is caught).  Phases:
    f64 dry run within its tolerances of the single-device engines; (c)
    ``distributed_init`` at world size 1: the 8-shard monthly engine
    bit-equal to phase 17's; the kernels line gains ``multihost_launches``;
+20. rehearse and timeline (run after phase 19; no profiler trace; its
+   wall is printed and held within ``REHEARSE_BUDGET_S``): (a) ``python
+   -m csmom_tpu_torch.cli rehearse --only corrupt-aot-cache`` in a
+   process of its own: two warm-up processes of profile ``smoke`` with
+   ``CSMOM_JIT_CACHE`` in the scenario's sandbox, the first building both
+   libraries there with nvcc, the second corrupting every file of it
+   before its first entry; green, with at least one entry
+   ``self_healed``, no error and K1 and K2 launched from the rebuilt
+   libraries, which, loaded as they are in a process of their own, equal
+   their plain versions at the warmed shapes (counts equal, f32 sums
+   within the smoke's limits); every file of the repository's own
+   ``build/csmom_tpu_torch/`` keeps its sha256; (b) ``rehearse --fast``
+   (13 of 13 green) and ``rehearse --only fabric`` (3 of 3), each
+   scenario's wall logged; (c) ``timeline rehearse_fast --json`` over
+   (b)'s ``GPU_TELEMETRY_rehearse_fast.json``: valid, one
+   ``rehearse.row`` span a scenario; the kernels line gains
+   ``rehearse_launches``;
 then the phase walls, the card's name line and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -4684,6 +4702,234 @@ def lint_multihost_phase(smi, pm, mm, ref8) -> dict:
     return {"launches": launches, "walls": walls, "wall_s": walls["phase_s"]}
 
 
+# phase 20: the rehearsal of the serving tiers, the replay and the warm-up
+# (python -m csmom_tpu_torch.cli rehearse), then its timeline
+REHEARSE_TIMEOUT_S = 600.0
+REHEARSE_BUDGET_S = 180.0     # the phase's wall, checked
+REHEARSE_FAST = 13            # the fast tier's scenarios
+_ROW = re.compile(r"^\s+\[(PASS|FAIL)\] (\S+)\s+\(([\w-]+),\s+([\d.]+)s\)$")
+_HEAL_WALLS = re.compile(r"pass 1 \(fault-free\) ([\d.]+)s, pass 2 \(cache "
+                         r"corrupted\) ([\d.]+)s")
+
+
+def tree_digests(root: str) -> dict:
+    """``{relative path: sha256}`` of every file under ``root``."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(dirpath, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def clean_env(**extra) -> dict:
+    """This process's environment without the ``CSMOM_*`` contracts that
+    earlier phases may have left exported (a telemetry stream and its run
+    id, a fault plan, the fleet aggregator's address), with the checkout
+    on ``PYTHONPATH`` and ``extra`` set."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CSMOM_")}
+    return {**env, "PYTHONPATH": REPO, **extra}
+
+
+def run_rehearse(args, tel_dir: str, cwd: str):
+    """``python -m csmom_tpu_torch.cli rehearse ARGS`` in a process of its
+    own, its sidecar to ``tel_dir``; returns the process and its rows
+    ``{name: (status, pipeline, wall s)}``."""
+    p = subprocess.run(
+        [sys.executable, "-m", "csmom_tpu_torch.cli", "rehearse", *args],
+        cwd=cwd, capture_output=True, text=True, timeout=REHEARSE_TIMEOUT_S,
+        env=clean_env(CSMOM_TELEMETRY_DIR=tel_dir))
+    rows = {m.group(2): (m.group(1), m.group(3), float(m.group(4)))
+            for m in map(_ROW.match, p.stdout.splitlines()) if m}
+    return p, rows
+
+
+# the child of phase 20 (a): the sandbox's rebuilt K1 and K2 (CSMOM_JIT_CACHE
+# set by the caller) against their plain versions at the panel shapes the
+# scenario warmed them at (K1: profile smoke's monthly entries; K2: its
+# grid's, which the scenario also warms through K2), loaded as they are
+# (no build, no heal)
+_HEALED_CHECK = """
+import json, sys
+import numpy as np, torch
+from csmom_tpu_torch.compile.manifest import build_manifest
+from csmom_tpu_torch.ops import build, kernels
+rtol, atol = float(sys.argv[1]), float(sys.argv[2])
+dev = torch.device("cuda")
+rng = np.random.default_rng(20)
+shapes = {}
+for e in build_manifest("smoke"):
+    key = ("decile_partial_sums" if "decile_partial_sums" in e.kernels
+           else "cohort_partial_sums" if e.name.startswith("grid.jk16.") else None)
+    if key and key not in shapes:
+        args, _ = e.materialize(torch.device("cpu"), rng)
+        shapes[key] = tuple(args[0].shape)
+A1, M1 = shapes["decile_partial_sums"]
+A2, M2 = shapes["cohort_partial_sums"]
+B, H = 10, 12
+lab1 = rng.integers(-1, B, size=(A1, M1)).astype(np.int32)
+ret1 = np.where(lab1 >= 0, rng.normal(0, 0.1, size=(A1, M1)), 0.0)
+lab1, ret1 = torch.tensor(lab1, device=dev), torch.tensor(ret1, dtype=torch.float32, device=dev)
+s, c = kernels.decile_partial_sums(ret1, lab1, B)
+ps, pc = kernels.decile_partial_sums_plain(ret1, lab1, B)
+ab, _ = kernels.decile_partial_sums_plain(ret1.abs(), lab1, B)
+lab2 = torch.tensor(rng.integers(-1, B, size=(4, A2, M2)).astype(np.int32), device=dev)
+valid = rng.random((A2, M2)) > 0.2
+ret2 = torch.tensor(np.where(valid, rng.normal(0, 0.1, size=(A2, M2)), np.nan),
+                    dtype=torch.float32, device=dev)
+valid = torch.tensor(valid, device=dev)
+s2, c2 = kernels.cohort_partial_sums(ret2, valid, lab2, B, H)
+p2, pc2 = kernels.cohort_partial_sums_plain(ret2, valid, lab2, B, H)
+ab2, _ = kernels.cohort_partial_sums_plain(torch.where(valid, ret2, 0.0).abs(), valid, lab2, B, H)
+torch.cuda.synchronize()
+print(json.dumps({
+    "shapes": {k: list(v) for k, v in shapes.items()},
+    "libraries": [str(build.library_path(k)) for k in shapes],
+    "built": build.libraries_built(), "healed": build.libraries_healed(),
+    "intact": all(build.intact(build.library_path(k)) for k in shapes),
+    "launches": {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                 "cohort_partial_sums": kernels.cohort_partial_sums.launches},
+    "counts_equal": bool(torch.equal(c, pc) and torch.equal(c2, pc2)),
+    "within": bool(((s - ps).abs() <= atol + rtol * ab).all()
+                   and ((s2 - p2).abs() <= atol + rtol * ab2).all()),
+    "max_abs_err": {"decile_partial_sums": (s - ps).abs().max().item(),
+                    "cohort_partial_sums": (s2 - p2).abs().max().item()}}))
+"""
+
+
+def rehearse_phase(smi) -> dict:
+    """Phase 20: (a) ``rehearse --only corrupt-aot-cache`` on the card in a
+    process of its own: both kernel libraries built into the scenario's
+    sandbox, every file there corrupted, the warm-up healed (at least one
+    entry ``self_healed``, no error, K1 and K2 launched from the rebuilt
+    libraries); those libraries, loaded as they are, equal their plain
+    versions at the warmed shapes; the repository's own build directory
+    byte for byte unchanged; (b) ``rehearse --fast`` (13 of 13 green) and
+    ``rehearse --only fabric`` (3 of 3), each scenario's wall logged; (c)
+    ``timeline rehearse_fast --json`` over (b)'s sidecar: valid, one
+    ``rehearse.row`` span a scenario.  Returns pass 2's launches and the
+    walls."""
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.obs import timeline as tl
+    from csmom_tpu_torch.ops import build
+
+    t_phase = time.perf_counter()
+    walls = {}
+    repo_build = str(build.BUILD_DIR)
+    before = tree_digests(repo_build)
+    # short sandbox paths: the stub tiers bind unix sockets under them
+    with tempfile.TemporaryDirectory(prefix="csmom_rh_") as tmp:
+        tel = os.path.join(tmp, "tel")
+        # -- (a) the heal --------------------------------------------------
+        box = os.path.join(tmp, "heal")
+        t0 = time.perf_counter()
+        p, rows = run_rehearse(["--only", "corrupt-aot-cache", "--sandbox", box,
+                                "--keep"], tel, tmp)
+        walls["heal_s"] = round(time.perf_counter() - t0, 2)
+        if p.returncode != 0 or "1/1 scenarios green" not in p.stdout:
+            raise AssertionError(f"rehearse (a): exit {p.returncode}\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        scen = os.path.join(box, "corrupt-aot-cache")
+        summaries = []
+        for n in (1, 2):
+            with open(os.path.join(scen, f"pass{n}.out")) as f:
+                summaries.append(inv.trailing_json(f.read()))
+        first, healed = summaries
+        m = _HEAL_WALLS.search(p.stdout)
+        walls["pass1_s"], walls["pass2_s"] = float(m.group(1)), float(m.group(2))
+        launches = healed["launches"]
+        if (healed["platform"] != "gpu" or healed["n_errors"]
+                or healed["n_self_healed"] < 1 or min(launches.values()) < 1
+                or first["n_errors"] or first["n_self_healed"]):
+            raise AssertionError(f"rehearse (a): pass 1 {json.dumps(first)}, "
+                                 f"pass 2 {json.dumps(healed)}")
+        c = subprocess.run(
+            [sys.executable, "-c", _HEALED_CHECK, str(F32_RTOL), str(F32_ATOL)],
+            cwd=tmp, capture_output=True, text=True, timeout=300,
+            env=clean_env(CSMOM_JIT_CACHE=os.path.join(scen, "jit-cache")))
+        if c.returncode != 0:
+            raise AssertionError(f"rehearse (a): the healed libraries' check "
+                                 f"exit {c.returncode}\n{c.stderr[-3000:]}")
+        held = json.loads(c.stdout.strip().splitlines()[-1])
+        if (held["built"] or held["healed"] or not held["intact"]
+                or not held["counts_equal"] or not held["within"]
+                or min(held["launches"].values()) < 1
+                or not all(lib.startswith(scen) for lib in held["libraries"])):
+            raise AssertionError(f"rehearse (a): the healed libraries: "
+                                 f"{json.dumps(held)}")
+        log("rehearse", f"(a) corrupt-aot-cache: pass 1 built both libraries in "
+                        f"the sandbox ({walls['pass1_s']} s, {first['value']} "
+                        f"entries), pass 2 found every file corrupted and healed "
+                        f"{healed['n_self_healed']} entries ({walls['pass2_s']} s, "
+                        f"{healed['n_errors']} errors, launches {launches}); the "
+                        f"rebuilt K1 and K2 loaded as they are equal their plain "
+                        f"versions at the warmed shapes {held['shapes']} (counts "
+                        f"equal, f32 sums within {F32_RTOL} x sum|x| + {F32_ATOL}; "
+                        f"max |err| {held['max_abs_err']}); the scenario "
+                        f"{rows['corrupt-aot-cache'][2]} s, the command "
+                        f"{walls['heal_s']} s | {smi}")
+
+        # -- (b) the stub tiers ---------------------------------------------
+        scen_walls = {}
+        for label, args, want in (
+                ("fast", ["--fast"], f"{REHEARSE_FAST}/{REHEARSE_FAST} scenarios green"),
+                ("fabric", ["--only", "fabric"], "3/3 scenarios green")):
+            t0 = time.perf_counter()
+            p, rows = run_rehearse([*args, "--sandbox", os.path.join(tmp, label)],
+                                   tel, tmp)
+            walls[f"{label}_s"] = round(time.perf_counter() - t0, 2)
+            if p.returncode != 0 or want not in p.stdout:
+                raise AssertionError(f"rehearse (b) {label}: exit {p.returncode}\n"
+                                     f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+            scen_walls.update({name: wall for name, (_, _, wall) in rows.items()})
+            log("rehearse", f"(b) rehearse {' '.join(args)}: {want}; the command "
+                            f"{walls[f'{label}_s']} s; scenario walls s "
+                            f"{json.dumps({n: w for n, (_, _, w) in rows.items()})} | {smi}")
+        walls["scenarios_s"] = scen_walls
+
+        # -- (c) the timeline --------------------------------------------------
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "csmom_tpu_torch.cli", "timeline",
+             "rehearse_fast", "--json"], cwd=tmp, capture_output=True, text=True,
+            timeout=120, env=clean_env(CSMOM_TELEMETRY_DIR=tel))
+        walls["timeline_s"] = round(time.perf_counter() - t0, 2)
+        if p.returncode != 0:
+            raise AssertionError(f"timeline (c): exit {p.returncode}\n{p.stderr[-3000:]}")
+        side = json.loads(p.stdout)
+        t0 = time.perf_counter()
+        text = tl.render(side)
+        walls["timeline_render_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        spans = {a["name"]: a["count"] for a in side["spans"]}
+        bad = inv.validate(side)
+        if bad or spans.get("rehearse.row") != REHEARSE_FAST or not os.path.isfile(
+                os.path.join(tel, "GPU_TELEMETRY_rehearse_fast.json")) or \
+                "run rehearse_fast" not in text:
+            raise AssertionError(f"timeline (c): {bad}, rows {spans.get('rehearse.row')}")
+        log("rehearse", f"(c) timeline rehearse_fast --json: a valid "
+                        f"GPU_TELEMETRY_rehearse_fast.json, {spans['rehearse.row']} "
+                        f"rehearse.row spans, wall {side['wall_s']} s, phases "
+                        f"{json.dumps({ph['name']: ph['dur_s'] for ph in side['phases']})}; "
+                        f"{walls['timeline_s']} s of command, render "
+                        f"{walls['timeline_render_ms']} ms in this process")
+    after = tree_digests(repo_build)
+    if after != before:
+        changed = sorted(k for k in set(before) | set(after)
+                         if before.get(k) != after.get(k))
+        raise AssertionError(f"rehearse: the repository's build directory changed: "
+                             f"{changed[:10]}")
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    log("rehearse", f"the repository's {len(before)} build files unchanged; phase "
+                    f"walls s {json.dumps({k: v for k, v in walls.items() if k != 'scenarios_s'})} | {smi}")
+    if walls["phase_s"] > REHEARSE_BUDGET_S:
+        raise AssertionError(f"phase 20 took {walls['phase_s']} s, over its "
+                             f"{REHEARSE_BUDGET_S} s")
+    return {"launches": launches, "walls": walls, "wall_s": walls["phase_s"]}
+
+
 # phase 18: the mesh serving engine on the card, every mesh logical shards
 # of cuda:0.  (a) SERVE_MESH_r15.json's configuration: the bursty schedule
 # (seed 0, 240 arrivals), the five endpoints, its class mix, panel reuse and
@@ -5809,10 +6055,18 @@ def main(argv=None) -> int:
                      f"{json.dumps(multi['walls'])}; launches {multi['launches']} | "
                      f"{smi}")
     t_p = phase_done(19, "lint and multihost", t_p)
-    log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
-                 f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     for row in rows:
         row["multihost_launches"] = multi["launches"][row["name"]]
+
+    # -- 20. rehearse and timeline: the heal, the stub tiers, the sidecar ------
+    rh = rehearse_phase(smi)
+    log("rehearse", f"phase wall {rh['wall_s']:.1f} s; pass 2's launches "
+                    f"{rh['launches']} | {smi}")
+    t_p = phase_done(20, "rehearse and timeline", t_p)
+    for row in rows:
+        row["rehearse_launches"] = rh["launches"][row["name"]]
+    log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
+                 f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,18 @@
 """The serving artifacts' contracts: closed books, ordered percentiles.
 
-Counterpart of ``csmom_tpu.chaos.invariants`` for the six artifact
+Counterpart of ``csmom_tpu.chaos.invariants`` for the seven artifact
 kinds the port lands, written by :mod:`csmom_tpu_torch.serve.loadgen`,
-:mod:`csmom_tpu_torch.obs.fleet`, :mod:`csmom_tpu_torch.obs.trace` and
-:mod:`csmom_tpu_torch.stream.replay`.
+:mod:`csmom_tpu_torch.obs.fleet`, :mod:`csmom_tpu_torch.obs.trace`,
+:mod:`csmom_tpu_torch.stream.replay` and
+:mod:`csmom_tpu_torch.obs.timeline`, and the rules ``rehearse`` checks
+with: :func:`trailing_json` (the last JSON-object line of a process's
+stdout) and :func:`committable_sidecar` (which ``GPU_*`` file names are
+round evidence and which are regenerated scratch).
+
+``telemetry`` (``GPU_TELEMETRY_<run>.json``, schema v1, the reference's
+rules copied): a known schema version, named phases without duplicates
+whose durations account for the run's wall within 5% (floored at 0.02
+s), and per-shape memory records with int byte counts and a platform.
 
 ``trace`` (``GPU_TRACE_<run>.json``, schema v1, the reference's rules
 copied): closed trace books (every opened trace complete or partial with
@@ -60,13 +69,16 @@ caller reports every breakage of an artifact, not the first.
 from __future__ import annotations
 
 import json
+import re
 
 __all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS", "KNOWN_REPLAY_SCHEMA_VERSIONS",
            "KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
            "KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
-           "KNOWN_TRACE_SCHEMA_VERSIONS", "detect_kind", "validate",
+           "KNOWN_TELEMETRY_SCHEMA_VERSIONS", "KNOWN_TRACE_SCHEMA_VERSIONS",
+           "committable_sidecar", "detect_kind", "trailing_json", "validate",
            "validate_file", "validate_tree"]
 
+KNOWN_TELEMETRY_SCHEMA_VERSIONS = (1,)
 KNOWN_SERVE_SCHEMA_VERSIONS = (1, 2, 3, 4)
 KNOWN_SERVE_POOL_SCHEMA_VERSIONS = (1,)
 KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS = (1,)
@@ -74,17 +86,51 @@ KNOWN_FLEET_SCHEMA_VERSIONS = (1,)
 KNOWN_TRACE_SCHEMA_VERSIONS = (1,)
 KNOWN_REPLAY_SCHEMA_VERSIONS = (1,)
 
+# only round artifacts are committed evidence: GPU_<family>_r<NN>.json.
+# Rehearse, smoke and scratch files (GPU_TELEMETRY_rehearse_*,
+# GPU_SERVE_smoke*, pid-suffixed reruns) are regenerated by every run and
+# land in .csmom_scratch/ or a chip run's output, never in the tree
+_REGENERATED_PREFIXES = ("GPU_TELEMETRY_", "GPU_SERVE_", "GPU_REPLAY_",
+                         "GPU_TRACE_", "GPU_FLEET_")
+_COMMITTED_SIDECAR_RE = re.compile(
+    r"^GPU_(?:TELEMETRY|SERVE|SERVE_POOL|SERVE_MESH|SERVE_FABRIC|REPLAY"
+    r"|TRACE|FLEET)_r\d+\.json$")
+
 _NUM = (int, float)
+
+
+def committable_sidecar(basename: str) -> bool:
+    """True iff this ``GPU_*`` artifact file name may be committed (round
+    artifacts only); other name families are not this rule's business."""
+    if not basename.startswith(_REGENERATED_PREFIXES):
+        return True
+    return bool(_COMMITTED_SIDECAR_RE.match(basename))
+
+
+def trailing_json(text: str):
+    """The last line of ``text`` that parses as a JSON object, or None."""
+    for line in reversed((text or "").strip().splitlines()):
+        line = line.strip()
+        if not line.startswith("{"):
+            continue
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(obj, dict):
+            return obj
+    return None
 
 
 def detect_kind(obj: dict) -> str | None:
     """``"fleet"``, ``"trace"``, ``"replay"``, ``"serve_fabric"``,
-    ``"serve_pool"`` or ``"serve"`` by the artifact's ``kind`` or key
-    signature (the fleet's series/demand/capacity, the trace's books/
-    stages/reconcile, the replay's ticks/panel/reconcile, the fabric's
-    requests/availability/routers/transport, the pool's requests/
-    availability/hedge, the service's requests/latency_ms/batches), else
-    None.  The reference's order: the fleet and the trace embed a request
+    ``"serve_pool"``, ``"serve"`` or ``"telemetry"`` by the artifact's
+    ``kind`` or key signature (the fleet's series/demand/capacity, the
+    trace's books/stages/reconcile, the replay's ticks/panel/reconcile,
+    the fabric's requests/availability/routers/transport, the pool's
+    requests/availability/hedge, the service's requests/latency_ms/
+    batches, the sidecar's run_id/wall_s/phases), else None.  The
+    reference's order: the fleet and the trace embed a request
     book of their own, and each serve kind carries the next one's
     signature plus its own, so the fleet is tested first, the trace and
     the replay before the serve kinds, the fabric before the pool and the
@@ -110,6 +156,9 @@ def detect_kind(obj: dict) -> str | None:
     if obj.get("kind") == "serve" or {"requests", "latency_ms",
                                       "batches"} <= set(obj):
         return "serve"
+    if obj.get("kind") == "telemetry" or {"run_id", "wall_s",
+                                          "phases"} <= set(obj):
+        return "telemetry"
     return None
 
 
@@ -1457,20 +1506,101 @@ def _validate_trace(obj: dict) -> list:
     return out
 
 
+def _validate_telemetry(obj: dict) -> list:
+    """The telemetry sidecar contract (``GPU_TELEMETRY_<run>.json``,
+    obs/timeline.py): the phases account for the run's wall."""
+    out: list = []
+    _require(obj, "run_id", str, "telemetry", out)
+    ver = _require(obj, "schema_version", int, "telemetry", out)
+    if ver is not None and ver not in KNOWN_TELEMETRY_SCHEMA_VERSIONS:
+        out.append(
+            f"telemetry: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_TELEMETRY_SCHEMA_VERSIONS)}) — the "
+            "sidecar is from a different era of the code; do not "
+            "half-parse it"
+        )
+    wall = _require(obj, "wall_s", _NUM, "telemetry", out, "a number")
+    phases = _require(obj, "phases", list, "telemetry", out)
+    if phases is not None:
+        names = []
+        total = 0.0
+        for i, ph in enumerate(phases):
+            if not isinstance(ph, dict):
+                out.append(f"telemetry: phases[{i}] must be an object")
+                continue
+            if not isinstance(ph.get("name"), str):
+                out.append(f"telemetry: phases[{i}].name must be a string")
+            else:
+                names.append(ph["name"])
+            if not isinstance(ph.get("dur_s"), _NUM):
+                out.append(f"telemetry: phases[{i}].dur_s must be a number")
+            else:
+                total += ph["dur_s"]
+        if len(names) != len(set(names)):
+            out.append("telemetry: duplicate phase names")
+        # the sidecar's claim: the phases account for the wall, within 5%
+        # (rounding, torn tail events), floored so a sub-second run is
+        # not failed over microseconds
+        if isinstance(wall, _NUM) and not out:
+            tol = max(0.05 * wall, 0.02)
+            if abs(total - wall) > tol:
+                out.append(
+                    f"telemetry: phase durations sum to {total:.4f}s but "
+                    f"wall_s is {wall:.4f}s (off by more than 5% — the "
+                    "timeline lost track of where the time went)"
+                )
+    if "spans" in obj and not isinstance(obj["spans"], list):
+        out.append("telemetry: spans must be a list")
+    # the device-memory records of the metrics snapshot (obs.memstats)
+    metrics = obj.get("metrics")
+    mem = metrics.get("memory") if isinstance(metrics, dict) else None
+    if mem is not None:
+        if not isinstance(mem, dict):
+            out.append("telemetry: metrics.memory must be a dict of "
+                       "shape -> byte stats")
+        else:
+            for shape, stats in mem.items():
+                if isinstance(stats, str):
+                    continue  # a capture-failure reason is a valid value
+                if not isinstance(stats, dict):
+                    out.append(f"telemetry: metrics.memory[{shape!r}] must "
+                               "be a byte-stats dict or a reason string")
+                    continue
+                pk = stats.get("peak_bytes")
+                if not isinstance(pk, int) or isinstance(pk, bool):
+                    out.append(f"telemetry: metrics.memory[{shape!r}] "
+                               "missing int peak_bytes (the ledger's "
+                               "comparable scalar)")
+                if not isinstance(stats.get("platform"), str):
+                    out.append(f"telemetry: metrics.memory[{shape!r}] "
+                               "missing str platform — compiled bytes "
+                               "are per-backend and must say whose they "
+                               "are")
+                for k, v in stats.items():
+                    if k.endswith("_in_bytes") and (
+                            not isinstance(v, int) or isinstance(v, bool)):
+                        out.append(f"telemetry: metrics.memory[{shape!r}]."
+                                   f"{k} must be an int byte count")
+    return out
+
+
 def validate(obj, kind: str | None = None) -> list:
     """All contract violations of one serve, serve_pool, serve_fabric,
-    fleet, trace or replay artifact (empty = valid)."""
+    fleet, trace, replay or telemetry artifact (empty = valid)."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
     if kind is None:
-        return ["unrecognized artifact shape: not a serve, fleet, trace or "
-                "replay artifact (no kind 'serve', 'serve_pool', "
-                "'serve_fabric', 'fleet', 'trace' or 'replay', no "
-                "requests/latency_ms/batches, requests/availability/hedge, "
-                "requests/availability/routers/transport, series/demand/"
-                "capacity, books/stages/reconcile or ticks/panel/reconcile "
+        return ["unrecognized artifact shape: not a serve, fleet, trace, "
+                "replay or telemetry artifact (no kind 'serve', "
+                "'serve_pool', 'serve_fabric', 'fleet', 'trace', 'replay' "
+                "or 'telemetry', no requests/latency_ms/batches, "
+                "requests/availability/hedge, requests/availability/"
+                "routers/transport, series/demand/capacity, books/stages/"
+                "reconcile, ticks/panel/reconcile or run_id/wall_s/phases "
                 "keys)"]
+    if kind == "telemetry":
+        return _validate_telemetry(obj)
     if kind == "fleet":
         return _validate_fleet(obj)
     if kind == "trace":
@@ -1483,8 +1613,8 @@ def validate(obj, kind: str | None = None) -> list:
         return _validate_serve_pool(obj)
     if kind != "serve":
         return [f"unknown artifact kind {kind!r}: this validator checks "
-                "serve, serve_pool, serve_fabric, fleet, trace and replay "
-                "artifacts only"]
+                "serve, serve_pool, serve_fabric, fleet, trace, replay and "
+                "telemetry artifacts only"]
     return _validate_serve(obj)
 
 
@@ -1503,7 +1633,8 @@ def validate_file(path: str) -> list:
 def validate_tree(root: str, patterns=("GPU_SERVE_*.json",
                                        "GPU_FLEET_*.json",
                                        "GPU_TRACE_*.json",
-                                       "GPU_REPLAY_*.json")) -> dict:
+                                       "GPU_REPLAY_*.json",
+                                       "GPU_TELEMETRY_*.json")) -> dict:
     """``{file name: violations}`` for every port artifact directly under
     ``root`` matching ``patterns`` (an empty list = valid, so a caller
     reports coverage, not just failures)."""

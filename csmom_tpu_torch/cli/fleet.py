@@ -32,17 +32,14 @@ import sys
 
 __all__ = ["cmd_fleet", "register"]
 
-# the checkout that owns this module: the second place an artifact is
-# looked for, after the working directory
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-
 
 def _locate(run: str, root: str | None) -> str | None:
     if os.path.isfile(run):
         return run
-    roots = [root] if root else [os.getcwd(), _REPO]
-    for r in roots:
+    # the search order `timeline` and `trace` share
+    from csmom_tpu_torch.obs.timeline import sidecar_search_roots
+
+    for r in sidecar_search_roots(root):
         for pat in (f"GPU_FLEET_{run}.json", f"GPU_FLEET_*{run}*.json"):
             hits = sorted(glob.glob(os.path.join(r, pat)))
             if hits:

@@ -8,8 +8,10 @@ Counterpart of the research commands of :mod:`csmom_tpu.cli.main`:
 (:mod:`csmom_tpu_torch.cli.fleet`), ``trace``
 (:mod:`csmom_tpu_torch.cli.trace`), ``replay``
 (:mod:`csmom_tpu_torch.cli.replay`), ``registry``
-(:mod:`csmom_tpu_torch.cli.registry`) and ``lint``
-(:mod:`csmom_tpu_torch.cli.lint`).  Each prints what
+(:mod:`csmom_tpu_torch.cli.registry`), ``lint``
+(:mod:`csmom_tpu_torch.cli.lint`), ``rehearse``
+(:mod:`csmom_tpu_torch.cli.rehearse`) and ``timeline``
+(:mod:`csmom_tpu_torch.cli.timeline`).  Each prints what
 ``csmom`` prints for the same arguments, line for line (``intraday --threshold-sweep`` names its one
 engine run a threshold where the reference names one vmapped call); the
 subcommand table in ``--help`` is generated from the parser itself.
@@ -31,7 +33,10 @@ The flags that differ are the device's and the kernels':
   profile ``bench-gpu`` takes the place of ``bench-tpu``, which it
   accepts), and has no ``--platform``; the mesh profiles
   (``serve-mesh``, ``bench-mesh``) run on the visible cards, or on one
-  CPU shard without a card.
+  CPU shard without a card;
+- ``rehearse --device {cuda,cpu}`` (default cuda) is the device of its
+  warm-up scenario only: the stub scenarios touch no device and run
+  without a card.
 
 ``--config file.toml`` loads a :class:`~csmom_tpu_torch.config.RunConfig`;
 flags given on the command line override the file.
@@ -1279,10 +1284,13 @@ def cmd_warmup(args) -> int:
     .manifest) it builds or loads the kernel libraries the entry launches
     and calls the entry twice on seeded inputs at its shapes, then writes
     a per-shape report (build wall, first- and warm-call walls, peak
-    device memory, whether any library had to be built) under
-    build/csmom_tpu_torch/warmup/.  A later process finds every kernel
+    device memory, whether any library had to be built or healed) under
+    the build directory's warmup/ (build/csmom_tpu_torch/ unless
+    CSMOM_JIT_CACHE names another).  A later process finds every kernel
     built; this one has the CUDA context, the libraries and the
-    allocator warm.
+    allocator warm.  With telemetry armed (CSMOM_TELEMETRY) it writes
+    GPU_TELEMETRY_<run>.json to CSMOM_TELEMETRY_DIR or the working
+    directory.
     """
     from csmom_tpu_torch.registry.core import canonical_profile
 
@@ -1322,9 +1330,15 @@ def cmd_warmup(args) -> int:
             device=args.device,
         )
     if tel_col is not None:
-        print(f"telemetry: spans went to {tel_col.path or 'memory'}; the "
-              "timeline sidecar is not ported yet (ROADMAP.md, Queue 1 item "
-              "8c)", file=sys.stderr)
+        from csmom_tpu_torch.obs import metrics as obs_metrics
+        from csmom_tpu_torch.obs import timeline as obs_tl
+
+        # armed only through the env contract, so the run id is the
+        # operator's: an existing sidecar of that name is kept
+        sidecar = obs_tl.finish_and_write(
+            os.environ.get("CSMOM_TELEMETRY_DIR") or os.getcwd(),
+            fallback_metrics=obs_metrics.snapshot(), overwrite=False)
+        print(f"telemetry: {sidecar}")
     for r in report["entries"]:
         status = ("HIT" if r.get("cache_hit")
                   else ("ERROR " + r["error"] if "error" in r else "built"))
@@ -1360,7 +1374,7 @@ def _add_warmup(sub) -> None:
                          "exits 2: pass --device cpu to warm the plain "
                          "PyTorch versions of every kernel)")
     sp.add_argument("--cache-subdir", dest="cache_subdir", default="bench",
-                    help="report namespace under build/csmom_tpu_torch/"
+                    help="report namespace under the build directory's "
                          "warmup/ (default 'bench')")
     sp.add_argument("--list", action="store_true",
                     help="print the manifest (validated against the live "
@@ -1624,16 +1638,20 @@ def build_parser() -> argparse.ArgumentParser:
     from csmom_tpu_torch.cli.fleet import register as register_fleet
     from csmom_tpu_torch.cli.lint import register as register_lint
     from csmom_tpu_torch.cli.registry import register as register_registry
+    from csmom_tpu_torch.cli.rehearse import register as register_rehearse
     from csmom_tpu_torch.cli.replay import register as register_replay
     from csmom_tpu_torch.cli.serve import register as register_serve
+    from csmom_tpu_torch.cli.timeline import register as register_timeline
     from csmom_tpu_torch.cli.trace import register as register_trace
 
     _add_warmup(sub)
     register_fleet(sub)
     register_lint(sub)
     register_registry(sub)
+    register_rehearse(sub)
     register_replay(sub)
     register_serve(sub)
+    register_timeline(sub)
     register_trace(sub)
     p.epilog = _subcommand_epilog(sub)
     p.formatter_class = argparse.RawDescriptionHelpFormatter
@@ -1653,9 +1671,10 @@ def _subcommand_epilog(sub) -> str:
     return "\n".join(lines)
 
 
-# commands that compute nothing on a device
+# commands that compute nothing on a device (rehearse decides for
+# itself: only its warm-up scenario touches one)
 _DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet",
-                         "trace", "registry", "lint"}
+                         "trace", "registry", "lint", "timeline", "rehearse"}
 
 
 def main(argv=None) -> int:

@@ -32,33 +32,14 @@ from csmom_tpu_torch.chaos import invariants as inv
 
 __all__ = ["cmd_trace", "register"]
 
-# the checkout that owns this module
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-# a run's regenerated scratch artifacts, beside its committed ones
-_SCRATCH_DIRNAME = ".csmom_scratch"
-
-
-def _search_roots(explicit_root: str | None) -> list:
-    """The reference's artifact search order, copied: an explicit
-    ``--root`` wins outright; otherwise ``CSMOM_TELEMETRY_DIR`` first,
-    then the working directory and this checkout, each followed by its
-    ``.csmom_scratch`` directory."""
-    if explicit_root:
-        return [explicit_root]
-    roots: list = []
-    env_dir = os.environ.get("CSMOM_TELEMETRY_DIR")
-    if env_dir:
-        roots.append(env_dir)
-    for base in (os.getcwd(), _REPO):
-        roots += [base, os.path.join(base, _SCRATCH_DIRNAME)]
-    return roots
-
 
 def _locate(run: str, root: str | None) -> str | None:
     if os.path.isfile(run):
         return run
-    for r in _search_roots(root):
+    # the search order `timeline` and `fleet` share
+    from csmom_tpu_torch.obs.timeline import sidecar_search_roots
+
+    for r in sidecar_search_roots(root):
         for pat in (f"GPU_TRACE_{run}.json", f"GPU_TRACE_*{run}*.json"):
             hits = sorted(glob.glob(os.path.join(r, pat)))
             if hits:

@@ -17,13 +17,15 @@ launches, then calls the entry twice on seeded inputs of its shapes
 Each record carries the reference's ``name``, ``shapes``, ``memory``
 (:mod:`csmom_tpu_torch.obs.memstats`, from the caching allocator around
 the second call), ``cache_hit`` (true when no library had to be built),
-``profile`` and, on failure, ``error``; in place of ``trace_s``,
+``profile``, on failure ``error``, and ``self_healed`` when a library
+the entry loads was found corrupt, evicted and rebuilt (``cache_hit`` is
+then false); in place of ``trace_s``,
 ``compile_s``, ``cache_hits`` and ``cache_writes`` it has ``build_s``
 (building or loading the entry's libraries), ``first_call_s``,
 ``warm_call_s``, ``libraries_built`` and the ``launches`` of each kernel
 over both calls.  Every clock is read after the device finished.  The
-report is the reference's ``aot_warmup`` dict, written to
-``build/csmom_tpu_torch/warmup/<subdir>/warmup_report.json``
+report is the reference's ``aot_warmup`` dict with ``n_self_healed``
+added, written to ``<build dir>/warmup/<subdir>/warmup_report.json``
 (:func:`read_warmup_report`).  As in the reference a failing entry is
 recorded with its error and the warm-up goes on.
 """
@@ -47,10 +49,11 @@ _KERNELS = ("decile_partial_sums", "cohort_partial_sums")
 
 
 def report_dir(subdir: str = "bench") -> str:
-    """Where :func:`warmup` writes its report for ``subdir``."""
-    from csmom_tpu_torch.ops.build import BUILD_DIR
+    """Where :func:`warmup` writes its report for ``subdir``: under the
+    build directory (:func:`~csmom_tpu_torch.ops.build.build_dir`)."""
+    from csmom_tpu_torch.ops.build import build_dir
 
-    return os.path.join(str(BUILD_DIR), "warmup", subdir)
+    return os.path.join(str(build_dir()), "warmup", subdir)
 
 
 def _launches() -> dict:
@@ -81,6 +84,7 @@ def aot_compile(entry, device=None, seed: int = 0) -> dict:
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     before, launches0 = compile_stats(), _launches()
+    healed0 = len(build.libraries_healed())
     with span("aot.compile", entry=entry.name) as sp:
         sync()
         baseline = torch.cuda.memory_allocated(dev) if on_card else None
@@ -113,7 +117,7 @@ def aot_compile(entry, device=None, seed: int = 0) -> dict:
             raise RuntimeError(
                 f"{entry.name}: its calls launched {sorted(launched)}, "
                 f"the entry names {sorted(entry.kernels)}")
-    return {
+    rec = {
         "name": entry.name,
         "shapes": entry.shape_summary(),
         "build_s": round(build_s, 4),
@@ -125,6 +129,15 @@ def aot_compile(entry, device=None, seed: int = 0) -> dict:
         "launches": launches,
         "cache_hit": d.libraries_built == 0,
     }
+    healed = build.libraries_healed()[healed0:]
+    if healed:
+        rec["self_healed"] = ("corrupt cache entry evicted and recompiled "
+                              "cold")
+        rec["cache_hit"] = False
+        log.warning("%s: corrupt kernel librar%s %s evicted and rebuilt",
+                    entry.name, "y" if len(healed) == 1 else "ies",
+                    ", ".join(healed))
+    return rec
 
 
 def warmup(profiles=("bench-gpu", "golden"), *, subdir: str = "bench",
@@ -149,7 +162,7 @@ def warmup(profiles=("bench-gpu", "golden"), *, subdir: str = "bench",
     from csmom_tpu_torch.compile.manifest import build_manifest, golden_event_entries
     from csmom_tpu_torch.compile.workloads import bench_device
     from csmom_tpu_torch.obs import memstats, span
-    from csmom_tpu_torch.ops.build import BUILD_DIR
+    from csmom_tpu_torch.ops.build import build_dir
     from csmom_tpu_torch.registry.core import canonical_profile
     from csmom_tpu_torch.utils.profiling import compile_stats, measure_rtt
 
@@ -231,10 +244,11 @@ def warmup(profiles=("bench-gpu", "golden"), *, subdir: str = "bench",
         "platform": "cpu" if on_cpu else "gpu",
         "device": str(dev),
         "profiles": list(profiles),
-        "cache_dir": str(BUILD_DIR),
+        "cache_dir": str(build_dir()),
         "n_entries": len(rows),
         "n_cache_hits": sum(1 for r in rows if r.get("cache_hit")),
         "n_errors": sum(1 for r in rows if "error" in r),
+        "n_self_healed": sum(1 for r in rows if r.get("self_healed")),
         "input_builders": inputs_note,
         "golden_event": golden_note,
         "wall_s": round(time.perf_counter() - t_start, 2),

@@ -29,7 +29,6 @@ from csmom_tpu_torch.k2_sweep import build_variants, card, variant_source
 from csmom_tpu_torch.ops import build, kernels
 
 SOURCE = build.SRC_DIR / "decile_partial_sums.cu"
-OUT_DIR = build.BUILD_DIR / "k1_sweep"
 
 # name -> (label, source edits (old, new))
 _NEXT = "    load_round<T, VEC>(lp, rp, step, i + kUnroll, n, nv, lab[1], r[1]);\n"
@@ -85,7 +84,8 @@ def sweep():
 
     from csmom_tpu_torch.phases import time_kernels
 
-    entries = build_variants("decile_partial_sums", VARIANTS, OUT_DIR)
+    entries = build_variants("decile_partial_sums", VARIANTS,
+                             build.build_dir() / "k1_sweep")
     ret, labels = _monthly_inputs()
     A, M = ret.shape
     B = 10

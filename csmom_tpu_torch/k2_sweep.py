@@ -27,7 +27,6 @@ import subprocess
 from csmom_tpu_torch.ops import build, kernels
 
 SOURCE = build.SRC_DIR / "cohort_partial_sums.cu"
-OUT_DIR = build.BUILD_DIR / "k2_sweep"
 
 _STAGES = f"constexpr int kStages = {kernels._K2_STAGES};"
 # name -> (staged tiles in flight, source edits (old, new))
@@ -123,7 +122,8 @@ def sweep():
 
     from csmom_tpu_torch.phases import time_kernels
 
-    entries = build_variants("cohort_partial_sums", VARIANTS, OUT_DIR)
+    entries = build_variants("cohort_partial_sums", VARIANTS,
+                             build.build_dir() / "k2_sweep")
     ret, valid, labels = _grid_inputs()
     nJ, A, M = labels.shape
     H, B = 12, 10

@@ -2,9 +2,10 @@
 use and bound with ``ctypes``.
 
 Counterpart of :mod:`csmom_tpu.native`, with its own copy of the source.
-The library goes to ``build/csmom_tpu_torch/`` at the repository root (the
-CUDA kernels' build directory), keyed by a hash of the source and the
-flags.  When no compiler is there or the build fails,
+The library goes to the CUDA kernels' build directory
+(:func:`csmom_tpu_torch.ops.build.build_dir`: ``build/csmom_tpu_torch/`` at
+the repository root unless ``CSMOM_JIT_CACHE`` names another), keyed by a
+hash of the source and the flags.  When no compiler is there or the build fails,
 :func:`parse_price_csv_native` returns None and the ingest parses with
 pandas instead, as the reference does; :func:`available` says which of the
 two a caller gets, and ``parse_price_csv_native.files`` counts the files
@@ -23,10 +24,11 @@ from pathlib import Path
 
 import numpy as np
 
+from csmom_tpu_torch.ops.build import build_dir
+
 log = logging.getLogger(__name__)
 
 SRC = Path(__file__).resolve().parent / "fastcsv.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "csmom_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
@@ -35,14 +37,14 @@ _STATE: dict = {}   # "lib": the loaded library, or None once a build failed
 
 def library_path() -> Path:
     digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"fastcsv-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"fastcsv-{digest.hexdigest()[:16]}.so"
 
 
 def _build() -> Path | None:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = ["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)]
     try:

@@ -15,7 +15,9 @@ Counterpart of the parts of ``csmom_tpu.obs`` the serving tier uses:
 - :mod:`~csmom_tpu_torch.obs.fleet`: the fleet observatory, every pool
   or fabric process streaming its metrics to one aggregator, and the
   ``GPU_FLEET_<run>.json`` artifact (demand book, lifecycle walls, the
-  kill-window capacity account).
+  kill-window capacity account);
+- :mod:`~csmom_tpu_torch.obs.timeline`: a run's event stream assembled
+  into its phase timeline, the ``GPU_TELEMETRY_<run>.json`` sidecar.
 
 Zero-cost when disarmed: with no collector armed, ``span()`` returns a
 shared no-op singleton and ``metric.inc()`` is one global load and
@@ -27,7 +29,7 @@ pandas.
 
 from __future__ import annotations
 
-_SUBMODULES = ("fleet", "memstats", "metrics", "spans", "trace")
+_SUBMODULES = ("fleet", "memstats", "metrics", "spans", "timeline", "trace")
 
 _LAZY = {
     "arm": "csmom_tpu_torch.obs.spans",

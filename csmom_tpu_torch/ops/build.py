@@ -6,10 +6,30 @@ builds every kernel (the serving tier's cold-cache gate asks for this
 before ``serve`` or ``loadgen`` on the card).  Each source
 ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries go to
-``build/csmom_tpu_torch/`` at the repository root, keyed by a hash of the
-source and the flags, so an edited kernel never loads a stale build.  All
-sources compile in parallel (one ``nvcc`` each).  Nothing here runs at
-import time; a missing or failing ``nvcc`` raises with its output.
+:func:`build_dir`, keyed by a hash of the source and the flags, so an
+edited kernel never loads a stale build.  All sources compile in parallel
+(one ``nvcc`` each).  Nothing here runs at import time; a missing or
+failing ``nvcc`` raises with its output.
+
+**The build directory** is ``$CSMOM_JIT_CACHE`` when that names a path
+(the reference's variable for where compiled artifacts persist), else
+``build/csmom_tpu_torch/`` at the repository root (:data:`BUILD_DIR`).
+The reference's ``CSMOM_JIT_CACHE=0`` switches its executable cache off;
+a kernel library must exist to launch, so ``0`` keeps the default
+directory here.  The native CSV parser, the warm-up report, the
+serving tier's cold-cache gate and the kernel sweeps all read the
+directory from :func:`build_dir`.
+
+**Self-heal.** Beside each library ``<name>-<digest>.so`` the build
+writes ``<name>-<digest>.so.sha256``, the library's content digest; both
+land with ``os.replace``.  :func:`load` checks the library against it
+before ``ctypes`` maps the file.  A missing, unreadable or mismatched
+digest is corruption: the library and its digest are evicted, rebuilt
+and checked again; a second failure raises with the compiler's output
+and never falls back to the plain version.  Before evicting, the check
+is made once more, so a process that finds a library while another
+replaces it evicts nothing good.  :func:`libraries_healed` counts the
+heals of this process.
 
 :func:`libraries_built_or_loaded` counts, over the process's life, each
 library compiled and each library loaded: the serving tier's
@@ -29,7 +49,10 @@ import threading
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+# the build directory when CSMOM_JIT_CACHE names none (build_dir)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "csmom_tpu_torch"
+CACHE_ENV = "CSMOM_JIT_CACHE"
+DIGEST_SUFFIX = ".sha256"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +65,8 @@ _LOCK = threading.Lock()
 _EVENTS = 0
 # libraries compiled by this process (libraries_built)
 _BUILT = 0
+# libraries evicted as corrupt and rebuilt by this process (libraries_healed)
+_HEALED: list = []
 
 
 def find_nvcc() -> str:
@@ -63,10 +88,37 @@ def find_nvcc() -> str:
     )
 
 
+def build_dir() -> Path:
+    """Where kernel libraries are built and looked for: ``$CSMOM_JIT_CACHE``
+    when it names a path, else :data:`BUILD_DIR`.  Read at every call, so
+    a process may point it elsewhere before its first build."""
+    configured = os.environ.get(CACHE_ENV, "")
+    if configured in ("", "0"):
+        return BUILD_DIR
+    return Path(os.path.abspath(configured))
+
+
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return build_dir() / f"{name}-{digest[:16]}.so"
+
+
+def digest_path(lib: Path) -> Path:
+    """The file holding ``lib``'s content sha256."""
+    return lib.with_name(lib.name + DIGEST_SUFFIX)
+
+
+def _sha256(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def intact(lib: Path) -> bool:
+    """True when ``lib`` and its digest file are readable and agree."""
+    try:
+        return _sha256(lib) == digest_path(lib).read_text().strip()
+    except (OSError, UnicodeDecodeError):
+        return False
 
 
 def libraries_built_or_loaded() -> int:
@@ -82,19 +134,26 @@ def libraries_built() -> int:
     return _BUILT
 
 
+def libraries_healed() -> list:
+    """The kernels whose library this process found corrupt, evicted and
+    rebuilt, in the order of the heals."""
+    return list(_HEALED)
+
+
 def build(names=KERNELS) -> dict:
     """Compile every named kernel whose library is missing, all at once.
 
     Returns ``{name: nvcc's output}`` for the kernels compiled by this
     call (the ``-Xptxas -v`` register and shared-memory report); raises
-    ``RuntimeError`` with the compiler's output if any build fails.
+    ``RuntimeError`` with the compiler's output if any build fails.  Each
+    library lands after its digest file, both with ``os.replace``.
     """
     global _EVENTS, _BUILT
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
@@ -109,7 +168,13 @@ def build(names=KERNELS) -> dict:
             failed.append(n)
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, library_path(n))  # atomic: never a half-written .so
+            lib = library_path(n)
+            sha = digest_path(lib).with_suffix(f".{os.getpid()}.tmp")
+            sha.write_text(_sha256(tmp) + "\n")
+            # the digest first: a reader that finds the library finds its
+            # digest (atomic: never a half-written .so)
+            os.replace(sha, digest_path(lib))
+            os.replace(tmp, lib)
             _EVENTS += 1
             _BUILT += 1
     if failed:
@@ -118,14 +183,33 @@ def build(names=KERNELS) -> dict:
     return logs
 
 
+def _evict(lib: Path) -> None:
+    for p in (lib, digest_path(lib)):
+        p.unlink(missing_ok=True)
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed, and
+    checked against its digest before it is mapped (a corrupt one is
+    evicted and rebuilt, see the module docstring)."""
     global _EVENTS
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            path = library_path(name)
+            # a failed check is made once more before evicting: another
+            # process may have been between its two os.replace calls
+            if not intact(path) and not intact(path):
+                _evict(path)
+                logs = build((name,))
+                if not intact(path):
+                    raise RuntimeError(
+                        f"{name}: the library rebuilt after a corrupt one was "
+                        f"evicted fails its digest check ({path}); nvcc "
+                        "said:\n" + logs.get(name, "(nothing)"))
+                _HEALED.append(name)
+            lib = ctypes.CDLL(str(path))
             lib.csmom_error_string.restype = ctypes.c_char_p
             lib.csmom_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
@@ -143,4 +227,4 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 if __name__ == "__main__":
     for _name, _log in build().items():
         print(f"built {_name} -> {library_path(_name)}")
-    print(f"every kernel is built in {BUILD_DIR}")
+    print(f"every kernel is built in {build_dir()}")

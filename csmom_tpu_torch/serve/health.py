@@ -25,7 +25,7 @@ as skew.  A worker handed an ``--expect-cache-version`` that does not
 match its own refuses to become ready with a pointed message.
 
 **Cold-cache honesty** (:func:`cache_readiness`): on the card, every
-engine kernel's library must already exist in ``build.BUILD_DIR``, else
+engine kernel's library must already exist in ``build.build_dir()``, else
 the worker (and the CLI, once, before any spawn) refuses with
 ``BUILD_POINTER`` instead of building inside what claims to be a ready
 probe.  The reference checks serialized XLA executables here; the port
@@ -173,7 +173,7 @@ def _report_coverage(profile: str, cache_subdir: str,
 def cache_readiness(profile: str | None = None, cache_subdir: str = "bench",
                     mesh_devices: int | None = None) -> tuple:
     """``(ready, reason)``: does every engine kernel's library exist in
-    ``build.BUILD_DIR``?  ``reason`` names ``BUILD_POINTER`` when not,
+    ``build.build_dir()``?  ``reason`` names ``BUILD_POINTER`` when not,
     and given a bucket ``profile`` it adds the warm-up report's coverage
     of that profile (of its mesh grid on ``mesh_devices`` devices)."""
     missing = sorted(n for n in KERNELS if not build.library_path(n).exists())
@@ -181,9 +181,9 @@ def cache_readiness(profile: str | None = None, cache_subdir: str = "bench",
     if missing:
         return False, (
             f"cold kernel build{mesh}: no library of {', '.join(missing)} in "
-            f"{build.BUILD_DIR} — build first ({BUILD_POINTER})")
+            f"{build.build_dir()} — build first ({BUILD_POINTER})")
     reason = (f"kernel build check{mesh}: {', '.join(KERNELS)} built in "
-              f"{build.BUILD_DIR}")
+              f"{build.build_dir()}")
     if profile is not None:
         reason += "; " + _report_coverage(profile, cache_subdir, mesh_devices)
     return True, reason

@@ -161,6 +161,10 @@ class PoolSupervisor:
                     config.engine, config.device, config.devices_per_worker)))
         self.handles: list = []
         self.events: list = []      # [{t_s, event, worker_id, ...}]
+        # merged last into every spawned process's environment: a caller
+        # arms a chaos plan in one tier (the fabric's router replicas,
+        # say) without arming it in its own process
+        self.extra_env: dict = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._monitor: threading.Thread | None = None
@@ -241,12 +245,14 @@ class PoolSupervisor:
         return argv
 
     def _spawn_env(self) -> dict:
-        """The environment every worker runs under: this process's,
-        unchanged (fault plans and ``CUDA_VISIBLE_DEVICES`` included),
-        with the checkout first on ``PYTHONPATH``."""
+        """The environment every worker runs under: this process's
+        (fault plans and ``CUDA_VISIBLE_DEVICES`` included), with the
+        checkout first on ``PYTHONPATH`` and :attr:`extra_env` merged
+        last."""
         env = dict(os.environ)
         env["PYTHONPATH"] = (_PKG_ROOT + os.pathsep
                              + env.get("PYTHONPATH", ""))
+        env.update(self.extra_env)
         return env
 
     def _spawn(self, h: WorkerHandle) -> None:

@@ -378,11 +378,11 @@ def test_config_backend_tpu_means_the_card_engine(inputs, tmp_path):
 def test_help_lists_the_ported_commands():
     rc, out, _ = _run(port_main, [], [])
     assert rc == 0
-    assert "subcommands (19):" in out
+    assert "subcommands (21):" in out
     for name in ("doublesort", "fetch", "fleet", "grid", "horizons", "intraday",
-                 "lint", "loadgen", "pack-info", "registry", "replay", "replicate",
-                 "residual", "run", "serve", "strategies", "sweep", "trace",
-                 "warmup"):
+                 "lint", "loadgen", "pack-info", "registry", "rehearse",
+                 "replay", "replicate", "residual", "run", "serve",
+                 "strategies", "sweep", "timeline", "trace", "warmup"):
         assert f"\n  {name}" in out
 
 

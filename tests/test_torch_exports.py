@@ -18,7 +18,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # names of the reference's exports that an open Queue 1 item brings
 OWNED = {
-    "obs": {"ledger": "8c", "regress": "8c", "timeline": "8c"},
+    "obs": {"ledger": "8c", "regress": "8c"},
 }
 
 PACKAGES = ("analytics", "backtest", "backends", "costs", "ops", "signals",

@@ -91,8 +91,9 @@ def test_the_scan_covers_the_serving_tier():
         assert os.path.join("csmom_tpu_torch", sub, "fleet.py") in rel
     for mod in ("__init__", "ring", "ingest", "incremental", "replay"):
         assert os.path.join("csmom_tpu_torch", "stream", f"{mod}.py") in rel
-    for mod in ("trace", "replay", "registry"):
+    for mod in ("trace", "replay", "registry", "rehearse", "timeline"):
         assert os.path.join("csmom_tpu_torch", "cli", f"{mod}.py") in rel
+    assert os.path.join("csmom_tpu_torch", "obs", "timeline.py") in rel
 
 
 def test_stream_import_loads_neither_torch_nor_pandas():

@@ -21,8 +21,9 @@ the counterpart of ``tests/test_lint.py``.
   port's lock-order edges.
 
 The reference's tracer-hygiene, donation-safety and helper-hygiene rules
-guard XLA tracing and donation and are not ported, nor is its rehearse
-gate (ROADMAP.md, Queue 1 item 8c); their tests are not carried over.
+guard XLA tracing and donation and are not ported; their tests are not
+carried over.  ``rehearse`` gates its start on this sweep
+(``tests/test_torch_rehearse_matrix.py``).
 """
 
 import json

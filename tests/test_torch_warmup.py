@@ -313,13 +313,20 @@ def test_warmup_cli_arms_spans_from_the_env_and_names_the_sidecar_item(
     from csmom_tpu_torch.compile import aot
 
     monkeypatch.setattr(aot, "report_dir", lambda subdir: str(tmp_path / subdir))
+    monkeypatch.chdir(tmp_path)  # the sidecar lands in the working directory
+    monkeypatch.delenv("CSMOM_TELEMETRY_DIR", raising=False)
     stream = tmp_path / "events.jsonl"
     monkeypatch.setenv("CSMOM_TELEMETRY", str(stream))
     try:
         assert main(["warmup", "--profiles", "smoke", "--device", "cpu"]) == 0
     finally:
         obs.disarm()
-    assert "item 8c" in capsys.readouterr().err
+    out = capsys.readouterr().out
+    (sidecar,) = [p.name for p in tmp_path.glob("GPU_TELEMETRY_*.json")]
+    assert f"telemetry: {sidecar}" in out
     events = [json.loads(ln) for ln in stream.read_text().splitlines()]
     names = {e.get("name") for e in events}
     assert {"warmup.cli", "warmup.entry", "aot.compile"} <= names
+    spans = {a["name"] for a in json.loads(
+        (tmp_path / sidecar).read_text())["spans"]}
+    assert {"warmup.cli", "warmup.entry", "aot.compile"} <= spans
