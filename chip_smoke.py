@@ -10,7 +10,7 @@
 to a temporary directory, removed at the end, and phase 18's to
 ``chiprun_out/``).  Each phase's wall is printed
 on a ``[smoke] phase N`` line as it ends, and all of them on one line
-after phase 20.
+after phase 21.
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -87,7 +87,8 @@ any phase fails (nothing is caught).  Phases:
    ``mesh_launches`` phase 17's, ``serve_mesh_launches`` phase 18 (a)'s,
    ``multihost_launches`` phase 19 (b)'s (the two processes' north-star
    legs, summed), ``rehearse_launches`` phase 20 (a)'s (the healed
-   warm-up process's entries)
+   warm-up process's entries), ``ledger_launches`` phase 21 (a)'s (its
+   two service runs)
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -290,6 +291,28 @@ any phase fails (nothing is caught).  Phases:
    (b)'s ``GPU_TELEMETRY_rehearse_fast.json``: valid, one
    ``rehearse.row`` span a scenario; the kernels line gains
    ``rehearse_launches``;
+21. the perf ledger (run after phase 20; no profiler trace; its wall is
+   held within ``LEDGER_BUDGET_S``): (a) ``SignalService`` on the card
+   (profile ``serve``, the ``torch`` engine) driven twice by phase 11's
+   ``2x40`` schedule, seed 0, landed as ``GPU_SERVE_r01.json`` and
+   ``GPU_SERVE_r02.json`` (round names: phase 11's runs carry none, so
+   the ledger skips them), both valid, K1 launched by their ``backtest``
+   micro-batches and K2 never, launch counts read around the two runs;
+   (b) ``ledger show`` over them: ``serve_p99_ms`` rows for both runs,
+   platform ``gpu``, with samples, no problem; (c) ``ledger diff r01 r02
+   --device cuda``: a verdict for every comparable key, each key's CIs
+   computed on the card equal to ``regress.compare(..., device="cpu")``'s
+   within ``LEDGER_CI_RTOL`` with the same verdict, each verdict and the
+   bootstrap's time a key on the card and on the CPU logged (two real
+   runs may truly differ: no pass is asked of r02); (d) r02 with every
+   latency percentile and sample x3 as ``GPU_SERVE_r03.json``: ``ledger
+   gate --offline --device cuda`` exits 1 with a FAIL line for
+   ``serve_p99_ms``; (e) r01 and an exact copy as ``GPU_SERVE_r04.json``:
+   the gate exits 0 with no FAIL line; (f) (d)'s gate as ``python -m
+   csmom_tpu_torch.cli ledger gate`` in a process of its own exits 1;
+   (g) ``ledger roadmap --write`` splices a file carrying the port's
+   markers and refuses a copy of ROADMAP.md (exit 1), leaving it byte for
+   byte unchanged; the kernels line gains ``ledger_launches``;
 then the phase walls, the card's name line and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -4930,6 +4953,261 @@ def rehearse_phase(smi) -> dict:
     return {"launches": launches, "walls": walls, "wall_s": walls["phase_s"]}
 
 
+# phase 21: the perf ledger on the card.  Phase 11's service runs are
+# named chip-<schedule> and carry no round id, so the ledger would skip
+# them: this phase lands round-named runs of its own
+LEDGER_SCHEDULE = "2x40"    # phase 11's first schedule (80 arrivals)
+LEDGER_BUDGET_S = 45.0      # the phase's wall, checked
+LEDGER_CI_RTOL = 1e-12      # the card's f64 CIs against the CPU's
+LEDGER_INJECT = 3.0         # the reference test's BAD_SAMPLES factor
+
+
+def inject_latency(art: dict, factor: float, run_id: str) -> dict:
+    """A copy of serve artifact ``art`` as run ``run_id`` with every
+    latency percentile (global, per class, per endpoint) and every
+    latency sample multiplied by ``factor``."""
+    out = json.loads(json.dumps(art))
+    out["run_id"] = run_id
+    books = list(out["latency_ms"].values()) + [
+        b["latency_ms"] for block in ("classes", "endpoints")
+        for b in out.get(block, {}).values()]
+    for book in books:
+        for q, v in book.items():
+            if isinstance(v, (int, float)):
+                book[q] = v * factor
+    out["extra"]["samples"] = {k: [v * factor for v in vals]
+                               for k, vals in out["extra"]["samples"].items()}
+    return out
+
+
+def _ci_close(a: float, b: float) -> bool:
+    return abs(a - b) <= LEDGER_CI_RTOL * abs(b)
+
+
+def ledger_phase(smi) -> dict:
+    """Phase 21: (a) two service runs on the card (profile ``serve``,
+    phase 11's ``2x40``, seed 0) landed as ``GPU_SERVE_r01.json`` and
+    ``GPU_SERVE_r02.json``, both valid, K1 launched by their ``backtest``
+    micro-batches; (b) ``ledger show`` over them: ``serve_p99_ms`` rows
+    for both runs, platform ``gpu``, with samples, no problem; (c)
+    ``ledger diff r01 r02 --device cuda``: a verdict for every comparable
+    key, each CI computed on the card equal to ``regress.compare(...,
+    device="cpu")``'s within ``LEDGER_CI_RTOL`` and the verdict the
+    same; (d) r02 with every latency x3 as ``GPU_SERVE_r03.json``: the
+    gate on the card exits 1 with a FAIL line for ``serve_p99_ms``; (e) r01
+    and an exact copy as r04: the gate exits 0 with no FAIL line; (f) (d)'s
+    gate through the command line in a process of its own exits 1; (g)
+    ``roadmap`` splices a file with the port's markers and refuses a copy
+    of ROADMAP.md, leaving it unchanged.  Returns the service runs'
+    launches and the walls."""
+    import argparse
+    import contextlib
+    import io
+    import shutil
+    import zlib
+
+    import torch
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.cli import ledger as cli_ledger
+    from csmom_tpu_torch.cli.main import main as cli
+    from csmom_tpu_torch.obs import ledger as ld
+    from csmom_tpu_torch.obs import regress
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.serve.loadgen import (
+        LoadConfig,
+        resolve_schedule,
+        run_loadgen,
+        write_artifact,
+    )
+    from csmom_tpu_torch.serve.service import ServeConfig, SignalService
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def run_cli(label, argv):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+        walls[label] = round(time.perf_counter() - t0, 3)
+        return rc, out.getvalue(), err.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="csmom_ledger_") as tmp:
+        runs, same = os.path.join(tmp, "runs"), os.path.join(tmp, "same")
+        # -- (a) two real runs: the main path, counts from 0 at the first
+        # service's start to the end of the second run ---------------------
+        schedule, schedule_kind, preset = resolve_schedule(LEDGER_SCHEDULE)
+        arts, paths = {}, {}
+        kernels.reset_launches()
+        for run_id in ("r01", "r02"):
+            t0 = time.perf_counter()
+            svc = SignalService(ServeConfig(profile="serve", engine="torch"))
+            svc.start()
+            art = run_loadgen(svc, LoadConfig(schedule=schedule,
+                                              schedule_kind=schedule_kind,
+                                              seed=0, run_id=run_id, **preset))
+            walls[f"run_{run_id}_s"] = round(time.perf_counter() - t0, 3)
+            bad = inv.validate(art) + svc.invariant_violations()
+            if (bad or art["extra"]["platform"] != "gpu"
+                    or art["compile"]["in_window_fresh_compiles"] != 0):
+                raise AssertionError(f"ledger (a) {run_id}: {bad}, platform "
+                                     f"{art['extra']['platform']}, fresh "
+                                     f"compiles {art['compile']}")
+            arts[run_id], paths[run_id] = art, write_artifact(runs, art)
+        torch.cuda.synchronize()
+        launches = {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                    "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+        if launches["decile_partial_sums"] < 1 or launches["cohort_partial_sums"]:
+            raise AssertionError(f"ledger (a): launches {launches}, expected K1 "
+                                 f"> 0 and K2 0")
+        log("ledger", f"(a) GPU_SERVE_r01.json and GPU_SERVE_r02.json ({LEDGER_SCHEDULE}, "
+                      f"seed 0): valid, "
+                      + "; ".join(f"{r} {a['value']} req/s, p99 "
+                                  f"{a['latency_ms']['total']['p99']} ms, "
+                                  f"{walls[f'run_{r}_s']} s with the start-up"
+                                  for r, a in arts.items())
+                      + f"; launches {launches} | {smi}")
+
+        # -- (b) show ---------------------------------------------------------
+        rc, out, err = run_cli("show_s", ["ledger", "show", "--root", runs])
+        L = ld.load(runs)
+        p99 = [r for r in L.rows if r.metric == "serve_p99_ms"]
+        if (rc != 0 or L.problems or sorted(r.run for r in p99) != ["r01", "r02"]
+                or not all(r.platform == "gpu" and r.samples for r in p99)
+                or "serve_p99_ms" not in out):
+            raise AssertionError(f"ledger (b): exit {rc}, problems {L.problems}, "
+                                 f"p99 rows {p99}\n{out}{err}")
+        log("ledger", f"(b) show: {len(L.rows)} rows, serve_p99_ms on "
+                      f"{[(r.run, r.platform, len(r.samples)) for r in p99]}, "
+                      f"no problem, {walls['show_s']} s")
+
+        # -- (c) diff on the card, every CI held against the CPU's -------------
+        rc, out, err = run_cli("diff_s", ["ledger", "diff", "r01", "r02",
+                                          "--root", runs, "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"ledger (c): diff exit {rc}\n{out}{err}")
+        args = argparse.Namespace(device="cuda", min_rel=regress.DEFAULT_MIN_REL,
+                                  suspect_rel=regress.DEFAULT_SUSPECT_REL,
+                                  mem_tol=regress.DEFAULT_MEM_TOL)
+        printed = [ln for ln in out.splitlines() if ln.startswith("[")]
+        verdicts, times = {}, {"cuda_ms": [], "cpu_ms": []}
+        for _, _, pair in cli_ledger.diff_pairs(L, "r01", "r02"):
+            if pair is None:
+                continue
+            ref, cand = pair
+            t0 = time.perf_counter()
+            card = cli_ledger._verdict_for(cand, ref, args)
+            torch.cuda.synchronize()
+            t_card = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            host = regress.compare(
+                cand.value, ref.value, cand_samples=cand.samples,
+                ref_samples=ref.samples, direction=cand.direction,
+                seed=zlib.crc32(repr(cand.key()).encode()) & 0xFFFF,
+                device="cpu")
+            t_host = (time.perf_counter() - t0) * 1e3
+            for side in ("candidate", "reference"):
+                a, b = card[side], host[side]
+                if "lo" in b and not all(_ci_close(a[k], b[k])
+                                         for k in ("point", "lo", "hi")):
+                    raise AssertionError(f"ledger (c) {cand.metric} {side}: card "
+                                         f"{a} vs cpu {b}")
+            line = [ln for ln in printed if f"] {cand.metric}  (" in ln]
+            if card["verdict"] != host["verdict"] or len(line) != 1 \
+                    or f"  {card['verdict']}  " not in line[0]:
+                raise AssertionError(f"ledger (c) {cand.metric}: card "
+                                     f"{card['verdict']}, cpu {host['verdict']}, "
+                                     f"printed {line}")
+            verdicts[cand.metric] = card["verdict"]
+            if card["basis"] == "bootstrap-ci":
+                times["cuda_ms"].append(t_card)
+                times["cpu_ms"].append(t_host)
+        if not verdicts or len(printed) != len(verdicts) + sum(
+                ln.startswith("[skip]") for ln in printed):
+            raise AssertionError(f"ledger (c): verdicts {verdicts}\n{out}")
+        boot = {k: round(float(np.median(v)), 3) for k, v in times.items()}
+        log("ledger", f"(c) diff r01 r02 --device cuda: {len(verdicts)} keys, every "
+                      f"CI on the card == the CPU's within rtol {LEDGER_CI_RTOL}, "
+                      f"verdicts equal: {json.dumps(verdicts)}; "
+                      f"{len(times['cuda_ms'])} bootstrapped keys, median ms a "
+                      f"key (two bootstraps) card {boot['cuda_ms']} vs cpu "
+                      f"{boot['cpu_ms']}; the command {walls['diff_s']} s | {smi}")
+
+        # -- (d) an injected x3 regression ---------------------------------------
+        write_artifact(runs, inject_latency(arts["r02"], LEDGER_INJECT, "r03"))
+        rc, out, err = run_cli("gate_s", ["ledger", "gate", "--offline", "--root",
+                                          runs, "--device", "cuda"])
+        fails = [ln for ln in out.splitlines() if ln.startswith("[FAIL]")]
+        if (rc != 1 or "GATE FAILED" not in err
+                or not any(ln.startswith("[FAIL] serve_p99_ms  (") for ln in fails)):
+            raise AssertionError(f"ledger (d): gate exit {rc}\n{out}{err}")
+        log("ledger", f"(d) r03 = r02 x{LEDGER_INJECT}: gate --offline --device cuda "
+                      f"exit 1 in {walls['gate_s']} s, {len(fails)} FAIL lines: "
+                      + " / ".join(ln.split("  ")[0][7:] for ln in fails)
+                      + f" | {smi}")
+
+        # -- (e) an identical copy ------------------------------------------------
+        os.makedirs(same)
+        for name in ("GPU_SERVE_r01.json", "GPU_SERVE_r04.json"):
+            shutil.copy(paths["r01"], os.path.join(same, name))
+        rc, out, err = run_cli("gate_same_s", ["ledger", "gate", "--offline",
+                                               "--root", same, "--device", "cuda"])
+        if rc != 0 or "[FAIL]" in out or "gate PASSED" not in out:
+            raise AssertionError(f"ledger (e): gate exit {rc}\n{out}{err}")
+        n_same = sum(ln.startswith("[") for ln in out.splitlines())
+        log("ledger", f"(e) r04 = a copy of r01: gate exit 0, no FAIL line, "
+                      f"{n_same} keys checked, {walls['gate_same_s']} s")
+
+        # -- (f) the command line ----------------------------------------------------
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "csmom_tpu_torch.cli", "ledger", "gate",
+             "--offline", "--root", runs, "--device", "cuda"],
+            cwd=tmp, capture_output=True, text=True, timeout=120, env=clean_env())
+        walls["gate_cli_s"] = round(time.perf_counter() - t0, 3)
+        if p.returncode != 1 or "[FAIL] serve_p99_ms  (" not in p.stdout:
+            raise AssertionError(f"ledger (f): exit {p.returncode}\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        log("ledger", f"(f) python -m csmom_tpu_torch.cli ledger gate --offline "
+                      f"--device cuda over (d): exit 1, FAIL serve_p99_ms; "
+                      f"{walls['gate_cli_s']} s with the process start")
+
+        # -- (g) roadmap ------------------------------------------------------------
+        doc = os.path.join(tmp, "TRAJECTORY.md")
+        with open(doc, "w") as f:
+            f.write(f"# H100\n\n{cli_ledger.ROADMAP_BEGIN}\nstale\n"
+                    f"{cli_ledger.ROADMAP_END}\n")
+        rc, _, err = run_cli("roadmap_s", ["ledger", "roadmap", "--root", runs,
+                                           "--roadmap", doc, "--write"])
+        with open(doc) as f:
+            text = f.read()
+        if rc != 0 or "stale" in text or "`GPU_SERVE_r03.json`" not in text:
+            raise AssertionError(f"ledger (g): roadmap exit {rc}\n{err}\n{text[:2000]}")
+        copy = os.path.join(tmp, "ROADMAP.md")
+        shutil.copy(os.path.join(REPO, "ROADMAP.md"), copy)
+        with open(copy, "rb") as f:
+            before = f.read()
+        rc, _, err = run_cli("roadmap_refused_s", ["ledger", "roadmap", "--root",
+                                                   runs, "--roadmap", copy,
+                                                   "--write"])
+        with open(copy, "rb") as f:
+            after = f.read()
+        if rc != 1 or after != before or "markers missing" not in err:
+            raise AssertionError(f"ledger (g): ROADMAP.md copy exit {rc}, "
+                                 f"unchanged {after == before}\n{err}")
+        log("ledger", f"(g) roadmap --write spliced {text.count('#### ')} tables "
+                      f"between the port's markers; a copy of ROADMAP.md refused "
+                      f"(exit 1) and byte for byte unchanged")
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    log("ledger", f"walls s {json.dumps(walls)} | {smi}")
+    if walls["phase_s"] > LEDGER_BUDGET_S:
+        raise AssertionError(f"phase 21 took {walls['phase_s']} s, over its "
+                             f"{LEDGER_BUDGET_S} s")
+    return {"launches": launches, "walls": walls, "verdicts": verdicts,
+            "bootstrap_ms": boot, "wall_s": walls["phase_s"]}
+
+
 # phase 18: the mesh serving engine on the card, every mesh logical shards
 # of cuda:0.  (a) SERVE_MESH_r15.json's configuration: the bursty schedule
 # (seed 0, 240 arrivals), the five endpoints, its class mix, panel reuse and
@@ -6065,6 +6343,14 @@ def main(argv=None) -> int:
     t_p = phase_done(20, "rehearse and timeline", t_p)
     for row in rows:
         row["rehearse_launches"] = rh["launches"][row["name"]]
+
+    # -- 21. the perf ledger on the card ---------------------------------------
+    lg = ledger_phase(smi)
+    log("ledger", f"phase wall {lg['wall_s']:.1f} s; the two service runs' "
+                  f"launches {lg['launches']} | {smi}")
+    t_p = phase_done(21, "ledger", t_p)
+    for row in rows:
+        row["ledger_launches"] = lg["launches"][row["name"]]
     log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
                  f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -119,11 +119,13 @@ class ClockDiscipline(LintRule):
         "csmom_tpu_torch/stream/incremental.py",
     )
 
-    # verdicts reproducible from committed evidence alone: the memory
-    # report and the trace renderer.  The ledger modules join this tier
-    # when they are ported (ROADMAP.md, Queue 1 item 8c)
+    # verdicts reproducible from committed evidence alone: the ledger,
+    # its regression verdicts, the memory report and the trace renderer
     WALL_FREE_FILES = (
+        "csmom_tpu_torch/obs/ledger.py",
+        "csmom_tpu_torch/obs/regress.py",
         "csmom_tpu_torch/obs/memstats.py",
+        "csmom_tpu_torch/cli/ledger.py",
         "csmom_tpu_torch/cli/trace.py",
     )
 

@@ -62,6 +62,14 @@ stale hits and a reconciling hit rate, the offered-load record, the
 per-class error-budget burn and the latency samples.  The endpoint names
 are checked against the port's registry.
 
+``lint`` (``lint --format json``, schema v1-2) and ``record`` (a
+metric/value headline), with the reference's rules copied.  The ledger
+(:mod:`csmom_tpu_torch.obs.ledger`) also detects the capture tooling's
+kinds, ``driver_capture``, ``multichip``, ``phases`` and ``tpu_cache``,
+whose validators are not ported yet; it reads records with
+:func:`is_partial`, and :func:`measured_rows` and :func:`upgrade_ok` are
+the rule for landing a capture over one of the same name.
+
 Validators return a list of violation strings (empty = valid), so a
 caller reports every breakage of an artifact, not the first.
 """
@@ -71,11 +79,13 @@ from __future__ import annotations
 import json
 import re
 
-__all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS", "KNOWN_REPLAY_SCHEMA_VERSIONS",
+__all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS", "KNOWN_LINT_SCHEMA_VERSIONS",
+           "KNOWN_REPLAY_SCHEMA_VERSIONS",
            "KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
            "KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
            "KNOWN_TELEMETRY_SCHEMA_VERSIONS", "KNOWN_TRACE_SCHEMA_VERSIONS",
-           "committable_sidecar", "detect_kind", "trailing_json", "validate",
+           "committable_sidecar", "detect_kind", "is_partial",
+           "measured_rows", "trailing_json", "upgrade_ok", "validate",
            "validate_file", "validate_tree"]
 
 KNOWN_TELEMETRY_SCHEMA_VERSIONS = (1,)
@@ -85,6 +95,13 @@ KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS = (1,)
 KNOWN_FLEET_SCHEMA_VERSIONS = (1,)
 KNOWN_TRACE_SCHEMA_VERSIONS = (1,)
 KNOWN_REPLAY_SCHEMA_VERSIONS = (1,)
+KNOWN_LINT_SCHEMA_VERSIONS = (1, 2)
+_LINT_V2_KEYS = frozenset({
+    "schema_version", "ok", "files_scanned", "rules", "project",
+    "findings", "suppressed", "cache", "rule_timings_s",
+})
+_LINT_FINDING_KEYS = frozenset({"rule", "path", "line", "message",
+                                "chain"})
 
 # only round artifacts are committed evidence: GPU_<family>_r<NN>.json.
 # Rehearse, smoke and scratch files (GPU_TELEMETRY_rehearse_*,
@@ -124,17 +141,23 @@ def trailing_json(text: str):
 
 def detect_kind(obj: dict) -> str | None:
     """``"fleet"``, ``"trace"``, ``"replay"``, ``"serve_fabric"``,
-    ``"serve_pool"``, ``"serve"`` or ``"telemetry"`` by the artifact's
-    ``kind`` or key signature (the fleet's series/demand/capacity, the
-    trace's books/stages/reconcile, the replay's ticks/panel/reconcile,
-    the fabric's requests/availability/routers/transport, the pool's
-    requests/availability/hedge, the service's requests/latency_ms/
-    batches, the sidecar's run_id/wall_s/phases), else None.  The
-    reference's order: the fleet and the trace embed a request
-    book of their own, and each serve kind carries the next one's
-    signature plus its own, so the fleet is tested first, the trace and
-    the replay before the serve kinds, the fabric before the pool and the
-    pool before the service."""
+    ``"serve_pool"``, ``"serve"``, ``"telemetry"``, ``"lint"``,
+    ``"tpu_cache"``, ``"multichip"``, ``"phases"``, ``"record"`` or
+    ``"driver_capture"`` by the artifact's ``kind`` or key signature (the
+    fleet's series/demand/capacity, the trace's books/stages/reconcile,
+    the replay's ticks/panel/reconcile, the fabric's requests/
+    availability/routers/transport, the pool's requests/availability/
+    hedge, the service's requests/latency_ms/batches, the sidecar's
+    run_id/wall_s/phases, the lint report's files_scanned/rules/findings,
+    a session cache's captured_utc/record, a multichip check's
+    n_devices/ok, a phases profile's phases/metric, a record's metric/
+    value, a driver capture's rc/tail), else None.  The reference's
+    order: the fleet and the trace embed a request book of their own,
+    and each serve kind carries the next one's signature plus its own,
+    so the fleet is tested first, the trace and the replay before the
+    serve kinds, the fabric before the pool, the pool before the service
+    and the service before the record; the ledger routes by these
+    kinds."""
     if not isinstance(obj, dict):
         return None
     if obj.get("kind") == "fleet" or {"series", "demand",
@@ -159,7 +182,63 @@ def detect_kind(obj: dict) -> str | None:
     if obj.get("kind") == "telemetry" or {"run_id", "wall_s",
                                           "phases"} <= set(obj):
         return "telemetry"
+    if {"files_scanned", "rules", "findings"} <= set(obj):
+        return "lint"
+    if {"captured_utc", "record"} <= set(obj):
+        return "tpu_cache"
+    if {"n_devices", "ok"} <= set(obj):
+        return "multichip"
+    if "phases" in obj and "metric" in obj:
+        return "phases"
+    if {"metric", "value"} <= set(obj):
+        return "record"
+    if {"rc", "tail"} <= set(obj):
+        return "driver_capture"
     return None
+
+
+def measured_rows(obj: dict) -> int:
+    """A capture's substance: the length of its measurement list
+    (``rows`` or ``phases``, at the top or under ``extra``); listless
+    records count 0."""
+    if not isinstance(obj, dict):
+        return 0
+    for k in ("rows", "phases"):
+        v = obj.get(k)
+        if isinstance(v, list):
+            return len(v)
+        extra = obj.get("extra")
+        if isinstance(extra, dict) and isinstance(extra.get(k), list):
+            return len(extra[k])
+    return 0
+
+
+def is_partial(obj: dict) -> bool:
+    """True when the record carries a ``partial`` marker, at the top or
+    under ``extra``."""
+    if not isinstance(obj, dict):
+        return False
+    extra = obj.get("extra")
+    return bool(obj.get("partial")
+                or (isinstance(extra, dict) and extra.get("partial")))
+
+
+def upgrade_ok(old, new) -> list:
+    """The monotone-upgrade rule for landing an artifact over one of the
+    same name: full beats partial; a partial only replaces a partial with
+    strictly more measured rows; nothing replaces a full.  Returns the
+    violations of ``new`` landing over ``old``."""
+    if old is None:
+        return []
+    if not is_partial(old):
+        return ["landing over a FULL artifact: a full capture is never "
+                "overwritten"]
+    if is_partial(new) and measured_rows(new) <= measured_rows(old):
+        return [
+            f"partial-over-partial downgrade: new has {measured_rows(new)} "
+            f"measured rows, existing partial has {measured_rows(old)}"
+        ]
+    return []
 
 
 def _require(obj, key, types, kind, out, type_name=None):
@@ -1584,21 +1663,81 @@ def _validate_telemetry(obj: dict) -> list:
     return out
 
 
+def _validate_lint(obj: dict) -> list:
+    """The lint report's contract (``lint --format json``): a known
+    schema version, the closed v2 key world, findings of a coherent shape,
+    and ``ok`` meaning zero findings."""
+    out: list = []
+    ver = _require(obj, "schema_version", int, "lint", out)
+    if ver is not None and ver not in KNOWN_LINT_SCHEMA_VERSIONS:
+        out.append(
+            f"lint: unknown schema_version {ver} (this checker "
+            f"understands {list(KNOWN_LINT_SCHEMA_VERSIONS)}) — the "
+            "report is from a different era of the code; do not "
+            "half-parse it")
+        return out
+    _require(obj, "ok", bool, "lint", out)
+    _require(obj, "files_scanned", int, "lint", out)
+    _require(obj, "rules", list, "lint", out)
+    findings = _require(obj, "findings", list, "lint", out)
+    _require(obj, "suppressed", list, "lint", out)
+    if ver == 2:
+        unknown = sorted(set(obj) - _LINT_V2_KEYS)
+        if unknown:
+            out.append(f"lint: unknown v2 keys {unknown} — the report "
+                       "key world is closed; bump the schema version "
+                       "for new fields")
+        _require(obj, "project", bool, "lint", out)
+        cache = _require(obj, "cache", dict, "lint", out)
+        if cache is not None and not isinstance(cache.get("enabled"),
+                                                bool):
+            out.append("lint: cache.enabled must be a bool")
+        _require(obj, "rule_timings_s", dict, "lint", out)
+    if findings is not None:
+        for i, f in enumerate(findings):
+            if not isinstance(f, dict):
+                out.append(f"lint: findings[{i}] must be an object")
+                continue
+            missing = {"rule", "path", "line", "message"} - set(f)
+            if missing:
+                out.append(f"lint: findings[{i}] missing {sorted(missing)}")
+            if ver == 2 and not set(f) <= _LINT_FINDING_KEYS:
+                out.append(f"lint: findings[{i}] carries unknown keys "
+                           f"{sorted(set(f) - _LINT_FINDING_KEYS)}")
+        if isinstance(obj.get("ok"), bool) and obj["ok"] != (
+                len(findings) == 0):
+            out.append("lint: ok flag disagrees with the findings list "
+                       "(ok means ZERO unsuppressed findings)")
+    return out
+
+
+# kinds the ledger detects whose validators belong to the capture tooling
+# (bench.py and capture_lib.sh, ROADMAP.md Queue 1 item 8b)
+_CAPTURE_KINDS = ("driver_capture", "multichip", "phases", "tpu_cache")
+
+
 def validate(obj, kind: str | None = None) -> list:
     """All contract violations of one serve, serve_pool, serve_fabric,
-    fleet, trace, replay or telemetry artifact (empty = valid)."""
+    fleet, trace, replay, telemetry, lint or record artifact (empty =
+    valid).  A driver capture, multichip check, phases profile or session
+    cache is detected but not validated: one violation says so."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
     if kind is None:
-        return ["unrecognized artifact shape: not a serve, fleet, trace, "
-                "replay or telemetry artifact (no kind 'serve', "
-                "'serve_pool', 'serve_fabric', 'fleet', 'trace', 'replay' "
-                "or 'telemetry', no requests/latency_ms/batches, "
-                "requests/availability/hedge, requests/availability/"
-                "routers/transport, series/demand/capacity, books/stages/"
-                "reconcile, ticks/panel/reconcile or run_id/wall_s/phases "
-                "keys)"]
+        return ["unrecognized artifact shape: none of the known key "
+                "signatures (record / driver_capture / multichip / phases "
+                "/ tpu_cache / telemetry / serve / serve_pool / "
+                "serve_fabric / fleet / replay / trace / lint) match"]
+    if kind in _CAPTURE_KINDS:
+        return [f"{kind}: no validator in the port yet — the capture "
+                "tooling's validators (driver capture, multichip, phases, "
+                "session cache) come with bench.py and capture_lib.sh "
+                "(ROADMAP.md, Queue 1 item 8b)"]
+    if kind == "record":
+        return _validate_record(obj)
+    if kind == "lint":
+        return _validate_lint(obj)
     if kind == "telemetry":
         return _validate_telemetry(obj)
     if kind == "fleet":
@@ -1612,9 +1751,7 @@ def validate(obj, kind: str | None = None) -> list:
     if kind == "serve_pool":
         return _validate_serve_pool(obj)
     if kind != "serve":
-        return [f"unknown artifact kind {kind!r}: this validator checks "
-                "serve, serve_pool, serve_fabric, fleet, trace, replay and "
-                "telemetry artifacts only"]
+        return [f"unknown artifact kind {kind!r}"]
     return _validate_serve(obj)
 
 

@@ -1636,6 +1636,7 @@ def build_parser() -> argparse.ArgumentParser:
                             help="strategy parameter, repeatable")
 
     from csmom_tpu_torch.cli.fleet import register as register_fleet
+    from csmom_tpu_torch.cli.ledger import register as register_ledger
     from csmom_tpu_torch.cli.lint import register as register_lint
     from csmom_tpu_torch.cli.registry import register as register_registry
     from csmom_tpu_torch.cli.rehearse import register as register_rehearse
@@ -1646,6 +1647,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     _add_warmup(sub)
     register_fleet(sub)
+    register_ledger(sub)
     register_lint(sub)
     register_registry(sub)
     register_rehearse(sub)
@@ -1672,7 +1674,9 @@ def _subcommand_epilog(sub) -> str:
 
 
 # commands that compute nothing on a device (rehearse decides for
-# itself: only its warm-up scenario touches one)
+# itself: only its warm-up scenario touches one).  A command whose
+# parser has no --device (``ledger show`` and ``ledger roadmap``) is
+# never probed either
 _DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet",
                          "trace", "registry", "lint", "timeline", "rehearse"}
 
@@ -1687,7 +1691,8 @@ def main(argv=None) -> int:
         print("--mode rank_hist is distributed-only: use "
               f"`{PROG} grid --shards N --mode rank_hist`", file=sys.stderr)
         return 2
-    if (args.command not in _DEVICE_FREE_COMMANDS and args.device == "cuda"
+    if (args.command not in _DEVICE_FREE_COMMANDS
+            and getattr(args, "device", None) == "cuda"
             and not getattr(args, "list", False)
             and not getattr(args, "stub", False)
             and getattr(args, "engine", None) != "stub"):

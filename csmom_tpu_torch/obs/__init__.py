@@ -1,7 +1,7 @@
-"""Run telemetry of the serving tier: spans, a metrics registry, traces,
-and the fleet observatory.
+"""Run telemetry: spans, a metrics registry, traces, the fleet
+observatory, and the cross-run perf ledger.
 
-Counterpart of the parts of ``csmom_tpu.obs`` the serving tier uses:
+Counterpart of ``csmom_tpu.obs``:
 
 - :mod:`~csmom_tpu_torch.obs.spans`: nestable, thread-safe spans emitted
   as a JSON-lines event stream;
@@ -17,7 +17,12 @@ Counterpart of the parts of ``csmom_tpu.obs`` the serving tier uses:
   ``GPU_FLEET_<run>.json`` artifact (demand book, lifecycle walls, the
   kill-window capacity account);
 - :mod:`~csmom_tpu_torch.obs.timeline`: a run's event stream assembled
-  into its phase timeline, the ``GPU_TELEMETRY_<run>.json`` sidecar.
+  into its phase timeline, the ``GPU_TELEMETRY_<run>.json`` sidecar;
+- :mod:`~csmom_tpu_torch.obs.ledger` and
+  :mod:`~csmom_tpu_torch.obs.regress`: the cross-run half, every
+  ``GPU_*`` round artifact ingested into a provenance-keyed per-metric
+  trajectory, and raw repeat samples turned into block-bootstrap CI
+  regression verdicts (``ledger show/diff/gate``).
 
 Zero-cost when disarmed: with no collector armed, ``span()`` returns a
 shared no-op singleton and ``metric.inc()`` is one global load and
@@ -29,7 +34,8 @@ pandas.
 
 from __future__ import annotations
 
-_SUBMODULES = ("fleet", "memstats", "metrics", "spans", "timeline", "trace")
+_SUBMODULES = ("fleet", "ledger", "memstats", "metrics", "regress", "spans",
+               "timeline", "trace")
 
 _LAZY = {
     "arm": "csmom_tpu_torch.obs.spans",

@@ -3,11 +3,8 @@ emitter/aggregator loop, the capacity account and the ``fleet``
 artifact's schema.
 
 Mirrors ``tests/test_fleet.py`` case for case against the port's
-modules, except its three cases of the ledger and the committable-name
-rules, which belong to modules the port does not have yet (ROADMAP.md,
-Queue 1 item 8c): ``test_fleet_sidecar_naming_rule``,
-``test_ledger_ingests_fleet_rows_with_samples`` and
-``test_ledger_refuses_unknown_fleet_schema_era``.  Added here:
+modules, its ledger and committable-name cases on the port's
+``GPU_FLEET_*`` names.  Added here:
 
 - ``capacity_account``, ``lifecycle_walls`` and ``absolute_events`` give
   equal output in both packages on the same event lists;
@@ -538,3 +535,50 @@ def test_router_replica_armed_streams_and_never_loads_torch(tmp_path):
                 p.kill()
                 p.wait(timeout=5.0)
         obs_fleet.disarm("unit over")
+
+
+# ------------------------------------------------------------ the ledger ----
+
+def test_ledger_ingests_fleet_rows_with_samples(tmp_path):
+    art = _mini_fleet_artifact(tmp_path)
+    with open(tmp_path / "GPU_FLEET_r99.json", "w") as f:
+        json.dump(art, f)
+    from csmom_tpu_torch.obs import ledger as ld
+
+    L = ld.load(str(tmp_path))
+    rows = {}
+    for r in L.rows:
+        rows.setdefault(r.metric, []).append(r)
+    loss = rows["fleet_kill_window_capacity_loss_frac"][0]
+    assert loss.direction == "lower"
+    assert loss.value == art["value"]
+    wall = rows["fleet_worker_ready_wall_s"][0]
+    assert wall.direction == "lower"
+    assert wall.value == pytest.approx(1.3), "the max (re)spawn wall"
+    assert wall.samples, "ready-wall rows carry their CI backing"
+    demand_rows = [m for m in rows if m.startswith("fleet_demand_")]
+    assert "fleet_demand_interactive_rps" in demand_rows
+    assert not rows["fleet_demand_interactive_rps"][0].gate_eligible(), (
+        "demand rate is workload-descriptive, info only")
+
+
+def test_ledger_refuses_unknown_fleet_schema_era(tmp_path):
+    art = _mini_fleet_artifact(tmp_path)
+    art["schema_version"] = 99
+    with open(tmp_path / "GPU_FLEET_r99.json", "w") as f:
+        json.dump(art, f)
+    from csmom_tpu_torch.obs import ledger as ld
+
+    L = ld.load(str(tmp_path))
+    assert not any(r.metric.startswith("fleet_") for r in L.rows), (
+        "an unknown schema era must contribute zero rows, not "
+        "half-parsed ones")
+    assert any("unknown fleet schema_version 99" in p["note"]
+               for p in L.problems)
+
+
+def test_fleet_sidecar_naming_rule():
+    assert inv.committable_sidecar("GPU_FLEET_r20.json")
+    assert not inv.committable_sidecar("GPU_FLEET_rehearse_kill.json")
+    assert not inv.committable_sidecar("GPU_FLEET_smoke-fleet.json")
+    assert not inv.committable_sidecar("GPU_FLEET_loadgen-abc.json")

@@ -2,9 +2,8 @@
 autoscaler, the prefork parent and the ``fleet.elastic`` block.
 
 Mirrors ``tests/test_fleet_elastic.py`` case for case against the port's
-modules (stub workers: no torch in any spawned process), except
-``test_ledger_ingests_per_kind_ready_wall_rows``, whose ledger is not
-ported yet (ROADMAP.md, Queue 1 item 8c).  Added here:
+modules (stub workers: no torch in any spawned process), its ledger case
+on a ``GPU_FLEET_*`` name.  Added here:
 
 - ``AutoscalerPolicy.decide`` gives the reference's decisions (action
   and reason) on one seeded ``(now, offered_rps, n_ready)`` sequence;
@@ -797,3 +796,21 @@ def test_autoscaler_asks_no_decision_while_a_worker_warms(tmp_path):
     assert ctl.decisions[-1]["action"] == "hold"
     assert "ceiling" in ctl.decisions[-1]["reason"]
     assert len(wsup.handles) == 3
+
+
+def test_ledger_ingests_per_kind_ready_wall_rows(tmp_path):
+    art = _mini_elastic_artifact(tmp_path)
+    with open(tmp_path / "GPU_FLEET_r97.json", "w") as f:
+        json.dump(art, f)
+    from csmom_tpu_torch.obs import ledger as ld
+
+    L = ld.load(str(tmp_path))
+    rows = {r.metric: r for r in L.rows}
+    agg = rows["fleet_worker_ready_wall_s"]
+    assert agg.value == pytest.approx(6.5), "aggregate keeps the max"
+    promo = rows["fleet_worker_ready_wall_promotion_s"]
+    assert promo.direction == "lower"
+    assert promo.value == pytest.approx(0.01)
+    assert list(promo.samples) == [0.01]
+    cold = rows["fleet_worker_ready_wall_cold_s"]
+    assert cold.value == pytest.approx(6.5)

@@ -14,6 +14,8 @@
 - ``REPLAY_r12.json`` passes the port's validator, the port's artifacts
   pass the reference's, and the reference's doctored artifacts are
   refused by both.
+- The ledger ingests a ``GPU_REPLAY_*`` artifact's rows (a smoke run's
+  flagged) and refuses an unknown schema era, as the reference's does.
 """
 
 import copy
@@ -272,3 +274,43 @@ def test_cli_replay_defaults_to_the_card(tmp_path, capsys):
     rc, out, err = _cli(["replay", "--smoke", "--out-dir", str(tmp_path)], capsys)
     assert rc == 2 and "--device cpu" in err
     assert not list(tmp_path.iterdir())
+
+
+# ------------------------------------------------------------ the ledger ----
+
+def test_replay_pattern_in_tier1_sweep_and_ledger():
+    import inspect
+
+    from csmom_tpu_torch.obs import ledger
+
+    sig = inspect.signature(inv.validate_tree)
+    assert "GPU_REPLAY_*.json" in sig.parameters["patterns"].default
+    assert "GPU_REPLAY_*.json" in ledger.DEFAULT_PATTERNS
+
+
+def test_ledger_ingests_replay_rows(tmp_path, stub_pairs):
+    from csmom_tpu_torch.obs import ledger
+    from csmom_tpu_torch.serve.loadgen import write_artifact
+
+    art = dict(stub_pairs[(False, None)][0], run_id="r99")
+    write_artifact(str(tmp_path), art, prefix="GPU_REPLAY")
+    led = ledger.load(str(tmp_path))
+    metrics = {r.metric for r in led.rows}
+    assert "replay_ticks_per_s" in metrics
+    assert "replay_staleness_p99_ms" in metrics
+    assert "replay_in_window_fresh_compiles" in metrics
+    # smoke-bucket replays are flagged, never gate-eligible
+    smoke_rows = [r for r in led.rows if r.metric == "replay_ticks_per_s"]
+    assert smoke_rows and not any(r.gate_eligible() for r in smoke_rows)
+
+
+def test_ledger_refuses_unknown_replay_schema(tmp_path, stub_pairs):
+    from csmom_tpu_torch.obs import ledger
+
+    art = dict(stub_pairs[(False, None)][0], run_id="r98", schema_version=42)
+    path = tmp_path / "GPU_REPLAY_r98.json"
+    path.write_text(json.dumps(art))
+    led = ledger.load(str(tmp_path))
+    assert led.rows == []
+    assert any("unknown replay schema_version" in p["note"]
+               for p in led.problems)

@@ -1,7 +1,9 @@
 """The port's serving tier on the CPU: the queue, batcher, cache and
 service plumbing (the stub engine, and the torch engine on the CPU),
 fault injection, the load generator's request stream against
-csmom_tpu's, and the artifact under both packages' validators.
+csmom_tpu's, the artifact under both packages' validators, and the
+ledger's serve rows (the reference's ``test_serve`` and ``test_serve_slo``
+ledger cases on ``GPU_SERVE_*`` names).
 
 Every service test closes its books: ``served + rejected + expired ==
 admitted``, globally and per class."""
@@ -392,3 +394,140 @@ def test_serve_validator_rejects_broken_books_and_unknown_schema():
         assert any(needle in v for v in inv.validate(bad)), path
         assert any(needle in v for v in ref_inv.validate(bad)), path
     assert inv.validate({"rc": 0}) != []
+
+
+# --------------------------------------------------------------- ledger ----
+
+def _artifact(run_id, value=50.0, p99=20.0, smoke=False):
+    extra = {"platform": "cpu", "engine": "torch", "workload": "w"}
+    if smoke:
+        extra["smoke"] = "smoke run"
+    return {
+        "kind": "serve", "schema_version": 1, "run_id": run_id,
+        "metric": "serve_throughput_rps", "value": value, "unit": "req/s",
+        "vs_baseline": 1.0, "wall_s": 1.0,
+        "requests": {"admitted": 10, "served": 10, "rejected": 0,
+                     "expired": 0, "expired_dispatched": 0},
+        "latency_ms": {
+            "queue": {"p50": 1.0, "p95": 2.0, "p99": 3.0},
+            "service": {"p50": 1.0, "p95": 2.0, "p99": 3.0},
+            "total": {"p50": 5.0, "p95": 10.0, "p99": p99},
+        },
+        "batches": {"count": 5, "size_hist": {"2": 5}, "mean_size": 2.0,
+                    "pad_fraction": 0.1},
+        "compile": {"in_window_fresh_compiles": 0},
+        "extra": extra,
+    }
+
+
+def test_ledger_ingests_serve_rows(tmp_path):
+    from csmom_tpu_torch.obs import ledger as ld
+
+    for run, val, p99 in (("r01", 40.0, 30.0), ("r02", 50.0, 20.0)):
+        with open(tmp_path / f"GPU_SERVE_{run}.json", "w") as f:
+            json.dump(_artifact(run, val, p99), f)
+    # a smoke run stays visible but never gates
+    with open(tmp_path / "GPU_SERVE_r02_smoke.json", "w") as f:
+        json.dump(_artifact("r02", 99.0, 1.0, smoke=True), f)
+    L = ld.load(str(tmp_path))
+    metrics = {r.metric for r in L.rows}
+    assert {"serve_throughput_rps", "serve_p50_ms", "serve_p95_ms",
+            "serve_p99_ms", "serve_in_window_fresh_compiles"} <= metrics
+    thr = [r for r in L.rows if r.metric == "serve_throughput_rps"]
+    assert {r.run for r in thr} == {"r01", "r02"}
+    live = [r for r in thr if r.gate_eligible()]
+    assert len(live) == 2 and all(r.platform == "cpu" for r in live)
+    flagged = [r for r in thr if not r.gate_eligible()]
+    assert len(flagged) == 1 and "smoke" in flagged[0].flags
+    p99s = [r for r in L.rows
+            if r.metric == "serve_p99_ms" and r.gate_eligible()]
+    assert [r.value for r in sorted(p99s, key=lambda r: r.run_num)] == [
+        30.0, 20.0]
+
+
+def test_ledger_refuses_unknown_serve_schema(tmp_path):
+    from csmom_tpu_torch.obs import ledger as ld
+
+    art = _artifact("r03")
+    art["schema_version"] = 42
+    with open(tmp_path / "GPU_SERVE_r03.json", "w") as f:
+        json.dump(art, f)
+    L = ld.load(str(tmp_path))
+    assert L.rows == []
+    assert any("unknown serve schema_version" in p["note"]
+               for p in L.problems)
+
+
+def _v2_artifact(**over):
+    art = {
+        "kind": "serve", "schema_version": 2, "run_id": "x",
+        "metric": "serve_throughput_rps", "value": 10.0, "unit": "req/s",
+        "vs_baseline": 1.0, "wall_s": 1.0, "offered_limited": False,
+        "requests": {"admitted": 6, "served": 4, "rejected": 2,
+                     "expired": 0, "expired_dispatched": 0},
+        "classes": {
+            "interactive": {"admitted": 4, "served": 4, "rejected": 0,
+                            "expired": 0, "rejected_quota": 0,
+                            "latency_ms": {"p50": 1.0, "p95": 2.0,
+                                           "p99": 3.0},
+                            "budget_ms": 500.0, "within_budget": True},
+            "bulk": {"admitted": 2, "served": 0, "rejected": 2,
+                     "expired": 0, "rejected_quota": 2,
+                     "latency_ms": {"p50": None, "p95": None, "p99": None},
+                     "budget_ms": 3000.0, "within_budget": None},
+        },
+        "cache": {"enabled": True, "hits": 2, "misses": 3,
+                  "stale_blocked": 1, "stale_hits": 0, "lookups": 6,
+                  "hit_rate": round(2 / 6, 4), "inserts": 3,
+                  "evictions": 0},
+        "latency_ms": {
+            "queue": {"p50": 1.0, "p95": 2.0, "p99": 3.0},
+            "service": {"p50": 1.0, "p95": 2.0, "p99": 3.0},
+            "total": {"p50": 2.0, "p95": 4.0, "p99": 6.0},
+        },
+        "batches": {"count": 4, "size_hist": {"1": 4}, "mean_size": 1.0,
+                    "pad_fraction": 0.0,
+                    "fire_reasons": {"window": 3, "deadline_risk": 1}},
+        "compile": {"in_window_fresh_compiles": 0},
+        "offered": {"schedule": "1x10", "schedule_kind": "bursty",
+                    "offered_rps": 10.0, "n_arrivals": 10},
+        "extra": {"platform": "cpu", "engine": "stub", "workload": "w"},
+    }
+    art.update(over)
+    return art
+
+
+def test_ledger_ingests_v2_rows_and_flags_offered_limited(tmp_path):
+    from csmom_tpu_torch.obs import ledger as ld
+
+    sat = _v2_artifact()                        # rejects: saturation
+    lim = _v2_artifact(offered_limited=True)    # fully kept up
+    lim["requests"] = {"admitted": 6, "served": 6, "rejected": 0,
+                       "expired": 0, "expired_dispatched": 0}
+    lim["classes"]["bulk"] = {
+        "admitted": 2, "served": 2, "rejected": 0, "expired": 0,
+        "rejected_quota": 0,
+        "latency_ms": {"p50": 1.0, "p95": 2.0, "p99": 3.0},
+        "budget_ms": 3000.0, "within_budget": True}
+    assert inv.validate(sat) == [] and inv.validate(lim) == []
+    with open(tmp_path / "GPU_SERVE_r01.json", "w") as f:
+        json.dump(sat, f)
+    with open(tmp_path / "GPU_SERVE_r02.json", "w") as f:
+        json.dump(lim, f)
+    L = ld.load(str(tmp_path))
+    metrics = {r.metric for r in L.rows}
+    assert {"serve_throughput_rps", "serve_offered_rps",
+            "serve_cache_hit_rate", "serve_interactive_p99_ms",
+            "serve_p99_under_burst_ms"} <= metrics
+    thr = {r.run: r for r in L.rows if r.metric == "serve_throughput_rps"}
+    # the saturated run's throughput gates; the offered-limited one is
+    # visible but flagged: it measured the load, not the ceiling
+    assert thr["r01"].gate_eligible()
+    assert not thr["r02"].gate_eligible()
+    assert "offered-limited" in thr["r02"].flags
+    # latency rows still gate on both runs
+    p99 = [r for r in L.rows if r.metric == "serve_p99_ms"]
+    assert all(r.gate_eligible() for r in p99) and len(p99) == 2
+    # offered rows are informational, never gating
+    off = [r for r in L.rows if r.metric == "serve_offered_rps"]
+    assert all(not r.gate_eligible() for r in off)

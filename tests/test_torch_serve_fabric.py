@@ -3,13 +3,9 @@ router replicas as supervised processes, the client tier's failover, the
 fabric loadgen and the ``serve_fabric`` validator.
 
 Mirrors ``tests/test_fabric.py`` case for case against the port's
-modules, with stub workers (no torch in any spawned process).  Two of its
-cases are left out because the module they test is not ported:
-``test_ledger_refuses_unknown_serve_fabric_schema`` and
-``test_fabric_committable_sidecar_naming`` belong to the ledger and the
-committable-artifact rules (ROADMAP.md, Queue 1 item 8c); the
-double-kill case builds its artifact without the ledger's ingest for the
-same reason.  Added here:
+modules, with stub workers (no torch in any spawned process), its ledger
+and committable-name cases on the port's ``GPU_SERVE_FABRIC_*`` names.
+Added here:
 
 - the port's ``FabricClient`` against the reference's replica
   (``python -m csmom_tpu.serve.router``, stdlib and numpy only) and the
@@ -423,6 +419,16 @@ def test_fabric_three_tiers_over_tcp_survive_double_kill(tmp_path):
     assert ref_inv.validate_file(path) == []
     assert inv.detect_kind(art) == ref_inv.detect_kind(art) == "serve_fabric"
     assert art["extra"]["samples"]["serve_fabric_total_ms"]
+    # and it feeds the ledger
+    from csmom_tpu_torch.obs import ledger
+
+    rows, notes = ledger.ingest_file(path)
+    metrics = {r.metric for r in rows}
+    assert {"serve_fabric_throughput_rps", "serve_fabric_availability",
+            "serve_fabric_cache_hit_rate",
+            "serve_fabric_hedge_rate"} <= metrics, metrics
+    p99 = [r for r in rows if r.metric == "serve_fabric_p99_ms"]
+    assert p99 and p99[0].samples, "fabric p99 rows must carry samples"
 
 
 @pytest.mark.parametrize("knobs", [
@@ -920,3 +926,23 @@ def test_torch_fabric_on_the_cpu_equals_the_reference(cpu_fabric, kind):
                                 timeout_s=5.0)[0] for h in wsup.handles]
     assert all(s["kernel_launches"]["cohort_partial_sums"] == 0
                for s in stats)
+
+
+def test_ledger_refuses_unknown_serve_fabric_schema(tmp_path):
+    from csmom_tpu_torch.obs import ledger
+
+    art = _min_fabric_art()
+    art["schema_version"] = 99
+    p = tmp_path / "GPU_SERVE_FABRIC_r99.json"
+    p.write_text(json.dumps(art))
+    rows, notes = ledger.ingest_file(str(p))
+    assert rows == []
+    assert notes and "unknown serve_fabric schema_version" in \
+        notes[0]["note"]
+
+
+def test_fabric_committable_sidecar_naming():
+    assert inv.committable_sidecar("GPU_SERVE_FABRIC_r18.json")
+    assert not inv.committable_sidecar("GPU_SERVE_FABRIC_smoke.json")
+    assert not inv.committable_sidecar("GPU_SERVE_FABRIC_rehearse_x.json")
+    assert not inv.committable_sidecar("GPU_SERVE_FABRIC_loadgen-123.json")

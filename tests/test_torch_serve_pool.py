@@ -1072,3 +1072,47 @@ def test_rolling_restart_is_warm_before_ready_and_aborts_on_skew(tmp_path):
     finally:
         sup.stop()
     assert all(h.proc.poll() is not None for h in sup.handles)
+
+
+# --------------------------------------------------------------- ledger ----
+
+def test_ledger_ingests_serve_pool_rows(tmp_path):
+    from csmom_tpu_torch.obs import ledger as ld
+
+    with open(tmp_path / "GPU_SERVE_POOL_r11.json", "w") as f:
+        json.dump(_pool_artifact("r11", availability=0.995, infra=0), f)
+    # reconcile availability with the books for this fixture
+    art = _pool_artifact("r12", infra=1)
+    art["availability"] = round(1 - 1 / 20, 6)
+    with open(tmp_path / "GPU_SERVE_POOL_r12.json", "w") as f:
+        json.dump(art, f)
+    smoke = _pool_artifact("smoke")
+    smoke["extra"]["smoke"] = "smoke run"
+    with open(tmp_path / "GPU_SERVE_POOL_smoke.json", "w") as f:
+        json.dump(smoke, f)
+    L = ld.load(str(tmp_path))
+    metrics = {r.metric for r in L.rows}
+    assert {"serve_pool_throughput_rps", "serve_pool_p99_ms",
+            "serve_pool_availability", "serve_pool_hedge_rate",
+            "serve_pool_in_window_fresh_compiles"} <= metrics
+    avail = [r for r in L.rows if r.metric == "serve_pool_availability"]
+    assert {r.run for r in avail} == {"r11", "r12"}
+    assert all(r.direction == "higher" for r in avail)
+    assert {r.platform for r in avail} == {"gpu"}
+    hedge = [r for r in L.rows if r.metric == "serve_pool_hedge_rate"]
+    assert all(r.direction == "lower" for r in hedge)
+    # the smoke artifact has no round id -> scratch, skipped with a note
+    assert any("scratch" in p["note"] for p in L.problems)
+
+
+def test_ledger_refuses_unknown_serve_pool_schema(tmp_path):
+    from csmom_tpu_torch.obs import ledger as ld
+
+    art = _pool_artifact("r13")
+    art["schema_version"] = 42
+    with open(tmp_path / "GPU_SERVE_POOL_r13.json", "w") as f:
+        json.dump(art, f)
+    L = ld.load(str(tmp_path))
+    assert L.rows == []
+    assert any("unknown serve_pool schema_version" in p["note"]
+               for p in L.problems)

@@ -12,6 +12,9 @@ against ``csmom_tpu``.
   request books and every orphan half carries its reason.
 - The reference's broken books and residuals are refused by both
   validators.
+- The ledger ingests a ``GPU_TRACE_*`` artifact's per-stage rows with
+  their samples and its budget-burn rows, and a traced serve run's p99
+  rows carry their samples, as the reference's does.
 
 The serving modes run stub workers (no torch in any spawned process);
 every spawned process is stopped before a test returns.
@@ -248,3 +251,66 @@ def test_loadgen_trace_defaults_to_the_card(tmp_path, capsys):
     assert main(["loadgen", "--trace", "--smoke", "--out", str(tmp_path)]) == 2
     assert "--device cpu" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
+
+
+# ------------------------------------------------------------ the ledger ----
+
+def _run_traced_loadgen(**load_kw):
+    from csmom_tpu_torch.serve.loadgen import LoadConfig, run_loadgen
+    from csmom_tpu_torch.serve.service import ServeConfig, SignalService
+
+    book = obs_trace.arm_tracing(seed=1)
+    svc = SignalService(ServeConfig(profile="serve-smoke",
+                                    engine="stub")).start()
+    art = run_loadgen(svc, LoadConfig(run_id="trace_unit", **load_kw))
+    obs_trace.disarm_tracing()
+    return book, art
+
+
+def test_ledger_ingests_trace_rows_with_samples_and_burn(tmp_path):
+    book, art = _run_traced_loadgen(schedule="0.4x80", seed=3,
+                                    deadline_s=2.0)
+    tart = obs_trace.build_artifact(
+        book, "r90",
+        requests={k: art["requests"][k]
+                  for k in ("admitted", "served", "rejected", "expired")},
+        fresh_compiles=0, platform="stub", workload="unit")
+    with open(tmp_path / "GPU_TRACE_r90.json", "w") as f:
+        json.dump(tart, f)
+    from csmom_tpu_torch.obs import ledger as ld
+
+    L = ld.load(str(tmp_path))
+    by_metric = {}
+    for r in L.rows:
+        by_metric.setdefault(r.metric, []).append(r)
+    disp = by_metric["trace_stage_dispatch_p99_ms"][0]
+    assert disp.direction == "lower" and disp.gate_eligible()
+    assert disp.samples, "per-stage rows must carry their CI backing"
+    burn_rows = [m for m in by_metric if m.endswith("_budget_burn")]
+    assert burn_rows, "per-class budget-burn rows must land"
+    for m in burn_rows:
+        assert by_metric[m][0].gate_eligible()
+    assert "trace_complete_traces" in by_metric
+    assert not by_metric["trace_complete_traces"][0].gate_eligible()
+
+
+def test_ledger_attaches_serve_latency_samples_to_p99_rows(tmp_path):
+    _, art = _run_traced_loadgen(schedule="0.4x80", seed=3,
+                                 deadline_s=2.0)
+    with open(tmp_path / "GPU_SERVE_r91.json", "w") as f:
+        json.dump(dict(art, run_id="r91"), f)
+    from csmom_tpu_torch.obs import ledger as ld
+
+    L = ld.load(str(tmp_path))
+    rows = {r.metric: r for r in L.rows}
+    assert rows["serve_p99_ms"].samples, (
+        "serve p99 rows must carry the persisted per-request samples")
+    cls_rows = [r for m, r in rows.items()
+                if m.endswith("_p99_ms") and m.startswith("serve_")
+                and not m.startswith(("serve_p", "serve_ep_"))]
+    assert any(r.samples for r in cls_rows), "class p99 rows lost samples"
+    ep_rows = [r for m, r in rows.items() if m.startswith("serve_ep_")
+               and m.endswith("_p99_ms")]
+    assert any(r.samples for r in ep_rows), "endpoint p99 rows lost samples"
+    # and the artifact is v4-valid (burn + samples are schema rules)
+    assert inv.validate(art, "serve") == []
