@@ -10,7 +10,7 @@
 to a temporary directory, removed at the end, and phase 18's to
 ``chiprun_out/``).  Each phase's wall is printed
 on a ``[smoke] phase N`` line as it ends, and all of them on one line
-after phase 21.
+after phase 22.
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -43,7 +43,7 @@ any phase fails (nothing is caught).  Phases:
    ``run_monthly`` (K1) and ``run_grid`` (K2) from it equal phase 5's
    results bit for bit; banded rebalancing (band 0 = the plain engine's
    spread and turnover charge) and tearsheets of the 16 cells; launch
-   counts read around this run, and each step timed; (c) 512 tickers x
+   counts read around this run, and each step timed; (c) 256 tickers x
    3,780 days of CSVs in both dialects -> native ingest -> pack, with the
    pack equal to its frames and equal month-end panels from either source;
 8. cli: the port's CLI (``csmom_tpu_torch.cli.main``) in-process on
@@ -62,8 +62,8 @@ any phase fails (nothing is caught).  Phases:
    ridge and online-ridge pipelines reproduce its ``EVENT`` and ``ONLINE``
    fingerprints and the rest of the leg (elastic net, lasso, the MLP,
    hysteresis, latency 3 with cost attribution, limit orders, a 5-point
-   sweep) its pinned ``INTRADAY`` outputs; (b) a week of minute bars
-   for 500 names (up to 975k rows): the pipeline's stages in f64 on the card
+   sweep) its pinned ``INTRADAY`` outputs; (b) three days of minute bars
+   for 500 names (up to 585k rows): the pipeline's stages in f64 on the card
    equal the same calls on the CPU, f32 decisions differ from f64 only
    near the threshold, the accounting identities hold, every latency path
    repeats bit for bit, each stage is timed and one f32 pipeline traced;
@@ -88,7 +88,8 @@ any phase fails (nothing is caught).  Phases:
    ``multihost_launches`` phase 19 (b)'s (the two processes' north-star
    legs, summed), ``rehearse_launches`` phase 20 (a)'s (the healed
    warm-up process's entries), ``ledger_launches`` phase 21 (a)'s (its
-   two service runs)
+   two service runs), ``bench_launches`` phase 22 (a)'s (the measuring
+   child's)
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -313,6 +314,27 @@ any phase fails (nothing is caught).  Phases:
    (g) ``ledger roadmap --write`` splices a file carrying the port's
    markers and refuses a copy of ROADMAP.md (exit 1), leaving it byte for
    byte unchanged; the kernels line gains ``ledger_launches``;
+22. bench and the capture tier (run after phase 21; no profiler trace;
+   its wall is held within ``BENCH_PHASE_BUDGET_S`` = 150 s): (a)
+   ``python -m csmom_tpu_torch.cli bench --device cuda`` in a process of
+   its own at the full workload (``CSMOM_ROUND=r22``,
+   ``CSMOM_BENCH_BUDGET=600``, its records in a temporary directory):
+   exit 0, one headline line of at most 1600 characters passing
+   ``validate_headline_text``, ``GPU_BENCH_FULL_r22.json`` and its
+   ``GPU_TELEMETRY_r22.json`` sidecar valid, platform ``gpu`` and
+   nvidia-smi's device name, ``golden_ok``, a measured float for the
+   headline and every leg of ``BENCH_MEASURED`` (the plain, matmul,
+   kernel (K2) and bf16 grids, the two full-size legs, the sharded leg on
+   8 logical shards of ``cuda:0``), ``grid_hbm_fraction`` at most 1.05, a
+   histrank comparison, the warm-up child not needed (phase 2 built the
+   libraries) or run without errors, and K2 launched by the measuring
+   child at least the kernel leg's 6 calls (its record's
+   ``kernel_launches``: the process's own counts from 0); (b) ``ledger
+   show`` over (a)'s directory: ``grid16_rank_s`` rows on platform
+   ``gpu``, no problem; (c) ``rehearse --device cuda`` over the ``mini``
+   and ``shell`` tiers and ``expire-deadline-mid-row`` (7 of 7 green;
+   ``kill-child-mid-compile`` runs on the CPU in tier-1); the kernels
+   line gains ``bench_launches`` (the measuring child's counts);
 then the phase walls, the card's name line and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -490,7 +512,7 @@ def check_research(got: dict) -> None:
 CSV_GOLDEN = {"shape": (8, 23), "n_valid_spreads": 15, "mean_spread": 0.007170869622,
               "ann_sharpe": 0.207281538823, "nw_t": 0.249081731114}
 # the JAX package's ingest workload (BENCH_FULL_r05.json, pack_ingest_note)
-CSV_AT_SCALE = (512, 3780)
+CSV_AT_SCALE = (256, 3780)
 
 
 def write_csv_cache(daily, volume, out_dir: str) -> list:
@@ -1051,12 +1073,12 @@ INTRADAY = {
 INTRADAY_RTOL = 1e-9
 # phase 9(b): a week of minute bars for an S&P-500-sized universe (the
 # universe's width kept, the month's 21 days cut to 5)
-INTRADAY_SCALE = (500, 5)
+INTRADAY_SCALE = (500, 3)
 # phase 9(d): the CLI cache, 20 tickers of daily bars and 7 days of minutes
 CLI_CACHE = (20, 1260, 7)
 # phase 9(c): the f32 online-ridge walk is timed on this many of the
 # cache's ~2,700 rows (all of them before the smoke's depth was cut)
-F32_WALK_ROWS = 900
+F32_WALK_ROWS = 450
 
 
 def golden_minute_frame():
@@ -4729,7 +4751,7 @@ def lint_multihost_phase(smi, pm, mm, ref8) -> dict:
 # (python -m csmom_tpu_torch.cli rehearse), then its timeline
 REHEARSE_TIMEOUT_S = 600.0
 REHEARSE_BUDGET_S = 180.0     # the phase's wall, checked
-REHEARSE_FAST = 13            # the fast tier's scenarios
+REHEARSE_FAST = 16            # the fast tier's scenarios
 _ROW = re.compile(r"^\s+\[(PASS|FAIL)\] (\S+)\s+\(([\w-]+),\s+([\d.]+)s\)$")
 _HEAL_WALLS = re.compile(r"pass 1 \(fault-free\) ([\d.]+)s, pass 2 \(cache "
                          r"corrupted\) ([\d.]+)s")
@@ -5206,6 +5228,170 @@ def ledger_phase(smi) -> dict:
                              f"{LEDGER_BUDGET_S} s")
     return {"launches": launches, "walls": walls, "verdicts": verdicts,
             "bootstrap_ms": boot, "wall_s": walls["phase_s"]}
+
+
+# phase 22: bench and the capture tier on the card.  (a) one real run of
+# `bench --device cuda` at the full workload, its records in a temporary
+# directory; (b) the ledger over them; (c) the capture tier's scenarios
+BENCH_ROUND = "r22"
+BENCH_RUN_BUDGET_S = 600      # CSMOM_BENCH_BUDGET of (a)'s run: a cap
+BENCH_PHASE_BUDGET_S = 150.0  # the phase's wall, checked
+BENCH_HBM_FRACTION_MAX = 1.05
+HEADLINE_MAX = 1600
+# the legs (a) must measure, by their record keys (the pallas key times
+# the kernel impl, K2)
+BENCH_MEASURED = ("grid16_rank_s", "grid16_rank_matmul_s", "grid16_rank_pallas_s",
+                  "grid16_rank_matmul_bf16_s", "grid16_rank_full_s",
+                  "grid16_rank_matmul_full_s", "grid16_rank_full_sharded_s")
+BENCH_KERNEL_REPS = 6         # the kernel leg's calls: the first and 5 timed
+# (c): the mini and shell tiers and a bench child; the supervisor's
+# kill-child-mid-compile runs on the CPU in tier-1 (the phase's 150 s)
+CAPTURE_SCENARIOS = ("expire-deadline-between-rows", "hang-mid-row",
+                     "stdout-interleave", "clock-skew", "sigkill-mid-row",
+                     "land-short-write", "expire-deadline-mid-row")
+
+
+def bench_phase(smi) -> dict:
+    """Phase 22: (a) ``python -m csmom_tpu_torch.cli bench --device cuda``
+    in a process of its own at the full workload (``CSMOM_ROUND=r22``,
+    ``CSMOM_BENCH_BUDGET=600``, its records in a temporary directory):
+    exit 0, one headline line of at most 1600 characters passing
+    ``validate_headline_text``, ``GPU_BENCH_FULL_r22.json`` and its
+    telemetry sidecar valid, platform ``gpu`` and nvidia-smi's device
+    name, ``golden_ok``, every leg of ``BENCH_MEASURED`` a measured float,
+    ``grid_hbm_fraction`` at most 1.05, the histrank comparison measured,
+    the warm-up child not needed (the libraries are built) or run without
+    error, K2 launched by the child at least the kernel leg's calls; (b)
+    ``ledger show`` over (a)'s directory: ``grid16_rank_s`` rows on
+    platform ``gpu``, no problem; (c) ``rehearse --device cuda`` over
+    ``CAPTURE_SCENARIOS``, all green.  Returns the
+    child's launches, the record's legs and the walls."""
+    import contextlib
+    import io
+
+    from csmom_tpu_torch.chaos import invariants as inv
+    from csmom_tpu_torch.cli.main import main as cli
+    from csmom_tpu_torch.obs import ledger as ld
+
+    t_phase = time.perf_counter()
+    walls = {}
+    name = smi.split(",")[0].strip()
+    with tempfile.TemporaryDirectory(prefix="csmom_bench_") as tmp:
+        # -- (a) one real run ------------------------------------------------
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "csmom_tpu_torch.cli", "bench", "--device", "cuda"],
+            cwd=tmp, capture_output=True, text=True, timeout=BENCH_RUN_BUDGET_S + 120,
+            env=clean_env(CSMOM_BENCH_FULL_DIR=tmp, CSMOM_ROUND=BENCH_ROUND,
+                          CSMOM_BENCH_BUDGET=str(BENCH_RUN_BUDGET_S)))
+        walls["bench_s"] = round(time.perf_counter() - t0, 2)
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"bench (a): exit {p.returncode}, {len(lines)} JSON "
+                                 f"lines\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        head = json.loads(lines[0])
+        bad = inv.validate_headline_text(p.stdout)
+        if bad or len(lines[0]) > HEADLINE_MAX:
+            raise AssertionError(f"bench (a): headline {len(lines[0])} chars, {bad}")
+        full_name = f"GPU_BENCH_FULL_{BENCH_ROUND}.json"
+        side_name = f"GPU_TELEMETRY_{BENCH_ROUND}.json"
+        records = {}
+        for fname in (full_name, side_name):
+            path = os.path.join(tmp, fname)
+            if not os.path.isfile(path):
+                raise AssertionError(f"bench (a): {fname} did not land; "
+                                     f"{sorted(os.listdir(tmp))}")
+            with open(path) as f:
+                records[fname] = json.load(f)
+            bad = inv.validate(records[fname])
+            if bad:
+                raise AssertionError(f"bench (a): {fname}: {bad}")
+        full = records[full_name]
+        ex = full["extra"]
+        legs = {k: ex.get(k) for k in BENCH_MEASURED}
+        unmeasured = {k: v for k, v in legs.items()
+                      if not isinstance(v, float) or v <= 0}
+        hbm = ex.get("grid_hbm_fraction")
+        launches = ex.get("kernel_launches") or {}
+        if (head["extra"].get("full_record") != full_name
+                or ex.get("platform") != "gpu" or ex.get("device_kind") != name
+                or head["extra"].get("device_kind") != name
+                or ex.get("golden_ok") is not True
+                or not isinstance(full.get("value"), float) or full["value"] <= 0
+                or head["value"] != full["value"] or unmeasured
+                or not isinstance(hbm, float) or hbm > BENCH_HBM_FRACTION_MAX
+                or ex.get("telemetry_sidecar") != side_name
+                or launches.get("cohort_partial_sums", 0) < BENCH_KERNEL_REPS):
+            raise AssertionError(
+                f"bench (a): value {full.get('value')}, platform {ex.get('platform')}, "
+                f"device {ex.get('device_kind')!r} (nvidia-smi {name!r}), golden "
+                f"{ex.get('golden_ok')} ({ex.get('golden_trades')} trades), unmeasured "
+                f"{unmeasured}, hbm fraction {hbm}, launches {launches}, sidecar "
+                f"{ex.get('telemetry_sidecar')}, errors {ex.get('attempt_errors')}")
+        log("bench", f"(a) bench --device cuda: exit 0 in {walls['bench_s']} s; "
+                     f"headline {len(lines[0])} chars: {full['value']} {full['unit']} "
+                     f"(x{full['vs_baseline']}), {ex['workload']}, golden_ok "
+                     f"({ex['golden_trades']} trades); legs s {json.dumps(legs)}; "
+                     f"grid_hbm_fraction {hbm}, {ex['grid_achieved_gbps']} GB/s; "
+                     f"event {ex['event_backtest_wall_s']} s, batched "
+                     f"{ex['event_batched_per_run_s']} s a run; pack ingest "
+                     f"{ex['pack_ingest_s']} s; sharded "
+                     f"{ex['grid_full_sharded_workload']}, efficiency "
+                     f"{ex['mesh_scaling_efficiency']}; compile totals "
+                     f"{json.dumps({k: v for k, v in ex['compile_totals'].items() if k != 'note'})}; "
+                     f"child launches {launches} | {smi}")
+        hr = ex.get("histrank_vs_allgather")
+        warm = ex.get("warmup_child")
+        log("bench", f"(a) histrank {json.dumps({k: hr[k] for k in ('allgather_wall_s', 'rank_hist_wall_s', 'workload')} if isinstance(hr, dict) else hr)}; "
+                     f"warm-up child {json.dumps({k: warm[k] for k in ('value', 'n_cache_hits', 'n_errors', 'wall_s')} if isinstance(warm, dict) else warm)}; "
+                     f"probes {json.dumps(ex['probes'])}; compile legs "
+                     f"{json.dumps(ex['compile_legs'])}")
+        # the libraries are built in phase 2, so the warm-up child has
+        # nothing to build; had it run, it must have warmed without error
+        if not isinstance(hr, dict) or (warm["n_errors"] if isinstance(warm, dict)
+                                        else not warm.startswith("not needed:")):
+            raise AssertionError(f"bench (a): histrank {hr}, warm-up {warm}")
+
+        # -- (b) the ledger over (a)'s records ---------------------------------
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(["ledger", "show", "--root", tmp])
+        walls["show_s"] = round(time.perf_counter() - t0, 3)
+        L = ld.load(tmp)
+        rank_rows = [r for r in L.rows if r.metric == "grid16_rank_s"]
+        if (rc != 0 or L.problems or not rank_rows
+                or not all(r.platform == "gpu" for r in rank_rows)
+                or "grid16_rank_s" not in out.getvalue()):
+            raise AssertionError(f"bench (b): show exit {rc}, problems {L.problems}, "
+                                 f"rows {rank_rows}\n{out.getvalue()}{err.getvalue()}")
+        log("bench", f"(b) ledger show: {len(L.rows)} rows, grid16_rank_s "
+                     f"{[(r.run, r.platform, r.value, len(r.samples)) for r in rank_rows]}, "
+                     f"no problem, {walls['show_s']} s")
+
+        # -- (c) the capture tier on the card ------------------------------------
+        args = ["--device", "cuda", "--sandbox", os.path.join(tmp, "rh")]
+        for scen in CAPTURE_SCENARIOS:
+            args += ["--only", scen]
+        t0 = time.perf_counter()
+        p, rows = run_rehearse(args, os.path.join(tmp, "tel"), tmp)
+        walls["capture_s"] = round(time.perf_counter() - t0, 2)
+        want = f"{len(CAPTURE_SCENARIOS)}/{len(CAPTURE_SCENARIOS)} scenarios green"
+        if p.returncode != 0 or want not in p.stdout or set(rows) != set(CAPTURE_SCENARIOS):
+            raise AssertionError(f"bench (c): exit {p.returncode}\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        walls["scenarios_s"] = {n: w for n, (_, _, w) in rows.items()}
+        log("bench", f"(c) rehearse --device cuda over the capture tier: {want}; "
+                     f"the command {walls['capture_s']} s; scenario walls s "
+                     f"{json.dumps(walls['scenarios_s'])} | {smi}")
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    log("bench", f"phase walls s {json.dumps({k: v for k, v in walls.items() if k != 'scenarios_s'})} | {smi}")
+    if walls["phase_s"] > BENCH_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 22 took {walls['phase_s']} s, over its "
+                             f"{BENCH_PHASE_BUDGET_S} s")
+    return {"launches": {"decile_partial_sums": launches.get("decile_partial_sums", 0),
+                         "cohort_partial_sums": launches["cohort_partial_sums"]},
+            "legs": legs, "walls": walls, "wall_s": walls["phase_s"]}
 
 
 # phase 18: the mesh serving engine on the card, every mesh logical shards
@@ -6351,6 +6537,14 @@ def main(argv=None) -> int:
     t_p = phase_done(21, "ledger", t_p)
     for row in rows:
         row["ledger_launches"] = lg["launches"][row["name"]]
+
+    # -- 22. bench and the capture tier on the card -----------------------------
+    bn = bench_phase(smi)
+    log("bench", f"phase wall {bn['wall_s']:.1f} s; the bench child's launches "
+                 f"{bn['launches']} | {smi}")
+    t_p = phase_done(22, "bench and capture tier", t_p)
+    for row in rows:
+        row["bench_launches"] = bn["launches"][row["name"]]
     log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
                  f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -445,17 +445,9 @@ _BANNED_ENUMS = ("ENDPOINTS", "ENTRIES", "WORKLOADS", "STRATEGIES")
 
 # vocabulary points whose only call sites are in modules not ported yet,
 # by the ROADMAP.md Queue 1 item that owns them: the round trip skips
-# them until that item lands (and then flags the entry here)
-UNPORTED_POINT_OWNERS = {
-    "bench.probe": "8b",
-    "bench.compile": "8b",
-    "bench.row": "8b",
-    "bench.finish": "8b",
-    "bench.land": "8b",
-    "mini.start": "8c",
-    "mini.row": "8c",
-    "mini.finish": "8c",
-}
+# them until that item lands (and then flags the entry here).  Empty
+# since the bench and capture tier came: every point has a call site
+UNPORTED_POINT_OWNERS: dict = {}
 
 
 def banned_enumeration_name(name: str) -> bool:

@@ -63,10 +63,15 @@ per-class error-budget burn and the latency samples.  The endpoint names
 are checked against the port's registry.
 
 ``lint`` (``lint --format json``, schema v1-2) and ``record`` (a
-metric/value headline), with the reference's rules copied.  The ledger
-(:mod:`csmom_tpu_torch.obs.ledger`) also detects the capture tooling's
-kinds, ``driver_capture``, ``multichip``, ``phases`` and ``tpu_cache``,
-whose validators are not ported yet; it reads records with
+metric/value headline), with the reference's rules copied, and the
+capture tooling's kinds (:mod:`csmom_tpu_torch.bench`,
+``chaos/capture_lib.sh``): ``driver_capture`` (a capture's exit code,
+its stdout tail and the record parsed from it), ``multichip``,
+``phases`` and ``tpu_cache`` (a session capture: a stamp, a provenance
+and the record).  :func:`validate_headline_text` holds a capture
+process's stdout to the headline contract: a trailing JSON record that
+fits a capture's ``DRIVER_TAIL_CHARS``-char tail.  The ledger
+(:mod:`csmom_tpu_torch.obs.ledger`) reads records with
 :func:`is_partial`, and :func:`measured_rows` and :func:`upgrade_ok` are
 the rule for landing a capture over one of the same name.
 
@@ -79,14 +84,18 @@ from __future__ import annotations
 import json
 import re
 
-__all__ = ["KNOWN_FLEET_SCHEMA_VERSIONS", "KNOWN_LINT_SCHEMA_VERSIONS",
-           "KNOWN_REPLAY_SCHEMA_VERSIONS",
+__all__ = ["DRIVER_TAIL_CHARS", "KNOWN_FLEET_SCHEMA_VERSIONS",
+           "KNOWN_LINT_SCHEMA_VERSIONS", "KNOWN_REPLAY_SCHEMA_VERSIONS",
            "KNOWN_SERVE_FABRIC_SCHEMA_VERSIONS",
            "KNOWN_SERVE_POOL_SCHEMA_VERSIONS", "KNOWN_SERVE_SCHEMA_VERSIONS",
            "KNOWN_TELEMETRY_SCHEMA_VERSIONS", "KNOWN_TRACE_SCHEMA_VERSIONS",
            "committable_sidecar", "detect_kind", "is_partial",
            "measured_rows", "trailing_json", "upgrade_ok", "validate",
-           "validate_file", "validate_tree"]
+           "validate_file", "validate_headline_text", "validate_tree"]
+
+# the stdout tail a capture keeps of a process; a headline longer than
+# this is cut and its JSON lost
+DRIVER_TAIL_CHARS = 2000
 
 KNOWN_TELEMETRY_SCHEMA_VERSIONS = (1,)
 KNOWN_SERVE_SCHEMA_VERSIONS = (1, 2, 3, 4)
@@ -1711,16 +1720,85 @@ def _validate_lint(obj: dict) -> list:
     return out
 
 
-# kinds the ledger detects whose validators belong to the capture tooling
-# (bench.py and capture_lib.sh, ROADMAP.md Queue 1 item 8b)
-_CAPTURE_KINDS = ("driver_capture", "multichip", "phases", "tpu_cache")
+def _validate_driver_capture(obj: dict) -> list:
+    out: list = []
+    rc = _require(obj, "rc", int, "driver_capture", out)
+    _require(obj, "tail", str, "driver_capture", out)
+    parsed = obj.get("parsed")
+    if parsed is None:
+        if rc == 0:
+            out.append(
+                "driver_capture: rc == 0 but parsed is null — the tail's "
+                "trailing JSON was lost (a headline longer than the tail)"
+            )
+    elif not isinstance(parsed, dict):
+        out.append("driver_capture: parsed must be an object or null")
+    else:
+        out += [f"parsed.{v}" for v in _validate_record(parsed)]
+        tail_obj = trailing_json(obj.get("tail", ""))
+        if tail_obj is not None and tail_obj.get("value") != parsed.get("value"):
+            out.append(
+                "driver_capture: parsed.value disagrees with the tail's "
+                "trailing JSON line"
+            )
+    return out
+
+
+def _validate_multichip(obj: dict) -> list:
+    out: list = []
+    _require(obj, "n_devices", int, "multichip", out)
+    _require(obj, "rc", int, "multichip", out)
+    _require(obj, "tail", str, "multichip", out)
+    for k in ("ok", "skipped"):
+        if k in obj and not isinstance(obj[k], bool):
+            out.append(f"multichip: {k!r} must be a bool")
+        elif k not in obj:
+            out.append(f"multichip: missing required key {k!r}")
+    if obj.get("ok") and obj.get("rc") != 0:
+        out.append("multichip: ok is true but rc != 0")
+    return out
+
+
+def _validate_phases(obj: dict) -> list:
+    out: list = []
+    _require(obj, "metric", str, "phases", out)
+    phases = _require(obj, "phases", list, "phases", out)
+    if phases is not None:
+        for i, ph in enumerate(phases):
+            if not isinstance(ph, dict):
+                out.append(f"phases: phases[{i}] must be an object")
+    return out
+
+
+def _validate_tpu_cache(obj: dict) -> list:
+    out: list = []
+    _require(obj, "captured_utc", str, "tpu_cache", out)
+    _require(obj, "provenance", str, "tpu_cache", out)
+    rec = _require(obj, "record", dict, "tpu_cache", out)
+    if rec is not None:
+        out += [f"record.{v}" for v in _validate_record(rec)]
+    return out
+
+
+_VALIDATORS = {
+    "record": _validate_record,
+    "lint": _validate_lint,
+    "telemetry": _validate_telemetry,
+    "fleet": _validate_fleet,
+    "trace": _validate_trace,
+    "replay": _validate_replay,
+    "serve_fabric": _validate_serve_fabric,
+    "serve_pool": _validate_serve_pool,
+    "serve": _validate_serve,
+    "driver_capture": _validate_driver_capture,
+    "multichip": _validate_multichip,
+    "phases": _validate_phases,
+    "tpu_cache": _validate_tpu_cache,
+}
 
 
 def validate(obj, kind: str | None = None) -> list:
-    """All contract violations of one serve, serve_pool, serve_fabric,
-    fleet, trace, replay, telemetry, lint or record artifact (empty =
-    valid).  A driver capture, multichip check, phases profile or session
-    cache is detected but not validated: one violation says so."""
+    """All contract violations of one artifact object (empty = valid)."""
     if not isinstance(obj, dict):
         return [f"artifact must be a JSON object, got {type(obj).__name__}"]
     kind = kind or detect_kind(obj)
@@ -1729,30 +1807,39 @@ def validate(obj, kind: str | None = None) -> list:
                 "signatures (record / driver_capture / multichip / phases "
                 "/ tpu_cache / telemetry / serve / serve_pool / "
                 "serve_fabric / fleet / replay / trace / lint) match"]
-    if kind in _CAPTURE_KINDS:
-        return [f"{kind}: no validator in the port yet — the capture "
-                "tooling's validators (driver capture, multichip, phases, "
-                "session cache) come with bench.py and capture_lib.sh "
-                "(ROADMAP.md, Queue 1 item 8b)"]
-    if kind == "record":
-        return _validate_record(obj)
-    if kind == "lint":
-        return _validate_lint(obj)
-    if kind == "telemetry":
-        return _validate_telemetry(obj)
-    if kind == "fleet":
-        return _validate_fleet(obj)
-    if kind == "trace":
-        return _validate_trace(obj)
-    if kind == "replay":
-        return _validate_replay(obj)
-    if kind == "serve_fabric":
-        return _validate_serve_fabric(obj)
-    if kind == "serve_pool":
-        return _validate_serve_pool(obj)
-    if kind != "serve":
+    if kind not in _VALIDATORS:
         return [f"unknown artifact kind {kind!r}"]
-    return _validate_serve(obj)
+    return _VALIDATORS[kind](obj)
+
+
+def validate_headline_text(stdout_text: str) -> list:
+    """The stdout contract of a capture process: a trailing JSON line that
+    parses, validates as a record, and fits a capture's tail."""
+    out: list = []
+    obj = trailing_json(stdout_text)
+    if obj is None:
+        return ["no parseable trailing JSON line on stdout (measurements "
+                "may have existed, but no line landed)"]
+    line = next(
+        ln for ln in reversed(stdout_text.strip().splitlines())
+        if ln.strip().startswith("{")
+        and _parses(ln.strip())
+    )
+    if len(line.strip()) > DRIVER_TAIL_CHARS:
+        out.append(
+            f"headline line is {len(line.strip())} chars — longer than a "
+            f"capture's {DRIVER_TAIL_CHARS}-char tail (its JSON would be "
+            "cut)"
+        )
+    out += validate(obj, "record")
+    return out
+
+
+def _parses(line: str) -> bool:
+    try:
+        return isinstance(json.loads(line), dict)
+    except json.JSONDecodeError:
+        return False
 
 
 def validate_file(path: str) -> list:
@@ -1767,11 +1854,16 @@ def validate_file(path: str) -> list:
     return validate(obj)
 
 
-def validate_tree(root: str, patterns=("GPU_SERVE_*.json",
-                                       "GPU_FLEET_*.json",
-                                       "GPU_TRACE_*.json",
+def validate_tree(root: str, patterns=("GPU_BENCH_*.json",
+                                       "GPU_MULTICHIP_*.json",
+                                       "GPU_MULTIHOST_*.json",
+                                       "GPU_HISTRANK_*.json",
+                                       "GPU_PHASES_*.json",
+                                       "GPU_TELEMETRY_*.json",
+                                       "GPU_SERVE_*.json",
                                        "GPU_REPLAY_*.json",
-                                       "GPU_TELEMETRY_*.json")) -> dict:
+                                       "GPU_TRACE_*.json",
+                                       "GPU_FLEET_*.json")) -> dict:
     """``{file name: violations}`` for every port artifact directly under
     ``root`` matching ``patterns`` (an empty list = valid, so a caller
     reports coverage, not just failures)."""

@@ -1359,6 +1359,31 @@ def cmd_warmup(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Run the headline benchmark (same as ``python -m csmom_tpu_torch.bench``)."""
+    import subprocess
+
+    # the supervisor runs in a process of its own, with this package's
+    # checkout on the path wherever the CLI is started from; it probes
+    # the device itself (no card: the last-resort line and a non-zero exit)
+    repo = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env = {**os.environ,
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    return subprocess.call([sys.executable, "-m", "csmom_tpu_torch.bench",
+                            "--device", args.device], env=env)
+
+
+def _add_bench(sub) -> None:
+    sp = sub.add_parser("bench", help=cmd_bench.__doc__.splitlines()[0])
+    sp.set_defaults(fn=cmd_bench)
+    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="the device to measure on (default cuda; without a "
+                         "card the supervisor prints its last-resort line "
+                         "naming the failed probe and exits 1; nothing is "
+                         "measured on another device)")
+
+
 def _add_warmup(sub) -> None:
     sp = sub.add_parser("warmup", help=cmd_warmup.__doc__.splitlines()[0])
     sp.set_defaults(fn=cmd_warmup)
@@ -1645,6 +1670,7 @@ def build_parser() -> argparse.ArgumentParser:
     from csmom_tpu_torch.cli.timeline import register as register_timeline
     from csmom_tpu_torch.cli.trace import register as register_trace
 
+    _add_bench(sub)
     _add_warmup(sub)
     register_fleet(sub)
     register_ledger(sub)
@@ -1674,10 +1700,11 @@ def _subcommand_epilog(sub) -> str:
 
 
 # commands that compute nothing on a device (rehearse decides for
-# itself: only its warm-up scenario touches one).  A command whose
-# parser has no --device (``ledger show`` and ``ledger roadmap``) is
+# itself: only its warm-up and bench scenarios touch one; bench's
+# supervisor probes the device in a subprocess of its own).  A command
+# whose parser has no --device (``ledger show`` and ``ledger roadmap``) is
 # never probed either
-_DEVICE_FREE_COMMANDS = {"fetch", "strategies", "pack-info", "fleet",
+_DEVICE_FREE_COMMANDS = {"fetch", "strategies", "bench", "pack-info", "fleet",
                          "trace", "registry", "lint", "timeline", "rehearse"}
 
 

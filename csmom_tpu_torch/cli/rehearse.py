@@ -1,4 +1,4 @@
-"""``rehearse``: prove the serving tiers, the replay and the warm-up
+"""``rehearse``: prove the capture pipeline and the serving tiers
 survive their fault matrix.
 
 Counterpart of ``csmom_tpu.cli.rehearse``; it prints what ``csmom
@@ -8,8 +8,12 @@ directory, and holds what lands to the pipeline's invariants
 (:mod:`csmom_tpu_torch.chaos.invariants`); the run prints a pass/fail
 table and exits 1 on any violation, 0 when every scenario is green.
 
-Five pipelines, 17 of the reference's 29 scenarios, in its order:
+Nine pipelines, the reference's 29 scenarios, in its order:
 
+- ``mini`` (5) and ``shell`` (1): :mod:`csmom_tpu_torch.chaos.minibench`
+  landed through the package's ``chaos/capture_lib.sh``, and that
+  library's short-write refusal: the capture plumbing in under a second
+  a fault, no torch;
 - ``serve`` (4): the signal service in this process on the stub engine;
 - ``serve-pool`` (7): stub-engine worker processes behind the real
   supervisor and router (worker kills, tracing, the fleet observatory,
@@ -18,6 +22,10 @@ Five pipelines, 17 of the reference's 29 scenarios, in its order:
   stub-engine pool, chaos armed in the router tier through
   ``PoolSupervisor.extra_env`` (a partition, stragglers, a double kill);
 - ``replay`` (2): the event-time replay on the stub engine;
+- ``bench-child`` (3) and ``bench`` (3): :mod:`csmom_tpu_torch.bench`'s
+  measuring child and its supervisor in smoke mode
+  (``CSMOM_BENCH_SMOKE=1``: the whole pipeline's shape, a reduced
+  workload) on ``--device``;
 - ``warmup`` (1, ``corrupt-aot-cache``): two warm-up processes of
   profile ``smoke`` and of the smoke grid's shape through K2 (the
   profile warms the grid on its plain path only), with
@@ -26,19 +34,16 @@ Five pipelines, 17 of the reference's 29 scenarios, in its order:
   its first entry and must heal (evict, rebuild, launch K1 and K2 from
   the rebuilt libraries).
 
-``--fast`` runs the 13 scenarios marked fast (serve, serve-pool and
-replay).  The reference's ``mini``, ``shell``, ``bench`` and
-``bench-child`` tiers drive ``chaos/minibench.py``, ``bench.py`` and
-``benchmarks/capture_lib.sh``, which are not ported: they are absent
-from the matrix, and ``--pipeline`` naming one exits 2 with the ROADMAP
-item that owns it.
+``--fast`` runs the 16 scenarios marked fast (mini, shell, serve,
+serve-pool and replay).  ``--only`` may be given more than once; a
+value that is a scenario's whole name selects that scenario alone.
 
-``--device {cuda,cpu}`` (default cuda) is the warm-up scenario's device,
-the only one that touches a device.  Without a card a matrix that holds
-it exits 2 before any scenario runs, naming ``--device cpu``; a matrix of
-stub scenarios needs no card.  With ``--device cpu`` the warm-up runs
-the plain versions and builds nothing, so no library is there to
-corrupt, and the row says so.
+``--device {cuda,cpu}`` (default cuda) is the device of the bench and
+warm-up scenarios, the only ones that touch a device.  Without a card a
+matrix that holds one exits 2 before any scenario runs, naming
+``--device cpu``; a matrix of stub and capture-plumbing scenarios needs
+no card.  With ``--device cpu`` the warm-up runs the plain versions and
+builds nothing, so no library is there to corrupt, and the row says so.
 
 The run is itself a telemetry run: each scenario is a ``rehearse.row``
 span, and the sidecar ``GPU_TELEMETRY_rehearse[_fast|_custom].json``
@@ -64,16 +69,12 @@ __all__ = ["Scenario", "builtin_matrix", "cmd_rehearse", "register",
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# the package's own copy of the landing rules (never the reference's)
+_CAPTURE_LIB = os.path.join(os.path.dirname(os.path.abspath(inv.__file__)),
+                            "capture_lib.sh")
 
-# the reference's pipelines this port has no runner for, and the ROADMAP.md
-# Queue 1 item that owns each (they drive chaos/minibench.py, bench.py and
-# benchmarks/capture_lib.sh)
-UNPORTED_PIPELINES = {
-    "mini": "8c (chaos/minibench.py, the capture tier)",
-    "shell": "8b (benchmarks/capture_lib.sh)",
-    "bench": "8b (bench.py)",
-    "bench-child": "8b (bench.py)",
-}
+# the pipelines whose scenarios run on --device
+_DEVICE_PIPELINES = ("bench-child", "bench", "warmup")
 
 
 # ------------------------------------------------------------ scenarios ----
@@ -83,14 +84,20 @@ class Scenario:
     the landed evidence must pass."""
 
     def __init__(self, name, pipeline, plan, check, fast=False, notes="",
-                 env=None):
+                 env=None, rows=6, budget_s=None):
         self.name = name
-        self.pipeline = pipeline  # serve | serve-pool | serve-fabric | ...
+        self.pipeline = pipeline  # mini | shell | serve | ... | bench
         self.plan = plan
         self.check = check        # fn(result dict) -> list of violations
         self.fast = fast
         self.notes = notes
         self.env = env or {}
+        self.rows = rows
+        self.budget_s = budget_s
+
+
+def _rows_of(obj) -> int:
+    return inv.measured_rows(obj or {})
 
 
 def _plan_summary(plan) -> str:
@@ -110,6 +117,146 @@ def _plan_summary(plan) -> str:
             p += "!"
         parts.append(p)
     return f"seed {plan.seed}: " + ", ".join(parts)
+
+
+def _check_partial_no_lost_rows(r):
+    """A deadline-hit run must land a partial carrying every measured row."""
+    out = list(r["headline_violations"])
+    obj = r["trailing"]
+    if obj is None:
+        return out + ["no trailing JSON line — measurements lost"]
+    if not inv.is_partial(obj):
+        out.append("expected an explicitly-partial record")
+    if r["sidecar_rows"] and _rows_of(obj) != r["sidecar_rows"]:
+        out.append(
+            f"lost measured rows: sidecar has {r['sidecar_rows']}, landed "
+            f"artifact has {_rows_of(obj)}"
+        )
+    if r.get("artifact") is not None:
+        out += [f"artifact: {v}" for v in inv.validate(r["artifact"])]
+        if _rows_of(r["artifact"]) != r["sidecar_rows"]:
+            out.append("landed artifact dropped measured rows")
+    elif r["sidecar_rows"]:
+        out.append("partial line printed but no artifact landed")
+    if r["rc"] != 0:
+        out.append(f"deadline dump must exit 0, got rc={r['rc']}")
+    return out
+
+
+def _check_full_all_rows(r):
+    """An unfaulted-outcome run: full record, all rows, schema-valid."""
+    out = list(r["headline_violations"])
+    obj = r["trailing"]
+    if obj is None:
+        return out + ["no trailing JSON line"]
+    if inv.is_partial(obj):
+        out.append("expected a FULL record, got a partial")
+    if r["sidecar_rows"] and _rows_of(obj) != r["sidecar_rows"]:
+        out.append(
+            f"row count mismatch: sidecar {r['sidecar_rows']} vs landed "
+            f"{_rows_of(obj)}"
+        )
+    if r.get("artifact") is not None:
+        out += [f"artifact: {v}" for v in inv.validate(r["artifact"])]
+    if r["rc"] != 0:
+        out.append(f"rc={r['rc']}")
+    return out
+
+
+def _check_killed_nothing_fabricated(r):
+    """A SIGKILLed process prints nothing; the landing layer must not
+    fabricate an artifact from the corpse (and must keep any prior one)."""
+    out = []
+    if r["rc"] >= 0:
+        out.append(f"expected SIGKILL (negative rc), got rc={r['rc']}")
+    if r["trailing"] is not None:
+        out.append("a SIGKILLed process somehow printed a summary line")
+    if r.get("artifact") is not None:
+        out.append("landing fabricated an artifact from a dead process")
+    return out
+
+
+def _mini_scenarios():
+    sleep_long = 600.0
+    return [
+        Scenario(
+            "expire-deadline-between-rows", "mini",
+            FaultPlan("expire-deadline-between-rows", seed=1, faults=(
+                Fault(point="mini.row", action="trip_deadline", after=3),
+            )),
+            _check_partial_no_lost_rows, fast=True,
+            notes="deadline expires between measured rows -> partial dump "
+                  "carries every measured row (fast form)",
+        ),
+        Scenario(
+            "hang-mid-row", "mini",
+            FaultPlan("hang-mid-row", seed=2, faults=(
+                Fault(point="mini.row", action="sleep", after=2,
+                      seconds=sleep_long),
+            )),
+            _check_partial_no_lost_rows,
+            notes="a hang mid-row -> the watchdog beats the stall and "
+                  "dumps the measured rows",
+            env={"CSMOM_MINIBENCH_BUDGET": "2",
+                 "CSMOM_MINIBENCH_MIN_DELAY": "1"},
+            budget_s=None,
+        ),
+        Scenario(
+            "stdout-interleave", "mini",
+            FaultPlan("stdout-interleave", seed=3, faults=(
+                Fault(point="mini.finish", action="stdout_noise",
+                      seconds=1.0),
+            )),
+            _check_full_all_rows, fast=True,
+            notes="concurrent stdout writer racing the trailing JSON -> "
+                  "the quarantined single-write emit keeps it parseable",
+        ),
+        Scenario(
+            "clock-skew", "mini",
+            FaultPlan("clock-skew", seed=4, faults=(
+                Fault(point="mini.start", action="clock_skew",
+                      seconds=3600.0),
+            )),
+            _check_full_all_rows,
+            notes="wall clock jumps +1h mid-capture -> monotonic-anchored "
+                  "deadline keeps its true fuse, run completes in full",
+            env={"CSMOM_MINIBENCH_BUDGET": "30"},
+        ),
+        Scenario(
+            "sigkill-mid-row", "mini",
+            FaultPlan("sigkill-mid-row", seed=5, faults=(
+                Fault(point="mini.row", action="kill", after=2),
+            )),
+            _check_killed_nothing_fabricated,
+            notes="SIGKILL between rows: unpreventable loss, but the "
+                  "landing layer must not fabricate or clobber artifacts",
+        ),
+    ]
+
+
+def _check_short_write(r):
+    out = []
+    if r.get("artifact") is not None:
+        out.append("a truncated (ENOSPC) write LANDED as the artifact")
+    if not r.get("prior_intact", True):
+        out.append("the faulted landing damaged the pre-existing artifact")
+    if r.get("retry_artifact") is None:
+        out.append("the fault-free retry failed to land the artifact")
+    else:
+        out += [f"retry artifact: {v}"
+                for v in inv.validate(r["retry_artifact"])]
+    return out
+
+
+def _shell_scenarios():
+    return [
+        Scenario(
+            "land-short-write", "shell", None, _check_short_write, fast=True,
+            notes="ENOSPC/short write between formatter and rename -> "
+                  "post-write JSON validation refuses to land garbage; "
+                  "the fault-free retry lands cleanly",
+        ),
+    ]
 
 
 def _check_serve_worker_crash(r):
@@ -950,8 +1097,162 @@ def _check_warmup_healed(r):
     return out
 
 
-def _warmup_scenarios():
+def _check_bench_partial(r):
+    """The child lost its device mid-run after the headline: the
+    already-measured headline lands in an explicitly-partial line."""
+    out = list(r["headline_violations"])
+    obj = r["trailing"]
+    if obj is None:
+        return out + ["no trailing JSON line — the empty-record failure"]
+    extra = obj.get("extra") or {}
+    if not str(extra.get("partial", "")).startswith("child deadline hit"):
+        out.append("expected the child deadline watchdog's partial marker")
+    if not isinstance(obj.get("value"), (int, float)) or obj["value"] <= 0:
+        out.append("the measured headline value was lost")
+    if extra.get("platform") != r.get("platform", "cpu"):
+        out.append("partial record lost its platform attribution")
+    if r["rc"] != 0:
+        out.append(f"watchdog dump must exit 0, got rc={r['rc']}")
+    return out
+
+
+def _check_bench_supervisor_landed(r):
+    """Supervisor-level faults: whatever broke, ONE schema-valid headline
+    lands on stdout and points at (or explains) the full record."""
+    out = list(r["headline_violations"])
+    obj = r["trailing"]
+    if obj is None:
+        return out + ["supervisor printed no parseable headline"]
+    extra = obj.get("extra") or {}
+    if "full_record" not in extra:
+        out.append("headline does not reference the full record")
+    full = r.get("full_record")
+    if full is not None:
+        out += [f"full record: {v}" for v in inv.validate(full)]
+    return out
+
+
+def _check_kill_retried(r):
+    """The first child is SIGKILLed mid-compile: the retry on the same
+    device secures a measured record, and the lost attempt is recorded."""
+    out = _check_bench_supervisor_landed(r)
+    obj = r["trailing"] or {}
+    if not isinstance(obj.get("value"), (int, float)) or obj.get("value", 0) <= 0:
+        out.append("no measured value — the retried child did not secure "
+                   "the record")
+    full = r.get("full_record") or {}
+    errs = (full.get("extra") or {}).get("attempt_errors") or []
+    if not any("child" in str(e) for e in errs):
+        out.append("the SIGKILLed first child left no trace in "
+                   "attempt_errors — a lost attempt must be recorded, "
+                   "not hidden")
+    if r["rc"] != 0:
+        out.append(f"a measured record must exit 0, got rc={r['rc']}")
+    return out
+
+
+def _check_probe_outage(r):
+    """Every probe fails: nothing is measured on another device.  The
+    headline is the last-resort line (value 0, an error), the process
+    exits 1, and the probes, the full record and the telemetry sidecar
+    all land."""
+    out = _check_bench_supervisor_landed(r)
+    obj = r["trailing"] or {}
+    if obj.get("value") != 0.0 or not (obj.get("extra") or {}).get("error"):
+        out.append("expected the last-resort record (value 0.0 with an "
+                   "error), not a measured one")
+    if r["rc"] != 1:
+        out.append(f"the last-resort record must exit 1, got rc={r['rc']}")
+    full = r.get("full_record")
+    if full is None:
+        out.append("the full record did not land")
+    else:
+        probes = (full.get("extra") or {}).get("probes") or []
+        if not probes or any(p.get("ok") for p in probes):
+            out.append(f"expected every probe recorded as failed, got "
+                       f"{probes}")
+    side = r.get("telemetry_sidecar")
+    if side is None:
+        out.append("the telemetry sidecar did not land")
+    else:
+        out += [f"telemetry sidecar: {v}" for v in inv.validate(side)]
+    return out
+
+
+def _check_bench_child_full(r):
+    out = list(r["headline_violations"])
+    obj = r["trailing"]
+    if obj is None:
+        return out + ["no trailing JSON line"]
+    if inv.is_partial(obj):
+        out.append("clock skew shortened the monotonic deadline — the "
+                   "run was cut into a partial")
+    if r["rc"] != 0:
+        out.append(f"rc={r['rc']}")
+    return out
+
+
+def _bench_scenarios():
     return [
+        Scenario(
+            "r5-hang-mid-compile-window", "bench-child",
+            FaultPlan("r5-hang", seed=10, faults=(
+                # the device stalls right after the headline, mid
+                # "compile the next leg"
+                Fault(point="bench.row", action="sleep", seconds=600.0,
+                      role="child"),
+            )),
+            _check_bench_partial,
+            notes="the child loses its device after the headline; the "
+                  "deadline guard lands a partial with the measured "
+                  "headline instead of an empty record",
+            env={"CSMOM_BENCH_CHILD_BUDGET": "150"},
+        ),
+        Scenario(
+            "expire-deadline-mid-row", "bench-child",
+            FaultPlan("expire-deadline-mid-row", seed=11, faults=(
+                Fault(point="bench.row", action="trip_deadline",
+                      role="child"),
+            )),
+            _check_bench_partial,
+            notes="deadline expiry between measured rows on the real "
+                  "child — the instant form of the hang",
+            env={"CSMOM_BENCH_CHILD_BUDGET": "600"},
+        ),
+        Scenario(
+            "kill-child-mid-compile", "bench",
+            FaultPlan("kill-child-mid-compile", seed=12, faults=(
+                Fault(point="bench.compile", action="kill", role="child",
+                      global_once=True),
+            )),
+            _check_kill_retried,
+            notes="the first child is SIGKILLed mid-compile; the retried "
+                  "child on the same device still secures a measured "
+                  "record, and attempt_errors names the lost one",
+        ),
+        Scenario(
+            "probe-outage", "bench",
+            FaultPlan("probe-outage", seed=13, faults=(
+                Fault(point="bench.probe", action="fail",
+                      role="supervisor", max_fires=0),
+            )),
+            _check_probe_outage,
+            notes="every device probe fails; nothing is measured on "
+                  "another device: the last-resort line, exit 1, the "
+                  "probes recorded and the full record and telemetry "
+                  "landed",
+            budget_s=480,
+        ),
+        Scenario(
+            "enospc-on-land", "bench",
+            FaultPlan("enospc-on-land", seed=14, faults=(
+                Fault(point="bench.land", action="raise_oserror",
+                      role="supervisor", errno_=28),
+            )),
+            _check_bench_supervisor_landed,
+            notes="full-record write hits ENOSPC; the headline still "
+                  "prints, carrying the write failure as a reason",
+        ),
         Scenario(
             "corrupt-aot-cache", "warmup",
             FaultPlan("corrupt-aot-cache", seed=15, faults=(
@@ -962,14 +1263,26 @@ def _warmup_scenarios():
             notes="serialized-executable cache corrupted on disk; warmup "
                   "evicts + recompiles (self-heal) instead of crashing",
         ),
+        Scenario(
+            "clock-skew-mid-child", "bench-child",
+            FaultPlan("clock-skew-mid-child", seed=16, faults=(
+                Fault(point="bench.compile", action="clock_skew",
+                      seconds=3600.0, role="child"),
+            )),
+            _check_bench_child_full,
+            notes="NTP-step wall-clock jump inside the child; the "
+                  "monotonic deadline holds and the full record lands",
+            env={"CSMOM_BENCH_CHILD_BUDGET": "600"},
+        ),
     ]
 
 
 def builtin_matrix(fast: bool = False):
-    mats = (_serve_scenarios() + _serve_pool_scenarios()
-            + _serve_fabric_scenarios() + _replay_scenarios())
+    mats = (_mini_scenarios() + _shell_scenarios() + _serve_scenarios()
+            + _serve_pool_scenarios() + _serve_fabric_scenarios()
+            + _replay_scenarios())
     if not fast:
-        mats += _warmup_scenarios()
+        mats += _bench_scenarios()
     else:
         mats = [s for s in mats if s.fast]
     return mats
@@ -995,6 +1308,163 @@ def _base_env(scenario, box: str) -> dict:
         env["CSMOM_FAULT_PLAN"] = plan_path
     env.update(scenario.env)
     return env
+
+
+def _land_with_capture_lib(raw_path: str, art_path: str, env=None) -> None:
+    script = (
+        "log() { echo \"[capture_lib] $*\" >&2; }; "
+        f"source '{_CAPTURE_LIB}'; "
+        f"land_artifact '{raw_path}' '{art_path}'"
+    )
+    subprocess.run(["bash", "-c", script], check=False,
+                   env={**os.environ, **(env or {})},
+                   capture_output=True, text=True)
+
+
+def _read_json(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def _run_mini(scenario, box: str) -> dict:
+    sidecar = os.path.join(box, "sidecar.jsonl")
+    env = _base_env(scenario, box)
+    env.setdefault("CSMOM_MINIBENCH_BUDGET", "60")
+    env.update({
+        "CSMOM_MINIBENCH_ROWS": str(scenario.rows),
+        "CSMOM_MINIBENCH_SIDECAR": sidecar,
+    })
+    p = subprocess.run(
+        [sys.executable, "-m", "csmom_tpu_torch.chaos.minibench"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=box,
+    )
+    raw = os.path.join(box, "raw.out")
+    with open(raw, "w") as f:
+        f.write(p.stdout)
+    art = os.path.join(box, "ARTIFACT.json")
+    _land_with_capture_lib(raw, art)
+    sidecar_rows = 0
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            sidecar_rows = sum(1 for ln in f if ln.strip())
+    trailing = inv.trailing_json(p.stdout)
+    return {
+        "rc": p.returncode,
+        "stdout": p.stdout,
+        "stderr": p.stderr,
+        "trailing": trailing,
+        "headline_violations": (
+            inv.validate_headline_text(p.stdout) if trailing else []
+        ),
+        "sidecar_rows": sidecar_rows,
+        "artifact": _read_json(art),
+    }
+
+
+def _run_shell(scenario, box: str) -> dict:
+    # a known-good raw capture, landed twice: once under the short-write
+    # fault (must refuse), once clean (must land)
+    full = {"metric": "m", "value": 3.0, "unit": "u", "vs_baseline": 1.0,
+            "extra": {"rows": [{"r": 0}, {"r": 1}]}}
+    prior = {"metric": "m", "value": 2.0, "unit": "u", "vs_baseline": 1.0,
+             "extra": {"partial": "one row measured", "rows": [{"r": 0}]}}
+    raw = os.path.join(box, "raw.out")
+    with open(raw, "w") as f:
+        f.write("progress line\n" + json.dumps(full) + "\n")
+    art = os.path.join(box, "ARTIFACT.json")
+    prior_path = os.path.join(box, "PRIOR.json")
+    with open(prior_path, "w") as f:
+        json.dump(prior, f)
+    # faulted landing over an empty slot must not land garbage
+    _land_with_capture_lib(raw, art,
+                           env={"CSMOM_FAULT_LAND_TRUNCATE_BYTES": "20"})
+    landed_faulted = _read_json(art)
+    # faulted landing over an existing partial must leave it intact
+    _land_with_capture_lib(raw, prior_path,
+                           env={"CSMOM_FAULT_LAND_TRUNCATE_BYTES": "20"})
+    prior_after = _read_json(prior_path)
+    # clean retry lands
+    _land_with_capture_lib(raw, art)
+    return {
+        "rc": 0,
+        "stdout": "",
+        "stderr": "",
+        "trailing": full,
+        "headline_violations": [],
+        "sidecar_rows": 0,
+        "artifact": landed_faulted,
+        "prior_intact": prior_after == prior,
+        "retry_artifact": _read_json(art),
+    }
+
+
+def _run_bench_child(scenario, box: str, device: str) -> dict:
+    """The bench's measuring child alone, in smoke mode, on ``device``."""
+    env = _base_env(scenario, box)
+    env.update({"CSMOM_BENCH_CHILD": "1", "CSMOM_BENCH_SMOKE": "1"})
+    if device == "cpu":
+        env["CSMOM_BENCH_FORCE_CPU"] = "1"
+    else:
+        env.pop("CSMOM_BENCH_FORCE_CPU", None)
+    env.setdefault("CSMOM_BENCH_CHILD_BUDGET", "300")
+    p = subprocess.run(
+        [sys.executable, "-m", "csmom_tpu_torch.bench"],
+        capture_output=True, text=True, env=env, cwd=box,
+        timeout=float(env["CSMOM_BENCH_CHILD_BUDGET"]) + 60,
+    )
+    trailing = inv.trailing_json(p.stdout)
+    return {
+        "rc": p.returncode,
+        "stdout": p.stdout,
+        "stderr": p.stderr,
+        "trailing": trailing,
+        # the supervisor parses a child's line and builds the bounded
+        # headline itself, so a direct child run validates the record
+        # schema only, not the 2,000-char cap
+        "headline_violations": (
+            inv.validate(trailing, "record") if trailing else []
+        ),
+        "sidecar_rows": 0,
+        "platform": "cpu" if device == "cpu" else "gpu",
+    }
+
+
+def _run_bench_supervisor(scenario, box: str, device: str) -> dict:
+    """The bench supervisor in smoke mode on ``device``, its full record
+    and telemetry sidecar landing in the sandbox."""
+    env = _base_env(scenario, box)
+    env.pop("CSMOM_BENCH_FORCE_CPU", None)
+    env.update({
+        "CSMOM_BENCH_SMOKE": "1",
+        "CSMOM_BENCH_FULL_DIR": box,
+        "CSMOM_ROUND": "rehearse",
+        "CSMOM_BENCH_BUDGET": str(scenario.budget_s or 600),
+    })
+    p = subprocess.run(
+        [sys.executable, "-m", "csmom_tpu_torch.bench", "--device", device],
+        capture_output=True, text=True, env=env, cwd=box,
+        timeout=(scenario.budget_s or 600) + 120,
+    )
+    trailing = inv.trailing_json(p.stdout)
+    return {
+        "rc": p.returncode,
+        "stdout": p.stdout,
+        "stderr": p.stderr,
+        "trailing": trailing,
+        "headline_violations": (
+            inv.validate_headline_text(p.stdout) if trailing else []
+        ),
+        "sidecar_rows": 0,
+        "full_record": _read_json(
+            os.path.join(box, "GPU_BENCH_FULL_rehearse.json")
+        ),
+        "telemetry_sidecar": _read_json(
+            os.path.join(box, "GPU_TELEMETRY_rehearse.json")
+        ),
+    }
 
 
 def warmup_pass(device: str) -> None:
@@ -1465,6 +1935,10 @@ def _run_replay(scenario, box: str) -> dict:
 
 
 _RUNNERS = {
+    "mini": _run_mini,
+    "shell": _run_shell,
+    "bench-child": _run_bench_child,
+    "bench": _run_bench_supervisor,
     "warmup": _run_warmup,
     "serve": _run_serve,
     "serve-pool": _run_serve_pool,
@@ -1481,8 +1955,9 @@ def _run_scenario(scenario, sandbox_root: str, device: str = "cuda") -> tuple:
     t0 = time.monotonic()
     try:
         run = _RUNNERS[scenario.pipeline]
-        # only the warm-up touches a device; the stub tiers touch none
-        result = (run(scenario, box, device) if scenario.pipeline == "warmup"
+        # only the bench and warm-up tiers touch a device
+        result = (run(scenario, box, device)
+                  if scenario.pipeline in _DEVICE_PIPELINES
                   else run(scenario, box))
         violations = scenario.check(result)
     except subprocess.TimeoutExpired as e:
@@ -1490,6 +1965,22 @@ def _run_scenario(scenario, sandbox_root: str, device: str = "cuda") -> tuple:
         result = {}
     wall = time.monotonic() - t0
     return result, violations, wall
+
+
+# the generic invariant of a custom plan on each pipeline: the outcome may
+# be full or partial, but a schema-valid line must land with zero lost rows
+def _check_custom_generic(r):
+    out = list(r["headline_violations"])
+    obj = r["trailing"]
+    if obj is None:
+        return out + ["no parseable trailing JSON line — the fault lost "
+                      "the measurements"]
+    if r["sidecar_rows"] and _rows_of(obj) != r["sidecar_rows"]:
+        out.append(
+            f"lost measured rows: sidecar has {r['sidecar_rows']}, landed "
+            f"line has {_rows_of(obj)}"
+        )
+    return out
 
 
 def _check_serve_generic(r):
@@ -1518,6 +2009,9 @@ def _check_replay_generic(r):
 
 
 _CUSTOM_CHECKS = {
+    "mini": _check_custom_generic,
+    "bench-child": _check_custom_generic,
+    "bench": _check_bench_supervisor_landed,
     "warmup": _check_warmup_healed,
     "serve": _check_serve_generic,
     "serve-pool": _check_serve_pool_generic,
@@ -1537,29 +2031,44 @@ def _lint_gate() -> list:
 def _card_missing(matrix, device: str) -> bool:
     """True when the matrix holds a scenario that runs on ``cuda`` and
     no card is there."""
-    if device != "cuda" or not any(s.pipeline == "warmup" for s in matrix):
+    if device != "cuda" or not any(s.pipeline in _DEVICE_PIPELINES
+                                   for s in matrix):
         return False
     import torch
 
     return not torch.cuda.is_available()
 
 
+def _select(matrix, only) -> list:
+    """The scenarios ``--only`` names: for each value, the scenario of
+    that whole name when there is one, else every scenario whose name
+    contains it."""
+    picked = set()
+    names = {s.name for s in matrix}
+    for sub in only:
+        picked |= ({sub} if sub in names
+                   else {s.name for s in matrix if sub in s.name})
+    return [s for s in matrix if s.name in picked]
+
+
 def cmd_rehearse(args) -> int:
-    """Rehearse the serving tiers, the replay and the warm-up under
+    """Rehearse the capture pipeline and the serving tiers under
     deterministic fault injection."""
-    if args.pipeline in UNPORTED_PIPELINES:
-        print(f"--pipeline {args.pipeline} is not ported: its tier waits "
-              f"with ROADMAP.md Queue 1 item "
-              f"{UNPORTED_PIPELINES[args.pipeline]}; choose one of "
-              f"{', '.join(sorted(_CUSTOM_CHECKS))}", file=sys.stderr)
-        return 2
     if getattr(args, "plan", None):
-        pipeline = args.pipeline or "serve"
+        if args.pipeline not in _CUSTOM_CHECKS:
+            print(
+                f"--pipeline {args.pipeline} does not take a custom plan "
+                "(its faults are CSMOM_FAULT_* env-var driven, not "
+                "checkpoint-based); use one of "
+                f"{', '.join(sorted(_CUSTOM_CHECKS))}",
+                file=sys.stderr,
+            )
+            return 2
         plan = FaultPlan.from_env_value(args.plan)
         custom_plan = True
         matrix = [Scenario(
-            plan.name or "custom-plan", pipeline, plan,
-            _CUSTOM_CHECKS[pipeline],
+            plan.name or "custom-plan", args.pipeline, plan,
+            _CUSTOM_CHECKS[args.pipeline],
             notes="custom plan (generic invariants: a schema-valid line "
                   "lands, full or explicitly partial, zero lost rows)",
         )]
@@ -1567,9 +2076,10 @@ def cmd_rehearse(args) -> int:
         custom_plan = False
         matrix = builtin_matrix(fast=args.fast)
     if getattr(args, "only", None):
-        matrix = [s for s in matrix if args.only in s.name]
+        matrix = _select(matrix, args.only)
         if not matrix:
-            print(f"no scenario matches --only {args.only!r}",
+            print(f"no scenario matches --only "
+                  f"{' '.join(repr(o) for o in args.only)}",
                   file=sys.stderr)
             return 2
     if getattr(args, "list", False):
@@ -1581,9 +2091,9 @@ def cmd_rehearse(args) -> int:
             print(f"{'':32s} {'':12s}        plan: {_plan_summary(s.plan)}")
         return 0
     if _card_missing(matrix, args.device):
-        print("error: no CUDA device is available for the warm-up scenario "
-              "(corrupt-aot-cache); pass --device cpu to warm the plain "
-              "PyTorch versions, or leave it out (--fast, --only)",
+        print("error: no CUDA device is available for the bench and "
+              "warm-up scenarios; pass --device cpu to run them on the "
+              "plain PyTorch versions, or leave them out (--fast, --only)",
               file=sys.stderr)
         return 2
     findings = _lint_gate()
@@ -1684,23 +2194,22 @@ def register(sub) -> None:
     """Attach the ``rehearse`` subparser (called from cli.main)."""
     sp = sub.add_parser(
         "rehearse",
-        help="rehearse the serving tiers, the replay and the warm-up under "
+        help="rehearse the capture pipeline and the serving tiers under "
              "deterministic fault injection",
     )
     sp.add_argument("--fast", action="store_true",
-                    help="the 13 fast scenarios (serve, serve-pool, "
-                         "replay): stub engines only, no card needed")
+                    help="the 16 fast scenarios (mini, shell, serve, "
+                         "serve-pool, replay): no card needed")
     sp.add_argument("--plan", metavar="TOML",
                     help="run a custom fault plan (path or inline TOML) "
                          "instead of the built-in matrix")
-    sp.add_argument("--pipeline",
-                    choices=sorted((*_RUNNERS, *UNPORTED_PIPELINES)),
-                    help="pipeline a custom --plan drives (default serve; "
-                         "the reference's mini, shell, bench and "
-                         "bench-child are not ported and exit 2)")
-    sp.add_argument("--only", metavar="SUBSTR",
+    sp.add_argument("--pipeline", default="mini",
+                    choices=sorted(_RUNNERS),
+                    help="pipeline a custom --plan drives (default mini)")
+    sp.add_argument("--only", metavar="SUBSTR", action="append",
                     help="run only matrix scenarios whose name contains "
-                         "SUBSTR")
+                         "SUBSTR (a whole scenario name selects that one "
+                         "alone); may be repeated")
     sp.add_argument("--list", action="store_true",
                     help="print the scenario matrix without running it")
     sp.add_argument("--sandbox", metavar="DIR",
@@ -1710,8 +2219,8 @@ def register(sub) -> None:
     sp.add_argument("--verbose", action="store_true",
                     help="print stderr tails of failing scenarios")
     sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="the warm-up scenario's device (default cuda; "
-                         "without a card a matrix holding it exits 2: pass "
-                         "--device cpu to warm the plain PyTorch versions); "
-                         "the stub scenarios touch no device")
+                    help="the bench and warm-up scenarios' device (default "
+                         "cuda; without a card a matrix holding one exits 2: "
+                         "pass --device cpu to run the plain PyTorch "
+                         "versions); the other scenarios touch no device")
     sp.set_defaults(fn=cmd_rehearse)

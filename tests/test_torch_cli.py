@@ -378,8 +378,8 @@ def test_config_backend_tpu_means_the_card_engine(inputs, tmp_path):
 def test_help_lists_the_ported_commands():
     rc, out, _ = _run(port_main, [], [])
     assert rc == 0
-    assert "subcommands (22):" in out
-    for name in ("doublesort", "fetch", "fleet", "grid", "horizons", "intraday",
+    assert "subcommands (23):" in out
+    for name in ("bench", "doublesort", "fetch", "fleet", "grid", "horizons", "intraday",
                  "ledger", "lint", "loadgen", "pack-info", "registry", "rehearse",
                  "replay", "replicate", "residual", "run", "serve",
                  "strategies", "sweep", "timeline", "trace", "warmup"):

@@ -1107,30 +1107,27 @@ def test_checkpoint_vocabulary_round_trips_on_the_full_sweep():
 
 
 def test_unported_points_are_named_with_their_owner(monkeypatch):
-    """The eight points whose call sites are in the bench tooling stay
-    out of the round trip through a table naming their owner; a table
-    entry that left the vocabulary, or whose call site now exists, is
-    flagged so the table cannot go stale.  The round trip runs without
-    any bench module in the scan."""
+    """Every vocabulary point has a call site since the bench tooling
+    and the capture tier came (``bench.*`` in ``bench.py``, ``mini.*``
+    in ``chaos/minibench.py``), so the owners table is empty and the
+    round trip covers all of them.  The table's guard still holds: an
+    entry that left the vocabulary, or whose call site exists, is
+    flagged so the table cannot go stale."""
     from csmom_tpu_torch.analysis import rules
     from csmom_tpu_torch.chaos.plan import KNOWN_POINTS
 
-    assert rules.UNPORTED_POINT_OWNERS == {
-        "bench.probe": "8b", "bench.compile": "8b", "bench.row": "8b",
-        "bench.finish": "8b", "bench.land": "8b", "mini.start": "8c",
-        "mini.row": "8c", "mini.finish": "8c"}
-    assert set(rules.UNPORTED_POINT_OWNERS) <= set(KNOWN_POINTS)
-    owners = dict(rules.UNPORTED_POINT_OWNERS)
-    del owners["mini.row"]
+    assert rules.UNPORTED_POINT_OWNERS == {}
+    assert {"bench.probe", "bench.compile", "bench.row", "bench.finish",
+            "bench.land", "mini.start", "mini.row",
+            "mini.finish"} <= set(KNOWN_POINTS)
+    rep = run_lint(rules=[rules.EnumerationDrift()])
+    assert rep.findings == []
+    owners = {"mini.row": "8c", "serve.dispatch": "8b"}  # live call sites
     monkeypatch.setattr(rules, "UNPORTED_POINT_OWNERS", owners)
     rep = run_lint(rules=[rules.EnumerationDrift()])
-    assert [f.message.split("'")[1] for f in rep.findings] == ["mini.row"]
-    owners["serve.dispatch"] = "8b"      # a point with a live call site
-    owners["mini.row"] = "8c"
-    rep = run_lint(rules=[rules.EnumerationDrift()])
-    assert len(rep.findings) == 1
-    assert "serve.dispatch" in rep.findings[0].message
-    assert "call site uses it now" in rep.findings[0].message
+    assert sorted(f.message.split("'")[1] for f in rep.findings) == [
+        "mini.row", "serve.dispatch"]
+    assert all("call site uses it now" in f.message for f in rep.findings)
 
 
 def test_lint_is_a_device_free_subcommand():

@@ -1,14 +1,17 @@
 """The port's ``rehearse`` matrix and check functions against the reference's.
 
-``csmom_tpu_torch.cli.rehearse`` ships 17 of the reference's 29
-scenarios, those of the tiers the port runs (serve, serve-pool,
-serve-fabric, replay and the warm-up's ``corrupt-aot-cache``), with the
-reference's names, plans, environments, fast flags and notes (less
-the reference's leading "<LABEL> <n>: " tags) in its order.
+``csmom_tpu_torch.cli.rehearse`` ships the reference's 29 scenarios in
+its order, with the reference's names, pipelines, plans, environments,
+fast flags, row counts and budgets.  The notes of the 17 scenarios of
+the serving, replay and warm-up tiers are the reference's (less its
+leading "<LABEL> <n>: " tags); the 12 of the capture tier (mini, shell,
+bench-child, bench) say what they rehearse in the port's own words.
 Every check function returns the reference's violations on the same
-result dict; the two that differ are pinned where they differ: the
-version-skew refusal names the port's remedy, and on the card the
-warm-up check also wants a heal and both kernels launched.
+result dict; those that differ are pinned where they differ: the
+version-skew refusal names the port's remedy, on the card the warm-up
+check also wants a heal and both kernels launched, the killed bench
+child is retried on the same device, and a probe outage is the
+last-resort line and exit 1 (ROADMAP.md known differences 67, 68 and 72).
 """
 
 import dataclasses
@@ -24,7 +27,8 @@ from csmom_tpu_torch.cli import rehearse as port
 from csmom_tpu_torch.serve.health import BUILD_POINTER
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_UNPORTED = {"mini", "shell", "bench", "bench-child"}
+# the capture tier's pipelines (ported with the bench tooling)
+_CAPTURE = {"mini", "shell", "bench", "bench-child"}
 
 
 def _plain(v):
@@ -44,29 +48,38 @@ def _notes(text):
 
 
 def _row(s):
+    notes = None if s.pipeline in _CAPTURE else _notes(s.notes)
     return (s.name, s.pipeline, s.fast,
             s.plan.to_toml() if s.plan is not None else None,
-            _plain(s.env), _notes(s.notes))
+            _plain(s.env), getattr(s, "rows", 6), getattr(s, "budget_s", None),
+            notes)
 
 
 @pytest.mark.parametrize("fast", [False, True])
 def test_matrix_equals_the_references_ported_tiers(fast):
     mine = port.builtin_matrix(fast=fast)
-    theirs = [s for s in ref.builtin_matrix(fast=fast)
-              if s.pipeline not in _UNPORTED]
+    theirs = ref.builtin_matrix(fast=fast)
     assert [_row(s) for s in mine] == [_row(s) for s in theirs]
-    assert len(mine) == (13 if fast else 17)
+    assert len(mine) == (16 if fast else 29)
     if fast:
-        assert {s.pipeline for s in mine} == {"serve", "serve-pool", "replay"}
+        assert {s.pipeline for s in mine} == {"mini", "shell", "serve",
+                                             "serve-pool", "replay"}
+    for s in mine:
+        if s.pipeline in _CAPTURE:
+            assert s.notes and not re.search(r"tun{2}el|\br\d\b", s.notes), s.name
 
 
 def test_the_absent_scenarios_are_the_twelve_of_the_unported_tiers():
+    """None is absent any more: the twelve scenarios of the capture tier
+    are in the matrix, and every pipeline has a runner."""
     mine = {s.name for s in port.builtin_matrix()}
     absent = [s for s in ref.builtin_matrix() if s.name not in mine]
-    assert len(absent) == 12
-    assert {s.pipeline for s in absent} == _UNPORTED
-    assert set(port.UNPORTED_PIPELINES) == _UNPORTED
+    assert absent == []
+    assert len([s for s in port.builtin_matrix() if s.pipeline in _CAPTURE]) == 12
+    assert not hasattr(port, "UNPORTED_PIPELINES")
     assert {s.pipeline for s in port.builtin_matrix()} == set(port._RUNNERS)
+    assert set(port._RUNNERS) == set(ref._RUNNERS)
+    assert set(port._CUSTOM_CHECKS) == set(ref._CUSTOM_CHECKS)
 
 
 def test_plan_summaries_equal_the_references():
@@ -98,11 +111,22 @@ def test_list_prints_every_ported_scenario_with_its_plan():
 @pytest.mark.parametrize("pipeline,item", [
     ("bench", "8b"), ("bench-child", "8b"), ("shell", "8b"), ("mini", "8c")])
 def test_an_unported_pipeline_exits_2_naming_its_item(pipeline, item):
-    p = _cli(["--pipeline", pipeline, "--fast"], timeout=60)
-    assert p.returncode == 2
-    assert f"--pipeline {pipeline} is not ported" in p.stderr
-    assert f"item {item}" in p.stderr
-    assert "scenarios green" not in p.stdout
+    """The capture tier's pipelines are ported (items 8b and 8c):
+    ``--pipeline`` names one without exit 2, and, as in the reference, it
+    only picks the pipeline a custom ``--plan`` drives; ``shell``, whose
+    faults are environment-driven, takes no custom plan (exit 2)."""
+    p = _cli(["--pipeline", pipeline, "--list"], timeout=60)
+    assert p.returncode == 0, p.stderr
+    assert len(p.stdout.splitlines()) == 2 * 29
+    assert "is not ported" not in p.stderr and f"item {item}" not in p.stderr
+    plan = 'name = "x"\nseed = 1\n\n[[fault]]\npoint = "mini.row"\naction = "sleep"\n'
+    p = _cli(["--plan", plan, "--pipeline", pipeline, "--list"], timeout=60)
+    if pipeline == "shell":
+        assert p.returncode == 2
+        assert "--pipeline shell does not take a custom plan" in p.stderr
+    else:
+        assert p.returncode == 0, p.stderr
+        assert p.stdout.startswith("x ") and f" {pipeline} " in p.stdout
 
 
 def test_the_warmup_scenario_needs_a_card_or_device_cpu():
@@ -151,13 +175,30 @@ def test_a_lint_finding_refuses_the_rehearsal(monkeypatch, capsys):
 
 # ----------------------------------------------------- check functions ----
 
+# the reference's round labels in its violation texts, in the port's words
+_WORDS = ((r"the \w+ empty-record failure", "the empty-record failure"),)
+
+
 def _violations(call):
-    """``call(module)`` for the port's and the reference's rehearse."""
-    return call(port), call(ref)
+    """``call(module)`` for the port's and the reference's rehearse, the
+    reference's texts in the port's words."""
+    theirs = call(ref)
+    for pat, repl in _WORDS:
+        theirs = [re.sub(pat, repl, v) for v in theirs]
+    return call(port), theirs
 
 
 _SERVE_ART = {"kind": "serve", "requests": {"admitted": 3, "served": 3,
                                              "rejected": 0, "expired": 0}}
+
+
+# a runner's result dict with nothing landed, a record and a partial
+_BASE = {"headline_violations": [], "trailing": None, "sidecar_rows": 0,
+         "rc": 0}
+_REC = {"metric": "m", "value": 1.0, "unit": "u", "vs_baseline": 1.0,
+        "extra": {"rows": [1, 2]}}
+_PART = {"metric": "m", "value": 1.0, "unit": "u", "vs_baseline": 1.0,
+         "extra": {"rows": [1], "partial": "deadline hit"}}
 
 
 # (check name, result dicts: an empty one, then one a branch each)
@@ -241,6 +282,28 @@ _CASES = {
                           "serve": {"requests": {"served": 1}}}}],
     "_check_replay_version_skew": [
         {}, {"artifact": {"versions": {"skew_events": 1}}}],
+    "_check_partial_no_lost_rows": [
+        _BASE, {**_BASE, "headline_violations": ["h"], "trailing": _REC,
+                "sidecar_rows": 3, "rc": 1, "artifact": {"metric": "m"}},
+        {**_BASE, "trailing": _PART, "sidecar_rows": 2}],
+    "_check_full_all_rows": [
+        _BASE, {**_BASE, "trailing": _PART, "sidecar_rows": 3, "rc": 2,
+                "artifact": {"metric": 1}}],
+    "_check_killed_nothing_fabricated": [
+        {"rc": 0, "trailing": _REC, "artifact": _REC}],
+    "_check_short_write": [
+        {}, {"artifact": _REC, "prior_intact": False,
+             "retry_artifact": {"metric": 1}}],
+    "_check_bench_partial": [
+        _BASE, {**_BASE, "trailing": {**_REC, "value": 0}, "rc": 3},
+        {**_BASE, "trailing": {**_PART, "extra": {"partial": "child deadline hit",
+                                                  "platform": "gpu"}}}],
+    "_check_bench_supervisor_landed": [
+        _BASE, {**_BASE, "trailing": _REC, "full_record": {"metric": 1}}],
+    "_check_bench_child_full": [
+        _BASE, {**_BASE, "trailing": _PART, "rc": 1}],
+    "_check_custom_generic": [
+        _BASE, {**_BASE, "trailing": _REC, "sidecar_rows": 5}],
     "_check_serve_generic": [{}, {"artifact": _SERVE_ART}],
     "_check_serve_pool_generic": [{}, {"artifact": {"kind": "serve_pool"}}],
     "_check_serve_fabric_generic": [{}, {"artifact": {"kind": "serve_fabric"}}],
@@ -261,8 +324,58 @@ def test_check_functions_return_the_references_violations(name):
 def test_every_ported_check_is_held_to_the_reference():
     checks = {s.check.__name__ for s in port.builtin_matrix()}
     checks |= {f.__name__ for f in port._CUSTOM_CHECKS.values()}
-    assert checks - {"_check_pool_version_skew", "_check_warmup_healed"} \
+    assert checks - {"_check_pool_version_skew", "_check_warmup_healed",
+                     "_check_kill_retried", "_check_probe_outage"} \
         <= set(_CASES)
+
+
+def _landed(value, rc=0, errors=(), extra=None):
+    """A bench supervisor's result dict: its headline and full record."""
+    head = {"metric": "m", "value": value, "unit": "u", "vs_baseline": 1.0,
+            "extra": {"full_record": "GPU_BENCH_FULL_rehearse.json",
+                      **(extra or {})}}
+    full = {**head, "extra": {**head["extra"], "attempt_errors": list(errors)}}
+    return {"headline_violations": [], "trailing": head, "rc": rc,
+            "full_record": full, "sidecar_rows": 0}
+
+
+def test_kill_check_holds_the_retry_on_the_same_device():
+    """``kill-child-mid-compile``: the reference secures its record with a
+    CPU fallback child, the port by retrying on the same device; the
+    check is the reference's, in those words, and a measured record must
+    exit 0."""
+    word = ("the fallback child did not secure",
+            "the retried child did not secure")
+    for r in (_BASE, _landed(5.0, errors=["cuda child attempt 1: rc=-9"]),
+              _landed(0.0), _landed(2.0, errors=["probe: x"])):
+        mine = port._check_kill_retried(dict(r))
+        theirs = [v.replace(*word) for v in ref._check_kill_fallback(dict(r))]
+        assert mine == theirs
+    assert port._check_kill_retried(
+        _landed(5.0, errors=["cuda child attempt 1: rc=-9"])) == []
+    assert port._check_kill_retried(
+        _landed(5.0, rc=1, errors=["cuda child attempt 1"])) == [
+        "a measured record must exit 0, got rc=1"]
+
+
+def test_probe_outage_check_wants_the_last_resort_line():
+    """``probe-outage``: the reference's check wants the CPU fallback's
+    measured value; the port measures nothing on another device, so its
+    check wants the last-resort line, exit 1, the failed probes, the full
+    record and the telemetry sidecar."""
+    side = {"kind": "telemetry"}
+    last = _landed(0.0, rc=1, extra={"error": "all benchmark attempts failed"})
+    last["full_record"]["extra"]["probes"] = [{"ok": False}]
+    last["telemetry_sidecar"] = side
+    mine = port._check_probe_outage(last)
+    assert all(v.startswith("telemetry sidecar: ") for v in mine)
+    assert ref._check_bench_fallback_measured(last) != []
+    measured = _landed(5.0)
+    assert ref._check_bench_fallback_measured(measured) == []
+    out = port._check_probe_outage(measured)
+    assert any("last-resort record" in v for v in out)
+    assert any("must exit 1" in v for v in out)
+    assert any("telemetry sidecar did not land" in v for v in out)
 
 
 _SKEW_BRANCHES = [
