@@ -10,7 +10,7 @@
 to a temporary directory, removed at the end, and phase 18's to
 ``chiprun_out/``).  Each phase's wall is printed
 on a ``[smoke] phase N`` line as it ends, and all of them on one line
-after phase 22.
+after phase 23.
 Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
@@ -89,7 +89,7 @@ any phase fails (nothing is caught).  Phases:
    legs, summed), ``rehearse_launches`` phase 20 (a)'s (the healed
    warm-up process's entries), ``ledger_launches`` phase 21 (a)'s (its
    two service runs), ``bench_launches`` phase 22 (a)'s (the measuring
-   child's)
+   child's), ``donation_launches`` phase 23's
    (12's, 13's and 14's in the worker processes; 16's warm-ups in theirs; 13's over its
    serving windows, equal to the workers' ``backtest`` batches; 14's
    each worker process's whole life, warm-up included, spares and forked
@@ -335,6 +335,15 @@ any phase fails (nothing is caught).  Phases:
    and ``shell`` tiers and ``expire-deadline-mid-row`` (7 of 7 green;
    ``kill-child-mid-compile`` runs on the CPU in tier-1); the kernels
    line gains ``bench_launches`` (the measuring child's counts);
+23. donation (after 22; in this process, no subprocess, no profiler
+   trace; its wall is held within ``DONATION_BUDGET_S`` = 20 s): every
+   donated surface against its plain call, outputs bit-equal, the
+   caller's tensors consumed, the allocator peaks of both calls on a
+   ``[donation]`` line and the donated one no higher (``donation_phase``:
+   (a) the grid and its netting pass on phase 5's panel, K2 launched;
+   (b) the two event engines on a ``[512, 23,400]`` minute panel; (c) the
+   ``backtest`` scorer's donated variant, K1 once; (d) a read after
+   donation); the kernels line gains ``donation_launches``;
 then the phase walls, the card's name line and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -3963,9 +3972,13 @@ def trace_replay_phase(smi, out_dir, disarmed) -> dict:
 # replay's reconcile shapes) and the report namespace they write under
 WARM_PROFILES = "bench-gpu,golden,serve,stream"
 WARM_SUBDIR = "smoke"
-# the golden-event leg's entries on the card: threshold, hysteresis and
-# the 32-wide batch (compile/manifest.py::golden_event_entries)
-GOLDEN_EVENT_ENTRIES = 3
+# the golden-event leg's entries on the card: threshold plain and donated,
+# hysteresis and the 32-wide batch (compile/manifest.py::golden_event_entries)
+GOLDEN_EVENT_ENTRIES = 4
+# the donated entries of WARM_PROFILES' manifests and the golden-event leg
+# (bench-gpu's grid, the golden threshold engine), each warmed by two calls
+# on inputs of their own
+DONATED_ENTRIES = 2
 # the four --data-dir examples, run on one synthetic 20-ticker directory
 DATA_DIR_EXAMPLES = ("replicate_reference", "strategy_zoo", "cost_frontier",
                      "causal_scoring")
@@ -4033,6 +4046,11 @@ def check_warm_report(report, want_entries: int, what: str) -> None:
     """A warm-up report lists every manifest entry and the golden-event
     entries, and its grid input build and golden-event leg both ran."""
     golden = sum(r.get("profile") == "golden-event" for r in report["entries"])
+    donated = [r.get("donated_calls") for r in report["entries"]
+               if ".donated@" in r["name"]]
+    if donated != [2] * DONATED_ENTRIES:
+        raise AssertionError(f"{what}: the donated entries' calls {donated}, "
+                             f"want {DONATED_ENTRIES} entries of 2 consuming calls")
     if (report["n_entries"] != want_entries or golden != GOLDEN_EVENT_ENTRIES
             or not report["input_builders"].startswith("grid month panels built")
             or report["golden_event"] != "resolved from the golden input build"):
@@ -5394,6 +5412,195 @@ def bench_phase(smi) -> dict:
             "legs": legs, "walls": walls, "wall_s": walls["phase_s"]}
 
 
+# phase 23: buffer donation on the card.  Each donated surface against its
+# plain call on the same inputs, in this process (no subprocess, no
+# profiler trace): outputs bit-equal, the caller's tensors consumed (empty),
+# and the allocator's peak over the call, read once the inputs are
+# resident, no higher for the donated call than for the plain one.
+DONATION_BUDGET_S = 20.0      # the phase's wall, checked
+# (b)'s synthetic minute panel: assets x (trading days x minutes a day)
+DONATION_MINUTES = (512, 60 * 390)
+DONATION_SEED = 23
+
+
+def donation_phase(smi, pm, mm) -> dict:
+    """Phase 23: (a) ``jk_grid_backtest(..., donate_panels=True)`` on
+    phase 5's north-star month-end panel ``pm, mm`` (``[3000, 696]`` f32,
+    rank mode, ``impl="kernel"``: K2 as often as in the plain call), then
+    ``grid_net_of_costs(..., donate_panels=True)`` on that grid; (b)
+    ``event_backtest_donated`` and ``hysteresis_event_backtest(...,
+    donate_panels=True)`` on a seeded ``[512, 23,400]`` f32 minute panel
+    (512 assets x 60 days x 390 minutes); (c) the ``backtest`` serve
+    engine's ``spec.donated(...)`` scorer at the largest bucket of profile
+    ``serve`` (K1 once); (d) a read after donation: each consumed tensor
+    reads as empty on the card, and a plain call on fresh copies of (b)'s
+    inputs, made after the donated calls, is bit-equal to (b)'s plain
+    call.  For every surface: outputs bit-equal to the plain call's, the
+    caller's tensors consumed, both peaks on a ``[donation]`` line, the
+    donated one at most the plain one.  Returns the phase's launches,
+    the peaks and its wall."""
+    import dataclasses
+
+    import torch
+
+    from csmom_tpu_torch.backtest.event import (
+        event_backtest, event_backtest_donated, hysteresis_event_backtest,
+    )
+    from csmom_tpu_torch.backtest.grid import grid_net_of_costs, jk_grid_backtest
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.registry import get_engine
+    from csmom_tpu_torch.serve.buckets import bucket_spec
+    from csmom_tpu_torch.serve.engine import serve_entry_fn
+    from csmom_tpu_torch.serve.service import ServeConfig
+    from csmom_tpu_torch.utils.donation import is_deleted
+    from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP
+
+    t_phase = time.perf_counter()
+    dev = pm.device
+    kernels.reset_launches()
+    peaks = {}
+
+    def leaves(x):
+        if torch.is_tensor(x):
+            return [x]
+        if dataclasses.is_dataclass(x):
+            return [v for f in dataclasses.fields(x)
+                    for v in leaves(getattr(x, f.name))]
+        return []
+
+    # same-width integer views: bit-equal floats, NaN payloads included
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64,
+            torch.float16: torch.int16, torch.bfloat16: torch.int16,
+            torch.bool: torch.uint8}
+
+    def bit_equal(a, b) -> bool:
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) > 0 and all(
+            x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.view(bits.get(x.dtype, x.dtype)),
+                            y.view(bits.get(y.dtype, y.dtype)))
+            for x, y in zip(la, lb))
+
+    def k_counts():
+        return {"decile_partial_sums": kernels.decile_partial_sums.launches,
+                "cohort_partial_sums": kernels.cohort_partial_sums.launches}
+
+    def measured(call, inputs):
+        """``call(*inputs)`` with ``inputs`` resident: ``(out, peak bytes
+        above the allocation at the call, launches)``."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k0 = k_counts()
+        out = call(*inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return out, peak, {k: v - k0[k] for k, v in k_counts().items()}
+
+    def compare(name, plain_fn, donated_fn, masters, launches_want=None):
+        """One surface: a plain call and a donated one, each on fresh
+        copies of ``masters`` made before its peak is read."""
+        plain, p_peak, p_k = measured(plain_fn, [t.clone() for t in masters])
+        copies = [t.clone() for t in masters]
+        nbytes = sum(t.numel() * t.element_size() for t in copies)
+        got, d_peak, d_k = measured(donated_fn, copies)
+        if not bit_equal(got, plain):
+            raise AssertionError(f"donation ({name}): the donated call's "
+                                 "outputs differ from the plain call's")
+        if not all(is_deleted(t) and t.numel() == 0 for t in copies):
+            raise AssertionError(f"donation ({name}): the caller's tensors "
+                                 "were not consumed")
+        if d_k != p_k or (launches_want is not None and d_k != launches_want):
+            raise AssertionError(f"donation ({name}): launches {d_k}, the plain "
+                                 f"call's {p_k}, want {launches_want}")
+        if d_peak > p_peak:
+            raise AssertionError(f"donation ({name}): the donated peak {d_peak} B "
+                                 f"exceeds the plain call's {p_peak} B")
+        peaks[name] = {"plain_peak_bytes": p_peak, "donated_peak_bytes": d_peak,
+                       "saved_bytes": p_peak - d_peak, "consumed_bytes": nbytes,
+                       "launches": d_k}
+        log("donation", f"({name}) peak over the call: plain {p_peak} B, donated "
+                        f"{d_peak} B, difference {p_peak - d_peak} B; consumed "
+                        f"{nbytes} B; outputs bit-equal; launches {d_k} | {smi}")
+        return plain, got
+
+    # (a) the grid on phase 5's north-star panel, and its netting pass
+    grid_kw = dict(skip=GRID_SKIP, mode="rank", impl="kernel")
+    g_plain, _ = compare(
+        "a grid", lambda p, m: jk_grid_backtest(p, m, GRID_JS, GRID_KS, **grid_kw),
+        lambda p, m: jk_grid_backtest(p, m, GRID_JS, GRID_KS, donate_panels=True,
+                                      **grid_kw),
+        [pm, mm])
+    if peaks["a grid"]["launches"]["cohort_partial_sums"] < 1:
+        raise AssertionError("donation (a): K2 was not launched")
+    compare("a grid_net_of_costs",
+            lambda p, m: grid_net_of_costs(p, m, g_plain, half_spread=0.0005),
+            lambda p, m: grid_net_of_costs(p, m, g_plain, half_spread=0.0005,
+                                           donate_panels=True),
+            [pm, mm])
+
+    # (b) the event engines on a seeded minute panel, made on the card
+    A, T = DONATION_MINUTES
+    gen = torch.Generator(device=dev).manual_seed(DONATION_SEED)
+    steps = torch.randn((A, T), generator=gen, device=dev) * 1e-3
+    valid = torch.rand((A, T), generator=gen, device=dev) > 0.2
+    price = torch.where(valid, 100.0 * torch.exp(torch.cumsum(steps, dim=1)),
+                        torch.nan)
+    score = torch.where(valid, torch.randn((A, T), generator=gen, device=dev) * 1e-4,
+                        torch.nan)
+    del steps
+    adv = torch.full((A,), 1e6, device=dev)
+    vol = torch.full((A,), 0.02, device=dev)
+    masters = [price, valid, score]
+    ev_plain, _ = compare(
+        "b event_backtest_donated",
+        lambda p, v, s: event_backtest(p, v, s, adv, vol),
+        lambda p, v, s: event_backtest_donated(p, v, s, adv, vol), masters)
+    hy = dict(threshold_hi=1e-4, threshold_lo=2e-5)
+    compare("b hysteresis_event_backtest",
+            lambda p, v, s: hysteresis_event_backtest(p, v, s, adv, vol, **hy),
+            lambda p, v, s: hysteresis_event_backtest(p, v, s, adv, vol,
+                                                      donate_panels=True, **hy),
+            masters)
+
+    # (c) the serve scorer at the largest bucket of profile "serve"
+    cfg = ServeConfig()
+    B, A_s, M_s = max(bucket_spec("serve").shapes())
+    vals = 100.0 * torch.exp(torch.cumsum(
+        torch.randn((B, A_s, M_s), generator=gen, device=dev) * 0.05, dim=-1))
+    vmask = torch.rand((B, A_s, M_s), generator=gen, device=dev) > 0.05
+    params = dict(lookback=cfg.lookback, skip=cfg.skip, n_bins=cfg.n_bins,
+                  mode=cfg.mode)
+    compare(f"c serve backtest b{B}@{A_s}x{M_s}",
+            serve_entry_fn("backtest", cfg.lookback, cfg.skip, cfg.n_bins, cfg.mode),
+            get_engine("backtest", kind="serve").donated(**params),
+            [vals.to(torch.float32), vmask],
+            launches_want={"decile_partial_sums": 1, "cohort_partial_sums": 0})
+
+    # (d) a read after donation, and the plain engine on fresh copies
+    gone = [t.clone() for t in masters]
+    event_backtest_donated(*gone, adv, vol)
+    torch.cuda.synchronize()
+    if any(t.numel() != 0 or float(t.sum()) != 0.0 for t in gone):
+        raise AssertionError("donation (d): a consumed tensor does not read as empty")
+    again = event_backtest(*[t.clone() for t in masters], adv, vol)
+    if not bit_equal(again, ev_plain):
+        raise AssertionError("donation (d): a plain call after the donated ones "
+                             "differs from (b)'s plain call")
+    log("donation", "(d) consumed tensors read as empty (numel 0, sum 0); a plain "
+                    "call on fresh copies after the donated calls is bit-equal to "
+                    f"(b)'s | {smi}")
+
+    launches = k_counts()
+    wall = round(time.perf_counter() - t_phase, 2)
+    log("donation", f"phase wall {wall} s; launches {launches}; peaks "
+                    f"{json.dumps(peaks)} | {smi}")
+    if wall > DONATION_BUDGET_S:
+        raise AssertionError(f"phase 23 took {wall} s, over its "
+                             f"{DONATION_BUDGET_S} s")
+    return {"launches": launches, "peaks": peaks, "wall_s": wall}
+
+
 # phase 18: the mesh serving engine on the card, every mesh logical shards
 # of cuda:0.  (a) SERVE_MESH_r15.json's configuration: the bursty schedule
 # (seed 0, 240 arrivals), the five endpoints, its class mix, panel reuse and
@@ -6545,6 +6752,12 @@ def main(argv=None) -> int:
     t_p = phase_done(22, "bench and capture tier", t_p)
     for row in rows:
         row["bench_launches"] = bn["launches"][row["name"]]
+
+    # -- 23. buffer donation on the card ------------------------------------------
+    dn = donation_phase(smi, pm, mm)
+    t_p = phase_done(23, "donation", t_p)
+    for row in rows:
+        row["donation_launches"] = dn["launches"][row["name"]]
     log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
                  f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

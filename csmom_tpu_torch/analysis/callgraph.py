@@ -148,6 +148,7 @@ class ProjectContext:
         self._closure_memo: dict = {}
         self._blocking_memo: dict = {}
         self._resolve_memo: dict = {}
+        self.serve_batch_factories: list = []   # qnames bound as batch_fn
 
     # ------------------------------------------------------------ report --
 
@@ -183,6 +184,21 @@ class ProjectContext:
             self._resolve_bases(mod, ctx)
         for info in list(self.functions.values()):
             self._analyze_body(info)
+        # the callables registered as ``batch_fn=<name>`` (a keyword
+        # anywhere in a module): the factories whose inner functions are
+        # the serve scorers, a graph root of helper-hygiene
+        for mod, ctx in self.modules.items():
+            for node in ast.walk(ctx.tree):
+                if not isinstance(node, ast.Call):
+                    continue
+                for kw in node.keywords:
+                    if kw.arg == "batch_fn" and isinstance(kw.value,
+                                                           ast.Name):
+                        q = self.resolve_dotted(
+                            self._origin_of(ctx, kw.value)
+                            or f"{mod}.{kw.value.id}")
+                        if q:
+                            self.serve_batch_factories.append(q)
         return self
 
     @staticmethod

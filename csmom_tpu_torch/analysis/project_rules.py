@@ -2,8 +2,8 @@
 :mod:`csmom_tpu_torch.analysis.callgraph`, registered as kind-``lint``
 engines like the per-file set.
 
-Counterpart of :mod:`csmom_tpu.analysis.project_rules`, two rules of its
-three:
+Counterpart of :mod:`csmom_tpu.analysis.project_rules`, with its three
+rules:
 
 - **lock-order**: held-lock sets propagate over the call graph.  It
   reports a cycle in the global lock acquisition-order graph (lock A
@@ -12,6 +12,15 @@ three:
   (sleep, socket send/recv, engine dispatch, a join without timeout)
   reached under a held lock through one or more call hops, and a
   non-reentrant lock taken again through a chain (the one-lock cycle).
+- **helper-hygiene**: the interprocedural twin of tracer-hygiene and
+  donation-safety.  A helper that prints, reads a clock, writes a
+  global, copies to the host (``np.asarray``, ``.item()``,
+  ``.tolist()``, ``.cpu()``, ``.numpy()``), synchronizes the card or
+  calls a donated surface is flagged at every call site of a shard's
+  function (the local function handed to ``parallel/compat.py::
+  shard_map``) or of a registered ``batch_fn`` scorer that can reach it
+  within :data:`~csmom_tpu_torch.analysis.callgraph.MAX_CHAIN_DEPTH`
+  hops.  What lies lexically inside the root is the per-file rule's.
 - **compile-surface**: every dispatchable (endpoint, bucket) shape the
   serving tier admits (``registry.serve_endpoints()`` x the
   ``serve/buckets.py`` grid, the arithmetic of
@@ -21,20 +30,24 @@ three:
   a toy tree (the fixture packages) it checks the ``LINT_SURFACE``
   literals instead, with the same arithmetic.
 
-The reference's helper-hygiene rule follows XLA-traced functions into
-their helpers; eager torch traces nothing, and it is not ported
-(ROADMAP.md, known difference 49).  Stdlib-only and clock-free.
+Stdlib-only and clock-free.
 """
 
 from __future__ import annotations
 
 import ast
 
-from csmom_tpu_torch.analysis.callgraph import ProjectContext
+from csmom_tpu_torch.analysis.callgraph import MAX_CHAIN_DEPTH, ProjectContext
 from csmom_tpu_torch.analysis.core import ProjectRule, RunContext
+from csmom_tpu_torch.analysis.rules import (
+    DEVICE_SYNCS,
+    HOST_MATERIALIZE,
+    HOST_METHODS,
+)
 
 __all__ = [
     "CompileSurface",
+    "HelperHygiene",
     "LockOrder",
     "register_project_rules",
 ]
@@ -393,10 +406,140 @@ class CompileSurface(ProjectRule):
 
 
 # --------------------------------------------------------------------------
+# helper-hygiene
+# --------------------------------------------------------------------------
+
+class HelperHygiene(ProjectRule):
+    """Host syncs and donations hidden behind helpers: flagged at every
+    root call site that can reach them (bounded depth)."""
+
+    id = "helper-hygiene"
+    description = ("interprocedural tracer-hygiene + donation-safety: a "
+                   "helper that prints, reads a clock, copies to the host, "
+                   "synchronizes the card, writes a global, or calls a "
+                   "donated surface is flagged at every shard_map / "
+                   "ServeSurface batch_fn call site that can reach it "
+                   "(bounded depth, alias map reused)")
+
+    def run_project(self, project: ProjectContext, run: RunContext) -> None:
+        project.build()
+        self._taint_memo: dict = {}
+        reported: set = set()
+        for root in self._roots(project):
+            self._sweep_root(project, root, reported)
+
+    @staticmethod
+    def _roots(project: ProjectContext) -> list:
+        """The local functions handed to ``shard_map`` and the registered
+        ``batch_fn`` factories with the scorers they define."""
+        roots: set = set()
+        for info in project.functions.values():
+            for site in info.calls:
+                if not ((site.origin or "").endswith("shard_map")
+                        or (site.callee is None and site.attr == "shard_map")):
+                    continue
+                for sub in ProjectContext._own_walk(info.node):
+                    if (isinstance(sub, ast.Call) and sub.lineno == site.line
+                            and sub.args and isinstance(sub.args[0], ast.Name)):
+                        q = (info.nested.get(sub.args[0].id)
+                             or project.resolve_dotted(
+                                 f"{info.module}.{sub.args[0].id}"))
+                        if q:
+                            roots.add(q)
+        for q in project.serve_batch_factories:
+            factory = project.functions.get(q)
+            if factory is not None:
+                roots.update(factory.nested.values())
+                roots.add(q)
+        return sorted(roots)
+
+    def _direct_taints(self, project: ProjectContext, qname: str) -> list:
+        if qname in self._taint_memo:
+            return self._taint_memo[qname]
+        info = project.functions.get(qname)
+        out: list = []
+        if info is None:
+            self._taint_memo[qname] = out
+            return out
+        globals_declared: set = set()
+        for sub in ProjectContext._own_walk(info.node):
+            if isinstance(sub, ast.Global):
+                globals_declared |= set(sub.names)
+        for sub in ProjectContext._own_walk(info.node):
+            if isinstance(sub, (ast.Assign, ast.AugAssign)):
+                tgts = (sub.targets if isinstance(sub, ast.Assign)
+                        else [sub.target])
+                for t in tgts:
+                    if isinstance(t, ast.Name) and t.id in globals_declared:
+                        out.append(("global write", sub.lineno, t.id))
+        for site in info.calls:
+            origin = site.origin or ""
+            if site.callee is None and site.attr == "print":
+                out.append(("print (host I/O)", site.line, "print"))
+            elif origin.startswith("time.") or origin.endswith(".mono_now_s"):
+                out.append(("clock read", site.line, origin))
+            elif origin in HOST_MATERIALIZE:
+                out.append(("host materialization", site.line, origin))
+            elif origin in DEVICE_SYNCS:
+                out.append(("device sync", site.line, origin))
+            elif (site.callee is None and not site.has_args
+                    and site.attr in HOST_METHODS
+                    and not origin.startswith("numpy.")):
+                out.append(("host copy", site.line, f".{site.attr}()"))
+            if site.attr and "donated" in site.attr:
+                out.append(("donated-buffer entry call", site.line,
+                            site.attr))
+        self._taint_memo[qname] = out
+        return out
+
+    def _sweep_root(self, project: ProjectContext, root: str,
+                    reported: set) -> None:
+        if project.functions.get(root) is None:
+            return
+        # breadth-first over the project's call edges, depth >= 1 only:
+        # what lies lexically inside the root is tracer-hygiene's
+        seen = {root}
+        frontier = [(root, (root,), None)]
+        for _depth in range(MAX_CHAIN_DEPTH):
+            nxt = []
+            for qname, chain, first_site in frontier:
+                fi = project.functions.get(qname)
+                if fi is None:
+                    continue
+                for site in fi.calls:
+                    callee = site.callee
+                    if not callee or callee not in project.functions \
+                            or callee in seen:
+                        continue
+                    seen.add(callee)
+                    entry_site = first_site or (fi.rel, site.line)
+                    for kind, tline, detail in self._direct_taints(project,
+                                                                   callee):
+                        key = (root, callee, kind, detail)
+                        if key in reported:
+                            continue
+                        reported.add(key)
+                        full = chain + (callee,)
+                        rel, line = entry_site
+                        project.report(
+                            self.id, rel, line,
+                            f"traced function {root} reaches "
+                            f"{kind} ({detail}) in {callee} "
+                            f"(line {tline}) via {_chain_text(full)} — a "
+                            "helper does not hide a host sync: it runs on "
+                            "every call of the shard function or scorer",
+                            chain=full)
+                    nxt.append((callee, chain + (callee,), entry_site))
+            frontier = nxt
+            if not frontier:
+                break
+
+
+# --------------------------------------------------------------------------
 # registration
 # --------------------------------------------------------------------------
 
-PROJECT_RULES = (LockOrder, CompileSurface)
+PROJECT_RULES = (LockOrder, HelperHygiene, CompileSurface)
 
 
 def register_project_rules() -> None:

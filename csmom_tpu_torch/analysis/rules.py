@@ -1,8 +1,8 @@
 """The per-file lint rules, registered as kind-``lint`` engines.
 
-Counterpart of :mod:`csmom_tpu.analysis.rules`.  One registration
-enrolls a rule in ``python -m csmom_tpu_torch.cli lint``, the tier-1
-sweep, ``registry list`` and the fixture self-test.  Four rules:
+Counterpart of :mod:`csmom_tpu.analysis.rules`, with its six rules.
+One registration enrolls a rule in ``python -m csmom_tpu_torch.cli
+lint``, the tier-1 sweep, ``registry list`` and the fixture self-test.
 
 - **clock-discipline**: wall-clock reads, alias-aware (``from time
   import time as _t; _t()``, ``import time as tt; tt.time()``,
@@ -23,9 +23,22 @@ sweep, ``registry list`` and the fixture self-test.  Four rules:
   ``csmom_tpu_torch/registry/``, and every literal ``checkpoint("x")``
   round-trips with ``chaos.plan.KNOWN_POINTS``, both ways.
 
-The reference's tracer-hygiene and donation-safety rules guard XLA
-tracing and buffer donation, which eager torch has neither of, and are
-not ported (ROADMAP.md, known difference 49).
+Two more guard the card's launch queue and the donation contract:
+
+- **tracer-hygiene**: inside a function called once a dispatch (the
+  local function handed to :func:`csmom_tpu_torch.parallel.compat.
+  shard_map`, or a scorer a registered ``ServeSurface`` ``batch_fn``
+  factory returns, and any def nested in one), no ``print``, no clock
+  read, no mutable-global write (the shard threads share it), and no
+  host sync on a parameter: ``.item()``, ``float()``/``int()``/
+  ``bool()``, ``.tolist()``, ``.cpu()``, ``.numpy()``, ``np.asarray``,
+  or ``torch.cuda.synchronize()``.  On the card each one stalls the
+  launch queue on every call;
+- **donation-safety**: a tensor passed to a donated surface (a callable
+  whose name contains ``donated``, or a call with ``donate_panels=True``
+  at the positions the surface consumes) is not read later in the same
+  scope: the call left it empty (:mod:`csmom_tpu_torch.utils.donation`),
+  so a read is a wrong number, not an error.
 
 Stdlib-only: a sweep imports no torch.  Rule messages spell pragma
 examples with ``{`` placeholders so this module's own source never parses
@@ -48,8 +61,10 @@ from csmom_tpu_torch.analysis.core import (
 __all__ = [
     "ClockDiscipline",
     "DialDiscipline",
+    "DonationSafety",
     "EnumerationDrift",
     "LockDiscipline",
+    "TracerHygiene",
     "UNPORTED_POINT_OWNERS",
     "banned_enumeration_name",
     "register_builtin_rules",
@@ -224,6 +239,158 @@ def _callable_name(func: ast.AST) -> str | None:
     if isinstance(func, ast.Name):
         return func.id
     return None
+
+
+# --------------------------------------------------------------------------
+# tracer-hygiene
+# --------------------------------------------------------------------------
+
+def _is_shard_map(origin: str | None, raw_name: str | None) -> bool:
+    if origin is not None:
+        return origin.endswith("shard_map")
+    return raw_name == "shard_map"
+
+
+# host syncs: numpy copies of a parameter, conversions of a parameter to
+# a Python number, tensor methods that copy to the host
+HOST_MATERIALIZE = {"numpy.asarray", "numpy.array", "numpy.ascontiguousarray"}
+HOST_NUMBERS = ("float", "int", "bool")
+HOST_METHODS = ("item", "tolist", "cpu", "numpy")
+DEVICE_SYNCS = {"torch.cuda.synchronize"}
+
+
+def _param_names(fn) -> list:
+    a = fn.args
+    names = [p.arg for p in getattr(a, "posonlyargs", [])]
+    names += [p.arg for p in a.args]
+    names += [p.arg for p in a.kwonlyargs]
+    return names
+
+
+def _root_name(node) -> str | None:
+    while isinstance(node, (ast.Attribute, ast.Subscript)):
+        node = node.value
+    return node.id if isinstance(node, ast.Name) else None
+
+
+class TracerHygiene(LintRule):
+    """Host syncs inside the functions called once a dispatch: each one
+    stalls the card's launch queue on every call."""
+
+    id = "tracer-hygiene"
+    description = ("no print/clock/float()/.item()/.cpu()/np.asarray-on-"
+                   "params/torch.cuda.synchronize/global-writes inside "
+                   "functions passed to shard_map or returned by a "
+                   "registered ServeSurface batch_fn")
+
+    def start_file(self, ctx: FileContext) -> None:
+        tree = ctx.tree
+        defs_by_name: dict = {}
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                defs_by_name.setdefault(node.name, []).append(node)
+
+        roots: list = []
+
+        def mark(node) -> None:
+            if node not in roots:
+                roots.append(node)
+
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            if _is_shard_map(ctx.resolve_call(node),
+                             _callable_name(node.func)) and node.args:
+                target = node.args[0]
+                if isinstance(target, ast.Lambda):
+                    mark(target)
+                elif isinstance(target, ast.Name):
+                    for d in defs_by_name.get(target.id, []):
+                        mark(d)
+            for kw in node.keywords:
+                if kw.arg == "batch_fn" and isinstance(kw.value, ast.Name):
+                    # a registered ServeSurface factory: the functions it
+                    # defines are the scorers
+                    for factory in defs_by_name.get(kw.value.id, []):
+                        for sub in ast.walk(factory):
+                            if sub is not factory and isinstance(
+                                    sub, (ast.FunctionDef, ast.Lambda)):
+                                mark(sub)
+
+        # a def nested inside a root runs inside it
+        for node in list(roots):
+            for sub in ast.walk(node):
+                if sub is not node and isinstance(
+                        sub, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+                    mark(sub)
+
+        reported: set = set()
+
+        def flag(line, msg):
+            if (line, msg) not in reported:
+                reported.add((line, msg))
+                ctx.report(self.id, line, msg)
+
+        stall = "a host sync stalls the card's launch queue on every call"
+        for fn in roots:
+            params = set(_param_names(fn))
+            fname = getattr(fn, "name", "<lambda>")
+            globals_declared: set = set()
+            for sub in ast.walk(fn):
+                if isinstance(sub, ast.Global):
+                    globals_declared |= set(sub.names)
+            for sub in ast.walk(fn):
+                if isinstance(sub, (ast.Assign, ast.AugAssign)):
+                    tgts = (sub.targets if isinstance(sub, ast.Assign)
+                            else [sub.target])
+                    for t in tgts:
+                        if (isinstance(t, ast.Name)
+                                and t.id in globals_declared):
+                            flag(sub.lineno,
+                                 f"traced function {fname!r} writes "
+                                 f"global {t.id!r} — the shard threads "
+                                 "share it: count under a lock, or return "
+                                 "the value")
+                if not isinstance(sub, ast.Call):
+                    continue
+                name = _callable_name(sub.func)
+                origin = ctx.resolve_call(sub)
+                first = sub.args[0] if sub.args else None
+                on_param = isinstance(first, ast.Name) and first.id in params
+                if isinstance(sub.func, ast.Name) and name == "print":
+                    flag(sub.lineno,
+                         f"print inside traced function {fname!r} — host "
+                         "I/O once a dispatch: log outside the shard "
+                         "function or the scorer")
+                elif origin is not None and (origin.startswith("time.")
+                                             or origin.endswith(
+                                                 ".mono_now_s")):
+                    flag(sub.lineno,
+                         f"clock read ({origin}) inside traced function "
+                         f"{fname!r} — the host clock does not see the "
+                         "device's time: time the call from outside")
+                elif origin in DEVICE_SYNCS:
+                    flag(sub.lineno,
+                         f"{origin}() inside traced function {fname!r} — "
+                         f"{stall}")
+                elif origin in HOST_MATERIALIZE and on_param:
+                    flag(sub.lineno,
+                         f"{origin} on traced parameter {first.id!r} in "
+                         f"{fname!r} — a copy to the host: {stall}")
+                elif (isinstance(sub.func, ast.Name)
+                        and name in HOST_NUMBERS and len(sub.args) == 1
+                        and on_param):
+                    flag(sub.lineno,
+                         f"{name}() on traced parameter {first.id!r} in "
+                         f"{fname!r} — {stall}")
+                elif (isinstance(sub.func, ast.Attribute)
+                        and name in HOST_METHODS and not sub.args):
+                    root = _root_name(sub.func.value)
+                    if root is not None and root in params:
+                        flag(sub.lineno,
+                             f".{name}() on traced parameter {root!r} in "
+                             f"{fname!r} — device->host copy: {stall}")
 
 
 # --------------------------------------------------------------------------
@@ -569,11 +736,125 @@ class EnumerationDrift(LintRule):
 
 
 # --------------------------------------------------------------------------
+# donation-safety
+# --------------------------------------------------------------------------
+
+# the positions a ``donate_panels=True`` call consumes, by callable name;
+# another callable given the flag consumes every positional argument
+DONATE_PANELS_POSITIONS = {
+    "jk_grid_backtest": (0, 1),
+    "grid_net_of_costs": (0, 1),
+    "hysteresis_event_backtest": (0, 1, 2),
+}
+
+
+class DonationSafety(LintRule):
+    """No read of a tensor after it was passed to a donated surface."""
+
+    id = "donation-safety"
+    description = ("a tensor passed to a donated surface (a *donated* "
+                   "callable, donate_panels=True, or utils.donation.consume) "
+                   "is consumed and reads "
+                   "as empty — reading it afterwards in the same scope is a "
+                   "wrong number, not an error")
+
+    @staticmethod
+    def _panel_positions(call: ast.Call) -> tuple | None:
+        """The positions a ``donate_panels=True`` call consumes, or None
+        when the call donates nothing this way."""
+        for kw in call.keywords:
+            if (kw.arg == "donate_panels" and isinstance(kw.value, ast.Constant)
+                    and kw.value.value is True):
+                return DONATE_PANELS_POSITIONS.get(
+                    _callable_name(call.func) or "",
+                    tuple(range(len(call.args))))
+        return None
+
+    def start_file(self, ctx: FileContext) -> None:
+        scopes = [ctx.tree] + [n for n in ast.walk(ctx.tree)
+                               if isinstance(n, (ast.FunctionDef,
+                                                 ast.AsyncFunctionDef))]
+        for scope in scopes:
+            self._scan_scope(scope, ctx)
+
+    @staticmethod
+    def _scope_walk(scope):
+        """Walk one scope, not descending into nested defs (their
+        bindings and execution order are not this scope's)."""
+        stack = (list(scope.body) if hasattr(scope, "body")
+                 else list(ast.iter_child_nodes(scope)))
+        while stack:
+            node = stack.pop()
+            yield node
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                continue  # a nested def is its own scope
+            stack.extend(ast.iter_child_nodes(node))
+
+    def _scan_scope(self, scope, ctx: FileContext) -> None:
+        donated_fns: set = set()   # local names bound to a donated callable
+        donating_calls: list = []  # (call node, indices | None = all)
+
+        for node in self._scope_walk(scope):
+            if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                    and isinstance(node.targets[0], ast.Name) \
+                    and isinstance(node.value, ast.Call) \
+                    and "donated" in (_callable_name(node.value.func) or ""):
+                donated_fns.add(node.targets[0].id)
+
+        for node in self._scope_walk(scope):
+            if not isinstance(node, ast.Call):
+                continue
+            name = _callable_name(node.func) or ""
+            maker = (_callable_name(node.func.func) or ""
+                     if isinstance(node.func, ast.Call) else "")
+            if ((isinstance(node.func, ast.Name) and node.func.id in donated_fns)
+                    or "donated" in name or "donated" in maker
+                    or (ctx.resolve_call(node) or "").endswith(
+                        "utils.donation.consume")):
+                # a donated callable (or the donation primitive itself):
+                # every positional tensor is consumed
+                donating_calls.append((node, None))
+                continue
+            idxs = self._panel_positions(node)
+            if idxs:
+                donating_calls.append((node, idxs))
+
+        for call, idxs in donating_calls:
+            indices = range(len(call.args)) if idxs is None else idxs
+            end = getattr(call, "end_lineno", call.lineno)
+            fn_txt = _callable_name(call.func) or "the donated entry"
+            for i in indices:
+                if i >= len(call.args) or not isinstance(call.args[i],
+                                                         ast.Name):
+                    continue
+                buf = call.args[i].id
+                # a rebind on the call's own line (``v = fn(v, m)``) or
+                # later retires the name: reads past it are a new tensor
+                rebound_at = min(
+                    (n.lineno for n in self._scope_walk(scope)
+                     if isinstance(n, ast.Name) and n.id == buf
+                     and isinstance(n.ctx, ast.Store)
+                     and n.lineno >= end), default=float("inf"))
+                for n in self._scope_walk(scope):
+                    if (isinstance(n, ast.Name) and n.id == buf
+                            and isinstance(n.ctx, ast.Load)
+                            and end < n.lineno < rebound_at
+                            and n is not call.args[i]):
+                        ctx.report(
+                            self.id, n.lineno,
+                            f"{buf!r} is read after being donated to "
+                            f"{fn_txt} (line {call.lineno}) — the call "
+                            "consumed the tensor, which now reads as empty; "
+                            "copy it first or use the undonated call")
+
+
+# --------------------------------------------------------------------------
 # registration
 # --------------------------------------------------------------------------
 
-BUILTIN_RULES = (ClockDiscipline, LockDiscipline, EnumerationDrift,
-                 DialDiscipline)
+BUILTIN_RULES = (ClockDiscipline, TracerHygiene, LockDiscipline,
+                 DonationSafety, EnumerationDrift, DialDiscipline)
 
 
 def register_builtin_rules() -> None:

@@ -34,6 +34,13 @@ class MonthlyReport:
     tstat_nw: float
     backend: str
 
+    def spread_series(self):
+        """The valid months' spread as a pandas Series named ``spread``,
+        indexed by month end (the reference's method)."""
+        import pandas as pd
+
+        return pd.Series(self.spread, index=self.times, name="spread").dropna()
+
 
 @dataclasses.dataclass(frozen=True)
 class GridReport:

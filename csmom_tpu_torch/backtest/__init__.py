@@ -34,6 +34,7 @@ _LAZY = {
     "EventResult": "csmom_tpu_torch.backtest.event",
     "cost_attribution": "csmom_tpu_torch.backtest.event",
     "event_backtest": "csmom_tpu_torch.backtest.event",
+    "event_backtest_donated": "csmom_tpu_torch.backtest.event",
     "hysteresis_event_backtest": "csmom_tpu_torch.backtest.event",
     "threshold_sweep": "csmom_tpu_torch.backtest.event",
     "trades_dataframe": "csmom_tpu_torch.backtest.event",

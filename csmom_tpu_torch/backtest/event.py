@@ -19,6 +19,16 @@ deterministic segmented sum (:func:`_scatter_settle`), never float
 atomics, so a latency run repeats bit for bit on the card.  Integer
 outputs keep the reference's types: positions int32, trade sides int8,
 counts int32.
+
+Donation: :func:`event_backtest_donated` and
+``hysteresis_event_backtest(donate_panels=True)`` consume ``price``,
+``valid`` and ``score`` (:mod:`csmom_tpu_torch.utils.donation`).  Both
+engines take the three panels in a list that the body empties at its
+start, so the body holds the only references a donated call leaves:
+``score`` goes once the trade sides (or the hysteresis targets) are
+decided, ``valid`` once the bar mask and the forward-fill indices are
+taken, and ``price`` after the mark's gather.  A plain call runs the
+same body, its panels kept alive by the caller.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 
 from csmom_tpu_torch import random
 from csmom_tpu_torch.costs.impact import square_root_impact
+from csmom_tpu_torch.utils.donation import consume
 
 DEFAULT_ADV = 100_000.0  # fallback ADV shares
 DEFAULT_VOL = 0.02       # fallback daily vol
@@ -209,8 +220,46 @@ def event_backtest(
         with the asset axis split, the mesh axis over which the
         cross-asset sums (order flow, marks, bar counts, trade counts)
         are psummed, and whose shard index offsets the limit draws'
-        asset counter; None (one device) leaves the engine as it is.
+        asset counter; None (one device) leaves the engine as it is.  A
+        sharded call takes no donation (:func:`event_backtest_donated`
+        has no ``axis_name``).
     """
+    return _event_body([price, valid, score], adv, vol, size_shares, threshold,
+                       cash0, spread, latency_bars, order_type, aggressiveness,
+                       fill_key, axis_name)
+
+
+def event_backtest_donated(
+    price,
+    valid,
+    score,
+    adv,
+    vol,
+    size_shares: int = 50,
+    threshold: float = 1e-5,
+    cash0: float = 1_000_000.0,
+    spread: float = 0.001,
+    latency_bars: int = 0,
+    order_type: str = "market",
+    aggressiveness: float = 0.5,
+    fill_key=None,
+) -> EventResult:
+    """:func:`event_backtest` with ``price``, ``valid`` and ``score``
+    donated (the reference's ``donate_argnums=(0, 1, 2)``): the caller's
+    three tensors are consumed and left empty, and the body releases each
+    after its last use (see the module docstring).  The outputs are those
+    of :func:`event_backtest` on the same inputs."""
+    return _event_body(list(consume(price, valid, score)), adv, vol,
+                       size_shares, threshold, cash0, spread, latency_bars,
+                       order_type, aggressiveness, fill_key, None)
+
+
+def _event_body(panels, adv, vol, size_shares, threshold, cash0, spread,
+                latency_bars, order_type, aggressiveness, fill_key, axis_name):
+    """The threshold engine on ``panels = [price, valid, score]``, a list
+    this body empties so that it holds the panels' last references."""
+    price, valid, score = panels
+    panels.clear()
     A, T = price.shape
     dtype = price.dtype
     score = _like(score, price, dtype)
@@ -218,6 +267,7 @@ def event_backtest(
     allsum, a_offset = _asset_axis(axis_name, A)
 
     side = threshold_sides(valid, score, threshold)
+    del score
 
     if order_type == "limit":
         if fill_key is None:
@@ -245,7 +295,9 @@ def event_backtest(
     shares = side * size_shares                       # i32[A, T] at decision rows
     shares_settle, notional_settle = _scatter_settle(
         shares, fill, fill_idx, latency_bars, dtype)
-    return _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
+    held = [price, valid]
+    del price, valid
+    return _settle_mark_and_wrap(held, shares_settle, notional_settle,
                                  side, fill, traded, impact, cash0, allsum)
 
 
@@ -264,11 +316,15 @@ def _asset_axis(axis_name, A: int):
     return (lambda x: psum(x, axis_name)), axis_index(axis_name) * A
 
 
-def _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
+def _settle_mark_and_wrap(panels, shares_settle, notional_settle,
                           side, fill, traded, impact, cash0, allsum=_identity):
     """Shared tail of both engines: settled shares/notional -> positions,
     cash, forward-filled marks, portfolio value, per-bar PnL, counts.
-    ``allsum`` sums a cross-asset partial over the asset shards."""
+    ``panels = [price, valid]``, a list this tail empties (see
+    :func:`_event_body`); ``allsum`` sums a cross-asset partial over the
+    asset shards."""
+    price, valid = panels
+    panels.clear()
     A, T = price.shape
     dtype = price.dtype
     t_idx = torch.arange(T, dtype=torch.int64, device=price.device)
@@ -279,13 +335,16 @@ def _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
 
     # forward-filled mark price: last observed row price at or before t
     last_obs = torch.cummax(torch.where(valid, t_idx[None, :], -1), dim=1).values
+    # bars with an event row, for the per-bar PnL below
+    bar_mask = allsum(torch.sum(valid, dim=0)) > 0
+    del valid
     mark = torch.gather(torch.nan_to_num(price), 1, torch.clamp(last_obs, 0, T - 1))
+    del price
     mark = torch.where(last_obs >= 0, mark, 0.0)     # pre-history marks at 0
 
     pv = cash + allsum(torch.sum(positions.to(dtype) * mark, dim=0))
 
     # per-bar PnL over bar timestamps only; the first bar's is 0
-    bar_mask = allsum(torch.sum(valid, dim=0)) > 0
     last_bar = torch.cummax(torch.where(bar_mask, t_idx, -1), dim=0).values
     prev_bar = torch.roll(last_bar, 1)
     prev_bar[0] = -1
@@ -324,6 +383,7 @@ def hysteresis_event_backtest(
     spread: float = 0.001,
     latency_bars: int = 0,
     axis_name=None,
+    donate_panels: bool = False,
 ) -> EventResult:
     """Event backtest with a Schmitt-trigger position state per asset:
     enter long (+1 unit) when ``score > threshold_hi``, short (-1) when
@@ -336,13 +396,31 @@ def hysteresis_event_backtest(
     is checked on the host.  With ``latency_bars > 0`` each trade settles
     at the next valid row >= decision + latency (the threshold engine's
     rule); unfillable tail decisions are dropped.  ``axis_name``: as in
-    :func:`event_backtest`.
+    :func:`event_backtest`.  ``donate_panels`` consumes ``price``,
+    ``valid`` and ``score`` as :func:`event_backtest_donated` does; a
+    sharded call (``axis_name``) takes no donation.
     """
     if float(threshold_lo) > float(threshold_hi):
         raise ValueError(
             f"threshold_lo={threshold_lo} > threshold_hi={threshold_hi}: "
             "the exit threshold must not exceed the entry threshold"
         )
+    if donate_panels and axis_name is not None:
+        raise ValueError("a sharded call (axis_name) takes no donation")
+    if donate_panels:
+        price, valid, score = consume(price, valid, score)
+    panels = [price, valid, score]
+    del price, valid, score
+    return _hysteresis_body(panels, adv, vol, threshold_hi, threshold_lo,
+                            size_shares, cash0, spread, latency_bars, axis_name)
+
+
+def _hysteresis_body(panels, adv, vol, threshold_hi, threshold_lo, size_shares,
+                     cash0, spread, latency_bars, axis_name):
+    """The hysteresis engine on ``panels = [price, valid, score]``, a list
+    this body empties (see :func:`_event_body`)."""
+    price, valid, score = panels
+    panels.clear()
     A, T = price.shape
     dtype = price.dtype
     score = _like(score, price, dtype)
@@ -352,9 +430,11 @@ def hysteresis_event_backtest(
     def last_idx(ev):
         return torch.cummax(torch.where(ev, t_idx[None, :], -1), dim=1).values
 
-    iL = last_idx(valid & (score > threshold_hi))
-    iS = last_idx(valid & (score < -threshold_hi))
-    iX = last_idx(valid & (torch.abs(score) < threshold_lo))
+    e_long = valid & (score > threshold_hi)
+    e_short = valid & (score < -threshold_hi)
+    e_exit = valid & (torch.abs(score) < threshold_lo)
+    del score  # the panels' first to go: the scans below are the widest step
+    iL, iS, iX = last_idx(e_long), last_idx(e_short), last_idx(e_exit)
     one = torch.ones((), dtype=torch.int32, device=price.device)
     target = torch.where((iL > iS) & (iL > iX), one,
                          torch.where((iS > iL) & (iS > iX), -one, 0 * one))
@@ -372,10 +452,12 @@ def hysteresis_event_backtest(
     shares = delta * size_shares
     shares_settle, notional_settle = _scatter_settle(
         shares, fill, fill_idx, latency_bars, dtype)
+    held = [price, valid]
+    del price, valid
     # the stored side is the signed unit count (flips are ±2), so cost
     # attribution and the trade log see the true size; the fill price
     # uses only the direction
-    return _settle_mark_and_wrap(price, valid, shares_settle, notional_settle,
+    return _settle_mark_and_wrap(held, shares_settle, notional_settle,
                                  delta, fill, traded, impact, cash0,
                                  _asset_axis(axis_name, A)[0])
 

@@ -16,6 +16,11 @@ never a loop:
   prefix sum over the ``[nJ, A, M]`` formation weights
   (:func:`grid_net_of_costs`), and any cost level re-priced from one
   unit-cost run (:func:`grid_net_from_unit`, :func:`grid_break_even_bps`).
+
+``jk_grid_backtest`` and ``grid_net_of_costs`` take ``donate_panels=``:
+the caller's ``prices``/``mask`` are consumed
+(:func:`csmom_tpu_torch.utils.donation.consume`) and their memory is
+released once the panels' last use is done, before the ranking.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from csmom_tpu_torch.signals.momentum import (
     momentum_dynamic,
     monthly_returns,
 )
+from csmom_tpu_torch.utils.donation import consume
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +194,7 @@ def jk_grid_backtest(
     max_hold: int | None = None,
     freq: int = 12,
     impl: str = "kernel",
+    donate_panels: bool = False,
 ) -> GridResult:
     """Run the full J x K momentum grid on the panel's device.
 
@@ -200,8 +207,18 @@ def jk_grid_backtest(
       max_hold: horizon bound H (defaults to max(Ks)); K2 takes H <= 128.
       impl: 'kernel' (CUDA kernel K2 on the card), 'plain', 'matmul' or
         'matmul_bf16' (see :func:`_cohort_partial_sums`).
+      donate_panels: consume ``prices`` and ``mask``
+        (:mod:`csmom_tpu_torch.utils.donation`): the caller's tensors are
+        left empty, and the panels' memory goes back to the allocator
+        after the last J's momentum and the listed mask, before the
+        ranking.  At the north star the panel pair is the call's largest
+        input.  The outputs are those of the plain call.  A caller that
+        feeds the same panels again (the bench's timed reps) keeps the
+        default; a sharded call (``mesh/variants.py``) takes no donation.
     """
     max_hold = validate_grid_args(Ks, max_hold)
+    if donate_panels:
+        prices, mask = consume(prices, mask)
     dev = prices.device
     Js = torch.as_tensor(Js, device=dev).to(torch.int64)
     Ks = torch.as_tensor(Ks, device=dev).to(torch.int64)
@@ -209,6 +226,9 @@ def jk_grid_backtest(
 
     mom, mom_valid = momentum_dynamic(prices, mask, Js, skip)   # [nJ, A, M]
     mom_valid = mom_valid & formation_listed_mask(mask, skip)
+    # the panels' last use: a donated pair is freed here (a plain call's
+    # stay alive through the caller's own references)
+    del prices, mask
     mom = torch.where(mom_valid, mom, torch.nan)
     labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
     R, R_valid = _finalize_cohorts(
@@ -268,8 +288,16 @@ def _grid_net_core_impl(prices, mask, Js, spreads, spread_valid, half_spread,
     """The per-cell net planes ``f[nJ, nK, M]`` of the netting pass: each
     J's books and turnover cost from its own labels, so a slice of the Js
     nets on its own (the sharded netting pass splits them)."""
-    M = prices.shape[1]
-    mom, mom_valid = momentum_dynamic(prices, mask, Js, skip)   # [nJ, A, M]
+    return _net_planes(momentum_dynamic(prices, mask, Js, skip), spreads,
+                       spread_valid, half_spread, Ks_c, n_bins, mode)
+
+
+def _net_planes(momentum, spreads, spread_valid, half_spread, Ks_c: tuple,
+                n_bins: int, mode: str):
+    """:func:`_grid_net_core_impl` from the Js' formation signals
+    ``momentum_dynamic(prices, mask, Js, skip)``."""
+    mom, mom_valid = momentum                                   # [nJ, A, M]
+    M = mom.shape[-1]
     labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
     # long_short_weights reads only the two extreme bins' counts
     counts = torch.zeros((labels.shape[0], n_bins, M), dtype=torch.int32,
@@ -308,7 +336,8 @@ def _grid_net_core(prices, mask, Js, spreads, spread_valid, half_spread,
 
 
 def grid_net_of_costs(prices, mask, grid: GridResult,
-                      half_spread: float = 0.0005, freq: int = 12) -> GridResult:
+                      half_spread: float = 0.0005, freq: int = 12,
+                      donate_panels: bool = False) -> GridResult:
     """Cost-netted J x K grid with the exact overlapping-portfolio turnover.
 
     The month-m (J, K) book is the 1/K average of the K most recent
@@ -324,16 +353,25 @@ def grid_net_of_costs(prices, mask, grid: GridResult,
     (``momentum_dynamic`` and ``decile_assign_panel``, with no listing
     filter); ``prices``/``mask`` must be the panel the grid was built from.
     Raises on a result that carries no parameters.  Host-side: the carried
-    Ks and skip are read back to the host.
+    Ks and skip are read back to the host.  ``donate_panels`` consumes
+    ``prices`` and ``mask`` as :func:`jk_grid_backtest`'s does; their
+    memory goes back after the formation signals, before the ranking.
 
     Returns a :class:`GridResult` of the netted spreads (same validity and
     parameters).
     """
     _require_build_params(grid, "grid_net_of_costs")
-    return _grid_net_core(prices, mask, grid.Js, grid.spreads, grid.spread_valid,
-                          half_spread, Ks_c=tuple(int(k) for k in grid.Ks.tolist()),
-                          skip=int(grid.skip), n_bins=grid.n_bins, mode=grid.mode,
-                          freq=freq)
+    Ks_c = tuple(int(k) for k in grid.Ks.tolist())
+    skip = int(grid.skip)
+    if donate_panels:
+        prices, mask = consume(prices, mask)
+    momentum = momentum_dynamic(prices, mask, grid.Js, skip)
+    del prices, mask  # the panels' last use (see jk_grid_backtest)
+    net = _net_planes(momentum, grid.spreads, grid.spread_valid, half_spread,
+                      Ks_c, grid.n_bins, grid.mode)
+    return _netted(net, grid.spread_valid, grid.Js, Ks_c,
+                   torch.tensor(skip, device=net.device), grid.n_bins,
+                   grid.mode, freq)
 
 
 def grid_break_even_bps(prices, mask, grid: GridResult,

@@ -1377,11 +1377,12 @@ def cmd_bench(args) -> int:
 def _add_bench(sub) -> None:
     sp = sub.add_parser("bench", help=cmd_bench.__doc__.splitlines()[0])
     sp.set_defaults(fn=cmd_bench)
-    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="the device to measure on (default cuda; without a "
-                         "card the supervisor prints its last-resort line "
-                         "naming the failed probe and exits 1; nothing is "
-                         "measured on another device)")
+    # the common flags parse, as in the reference, and the bench ignores
+    # them: its workload is fixed
+    _add_common(sp, device_help=(
+        "the device to measure on (default cuda; without a card the "
+        "supervisor prints its last-resort line naming the failed probe and "
+        "exits 1; nothing is measured on another device)"))
 
 
 def _add_warmup(sub) -> None:
@@ -1414,7 +1415,7 @@ def _add_warmup(sub) -> None:
                          "build or the golden-event leg fails")
 
 
-def _add_common(p, tickers: bool = True):
+def _add_common(p, tickers: bool = True, device_help: str | None = None):
     p.add_argument("--config", help="TOML RunConfig file")
     p.add_argument("--data-dir", help="CSV cache directory, or a packed "
                                       "panel directory (fetch --pack)")
@@ -1428,10 +1429,11 @@ def _add_common(p, tickers: bool = True):
                    help="monthly engine: torch (the card engine; 'tpu' is "
                         "the reference's name for it) or pandas")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the panels and engines run (default cuda; "
-                        "without a card a computing command exits 2 — pass "
-                        "--device cpu to run the plain PyTorch versions of "
-                        "the kernels on the CPU)")
+                   help=device_help or (
+                       "where the panels and engines run (default cuda; "
+                       "without a card a computing command exits 2 — pass "
+                       "--device cpu to run the plain PyTorch versions of "
+                       "the kernels on the CPU)"))
     p.add_argument("--lookback", type=int, help="formation months J")
     p.add_argument("--skip", type=int, help="skip months")
     p.add_argument("--n-bins", dest="n_bins", type=int)

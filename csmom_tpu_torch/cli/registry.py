@@ -11,9 +11,9 @@ rules, each with its scope).  ``--kind`` filters; ``--endpoints`` prints
 only the serving tier's endpoint names, one a line, exactly as the
 reference does.
 
-What differs from the reference: an engine lists no ``donated``
-variant (torch has no buffer donation, ROADMAP.md known difference 12),
-and ``sharded`` where the rule table of
+``donated`` marks every serve engine and each engine that declares a
+``donated_fn``, as in the reference.  What differs: ``sharded`` where an
+explicit ``sharded_fn`` is declared or the rule table of
 :mod:`csmom_tpu_torch.mesh.variants` resolves one (every serve engine,
 through its catch-all serve rule; the reference prints ``sharded:stub``
 for every engine without an explicit ``sharded_fn``); a lint rule's row
@@ -37,11 +37,14 @@ def _surfaces(spec) -> str:
         return f"lint tier-1 self-test scope:{scope}"
     if spec.kind == "serve":
         out = ["serve", "loadgen"] if spec.workload else ["serve"]
+        out.append("donated")  # every serve engine's scorer, donated
     else:
         out = [f"manifest({','.join(spec.profiles)})"]
+        if spec.donated_fn is not None:
+            out.append("donated")
         if spec.entry_fn is not None:
             out.append("entry")
-    if has_sharded(spec):
+    if spec.sharded_fn is not None or has_sharded(spec):
         out.append("sharded")
     return " ".join(out)
 
@@ -84,8 +87,8 @@ def cmd_registry(args) -> int:
         print()
     print(f"{n} engines registered — one serve registration buys: a warmed "
           "shape on every bucket of the grid, a serve endpoint and a "
-          "loadgen workload leg with its per-endpoint books and a "
-          "sharded scorer on a mesh; a compile "
+          "loadgen workload leg with its per-endpoint books, a donated "
+          "scorer and a sharded scorer on a mesh; a compile "
           "registration buys its entries in the warm-up manifests of its "
           "profiles (warmup); a strategy registration buys a --strategy "
           "for the monthly commands; a lint registration buys the lint "

@@ -12,7 +12,10 @@ loaded libraries, the CUDA context, cuBLAS's handle and workspace, the
 caching allocator grown to the shape's peak, and the lazy imports.  So
 the port warms by running: it builds or loads the libraries an entry
 launches, then calls the entry twice on seeded inputs of its shapes
-(ROADMAP.md, known differences).
+(ROADMAP.md, known differences).  A donated entry consumes its inputs,
+so each of its two calls gets inputs of its own, made from the same
+seed, and its record's ``donated_calls`` says that both ran and
+consumed them.
 
 Each record carries the reference's ``name``, ``shapes``, ``memory``
 (:mod:`csmom_tpu_torch.obs.memstats`, from the caching allocator around
@@ -78,6 +81,7 @@ def aot_compile(entry, device=None, seed: int = 0) -> dict:
     from csmom_tpu_torch.device import resolve_device
     from csmom_tpu_torch.obs import memstats, span
     from csmom_tpu_torch.ops import build
+    from csmom_tpu_torch.utils.donation import is_deleted
     from csmom_tpu_torch.utils.profiling import compile_stats, sync
 
     entry.validate()
@@ -96,16 +100,26 @@ def aot_compile(entry, device=None, seed: int = 0) -> dict:
         build_s = time.perf_counter() - t0
         checkpoint("aot.compile", entry=entry.name)
         sync()
+        consumed = 0
         t1 = time.perf_counter()
         out = entry.fn(*args, **dict(kwargs))
         sync()
         first_call_s = time.perf_counter() - t1
         del out
+        if entry.donated:
+            consumed += all(is_deleted(args[i]) for i in entry.donated)
+            args, kwargs = entry.materialize(dev, np.random.default_rng(seed))
         t2 = time.perf_counter()
         out, memory = memstats.measure(lambda: entry.fn(*args, **dict(kwargs)),
                                        (args, kwargs), baseline)
         sync()
         warm_call_s = time.perf_counter() - t2
+        if entry.donated:
+            consumed += all(is_deleted(args[i]) for i in entry.donated)
+            if consumed != 2:
+                raise RuntimeError(
+                    f"{entry.name}: {2 - consumed} of its two calls left the "
+                    f"donated arguments {entry.donated} unconsumed")
         del out, args, kwargs
         sp.set(build_s=round(build_s, 4), first_call_s=round(first_call_s, 4),
                warm_call_s=round(warm_call_s, 4))
@@ -129,6 +143,8 @@ def aot_compile(entry, device=None, seed: int = 0) -> dict:
         "launches": launches,
         "cache_hit": d.libraries_built == 0,
     }
+    if entry.donated:
+        rec["donated_calls"] = consumed
     healed = build.libraries_healed()[healed0:]
     if healed:
         rec["self_healed"] = ("corrupt cache entry evicted and recompiled "

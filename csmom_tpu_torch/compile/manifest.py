@@ -27,13 +27,16 @@ An array argument is a :class:`TensorSpec` leaf (:func:`sds`, in place of
 leaves into seeded tensors: positive lognormal prices for floats,
 ``True`` for bools, 0 for integers unless the leaf carries its value.
 Impl names are the port's (``plain`` for the reference's ``xla``,
-``kernel`` for ``pallas``), and no entry is a donated variant (ROADMAP.md,
-known difference 12).
+``kernel`` for ``pallas``).  A donated entry (``grid.jk16.rank.plain.
+donated@...``, ``event.threshold.donated@...``) consumes the tensors at
+its ``donated`` positions, so the warm-up makes fresh inputs for each
+of its calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Any, Callable, Mapping
 
@@ -96,7 +99,8 @@ class ManifestEntry:
     ``args``/``kwargs`` hold :class:`TensorSpec` leaves for arrays and
     plain Python values for scalars and static arguments.  ``kernels``
     names the kernel libraries (``ops/build.py``) that the entry's call
-    launches on the card.
+    launches on the card; ``donated`` the argument positions a call
+    consumes (:mod:`csmom_tpu_torch.utils.donation`).
     """
 
     name: str
@@ -104,6 +108,7 @@ class ManifestEntry:
     args: tuple
     kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     kernels: tuple = ()
+    donated: tuple = ()
 
     def validate(self) -> None:
         """Bind the arguments against the function's signature; raises
@@ -153,14 +158,17 @@ def _idx(dtype) -> np.dtype:
 # registry's builtin specs call these with their declared shapes.
 # ---------------------------------------------------------------------------
 
-def grid_entries(A: int, M: int, dtype, *, modes_impls, tag: str) -> list:
+def grid_entries(A: int, M: int, dtype, *, modes_impls, tag: str,
+                 donated: bool = False) -> list:
     """Grid scalar entries (the benchmarks' hot path) at one panel size,
-    one per ``(mode, impl)``."""
+    one per ``(mode, impl)``, plus, when ``donated``, the whole grid with
+    its panels donated (``jk_grid_backtest(..., donate_panels=True)``)."""
+    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
     from csmom_tpu_torch.compile.entries import grid_scalar_fn
 
     p = sds((A, M), dtype)
     m = sds((A, M), bool)
-    return [
+    out = [
         ManifestEntry(
             name=f"grid.jk16.{mode}.{impl}@{tag}",
             fn=grid_scalar_fn(wl.GRID_JS, wl.GRID_KS, wl.GRID_SKIP, mode, impl),
@@ -169,6 +177,18 @@ def grid_entries(A: int, M: int, dtype, *, modes_impls, tag: str) -> list:
         )
         for mode, impl in modes_impls
     ]
+    if donated:
+        idx = _idx(dtype)
+        out.append(ManifestEntry(
+            name=f"grid.jk16.rank.plain.donated@{tag}",
+            fn=functools.partial(jk_grid_backtest, donate_panels=True),
+            args=(p, m, sds((len(wl.GRID_JS),), idx, value=wl.GRID_JS),
+                  sds((len(wl.GRID_KS),), idx, value=wl.GRID_KS), wl.GRID_SKIP),
+            kwargs=dict(n_bins=10, mode="rank", max_hold=max(wl.GRID_KS),
+                        freq=12, impl="plain"),
+            donated=(0, 1),
+        ))
+    return out
 
 
 def monthly_entries(A: int, M: int, dtype, tag: str) -> list:
@@ -227,9 +247,13 @@ def grid_net_entry(A: int, M: int, dtype, tag: str) -> ManifestEntry:
 
 
 def event_entries(A: int, T: int, dtype, tag: str) -> list:
-    """The event panel engines (threshold, hysteresis) at one
-    minute-panel size."""
-    from csmom_tpu_torch.backtest.event import event_backtest, hysteresis_event_backtest
+    """The event panel engines (threshold plain and donated, hysteresis)
+    at one minute-panel size."""
+    from csmom_tpu_torch.backtest.event import (
+        event_backtest,
+        event_backtest_donated,
+        hysteresis_event_backtest,
+    )
 
     p = sds((A, T), dtype)
     v = sds((A, T), bool)
@@ -239,6 +263,9 @@ def event_entries(A: int, T: int, dtype, tag: str) -> list:
     return [
         ManifestEntry(name=f"event.threshold@{tag}", fn=event_backtest,
                       args=(p, v, s, a, vo)),
+        ManifestEntry(name=f"event.threshold.donated@{tag}",
+                      fn=event_backtest_donated, args=(p, v, s, a, vo),
+                      donated=(0, 1, 2)),
         ManifestEntry(
             name=f"event.hysteresis@{tag}", fn=hysteresis_event_backtest,
             args=(p, v, s, a, vo, 1e-4, 1e-5, 50, 1_000_000.0, 0.001),

@@ -91,12 +91,14 @@ def measure(call, args, baseline: int | None):
     if baseline is None:
         return call(), ("not available: a CPU call has no caching "
                         "allocator to read")
+    # the inputs' bytes before the call: a donated call consumes them
+    arg_b = nbytes(args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = call()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - baseline
-    arg_b, out_b = nbytes(args), nbytes(out)
+    out_b = nbytes(out)
     return out, {
         "argument_size_in_bytes": arg_b,
         "output_size_in_bytes": out_b,

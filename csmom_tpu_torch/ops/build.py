@@ -60,11 +60,13 @@ NVCC_FLAGS = (
 KERNELS = ("decile_partial_sums", "cohort_partial_sums")
 
 _LIBS: dict = {}
-_LOCK = threading.Lock()
-# libraries compiled or loaded by this process (libraries_built_or_loaded)
-_EVENTS = 0
-# libraries compiled by this process (libraries_built)
-_BUILT = 0
+# reentrant: load() builds under it, and build() counts under it
+_LOCK = threading.RLock()
+# libraries compiled or loaded by this process ("events",
+# libraries_built_or_loaded) and compiled by it ("built",
+# libraries_built), counted under _LOCK: shard threads and batch scorers
+# reach build() and load() through the kernel wrappers
+_COUNTS = {"events": 0, "built": 0}
 # libraries evicted as corrupt and rebuilt by this process (libraries_healed)
 _HEALED: list = []
 
@@ -125,13 +127,13 @@ def libraries_built_or_loaded() -> int:
     """How many kernel libraries this process has compiled plus how many
     it has loaded, so far; a load from an existing build counts once, a
     fresh build twice (compiled, then loaded)."""
-    return _EVENTS
+    return _COUNTS["events"]
 
 
 def libraries_built() -> int:
     """How many kernel libraries this process has compiled (fresh
     builds only; a load of an existing build does not count)."""
-    return _BUILT
+    return _COUNTS["built"]
 
 
 def libraries_healed() -> list:
@@ -148,7 +150,6 @@ def build(names=KERNELS) -> dict:
     ``RuntimeError`` with the compiler's output if any build fails.  Each
     library lands after its digest file, both with ``os.replace``.
     """
-    global _EVENTS, _BUILT
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -175,8 +176,9 @@ def build(names=KERNELS) -> dict:
             # digest (atomic: never a half-written .so)
             os.replace(sha, digest_path(lib))
             os.replace(tmp, lib)
-            _EVENTS += 1
-            _BUILT += 1
+            with _LOCK:
+                _COUNTS["events"] += 1
+                _COUNTS["built"] += 1
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
@@ -192,7 +194,6 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed, and
     checked against its digest before it is mapped (a corrupt one is
     evicted and rebuilt, see the module docstring)."""
-    global _EVENTS
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -213,7 +214,7 @@ def load(name: str) -> ctypes.CDLL:
             lib.csmom_error_string.restype = ctypes.c_char_p
             lib.csmom_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
-            _EVENTS += 1
+            _COUNTS["events"] += 1
         return lib
 
 

@@ -76,6 +76,12 @@ class Panel:
         without a card; ``dtype`` defaults to the values' own type."""
         return to_tensors(self.values, self.mask, device=device, dtype=dtype)
 
+    def device(self, dtype=None, device="cuda"):
+        """The reference's name of :meth:`tensors`, with its argument
+        order (``dtype`` first); ``device`` defaults to ``"cuda"`` and
+        raises without a card (ROADMAP.md, known difference 78)."""
+        return self.tensors(device=device, dtype=dtype)
+
     def to_dataframe(self):
         """Wide DataFrame view (tickers x times) for debugging and tables."""
         import pandas as pd

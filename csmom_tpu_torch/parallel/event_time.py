@@ -297,6 +297,15 @@ def _specs(time_axis: str, asset_axis):
     return in5, out
 
 
+def _size_tensor(size_shares: int, price, mesh):
+    """The order size as a 0-d tensor of the panel's type on this
+    process's first shard's device: uploaded once a call, and handed to
+    every shard replicated (``P()``), not uploaded by each shard's
+    function."""
+    return torch.tensor(float(size_shares), dtype=torch.as_tensor(price).dtype,
+                        device=mesh.home)
+
+
 def _asum(asset_axis):
     if asset_axis is None:
         return lambda x: x
@@ -336,8 +345,10 @@ def time_sharded_event_backtest(price, valid, score, adv, vol, mesh,
             f"{T // nt}; a fill target would skip past the halo neighbour: "
             "use fewer time shards or the asset-sharded engine")
     asum = _asum(asset_axis)
+    size_t = _size_tensor(size_shares, price, mesh)
+    key = None if fill_key is None else _like(fill_key, size_t)
 
-    def local_fn(price, valid, score, adv, vol, fill_key):
+    def local_fn(price, valid, score, adv, vol, fill_key, size_t):
         A_l, T_l = price.shape
         dtype = price.dtype
         side = threshold_sides(valid, score.to(dtype), threshold)
@@ -345,12 +356,9 @@ def time_sharded_event_backtest(price, valid, score, adv, vol, mesh,
             p_fill = limit_fill_probability(adv, size_shares, aggressiveness, dtype)
             a_off = axis_index(asset_axis) * A_l if asset_axis else 0
             t_off = axis_index(time_axis) * T_l
-            u = counter_uniform(_like(fill_key, price), (A_l, T_l), a_off,
-                                t_off, dtype)
+            u = counter_uniform(fill_key, (A_l, T_l), a_off, t_off, dtype)
             side = torch.where(u < p_fill[:, None], side, 0)
-        impact = square_root_impact(
-            torch.tensor(float(size_shares), dtype=dtype, device=price.device),
-            adv.to(dtype), vol.to(dtype))
+        impact = square_root_impact(size_t, adv.to(dtype), vol.to(dtype))
         limit = aggressiveness if order_type == "limit" else None
         if latency_bars > 0:
             side, fill, shares_settle, notional_settle = _latency_settle(
@@ -370,8 +378,8 @@ def time_sharded_event_backtest(price, valid, score, adv, vol, mesh,
                                     time_axis)
 
     in5, out = _specs(time_axis, asset_axis)
-    return shard_map(local_fn, mesh=mesh, in_specs=in5 + (P(),),
-                     out_specs=out)(price, valid, score, adv, vol, fill_key)
+    return shard_map(local_fn, mesh=mesh, in_specs=in5 + (P(), P()),
+                     out_specs=out)(price, valid, score, adv, vol, key, size_t)
 
 
 def time_sharded_hysteresis_backtest(price, valid, score, adv, vol, mesh,
@@ -395,8 +403,9 @@ def time_sharded_hysteresis_backtest(price, valid, score, adv, vol, mesh,
     A, T = price.shape
     _validate_time_layout(mesh, A, T, time_axis, asset_axis)
     asum = _asum(asset_axis)
+    size_t = _size_tensor(size_shares, price, mesh)
 
-    def local_fn(price, valid, score, adv, vol):
+    def local_fn(price, valid, score, adv, vol, size_t):
         A_l, T_l = price.shape
         dtype = price.dtype
         dev = price.device
@@ -427,9 +436,7 @@ def time_sharded_hysteresis_backtest(price, valid, score, adv, vol, mesh,
         delta = target - prev_target
         sgn = torch.sign(delta)
         traded = sgn != 0
-        impact = square_root_impact(
-            torch.tensor(float(size_shares), dtype=dtype, device=dev),
-            adv.to(dtype), vol.to(dtype))
+        impact = square_root_impact(size_t, adv.to(dtype), vol.to(dtype))
         fill = market_fill_prices(torch.nan_to_num(price), sgn, traded, impact,
                                   spread)
         shares = delta * size_shares
@@ -439,5 +446,5 @@ def time_sharded_hysteresis_backtest(price, valid, score, adv, vol, mesh,
                                     time_axis)
 
     in5, out = _specs(time_axis, asset_axis)
-    return shard_map(local_fn, mesh=mesh, in_specs=in5, out_specs=out)(
-        price, valid, score, adv, vol)
+    return shard_map(local_fn, mesh=mesh, in_specs=in5 + (P(),), out_specs=out)(
+        price, valid, score, adv, vol, size_t)

@@ -13,9 +13,10 @@ profiles and shapes: ``grid.jk``, ``grid.net_core``, ``monthly.kernels``,
 ``serve.buckets``, ``stream.signals``, ``mesh.serve`` (profiles
 ``serve-mesh`` and ``serve-mesh-smoke``) and ``mesh.grid`` (profile
 ``bench-mesh``).  Profile ``bench-gpu`` takes the place of ``bench-tpu``
-(f32; every other profile is f64 unless its engine fixes a type), impls
-take the port's names, and there are no donated entries (ROADMAP.md,
-known difference 12).
+(f32; every other profile is f64 unless its engine fixes a type), and
+impls take the port's names.  ``grid.jk`` and ``event.panel`` declare
+their donated variants (``donated_fn``), whose entries the ``smoke``,
+``bench-cpu`` and ``bench-gpu`` profiles list where the reference's do.
 
 Each ``batch_fn(params)`` returns a scorer of the whole micro-batch,
 ``fn(values f[B, A, M], mask bool[B, A, M])``, where the reference's
@@ -305,7 +306,7 @@ def _grid_manifest(profile: str, dtype) -> list:
     if profile == "bench-cpu":
         M_r, M_f = m.months_of(T_r), m.months_of(T_f)
         entries = m.grid_entries(
-            A_r, M_r, dt, tag=f"{A_r}x{M_r}",
+            A_r, M_r, dt, tag=f"{A_r}x{M_r}", donated=True,
             modes_impls=[("rank", "plain"), ("qcut", "plain"),
                          ("rank", "matmul")])
         entries += m.grid_entries(
@@ -315,12 +316,12 @@ def _grid_manifest(profile: str, dtype) -> list:
     if profile == "bench-gpu":
         M_f = m.months_of(T_f)
         return m.grid_entries(
-            A_f, M_f, dt, tag=f"{A_f}x{M_f}",
+            A_f, M_f, dt, tag=f"{A_f}x{M_f}", donated=True,
             modes_impls=[("rank", "plain"), ("qcut", "plain"),
                          ("rank", "matmul"), ("rank", "matmul_bf16"),
                          ("rank", "kernel")])
     # smoke: tiny shapes, the grid's code path
-    return m.grid_entries(16, 48, dt, tag="16x48",
+    return m.grid_entries(16, 48, dt, tag="16x48", donated=True,
                           modes_impls=[("rank", "plain")])
 
 
@@ -389,14 +390,29 @@ def _histrank_factory(*args, **kwargs):
     return histrank_labels_fn(*args, **kwargs)
 
 
+def _grid_donated_factory(**params):
+    import functools
+
+    from csmom_tpu_torch.backtest.grid import jk_grid_backtest
+
+    return functools.partial(jk_grid_backtest, donate_panels=True)
+
+
+def _event_donated_factory(**params):
+    from csmom_tpu_torch.backtest.event import event_backtest_donated
+
+    return event_backtest_donated
+
+
 REGISTRY.register(EngineSpec(
     name="grid.jk", kind="compile",
     description="the J x K grid backtest hot entry (the whole grid summed "
-                "to one scalar; the benchmarks' grid legs)",
+                "to one scalar; the benchmarks' grid legs + donated variant)",
     axes="prices f[A,M], mask bool[A,M] -> scalar",
     profiles=("bench-cpu", "bench-gpu", "smoke"),
     manifest_fn=_grid_manifest,
     entry_fn=_grid_entry_factory,
+    donated_fn=_grid_donated_factory,
 ))
 
 REGISTRY.register(EngineSpec(
@@ -418,12 +434,13 @@ REGISTRY.register(EngineSpec(
 
 REGISTRY.register(EngineSpec(
     name="event.panel", kind="compile",
-    description="the event panel engines (threshold, hysteresis) and the "
-                "batched event leg",
+    description="the event panel engines (threshold plain + donated, "
+                "hysteresis) and the batched event leg",
     axes="price/valid/score f[A,T] minute panels",
     profiles=("smoke",),
     manifest_fn=_event_manifest,
     entry_fn=_batched_event_factory,
+    donated_fn=_event_donated_factory,
 ))
 
 REGISTRY.register(EngineSpec(

@@ -23,11 +23,15 @@ What differs from the reference:
   :func:`~csmom_tpu_torch.strategy.base.register_strategy`) and ``lint``
   (a rule class of :mod:`csmom_tpu_torch.analysis`, which registration
   enrolls in the sweep);
-- :meth:`EngineSpec.donated` raises: torch has no buffer donation
-  (ROADMAP.md, known difference 12); :meth:`EngineSpec.sharded` resolves
-  through :func:`csmom_tpu_torch.mesh.variants.resolve_sharded`, whose
-  catch-all serve rule gives every servable engine, a runtime
-  registration included, its sharded micro-batch scorer;
+- :meth:`EngineSpec.donated` returns the engine's donated variant, a
+  callable that consumes its input tensors
+  (:mod:`csmom_tpu_torch.utils.donation`): the declared ``donated_fn``,
+  else a serve engine's :func:`~csmom_tpu_torch.serve.engine.
+  serve_entry_fn_donated`; :meth:`EngineSpec.sharded` calls an explicit
+  ``sharded_fn``, else resolves through
+  :func:`csmom_tpu_torch.mesh.variants.resolve_sharded`, whose catch-all
+  serve rule gives every servable engine, a runtime registration
+  included, its sharded micro-batch scorer;
 - the reference's profile ``bench-tpu`` is the port's ``bench-gpu``
   (:data:`PROFILE_ALIASES`); the mesh profiles ``bench-mesh``,
   ``serve-mesh`` and ``serve-mesh-smoke`` keep their names.
@@ -118,6 +122,10 @@ class EngineSpec:
     - ``"lint"``: a lint rule class (``rule_cls``, a
       :class:`csmom_tpu_torch.analysis.core.LintRule` subclass); the
       sweep, its CLI and the fixture self-test run every registered one.
+
+    ``donated_fn(**params)`` returns the donated variant (see
+    :meth:`donated`); ``sharded_fn`` is the mesh variant, which wins over
+    the rule table (see :meth:`sharded`).
     """
 
     name: str
@@ -129,6 +137,8 @@ class EngineSpec:
     manifest_fn: Callable | None = None
     manifest_names_fn: Callable | None = None
     entry_fn: Callable | None = None
+    donated_fn: Callable | None = None
+    sharded_fn: Callable | None = None
     serve: ServeSurface | None = None
     strategy_cls: type | None = None
     rule_cls: type | None = None    # kind "lint": the LintRule subclass
@@ -150,25 +160,41 @@ class EngineSpec:
             raise ValueError(f"lint rule {self.name!r} needs rule_cls")
 
     def donated(self, **params):
-        """The reference's donated-buffer variant: torch has no buffer
-        donation, so this raises."""
+        """The donated variant: a callable that computes what the plain
+        one does and consumes the tensors it is given
+        (:func:`csmom_tpu_torch.utils.donation.consume`).  An engine's
+        declared ``donated_fn(**params)`` wins; a serve engine without one
+        gets :func:`~csmom_tpu_torch.serve.engine.serve_entry_fn_donated`
+        of its scorer; any other engine raises."""
+        if self.donated_fn is not None:
+            return self.donated_fn(**params)
+        if self.kind == "serve":
+            from csmom_tpu_torch.serve.engine import serve_entry_fn_donated
+
+            return serve_entry_fn_donated(
+                self.name, params.get("lookback", 12),
+                params.get("skip", 1), params.get("n_bins", 10),
+                params.get("mode", "rank"))
         raise NotImplementedError(
-            f"engine {self.name!r}: buffer donation has no torch meaning "
-            "(ROADMAP.md, known difference 12); call the scorer itself")
+            f"engine {self.name!r} declares no donated-buffer variant")
 
     def sharded(self, *args, **kwargs):
-        """The engine's mesh variant, resolved by the rule table of
-        :mod:`csmom_tpu_torch.mesh.variants` and called with
-        ``args``/``kwargs`` (a serve endpoint's is its
+        """The engine's mesh variant called with ``args``/``kwargs``: an
+        explicit ``sharded_fn`` wins, else the rule table of
+        :mod:`csmom_tpu_torch.mesh.variants` resolves one (a serve
+        endpoint's is its
         :class:`~csmom_tpu_torch.mesh.variants.ShardedServeEntry`); an
-        engine no rule matches raises."""
+        engine with neither raises."""
+        if self.sharded_fn is not None:
+            return self.sharded_fn(*args, **kwargs)
         from csmom_tpu_torch.mesh.variants import resolve_sharded
 
         fn = resolve_sharded(self)
         if fn is None:
             raise NotImplementedError(
                 f"{self.kind} engine {self.name!r} has no sharded variant: no "
-                "partition rule in csmom_tpu_torch/mesh/variants.py matches it")
+                "partition rule in csmom_tpu_torch/mesh/variants.py matches it "
+                "(add a rule there, or register the engine with sharded_fn=...)")
         return fn(*args, **kwargs)
 
 

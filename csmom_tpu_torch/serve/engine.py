@@ -5,7 +5,11 @@ registered engines (:mod:`csmom_tpu_torch.registry`); this module turns
 a registered :class:`~csmom_tpu_torch.registry.core.ServeSurface` into
 the live backends.  :func:`serve_entry_fn` is the process-shared scorer
 of one endpoint, keyed on the surface object, so a name registered
-again gets a new scorer.
+again gets a new scorer; :func:`serve_entry_fn_donated` is the same
+scorer with the batch's ``values`` and ``mask`` consumed
+(:mod:`csmom_tpu_torch.utils.donation`), for a caller that owns its
+batch and gives it up.  The service's request path keeps the plain
+scorer: its panels and results outlive a dispatch.
 
 :class:`TorchEngine` takes the place of the reference's ``JaxEngine``:
 each endpoint's batch scorer runs the whole padded micro-batch on the
@@ -48,7 +52,8 @@ from csmom_tpu_torch.registry import serve_endpoints, serve_surface
 from csmom_tpu_torch.serve.buckets import BucketSpec
 
 __all__ = ["KERNELS", "MeshTorchEngine", "StubEngine", "TorchEngine",
-           "make_engine", "serve_entry_fn", "unpack_result"]
+           "make_engine", "serve_entry_fn", "serve_entry_fn_donated",
+           "unpack_result"]
 
 # the kernels the builtin endpoints launch (ops/build.py names): the
 # backtest endpoint's K1; the CLI's cold-cache gate checks their builds
@@ -80,6 +85,28 @@ def serve_entry_fn(kind: str, lookback: int, skip: int, n_bins: int,
     ``f[B, A]`` (NaN where invalid or padded), summary endpoints
     (``backtest``) ``f[B, len(summary_fields)]``."""
     return scorer_for(_surface_or_raise(kind), lookback, skip, n_bins, mode)
+
+
+@lru_cache(maxsize=64)
+def _donated_scorer(scorer):
+    """``scorer`` with its two batch tensors consumed."""
+    from csmom_tpu_torch.utils.donation import consume
+
+    def donated(values, mask):
+        return scorer(*consume(values, mask))
+
+    return donated
+
+
+def serve_entry_fn_donated(kind: str, lookback: int, skip: int, n_bins: int,
+                           mode: str):
+    """:func:`serve_entry_fn` with the batch donated (the reference's
+    ``donate_argnums=(0, 1)``): ``fn(values, mask)`` consumes both
+    tensors, leaves the caller's empty, and returns what the plain scorer
+    returns on them.  The scorer holds the batch until it returns, so the
+    memory goes back when the call ends.  Process-shared, like the plain
+    scorer."""
+    return _donated_scorer(serve_entry_fn(kind, lookback, skip, n_bins, mode))
 
 
 def unpack_result(kind: str, out: np.ndarray, row: int, n_assets: int):

@@ -64,7 +64,8 @@ def test_list_names_the_references_engines_of_each_kind(kind, capsys):
     assert len(_section(port, kind)[1]) == {"serve": 5, "strategy": 8}[kind]
     if kind == "serve":
         rows = [ln.split() for ln in port.splitlines()[1:11:2]]
-        assert [r[1:] for r in rows] == [["serve", "loadgen", "sharded"]] * 5
+        assert [r[1:] for r in rows] == [["serve", "loadgen", "donated",
+                                          "sharded"]] * 5
 
 
 def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
@@ -73,9 +74,9 @@ def test_list_covers_both_kinds_and_terse_drops_descriptions(capsys):
     assert main(["registry", "list", "--terse"]) == 0
     terse = capsys.readouterr().out
     assert "serve (5):" in full and "compile (10):" in full
-    assert "strategy (8):" in full and "lint (6):" in full
-    assert "29 engines registered" in full
-    assert len(terse.splitlines()) == len(full.splitlines()) - 29
+    assert "strategy (8):" in full and "lint (9):" in full
+    assert "32 engines registered" in full
+    assert len(terse.splitlines()) == len(full.splitlines()) - 32
 
 
 def test_compile_kind_lists_its_engines(capsys):
@@ -94,18 +95,48 @@ def test_compile_kind_lists_its_engines(capsys):
 @pytest.mark.parametrize("kind,item", [("lint", "8d")])
 def test_unported_kinds_exit_2_naming_their_item(kind, item, capsys):
     """Kind ``lint`` was refused until its item (8d) ported it: it now
-    lists the six rules, each with its scope, and exits 0."""
+    lists the reference's nine rules in its order, each with its scope,
+    and exits 0."""
     assert main(["registry", "list", "--kind", kind]) == 0
     out = capsys.readouterr().out
     head, names = _section(out, kind)
-    assert head == "lint (6):"
-    assert names == ["clock-discipline", "lock-discipline",
-                     "enumeration-drift", "dial-discipline", "lock-order",
-                     "compile-surface"]
+    rc, ref = _ref(capsys, kind=kind)
+    assert rc == 0 and (head, names) == _section(ref, kind)
+    assert head == "lint (9):"
+    assert names == ["clock-discipline", "tracer-hygiene", "lock-discipline",
+                     "donation-safety", "enumeration-drift", "dial-discipline",
+                     "lock-order", "helper-hygiene", "compile-surface"]
     scopes = {ln.split()[0]: ln.split()[-1] for ln in out.splitlines()
               if ln.startswith("  ") and not ln.startswith(" " * 24)}
-    assert scopes == {n: "scope:project" if n in ("lock-order", "compile-surface")
-                      else "scope:file" for n in names}
+    project = ("lock-order", "helper-hygiene", "compile-surface")
+    assert scopes == {n: "scope:project" if n in project else "scope:file"
+                      for n in names}
+
+
+def _rows(text, kind):
+    """``{name: surfaces}`` of the engines listed under ``kind``."""
+    _, names = _section(text, kind)
+    return {ln.split()[0]: ln.split()[1:] for ln in text.splitlines()
+            if ln.startswith("  ") and not ln.startswith(" " * 24)
+            and ln.split()[0] in names}
+
+
+@pytest.mark.parametrize("kind", ["serve", "compile"])
+def test_rows_equal_the_references_donated_and_sharded_included(kind, capsys):
+    """Each serve and compile row lists the reference's surfaces:
+    ``donated`` on every serve engine and on ``grid.jk`` and
+    ``event.panel``, in the reference's place, under the port's names
+    (profile ``bench-gpu``; ``sharded`` where the reference has its
+    ``sharded:stub``, every port engine having a sharded variant)."""
+    assert main(["registry", "list", "--kind", kind]) == 0
+    port = _rows(capsys.readouterr().out, kind)
+    rc, ref = _ref(capsys, kind=kind)
+    want = {name: [w.replace("sharded:stub", "sharded")
+                   .replace("bench-tpu", "bench-gpu") for w in ws]
+            for name, ws in _rows(ref, kind).items()}
+    assert rc == 0 and port == want
+    donated = sorted(n for n, ws in port.items() if "donated" in ws)
+    assert donated == sorted({"serve": want, "compile": ["grid.jk", "event.panel"]}[kind])
 
 
 def test_unknown_action_exits_2(capsys):

@@ -33,6 +33,8 @@ from csmom_tpu_torch.registry import (
     workload_kinds,
 )
 from csmom_tpu_torch.serve.engine import StubEngine, TorchEngine, make_engine
+from csmom_tpu_torch.serve.engine import serve_entry_fn as port_entry_fn
+from csmom_tpu_torch.utils.donation import is_deleted
 
 torch.set_num_threads(2)
 
@@ -140,8 +142,16 @@ def test_registry_refuses_what_is_not_ported():
     from csmom_tpu_torch.registry import get_engine
 
     spec = get_engine("momentum", kind="serve")
-    with pytest.raises(NotImplementedError, match="known difference 12"):
-        spec.donated()
+    # the donated surface is ported: the plain scorer's output, with the
+    # batch consumed
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy(100 * np.exp(np.cumsum(rng.normal(0, 0.05, (2, 6, 30)), -1)))
+    m = torch.ones(v.shape, dtype=torch.bool)
+    plain = port_entry_fn("momentum", 12, 1, 10, "rank")(v, m)
+    v1, m1 = v.clone(), m.clone()
+    got = spec.donated(lookback=12, skip=1, n_bins=10, mode="rank")(v1, m1)
+    assert torch.equal(torch.nan_to_num(got, 7.0), torch.nan_to_num(plain, 7.0))
+    assert is_deleted(v1) and is_deleted(m1) and v1.numel() == 0
     # the sharded surface is ported: the endpoint's mesh scorer
     assert spec.sharded(devices=["cpu"] * 2).axis == "assets"
     # kinds lint (item 8d) and strategy are ported: each needs its class

@@ -2,7 +2,7 @@
 ``compile``, the CLI's ``warmup``) against csmom_tpu's: the same manifest
 names and shapes for every profile under the stated renaming (impls
 ``xla``/``pallas`` -> ``plain``/``kernel``, profile ``bench-tpu`` ->
-``bench-gpu``, no donated entries), every ``smoke`` entry equal to the
+``bench-gpu``), donated entries included, every ``smoke`` entry equal to the
 reference's entry on the same seeded inputs, and a CPU warm-up that
 writes its report.  Tolerances: f64 ``rtol=1e-10, atol=1e-13``, integers
 equal."""
@@ -32,8 +32,9 @@ def _port_name(name):
 
 
 def _reference_rows(profile):
-    return [(_port_name(e.name), e.shape_summary())
-            for e in ref_build_manifest(profile) if "donated" not in e.name]
+    return [(_port_name(e.name),
+             e.shape_summary().replace("impl='xla'", "impl='plain'"))
+            for e in ref_build_manifest(profile)]
 
 
 @pytest.mark.parametrize("profile", ["smoke", "golden", "serve-smoke",
@@ -132,9 +133,12 @@ def test_smoke_entry_equals_the_references_on_the_same_inputs(name):
     args, kwargs = port.numpy_inputs(np.random.default_rng(7))
     got = port.fn(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                     for a in args), **kwargs)
-    # the reference's entry functions are jitted (statics declared)
+    # the reference's entry functions are jitted (statics declared); its
+    # impl names are xla/pallas
     want = ref.fn(*(jnp.asarray(a) if isinstance(a, np.ndarray) else a
-                    for a in args), **kwargs)
+                    for a in args),
+                  **{k: {"plain": "xla"}.get(v, v) if k == "impl" else v
+                     for k, v in kwargs.items()})
     g, w = _leaves(got), _leaves(want)
     if name.startswith("grid.net_core"):
         g, w = g[:6], w[:6]  # the result's data fields; Js/Ks/skip aside
@@ -192,7 +196,7 @@ def test_a_failing_entry_is_recorded_and_strict_fails_the_command(monkeypatch, c
     from csmom_tpu_torch.compile import aot
 
     def boom(entry, device=None, seed=0):
-        if entry.name.startswith("event.threshold"):
+        if entry.name.startswith("event.threshold@"):
             raise RuntimeError("broken entry")
         return {"name": entry.name, "cache_hit": True}
 
