@@ -29,6 +29,14 @@ start, so the body holds the only references a donated call leaves:
 decided, ``valid`` once the bar mask and the forward-fill indices are
 taken, and ``price`` after the mark's gather.  A plain call runs the
 same body, its panels kept alive by the caller.
+
+Phase spans (:func:`csmom_tpu_torch.obs.spans.span`), opened one after
+another: each engine's ``event.decide`` (the sides or targets),
+``event.fill`` (impact, latency, fill prices, settlement) and
+``event.settle`` (positions, cash, marks, PnL, counts), and
+:func:`cost_attribution`'s ``event.costs``.  Armed, each is a JSON-lines
+record; while ``torch.profiler`` records, each is also a range of the
+trace.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 
 from csmom_tpu_torch import random
 from csmom_tpu_torch.costs.impact import square_root_impact
+from csmom_tpu_torch.obs.spans import span
 from csmom_tpu_torch.utils.donation import consume
 
 DEFAULT_ADV = 100_000.0  # fallback ADV shares
@@ -261,44 +270,48 @@ def _event_body(panels, adv, vol, size_shares, threshold, cash0, spread,
     price, valid, score = panels
     panels.clear()
     A, T = price.shape
-    dtype = price.dtype
-    score = _like(score, price, dtype)
-    adv, vol = _like(adv, price), _like(vol, price)
-    allsum, a_offset = _asset_axis(axis_name, A)
+    shape = dict(A=A, T=T, engine="threshold")
+    with span("event.decide", **shape):
+        dtype = price.dtype
+        score = _like(score, price, dtype)
+        adv, vol = _like(adv, price), _like(vol, price)
+        allsum, a_offset = _asset_axis(axis_name, A)
 
-    side = threshold_sides(valid, score, threshold)
-    del score
+        side = threshold_sides(valid, score, threshold)
+        del score
 
-    if order_type == "limit":
-        if fill_key is None:
-            raise ValueError("order_type='limit' requires fill_key")
-        p_fill = limit_fill_probability(adv, size_shares, aggressiveness, dtype)
-        # keyed by the global (asset, bar) cell: a sharded call draws the
-        # single-device fills
-        u = counter_uniform(_like(fill_key, price), (A, T), a_offset, 0, dtype)
-        side = torch.where(u < p_fill[:, None], side, 0)
-    elif order_type != "market":
-        raise ValueError(f"unknown order_type {order_type!r}")
+        if order_type == "limit":
+            if fill_key is None:
+                raise ValueError("order_type='limit' requires fill_key")
+            p_fill = limit_fill_probability(adv, size_shares, aggressiveness, dtype)
+            # keyed by the global (asset, bar) cell: a sharded call draws the
+            # single-device fills
+            u = counter_uniform(_like(fill_key, price), (A, T), a_offset, 0, dtype)
+            side = torch.where(u < p_fill[:, None], side, 0)
+        elif order_type != "market":
+            raise ValueError(f"unknown order_type {order_type!r}")
 
-    impact = square_root_impact(
-        torch.tensor(float(size_shares), dtype=dtype, device=price.device),
-        adv.to(dtype), vol.to(dtype))
+    with span("event.fill", **shape):
+        impact = square_root_impact(
+            torch.tensor(float(size_shares), dtype=dtype, device=price.device),
+            adv.to(dtype), vol.to(dtype))
 
-    side, fill_idx, exec_base = _apply_latency(price, valid, side, latency_bars)
-    traded = side != 0
+        side, fill_idx, exec_base = _apply_latency(price, valid, side, latency_bars)
+        traded = side != 0
 
-    if order_type == "limit":
-        fill = torch.where(traded, limit_fill_price(exec_base, aggressiveness, spread), 0.0)
-    else:
-        fill = market_fill_prices(exec_base, side, traded, impact, spread)
+        if order_type == "limit":
+            fill = torch.where(traded, limit_fill_price(exec_base, aggressiveness,
+                                                        spread), 0.0)
+        else:
+            fill = market_fill_prices(exec_base, side, traded, impact, spread)
 
-    shares = side * size_shares                       # i32[A, T] at decision rows
-    shares_settle, notional_settle = _scatter_settle(
-        shares, fill, fill_idx, latency_bars, dtype)
-    held = [price, valid]
-    del price, valid
+        shares = side * size_shares                       # i32[A, T] at decision rows
+        shares_settle, notional_settle = _scatter_settle(
+            shares, fill, fill_idx, latency_bars, dtype)
+        held = [price, valid]
+        del price, valid
     return _settle_mark_and_wrap(held, shares_settle, notional_settle,
-                                 side, fill, traded, impact, cash0, allsum)
+                                 side, fill, traded, impact, cash0, allsum, shape)
 
 
 def _identity(x):
@@ -317,57 +330,59 @@ def _asset_axis(axis_name, A: int):
 
 
 def _settle_mark_and_wrap(panels, shares_settle, notional_settle,
-                          side, fill, traded, impact, cash0, allsum=_identity):
+                          side, fill, traded, impact, cash0, allsum, shape):
     """Shared tail of both engines: settled shares/notional -> positions,
-    cash, forward-filled marks, portfolio value, per-bar PnL, counts.
-    ``panels = [price, valid]``, a list this tail empties (see
-    :func:`_event_body`); ``allsum`` sums a cross-asset partial over the
-    asset shards."""
+    cash, forward-filled marks, portfolio value, per-bar PnL, counts, in
+    the span ``event.settle``.  ``panels = [price, valid]``, a list this
+    tail empties (see :func:`_event_body`); ``allsum`` sums a cross-asset
+    partial over the asset shards; ``shape`` is the calling body's span
+    attributes."""
     price, valid = panels
     panels.clear()
     A, T = price.shape
-    dtype = price.dtype
-    t_idx = torch.arange(T, dtype=torch.int64, device=price.device)
+    with span("event.settle", **shape):
+        dtype = price.dtype
+        t_idx = torch.arange(T, dtype=torch.int64, device=price.device)
 
-    positions = torch.cumsum(shares_settle, dim=1, dtype=torch.int32)
-    flow = allsum(torch.sum(notional_settle, dim=0))  # signed notional per bar
-    cash = cash0 - torch.cumsum(flow, dim=0)
+        positions = torch.cumsum(shares_settle, dim=1, dtype=torch.int32)
+        flow = allsum(torch.sum(notional_settle, dim=0))  # signed notional per bar
+        cash = cash0 - torch.cumsum(flow, dim=0)
 
-    # forward-filled mark price: last observed row price at or before t
-    last_obs = torch.cummax(torch.where(valid, t_idx[None, :], -1), dim=1).values
-    # bars with an event row, for the per-bar PnL below
-    bar_mask = allsum(torch.sum(valid, dim=0)) > 0
-    del valid
-    mark = torch.gather(torch.nan_to_num(price), 1, torch.clamp(last_obs, 0, T - 1))
-    del price
-    mark = torch.where(last_obs >= 0, mark, 0.0)     # pre-history marks at 0
+        # forward-filled mark price: last observed row price at or before t
+        last_obs = torch.cummax(torch.where(valid, t_idx[None, :], -1), dim=1).values
+        # bars with an event row, for the per-bar PnL below
+        bar_mask = allsum(torch.sum(valid, dim=0)) > 0
+        del valid
+        mark = torch.gather(torch.nan_to_num(price), 1, torch.clamp(last_obs, 0, T - 1))
+        del price
+        mark = torch.where(last_obs >= 0, mark, 0.0)     # pre-history marks at 0
 
-    pv = cash + allsum(torch.sum(positions.to(dtype) * mark, dim=0))
+        pv = cash + allsum(torch.sum(positions.to(dtype) * mark, dim=0))
 
-    # per-bar PnL over bar timestamps only; the first bar's is 0
-    last_bar = torch.cummax(torch.where(bar_mask, t_idx, -1), dim=0).values
-    prev_bar = torch.roll(last_bar, 1)
-    prev_bar[0] = -1
-    prev_bar = torch.where(bar_mask, prev_bar, -1)
-    pv_prev = torch.where(prev_bar >= 0, pv[torch.clamp(prev_bar, 0, T - 1)], pv)
-    pnl = torch.where(bar_mask & (prev_bar >= 0), pv - pv_prev, 0.0)
+        # per-bar PnL over bar timestamps only; the first bar's is 0
+        last_bar = torch.cummax(torch.where(bar_mask, t_idx, -1), dim=0).values
+        prev_bar = torch.roll(last_bar, 1)
+        prev_bar[0] = -1
+        prev_bar = torch.where(bar_mask, prev_bar, -1)
+        pv_prev = torch.where(prev_bar >= 0, pv[torch.clamp(prev_bar, 0, T - 1)], pv)
+        pnl = torch.where(bar_mask & (prev_bar >= 0), pv - pv_prev, 0.0)
 
-    i32 = torch.int32
-    return EventResult(
-        pnl=pnl,
-        bar_mask=bar_mask,
-        portfolio_value=pv,
-        cash=cash,
-        positions=positions,
-        trade_side=side.to(torch.int8),
-        exec_price=fill,
-        impact=impact,
-        total_pnl=torch.sum(pnl),
-        n_trades=allsum(torch.sum(traded, dtype=i32)),
-        n_buys=allsum(torch.sum(side > 0, dtype=i32)),
-        n_sells=allsum(torch.sum(side < 0, dtype=i32)),
-        net_notional=torch.sum(flow),
-    )
+        i32 = torch.int32
+        return EventResult(
+            pnl=pnl,
+            bar_mask=bar_mask,
+            portfolio_value=pv,
+            cash=cash,
+            positions=positions,
+            trade_side=side.to(torch.int8),
+            exec_price=fill,
+            impact=impact,
+            total_pnl=torch.sum(pnl),
+            n_trades=allsum(torch.sum(traded, dtype=i32)),
+            n_buys=allsum(torch.sum(side > 0, dtype=i32)),
+            n_sells=allsum(torch.sum(side < 0, dtype=i32)),
+            net_notional=torch.sum(flow),
+        )
 
 
 def hysteresis_event_backtest(
@@ -422,44 +437,47 @@ def _hysteresis_body(panels, adv, vol, threshold_hi, threshold_lo, size_shares,
     price, valid, score = panels
     panels.clear()
     A, T = price.shape
-    dtype = price.dtype
-    score = _like(score, price, dtype)
-    adv, vol = _like(adv, price), _like(vol, price)
-    t_idx = torch.arange(T, dtype=torch.int64, device=price.device)
+    shape = dict(A=A, T=T, engine="hysteresis")
+    with span("event.decide", **shape):
+        dtype = price.dtype
+        score = _like(score, price, dtype)
+        adv, vol = _like(adv, price), _like(vol, price)
+        t_idx = torch.arange(T, dtype=torch.int64, device=price.device)
 
-    def last_idx(ev):
-        return torch.cummax(torch.where(ev, t_idx[None, :], -1), dim=1).values
+        def last_idx(ev):
+            return torch.cummax(torch.where(ev, t_idx[None, :], -1), dim=1).values
 
-    e_long = valid & (score > threshold_hi)
-    e_short = valid & (score < -threshold_hi)
-    e_exit = valid & (torch.abs(score) < threshold_lo)
-    del score  # the panels' first to go: the scans below are the widest step
-    iL, iS, iX = last_idx(e_long), last_idx(e_short), last_idx(e_exit)
-    one = torch.ones((), dtype=torch.int32, device=price.device)
-    target = torch.where((iL > iS) & (iL > iX), one,
-                         torch.where((iS > iL) & (iS > iX), -one, 0 * one))
-    prev_target = torch.nn.functional.pad(target, (1, 0))[:, :T]
-    delta = target - prev_target                    # i32[A, T], in {-2..2}
+        e_long = valid & (score > threshold_hi)
+        e_short = valid & (score < -threshold_hi)
+        e_exit = valid & (torch.abs(score) < threshold_lo)
+        del score  # the panels' first to go: the scans below are the widest step
+        iL, iS, iX = last_idx(e_long), last_idx(e_short), last_idx(e_exit)
+        one = torch.ones((), dtype=torch.int32, device=price.device)
+        target = torch.where((iL > iS) & (iL > iX), one,
+                             torch.where((iS > iL) & (iS > iX), -one, 0 * one))
+        prev_target = torch.nn.functional.pad(target, (1, 0))[:, :T]
+        delta = target - prev_target                    # i32[A, T], in {-2..2}
 
-    delta, fill_idx, exec_base = _apply_latency(price, valid, delta, latency_bars)
+    with span("event.fill", **shape):
+        delta, fill_idx, exec_base = _apply_latency(price, valid, delta, latency_bars)
 
-    sgn = torch.sign(delta)                         # fill-price direction
-    traded = sgn != 0
-    impact = square_root_impact(
-        torch.tensor(float(size_shares), dtype=dtype, device=price.device),
-        adv.to(dtype), vol.to(dtype))
-    fill = market_fill_prices(exec_base, sgn, traded, impact, spread)
-    shares = delta * size_shares
-    shares_settle, notional_settle = _scatter_settle(
-        shares, fill, fill_idx, latency_bars, dtype)
-    held = [price, valid]
-    del price, valid
+        sgn = torch.sign(delta)                         # fill-price direction
+        traded = sgn != 0
+        impact = square_root_impact(
+            torch.tensor(float(size_shares), dtype=dtype, device=price.device),
+            adv.to(dtype), vol.to(dtype))
+        fill = market_fill_prices(exec_base, sgn, traded, impact, spread)
+        shares = delta * size_shares
+        shares_settle, notional_settle = _scatter_settle(
+            shares, fill, fill_idx, latency_bars, dtype)
+        held = [price, valid]
+        del price, valid
     # the stored side is the signed unit count (flips are ±2), so cost
     # attribution and the trade log see the true size; the fill price
     # uses only the direction
     return _settle_mark_and_wrap(held, shares_settle, notional_settle,
                                  delta, fill, traded, impact, cash0,
-                                 _asset_axis(axis_name, A)[0])
+                                 _asset_axis(axis_name, A)[0], shape)
 
 
 def trades_dataframe(result: EventResult, tickers, times, score, size_shares: int = 50):
@@ -518,47 +536,49 @@ def cost_attribution(result: EventResult, price, size_shares: int = 50,
     shortfall against the decision-bar mid splits into the drift leg
     (decision mid -> settlement mid) and execution legs against the
     settlement-bar mid; ``valid`` (the backtest's event mask) is then
-    required to recompute the settlement bars.
+    required to recompute the settlement bars.  The body is the span
+    ``event.costs``.
     """
-    side = result.trade_side.to(price.dtype)   # signed units (flips ±2)
-    units = torch.abs(side)
-    traded = result.trade_side != 0
-    mid = torch.where(traded, torch.nan_to_num(price), 0.0)
-    fill = torch.where(traded, torch.nan_to_num(result.exec_price), 0.0)
-    sz = torch.tensor(size_shares, dtype=price.dtype, device=price.device)
+    A, T = price.shape
+    with span("event.costs", A=A, T=T, latency_bars=latency_bars):
+        side = result.trade_side.to(price.dtype)   # signed units (flips ±2)
+        units = torch.abs(side)
+        traded = result.trade_side != 0
+        mid = torch.where(traded, torch.nan_to_num(price), 0.0)
+        fill = torch.where(traded, torch.nan_to_num(result.exec_price), 0.0)
+        sz = torch.tensor(size_shares, dtype=price.dtype, device=price.device)
 
-    if latency_bars > 0:
-        if valid is None:
-            raise ValueError(
-                "cost_attribution with latency_bars > 0 needs the "
-                "backtest's `valid` mask to recompute settlement bars"
-            )
-        T = price.shape[1]
-        fill_idx = torch.clamp(_settlement_fill_idx(valid, latency_bars), 0, T - 1)
-        settle_mid = torch.gather(torch.nan_to_num(price), 1, fill_idx)
-        settle_mid = torch.where(traded, settle_mid, 0.0)
-    else:
-        settle_mid = mid
+        if latency_bars > 0:
+            if valid is None:
+                raise ValueError(
+                    "cost_attribution with latency_bars > 0 needs the "
+                    "backtest's `valid` mask to recompute settlement bars"
+                )
+            fill_idx = torch.clamp(_settlement_fill_idx(valid, latency_bars), 0, T - 1)
+            settle_mid = torch.gather(torch.nan_to_num(price), 1, fill_idx)
+            settle_mid = torch.where(traded, settle_mid, 0.0)
+        else:
+            settle_mid = mid
 
-    total_cost = torch.sum((fill - mid) * side) * sz
-    delay_cost = torch.sum((settle_mid - mid) * side) * sz
-    spread_cost = torch.sum(settle_mid * units) * (spread / 2.0) * sz
-    impact_cost = torch.sum(settle_mid * result.impact[:, None] * units) * sz
+        total_cost = torch.sum((fill - mid) * side) * sz
+        delay_cost = torch.sum((settle_mid - mid) * side) * sz
+        spread_cost = torch.sum(settle_mid * units) * (spread / 2.0) * sz
+        impact_cost = torch.sum(settle_mid * result.impact[:, None] * units) * sz
 
-    gross_notional = torch.sum(mid * units) * sz
-    net = result.total_pnl
-    return CostAttribution(
-        gross_pnl=net + total_cost,
-        net_pnl=net,
-        total_cost=total_cost,
-        delay_cost=delay_cost,
-        spread_cost=spread_cost,
-        impact_cost=impact_cost,
-        residual=total_cost - delay_cost - spread_cost - impact_cost,
-        gross_notional=gross_notional,
-        cost_bps=torch.where(gross_notional > 0,
-                             total_cost / gross_notional * 1e4, torch.nan),
-    )
+        gross_notional = torch.sum(mid * units) * sz
+        net = result.total_pnl
+        return CostAttribution(
+            gross_pnl=net + total_cost,
+            net_pnl=net,
+            total_cost=total_cost,
+            delay_cost=delay_cost,
+            spread_cost=spread_cost,
+            impact_cost=impact_cost,
+            residual=total_cost - delay_cost - spread_cost - impact_cost,
+            gross_notional=gross_notional,
+            cost_bps=torch.where(gross_notional > 0,
+                                 total_cost / gross_notional * 1e4, torch.nan),
+        )
 
 
 def threshold_sweep(price, valid, score, adv, vol, thresholds, **kwargs):

@@ -17,6 +17,12 @@ never a loop:
   (:func:`grid_net_of_costs`), and any cost level re-priced from one
   unit-cost run (:func:`grid_net_from_unit`, :func:`grid_break_even_bps`).
 
+A call of :func:`jk_grid_backtest` opens four phase spans one after
+another (:func:`csmom_tpu_torch.obs.spans.span`): ``grid.signal``,
+``grid.ranking``, ``grid.cohorts`` and ``grid.stats``.  Armed, each is a
+JSON-lines record; while ``torch.profiler`` records, each is also a
+range of the trace, so the device's time and idle gaps split by phase.
+
 ``jk_grid_backtest`` and ``grid_net_of_costs`` take ``donate_panels=``:
 the caller's ``prices``/``mask`` are consumed
 (:func:`csmom_tpu_torch.utils.donation.consume`) and their memory is
@@ -32,6 +38,7 @@ import torch
 
 from csmom_tpu_torch.analytics.stats import masked_mean, nw_t_stat, sharpe, t_stat
 from csmom_tpu_torch.costs.impact import long_short_weights, turnover_cost
+from csmom_tpu_torch.obs.spans import span
 from csmom_tpu_torch.ops import kernels
 from csmom_tpu_torch.ops.ranking import decile_assign_panel
 from csmom_tpu_torch.signals.momentum import (
@@ -215,41 +222,49 @@ def jk_grid_backtest(
         input.  The outputs are those of the plain call.  A caller that
         feeds the same panels again (the bench's timed reps) keeps the
         default; a sharded call (``mesh/variants.py``) takes no donation.
+
+    The call's phases are spans, opened flat (see the module docstring),
+    each with the shape ``nJ``, ``A``, ``M``, ``mode`` and ``impl``.
     """
-    max_hold = validate_grid_args(Ks, max_hold)
-    if donate_panels:
-        prices, mask = consume(prices, mask)
-    dev = prices.device
-    Js = torch.as_tensor(Js, device=dev).to(torch.int64)
-    Ks = torch.as_tensor(Ks, device=dev).to(torch.int64)
-    ret, ret_valid = monthly_returns(prices, mask)
+    shape = dict(nJ=len(Js), A=prices.shape[0], M=prices.shape[1], mode=mode,
+                 impl=impl)
+    with span("grid.signal", **shape):
+        max_hold = validate_grid_args(Ks, max_hold)
+        if donate_panels:
+            prices, mask = consume(prices, mask)
+        dev = prices.device
+        Js = torch.as_tensor(Js, device=dev).to(torch.int64)
+        Ks = torch.as_tensor(Ks, device=dev).to(torch.int64)
+        ret, ret_valid = monthly_returns(prices, mask)
 
-    mom, mom_valid = momentum_dynamic(prices, mask, Js, skip)   # [nJ, A, M]
-    mom_valid = mom_valid & formation_listed_mask(mask, skip)
-    # the panels' last use: a donated pair is freed here (a plain call's
-    # stay alive through the caller's own references)
-    del prices, mask
-    mom = torch.where(mom_valid, mom, torch.nan)
-    labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
-    R, R_valid = _finalize_cohorts(
-        *_cohort_partial_sums(labels, ret, ret_valid, n_bins, max_hold,
-                              impl=impl))
-    spreads, spread_valid = _holding_month_spreads(R, R_valid, Ks)
-
-    return GridResult(
-        spreads=spreads,
-        spread_valid=spread_valid,
-        mean_spread=masked_mean(spreads, spread_valid),
-        ann_sharpe=sharpe(spreads, spread_valid, freq_per_year=freq),
-        tstat=t_stat(spreads, spread_valid),
-        tstat_nw=nw_t_stat(spreads, spread_valid, lags=Ks[None, :],
-                           max_lag=max_hold),
-        Js=Js,
-        Ks=Ks,
-        skip=torch.tensor(skip, device=dev),
-        n_bins=n_bins,
-        mode=mode,
-    )
+        mom, mom_valid = momentum_dynamic(prices, mask, Js, skip)   # [nJ, A, M]
+        mom_valid = mom_valid & formation_listed_mask(mask, skip)
+        # the panels' last use: a donated pair is freed here (a plain call's
+        # stay alive through the caller's own references)
+        del prices, mask
+        mom = torch.where(mom_valid, mom, torch.nan)
+    with span("grid.ranking", **shape):
+        labels, _ = decile_assign_panel(mom, mom_valid, n_bins=n_bins, mode=mode)
+    with span("grid.cohorts", **shape):
+        R, R_valid = _finalize_cohorts(
+            *_cohort_partial_sums(labels, ret, ret_valid, n_bins, max_hold,
+                                  impl=impl))
+        spreads, spread_valid = _holding_month_spreads(R, R_valid, Ks)
+    with span("grid.stats", **shape):
+        return GridResult(
+            spreads=spreads,
+            spread_valid=spread_valid,
+            mean_spread=masked_mean(spreads, spread_valid),
+            ann_sharpe=sharpe(spreads, spread_valid, freq_per_year=freq),
+            tstat=t_stat(spreads, spread_valid),
+            tstat_nw=nw_t_stat(spreads, spread_valid, lags=Ks[None, :],
+                               max_lag=max_hold),
+            Js=Js,
+            Ks=Ks,
+            skip=torch.tensor(skip, device=dev),
+            n_bins=n_bins,
+            mode=mode,
+        )
 
 
 def _require_build_params(grid: GridResult, what: str):

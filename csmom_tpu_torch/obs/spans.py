@@ -1,27 +1,46 @@
-"""Nestable, thread-safe spans emitting a JSON-lines event stream.
+"""Nestable, thread-safe spans emitting a JSON-lines event stream, and
+joining any recording ``torch.profiler`` trace.
 
-Counterpart of ``csmom_tpu.obs.spans``, copied; only :meth:`fetch`
-differs (it synchronizes a tensor's device and copies it to the host).
-A span is a timed block with a name, optional attributes, and a parent,
-the innermost open span on the same thread.  Timestamps are
+Counterpart of ``csmom_tpu.obs.spans``, copied; the profiler bridge and
+the held records of nested spans (below) differ.  A span is a timed
+block with a name, optional attributes, and a parent, the innermost open
+span on the same thread.  Timestamps are
 ``time.monotonic()`` (system-wide on Linux, so events of a child
 process compose with the parent's on one timeline).
 
 Usage::
 
     with span("serve.dispatch", kind="momentum") as sp:
-        out = sp.fetch(score(batch))
+        out = score(batch)
         sp.set(n=len(batch))
 
     point("serve.ready", ok=True)          # a durationless event
 
-``sp.fetch(t)`` waits for ``t``'s device and returns it as a numpy
-array, adding the blocking wall to the span's ``device_s``.
+The profiler bridge: while a ``torch.profiler`` is recording, every
+span also enters the range ``torch.profiler.record_function(name)``
+would, so it lies in the profiler's trace as a host range on the same
+clock as the device operations launched inside it (the engines' phase
+spans, ``grid.*`` and ``event.*``, name the device's idle time by phase
+that way).  The range is entered through torch's C entry point, at about
+a quarter of the cost of ``record_function``'s Python wrapper.  Torch
+offers no way to ask which activities a profiler records, so under one
+that records device activity alone the range is entered all the same
+and records nothing.  Whether the profiler records is asked only once
+the process has imported torch, so importing this module loads no torch.
 
-Zero-cost disarmed: with no collector armed, ``span()`` returns one
-shared no-op singleton and ``point()`` is a single global load.  Armed,
-every event is appended to the stream as one flushed JSON line under a
-lock.
+Zero-cost disarmed: with no collector armed and no profiler recording,
+``span()`` returns one shared no-op singleton (a global load and the
+profiler check) and ``point()`` is a single global load.
+Profiled and disarmed, a span opens the profiler range only and emits
+nothing.  Armed, every event is appended to the stream as flushed JSON
+lines under a lock, whether the profiler records or not.  A point, and a
+span with no open span around it other than root spans, is written at
+once.  A span nested in an open span that is not a root is held, and
+written with the outermost such span's record, in the same write: a write
+system call inside a launch-bound call costs far more than the span's
+own work, so an engine's phase spans inside a caller's span cost no
+write of their own.  A SIGKILL costs at most the lines in flight and the
+records that still-open spans hold.
 
 Env contract:
 
@@ -102,25 +121,30 @@ class Collector:
             return self._seq
 
     def emit(self, event: dict) -> None:
-        event.setdefault("run", self.run_id)
-        event.setdefault("proc", self.proc)
-        event.setdefault("pid", self.pid)
+        self.emit_all([event])
+
+    def emit_all(self, events: list) -> None:
+        """Append ``events`` to the stream in one write."""
+        for event in events:
+            event.setdefault("run", self.run_id)
+            event.setdefault("proc", self.proc)
+            event.setdefault("pid", self.pid)
         with self._lock:
             if self._fh is None:
                 # in-memory mode (and the fallback of a stream that died
                 # mid-run): the list is what assembly reads
-                self.events.append(event)
+                self.events.extend(events)
                 return
             try:
-                # one write + flush per event: a SIGKILL costs at most
-                # the line in flight, never the stream.  The file is the
+                # one write + flush per call: a SIGKILL costs at most the
+                # lines in flight, never the stream.  The file is the
                 # single store — assembly reads it back, so a long run
                 # does not also accumulate every event dict in RAM.
-                self._fh.write(json.dumps(event) + "\n")
+                self._fh.write("".join(json.dumps(e) + "\n" for e in events))
                 self._fh.flush()
             except (OSError, ValueError):
                 self._fh = None  # a dead stream must not kill the run
-                self.events.append(event)
+                self.events.extend(events)
 
     def close(self) -> None:
         with self._lock:
@@ -149,40 +173,94 @@ class _NullSpan:
     def event(self, name, **attrs):
         return self
 
-    def fetch(self, y):
-        return _fetch(y)
-
 
 _NULL_SPAN = _NullSpan()
 
 
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records on this process; False until
+    something else has imported torch."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def _range(name: str):
+    """Enter the profiler range ``name``; returns the handle that
+    :func:`_range_exit` closes."""
+    return sys.modules["torch"].autograd._record_function_with_args_enter(name)
+
+
+def _range_exit(handle) -> None:
+    sys.modules["torch"].autograd._record_function_with_args_exit(handle)
+
+
+class _RangeSpan(_NullSpan):
+    """The disarmed span while the profiler records: the profiler range
+    alone, no event."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self):
+        self._rf = _range(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _range_exit(self._rf)
+        return False
+
+
 class _Span:
     __slots__ = ("_col", "name", "attrs", "seq", "parent", "t0", "t1",
-                 "device_s", "_thread")
+                 "_thread", "_rf", "error", "_held")
 
     def __init__(self, col: Collector, name: str, attrs: dict):
         self._col = col
         self.name = name
         self.attrs = attrs
-        self.device_s = 0.0
         self.seq = col.next_seq()
         self.parent = None
         self.t0 = self.t1 = 0.0
         self._thread = threading.get_ident()
+        self._rf = None
+        self.error = None
+        # closed spans nested in this one, written with its own record
+        self._held = []
 
     def __enter__(self):
         st = _stack()
         if st:
             self.parent = st[-1].seq
         st.append(self)
+        if _profiling():
+            self._rf = _range(self.name)
         self.t0 = time.monotonic()
         return self
 
     def __exit__(self, etype, evalue, tb):
         self.t1 = time.monotonic()
+        if self._rf is not None:
+            _range_exit(self._rf)
+            self._rf = None
         st = _stack()
         if self in st:  # tolerate mis-nesting: drop self and anything above
             del st[st.index(self):]
+        if etype is not None:
+            self.error = f"{etype.__name__}: {evalue}"[:200]
+        # the outermost open span that is not a root holds this one: a
+        # call's inner spans then cost no write of their own.  A root span
+        # lives as long as its process, so it holds none.
+        outer = next((s for s in st if not s.attrs.get("root")), None)
+        if outer is not None:
+            outer._held.append(self)
+        else:
+            self._col.emit_all([s._record() for s in (*self._held, self)])
+        return False
+
+    def _record(self) -> dict:
         rec = {
             "kind": "span",
             "name": self.name,
@@ -193,14 +271,11 @@ class _Span:
             "t1_s": round(self.t1, 6),
             "dur_s": round(self.t1 - self.t0, 6),
         }
-        if self.device_s:
-            rec["device_s"] = round(self.device_s, 6)
         if self.attrs:
             rec["attrs"] = _jsonable(self.attrs)
-        if etype is not None:
-            rec["error"] = f"{etype.__name__}: {evalue}"[:200]
-        self._col.emit(rec)
-        return False
+        if self.error is not None:
+            rec["error"] = self.error
+        return rec
 
     def set(self, **attrs):
         """Attach attributes to this span's record (last write wins)."""
@@ -211,29 +286,6 @@ class _Span:
         """A durationless event parented to this span."""
         _emit_point(self._col, name, attrs, parent=self.seq)
         return self
-
-    def fetch(self, y):
-        """:func:`_fetch` of ``y`` with the blocking wall accumulated into
-        this span's ``device_s``."""
-        t0 = time.monotonic()
-        out = _fetch(y)
-        self.device_s += time.monotonic() - t0
-        return out
-
-
-def _fetch(y):
-    """``y`` on the host as a numpy array: a tensor's device is
-    synchronized and the tensor copied; anything else goes through
-    ``numpy.asarray``."""
-    import numpy as np
-
-    if hasattr(y, "detach") and hasattr(y, "device"):
-        import torch
-
-        if y.device.type == "cuda":
-            torch.cuda.synchronize(y.device)
-        return y.detach().cpu().numpy()
-    return np.asarray(y)
 
 
 def _jsonable(attrs: dict) -> dict:
@@ -267,11 +319,12 @@ def _emit_point(col: Collector, name: str, attrs: dict,
 # ------------------------------------------------------------- frontend ----
 
 def span(name: str, **attrs):
-    """Open a span (context manager).  Disarmed: the shared no-op
-    singleton, no allocation."""
+    """Open a span (context manager); while a ``torch.profiler`` records,
+    also the profiler range ``name``.  Disarmed and unprofiled: the shared
+    no-op singleton, no allocation."""
     col = _COLLECTOR
     if col is None:
-        return _NULL_SPAN
+        return _RangeSpan(name) if _profiling() else _NULL_SPAN
     return _Span(col, name, attrs)
 
 

@@ -3,11 +3,16 @@
     python -m csmom_tpu_torch.phases [--out PATH]
 
 Needs a CUDA card (builds the kernels on first use).  On the north-star
-month-end panel in f32 it times each phase of the 16-cell grid (rank and
-qcut) and of the monthly engine (qcut, J=12) with :func:`time_call`
-(CUDA events and host wall, median of ``REPS`` after warm-up), and
-traces one call of each engine with ``torch.profiler`` to get the
-device's busy share and kernel launch count.  Prints one JSON object
+month-end panel in f32 it times the 16-cell grid (rank and qcut) and
+the monthly engine (qcut, J=12) whole with :func:`time_call` (CUDA
+events and host wall, median of ``REPS`` after warm-up), and traces one
+call of each engine with ``torch.profiler`` to get the device's busy
+share and kernel launch count.  The grid's trace is one warm call split
+by its phase spans (``grid.signal``, ``grid.ranking``, ``grid.cohorts``,
+``grid.stats``: ranges of the profiler's trace, see
+:mod:`csmom_tpu_torch.obs.spans`): device ms, kernel launches and host
+ms of each (:func:`span_phases`).  The monthly engine's phases are
+still timed one by one.  Prints one JSON object
 (and writes it to ``--out`` if given).  ``chip_smoke.py`` times with
 the same helper and repetition count, and times each kernel by its own
 device time with :func:`time_kernels`.
@@ -16,6 +21,7 @@ device time with :func:`time_kernels`.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import statistics
 import subprocess
@@ -24,19 +30,12 @@ import time
 
 import torch
 
-from csmom_tpu_torch.analytics.stats import masked_mean, nw_t_stat, sharpe, t_stat
-from csmom_tpu_torch.backtest.grid import (
-    _cohort_partial_sums,
-    _finalize_cohorts,
-    _holding_month_spreads,
-    jk_grid_backtest,
-)
+from csmom_tpu_torch.backtest.grid import jk_grid_backtest
 from csmom_tpu_torch.backtest.monthly import _assemble_result, monthly_spread_backtest
 from csmom_tpu_torch.ops.ranking import decile_assign_panel
 from csmom_tpu_torch.signals.momentum import (
     formation_listed_mask,
     momentum,
-    momentum_dynamic,
     monthly_returns,
 )
 from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP, north_star_month_panel
@@ -50,6 +49,8 @@ TRACE_ATTEMPTS = 3
 _TRACE_MARGIN_S = 0.05
 # L2 flush size for cold timings: 256 MB, over the H100's 50 MB L2
 _FLUSH_INTS = 64 * 2**20
+# the grid's phase spans, in the order a call opens them
+GRID_SPANS = ("grid.signal", "grid.ranking", "grid.cohorts", "grid.stats")
 
 
 def time_call(fn, cold=False, reps=REPS, warmup=3):
@@ -149,8 +150,9 @@ def _matching_spans(fn, names, clean):
 
 def _trace(fn, warm=True):
     """One traced call: device-busy ms (sum of kernel and copy times),
-    wall ms, and the number of device activities; ``warm`` calls ``fn()``
-    once untraced first."""
+    wall ms, and the number of device activities (the device-side twins
+    of profiler ranges, such as the phase spans', are not activities);
+    ``warm`` calls ``fn()`` once untraced first."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -163,7 +165,8 @@ def _trace(fn, warm=True):
         wall = (time.perf_counter() - t0) * 1e3
     busy_us, n = 0.0, 0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, "is_user_annotation", False):
             busy_us += evt.time_range.elapsed_us()
             n += 1
     return {"wall_ms": wall, "device_busy_ms": busy_us / 1e3,
@@ -171,41 +174,79 @@ def _trace(fn, warm=True):
             "device_activities": n}
 
 
+def _phase_events(fn, names):
+    """One traced call of ``fn()`` (after an untraced one): ``(ranges,
+    annotations, device_ops, wall_ms)``, the first three as plain tuples on
+    the trace's clock, in µs.  ``ranges`` are the host ranges ``(name,
+    start, end)`` of the spans in ``names``, ``annotations`` their
+    device-side ranges (from the first start to the last end of the device
+    work launched inside each), ``device_ops`` each kernel or copy
+    ``(name, start, end)``, and ``wall_ms`` the traced call's host wall to
+    its device's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(_TRACE_MARGIN_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(_TRACE_MARGIN_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, annotations, device_ops = [], [], []
+    for ev in prof.events():
+        item = (ev.name, ev.time_range.start, ev.time_range.end)
+        if ev.device_type != cuda:
+            if ev.name in names:
+                ranges.append(item)
+        elif getattr(ev, "is_user_annotation", False):
+            if ev.name in names:
+                annotations.append(item)
+        else:
+            device_ops.append(item)
+    return ranges, annotations, device_ops, wall
+
+
+def span_phases(ranges, annotations, device_ops, names):
+    """Device ms, kernel launches and host ms of each span in ``names``,
+    from :func:`_phase_events`' tuples.  A device operation belongs to the
+    span whose device-side range holds its start: the profiler links a
+    kernel record to no host operation (torch 2.11), but gives each range
+    a device-side twin.  ``whole`` sums every device operation of the
+    trace, and ``unplaced`` counts those in no span."""
+    out = {n: {"device_ms": 0.0, "launches": 0, "host_ms": 0.0} for n in names}
+    for n, s, e in ranges:
+        out[n]["host_ms"] += (e - s) / 1e3
+    whole = {"device_ms": 0.0, "launches": 0, "unplaced": 0}
+    annotations = sorted(annotations, key=lambda r: r[1])
+    starts = [s for _, s, _ in annotations]
+    for name, s, e in device_ops:
+        ms, k = (e - s) / 1e3, int(not name.startswith(("Memcpy", "Memset")))
+        whole["device_ms"] += ms
+        whole["launches"] += k
+        i = bisect.bisect_right(starts, s) - 1
+        if i < 0 or s > annotations[i][2]:
+            whole["unplaced"] += 1
+            continue
+        out[annotations[i][0]]["device_ms"] += ms
+        out[annotations[i][0]]["launches"] += k
+    out["whole"] = whole
+    return out
+
+
 def grid_phases(pm, mm, mode):
-    Js = torch.tensor(GRID_JS, device=pm.device)
-    Ks = torch.tensor(GRID_KS, device=pm.device)
-    H = max(GRID_KS)
-    ret, ret_valid = monthly_returns(pm, mm)
-    mom, mom_valid = momentum_dynamic(pm, mm, Js, GRID_SKIP)
-    mom_valid = mom_valid & formation_listed_mask(mm, GRID_SKIP)
-    mom = torch.where(mom_valid, mom, torch.nan)
-    labels, _ = decile_assign_panel(mom, mom_valid, mode=mode)
-    sums, counts = _cohort_partial_sums(labels, ret, ret_valid, 10, H)
-    R, R_valid = _finalize_cohorts(sums, counts)
-    spreads, live = _holding_month_spreads(R, R_valid, Ks)
+    """The 16-cell grid whole (:func:`time_call`), and one traced warm call
+    of it split by its phase spans (:func:`span_phases`; its ``whole`` is
+    the traced call's device ms and launches)."""
+    def call():
+        return jk_grid_backtest(pm, mm, GRID_JS, GRID_KS, skip=GRID_SKIP, mode=mode)
 
-    def stats():
-        return (masked_mean(spreads, live), sharpe(spreads, live, 12),
-                t_stat(spreads, live), nw_t_stat(spreads, live, lags=Ks[None, :],
-                                                 max_lag=H))
-
-    def signal():
-        m, v = momentum_dynamic(pm, mm, Js, GRID_SKIP)
-        v = v & formation_listed_mask(mm, GRID_SKIP)
-        return torch.where(v, m, torch.nan)
-
-    phases = {
-        "returns": lambda: monthly_returns(pm, mm),
-        "signal": signal,
-        "ranking": lambda: decile_assign_panel(mom, mom_valid, mode=mode),
-        "cohort_kernel": lambda: _cohort_partial_sums(labels, ret, ret_valid, 10, H),
-        "holding_spreads": lambda: _holding_month_spreads(
-            *_finalize_cohorts(sums, counts), Ks),
-        "stats": stats,
-        "whole": lambda: jk_grid_backtest(pm, mm, GRID_JS, GRID_KS,
-                                          skip=GRID_SKIP, mode=mode),
-    }
-    return _run(phases)
+    d, h = time_call(call)
+    *events, wall = _phase_events(call, GRID_SPANS)
+    return {"whole": {"device_ms": d, "host_ms": h, "traced_wall_ms": wall},
+            "spans": span_phases(*events, GRID_SPANS)}
 
 
 def monthly_phases(pm, mm):

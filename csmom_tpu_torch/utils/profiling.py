@@ -123,8 +123,8 @@ def count_dispatches():
     """Count the CUDA kernel launches of the block.
 
     Yields a dict whose ``"dispatches"`` key is filled on exit: the
-    kernels (copies and fills aside) that a ``torch.profiler`` trace of
-    the block saw on the card.  Needs a card: on a machine without one it
+    kernels (copies, fills and the device-side twins of profiler ranges
+    aside) that a ``torch.profiler`` trace of the block saw on the card.  Needs a card: on a machine without one it
     raises, naming ``device="cuda"``.
     """
     import torch
@@ -146,6 +146,7 @@ def count_dispatches():
     box["dispatches"] = sum(
         1 for evt in prof.events()
         if evt.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(evt, "is_user_annotation", False)
         and not evt.name.startswith(("Memcpy", "Memset")))
 
 

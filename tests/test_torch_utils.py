@@ -204,3 +204,39 @@ def test_memstats_records_and_the_snapshot_form_passes_the_reference_validator()
     finally:
         memstats.reset()
     assert "memory" not in metrics.snapshot()
+
+
+def test_count_dispatches_counts_kernels_and_not_range_twins(monkeypatch):
+    """Kernels only: copies, fills and the device-side twin of a profiler
+    range (an engine's phase span) are not dispatches."""
+    import types
+
+    from csmom_tpu_torch.utils import profiling
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [types.SimpleNamespace(name=n, device_type=d, is_user_annotation=a)
+              for n, d, a in (("grid.stats", cpu, True), ("grid.stats", cuda, True),
+                              ("void k()", cuda, False), ("void k()", cuda, False),
+                              ("Memcpy HtoD", cuda, False), ("Memset", cuda, False),
+                              ("aten::add", cpu, False))]
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return events
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(profiling, "_TRACE_MARGIN_S", 0.0)
+    with profiling.count_dispatches() as box:
+        pass
+    assert box == {"dispatches": 2}
