@@ -15,11 +15,17 @@ Needs one CUDA card and nvcc; exits non-zero without them, and whenever
 any phase fails (nothing is caught).  Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off;
-2. build: both CUDA kernels from csmom_tpu_torch/csrc, one nvcc each,
-   in parallel;
-3. kernels: K1 and K2 against their plain PyTorch versions at the test
-   shapes and at the north-star shape, in f64 and f32, each launched
-   twice to show bit-for-bit repeatable sums;
+2. build: the three CUDA kernels from csmom_tpu_torch/csrc, one nvcc
+   each, in parallel;
+3. kernels: K1, K2 and K3 against their plain PyTorch versions at the
+   test shapes and at the north-star shape, in f64 and f32, each launched
+   twice to show bit-for-bit repeatable results; K3 (rank labels) also at
+   every plan's width, on special values, a stride-0 lead, a transposed
+   panel and rows past its widest plan (the plain sort, counted), then
+   timed at the grid's ranking shape ``[4, 3000, 696]`` and the serve
+   shape ``[128, 480]`` in f32 and f64 with L2 flushed (CUDA events, no
+   profiler trace) beside its bound, its plain version and the
+   ``torch.sort`` path it replaced: a ``{"k3": ...}`` line at the end;
 4. golden: the monthly engine in f64 reproduces the pinned synthetic
    fingerprints (the JAX package's tests/test_synthetic_golden.py);
 5. north star: the month-end panel (3,000 stocks x 15,120 days) built and
@@ -201,8 +207,8 @@ any phase fails (nothing is caught).  Phases:
 16. warm-start and examples (run last, after phase 9; no profiler trace):
    (a) cold: ``warmup --profiles bench-gpu,golden,serve,stream --strict``
    in a process of its own from a copy of the package in a temporary
-   directory, whose build directory starts empty: exit 0, both kernel
-   libraries built, 0 errors, every entry's allocator peak and first- and
+   directory, whose build directory starts empty: exit 0, every kernel
+   library (K1, K2, K3) built, 0 errors, every entry's allocator peak and first- and
    warm-call walls logged; (b) warm: the same in the tree (phase 2 built
    the libraries): every entry a cache hit, 0 built, the report read back;
    (c) K1 and K2 against their plain versions on the warm-up's own inputs
@@ -353,6 +359,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2060,10 +2067,11 @@ def serve_phase(smi, out_dir, assert_sums, bound) -> dict:
                 kernels.reset_launches()
                 got = card.score(kind, v, m)
                 k1 = kernels.decile_partial_sums.launches
+                k3 = kernels.rank_labels.launches
                 want = 1 if kind == "backtest" else 0
-                if k1 != want or kernels.cohort_partial_sums.launches:
+                if k1 != want or k3 != want or kernels.cohort_partial_sums.launches:
                     raise AssertionError(f"serve {kind} B={B} A={A}: K1 launched "
-                                         f"{k1} times, expected {want}")
+                                         f"{k1} times and K3 {k3}, expected {want}")
                 what = f"serve {kind} B={B} A={A} {np.dtype(dtype).name}"
                 err = hold_scores(got, host.score(kind, v, m), what,
                                   dtype == np.float64)
@@ -4063,7 +4071,7 @@ def check_warm_report(report, want_entries: int, what: str) -> None:
 def warm_launches(report) -> dict:
     """The kernels' launches over a warm-up's entries (each record counts
     its own process's launches over its two calls)."""
-    out = {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+    out = {"decile_partial_sums": 0, "cohort_partial_sums": 0, "rank_labels": 0}
     for r in report["entries"]:
         for k, v in r.get("launches", {}).items():
             out[k] += v
@@ -4115,7 +4123,7 @@ def warmup_phase(smi, assert_sums) -> dict:
     from csmom_tpu_torch.compile.aot import read_warmup_report
     from csmom_tpu_torch.compile.manifest import build_manifest
     from csmom_tpu_torch.examples._synthetic_data import write_data_dir
-    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.ops import build, kernels
     from csmom_tpu_torch.ops.ranking import decile_assign_panel
     from csmom_tpu_torch.signals.momentum import (
         formation_listed_mask, momentum_dynamic, monthly_returns,
@@ -4138,9 +4146,10 @@ def warmup_phase(smi, assert_sums) -> dict:
             len(build_manifest(p)) for p in WARM_PROFILES.split(","))
         check_warm_report(cold, want_entries, "warmup (a) cold")
         built = cold["totals"]["libraries_built"]
-        if cold["n_errors"] or built != 2:
+        if cold["n_errors"] or built != len(build.KERNELS):
             raise AssertionError(f"warmup (a) cold: {cold['n_errors']} errors, "
-                                 f"{built} libraries built (want 0 and 2)")
+                                 f"{built} libraries built (want 0 and "
+                                 f"{len(build.KERNELS)})")
         if sorted(r["name"] for r in cold["entries"] if not r["cache_hit"]) != sorted(
                 r["name"] for r in cold["entries"] if r["libraries_built"]):
             raise AssertionError("warmup (a) cold: cache_hit disagrees with the builds")
@@ -4923,7 +4932,7 @@ def rehearse_phase(smi) -> dict:
                 or not all(lib.startswith(scen) for lib in held["libraries"])):
             raise AssertionError(f"rehearse (a): the healed libraries: "
                                  f"{json.dumps(held)}")
-        log("rehearse", f"(a) corrupt-aot-cache: pass 1 built both libraries in "
+        log("rehearse", f"(a) corrupt-aot-cache: pass 1 built the libraries in "
                         f"the sandbox ({walls['pass1_s']} s, {first['value']} "
                         f"entries), pass 2 found every file corrupted and healed "
                         f"{healed['n_self_healed']} entries ({walls['pass2_s']} s, "
@@ -6041,7 +6050,7 @@ def main(argv=None) -> int:
     )
     from csmom_tpu_torch.backtest.walkforward import walk_forward_select
     from csmom_tpu_torch.ops import build, kernels
-    from csmom_tpu_torch.ops.ranking import decile_assign_panel
+    from csmom_tpu_torch.ops.ranking import _rank_labels, decile_assign_panel
     from csmom_tpu_torch.phases import REPS, time_call, time_kernels
     from csmom_tpu_torch.panel.calendar import month_end_aggregate, month_end_segments
     from csmom_tpu_torch.panel.panel import Panel, to_tensors
@@ -6138,6 +6147,25 @@ def main(argv=None) -> int:
         ret = np.where(valid, rng.normal(0.0, 0.1, size=(a, m)), np.nan)
         return t(ret, dtype), t(valid), t(labels)
 
+    def k3_case(shape, dtype, ties=False):
+        x = rng.normal(size=shape)
+        if ties:
+            x = np.round(x * 4) / 4
+        valid = rng.random(shape) < 0.85
+        return t(np.where(valid, x, np.nan), dtype), t(valid)
+
+    def check_k3(x, valid, n_bins, what):
+        got = kernels.rank_labels(x, valid, n_bins)
+        again = kernels.rank_labels(x, valid, n_bins)
+        want = kernels.rank_labels_plain(x, valid, n_bins)
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            if not torch.equal(g, a):
+                raise AssertionError(f"{what}: two launches differ")
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: K3 differs from its plain version "
+                                     f"in {int((g != w).sum())} places")
+
     def check_k2(ret, valid, labels, n_bins, H, what):
         s, c = kernels.cohort_partial_sums(ret, valid, labels, n_bins, H)
         again = kernels.cohort_partial_sums(ret, valid, labels, n_bins, H)
@@ -6201,6 +6229,52 @@ def main(argv=None) -> int:
         s, _ = kernels.cohort_partial_sums(ret, valid, labels, 4, 4)
         ps, _ = kernels.cohort_partial_sums_plain(ret, valid, labels, 4, 4)
         torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-6, equal_nan=True)
+        # K3's plans (1 to 8192 lanes a row), ties, B from 1 to 33
+        kernels.reset_launches()
+        k3_calls = 0
+        for shape, nb in [((4, 3000, 696), 10), ((128, 480), 10), ((1, 40), 10),
+                          ((127, 33), 3), ((129, 7), 2), ((513, 9), 5),
+                          ((1025, 5), 33), ((2049, 4), 10), ((3073, 3), 10),
+                          ((4097, 3), 10), ((8192, 20), 10), ((3, 5), 1)]:
+            for ties in (False, True):
+                check_k3(*k3_case(shape, dtype, ties), nb,
+                         f"K3 {shape} B={nb} ties={ties} {dtype}")
+                k3_calls += 2
+                n_checks += 1
+        # valid lanes at +-0, +-inf and NaNs of every kind, the largest
+        # payload's key equal to the all-ones pad and invalid key
+        if dtype == torch.float64:
+            sp = np.array([0x7FF8000000000000, 0xFFF8000000000000,
+                           0x7FFFFFFFFFFFFFFF, 0x7FF0000000000001, 0,
+                           0x8000000000000000, 0x7FF0000000000000,
+                           0xFFF0000000000000], np.uint64).view(np.float64)
+        else:
+            sp = np.array([0x7FC00000, 0xFFC00000, 0x7FFFFFFF, 0x7F800001, 0,
+                           0x80000000, 0x7F800000, 0xFF800000],
+                          np.uint32).view(np.float32)
+        pick = rng.integers(0, len(sp) + 4, size=(300, 40))
+        x = np.where(pick < len(sp), sp[np.minimum(pick, len(sp) - 1)],
+                     rng.normal(size=(300, 40)).astype(sp.dtype))
+        valid = rng.random((300, 40)) < 0.9
+        valid[:, 3] = False
+        check_k3(t(x, dtype), t(valid), 10, f"K3 special values {dtype}")
+        # a stride-0 lead (the sector path's expand), a transposed panel
+        x, valid = k3_case((3000, 60), dtype)
+        check_k3(x.expand(5, 3000, 60), valid & t(rng.random((5, 3000, 60)) < 0.5),
+                 10, f"K3 stride-0 lead {dtype}")
+        check_k3(t(rng.normal(size=(60, 3000)), dtype).t(), valid, 10,
+                 f"K3 transposed panel {dtype}")
+        k3_calls += 6
+        got = (kernels.rank_labels.launches, kernels.rank_labels.wide_rows)
+        if got != (k3_calls, 0):
+            raise AssertionError(f"K3 launches, wide rows {got}, expected "
+                                 f"({k3_calls}, 0)")
+        # a row wider than K3's plans takes the plain sort, counted by rows
+        check_k3(*k3_case((8193, 3), dtype), 10, f"K3 8193 lanes {dtype}")
+        got = (kernels.rank_labels.launches, kernels.rank_labels.wide_rows)
+        if got != (k3_calls, 2 * 3):
+            raise AssertionError(f"K3 past its widest plan: launches, wide rows "
+                                 f"{got}, expected ({k3_calls}, 6)")
     try:
         kernels.cohort_partial_sums(*k2_case(1, 8, 16, 10, torch.float32), 10, 129)
     except ValueError:
@@ -6215,10 +6289,67 @@ def main(argv=None) -> int:
     else:
         raise AssertionError(f"K2 accepted A = {a_over} assets")
     torch.cuda.synchronize()
-    log("kernels", f"K1 and K2 equal their plain versions, and repeat bit for "
+    log("kernels", f"K1, K2 and K3 equal their plain versions, and repeat bit for "
                    f"bit, in {n_checks} f64/f32 shape cases (+ all-invalid, "
                    "labels outside [-1, B), misaligned storage, inf, H > 128 "
-                   "and A > MAX_ASSETS refusals)")
+                   "and A > MAX_ASSETS refusals; K3's special values, stride-0 "
+                   "lead, transposed panel and rows past its widest plan)")
+    # K3 timed at the grid's ranking shape and the serve shape, L2 flushed;
+    # plain: the sort path it replaces, transposes included; library: that
+    # path's torch.sort and boundary gathers on rows made beforehand.
+    # device_ms by CUDA events, with no profiler trace: each rep times the
+    # flush and the call against the flush alone, in turns; the flush's
+    # device time covers the wrapper's host work, so no idle gap enters
+    # the difference
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def event_device_ms(fn):
+        for _ in range(3):
+            fn()
+        both, alone = [], []
+        for _ in range(REPS):
+            for out, call in ((both, True), (alone, False)):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                flush.zero_()
+                if call:
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                out.append(start.elapsed_time(end))
+        return statistics.median(both) - statistics.median(alone)
+
+    k3_times = {}
+    for dtype in (torch.float32, torch.float64):
+        for label, shape in (("main", (4, 3000, 696)), ("serve", (128, 480))):
+            x, valid = k3_case(shape, dtype)
+            xr = x.transpose(-1, -2).reshape(-1, shape[-2]).contiguous()
+            vr = valid.transpose(-1, -2).reshape(-1, shape[-2]).contiguous()
+            nbytes = x.numel() * (x.element_size() + 1 + 4) + xr.shape[0] * 4
+            b_ms, b_by = bound(nbytes, 0)
+            kernels.reset_launches()
+            device_ms = event_device_ms(lambda: kernels.rank_labels(x, valid, 10))
+            per_call = kernels.rank_labels.launches / (3 + REPS)
+            k3_times[f"{label} {str(dtype)[6:]}"] = {
+                "shape": list(shape), "device_ms": device_ms,
+                "launches_per_call": per_call,
+                "ms": time_call(lambda: kernels.rank_labels(x, valid, 10),
+                                cold=True)[0],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / device_ms if device_ms > 0 else None,
+                "bytes": nbytes,
+                "plain_ms": time_call(lambda: kernels.rank_labels_plain(x, valid, 10),
+                                      cold=True)[0],
+                "library_ms": time_call(lambda: _rank_labels(xr, vr, 10),
+                                        cold=True)[0],
+            }
+            if per_call != 1:
+                raise AssertionError(f"K3 {label} {dtype}: {per_call} launches a call")
+    del flush
+    log("kernels", f"K3 rank_labels (medians of {REPS}, L2 flushed): "
+                   f"{json.dumps(k3_times)} | {smi}")
     t_p = phase_done(3, "kernels", t_p)
 
     # -- 4. golden monthly, f64 --------------------------------------------
@@ -6275,6 +6406,10 @@ def main(argv=None) -> int:
                 "cohort_partial_sums": kernels.cohort_partial_sums.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"north star: a kernel was not launched: {launches}")
+    k3_north = (kernels.rank_labels.launches, kernels.rank_labels.wide_rows)
+    if k3_north != (1, 0):
+        raise AssertionError(f"north star: K3 launches, wide rows {k3_north}, "
+                             "expected (1, 0): the one rank-mode grid call")
     A, M = pm.shape
     n_stocks, n_days = NORTH_STAR_GRID
     log("north", f"panel {A}x{M} month ends from {n_stocks}x{n_days} daily bars in "
@@ -6592,13 +6727,16 @@ def main(argv=None) -> int:
     # every CUDA kernel of one wrapper call, named or not (a profiler
     # trace: before phase 9, like the timings above)
     dispatches = {}
+    mom_r = torch.where(mom_valid, mom, torch.nan)
     for name, fn in (("decile_partial_sums", lambda: kernels.decile_partial_sums(r1, lab1, B)),
                      ("cohort_partial_sums",
-                      lambda: kernels.cohort_partial_sums(ret, ret_valid, lab2, B, H))):
+                      lambda: kernels.cohort_partial_sums(ret, ret_valid, lab2, B, H)),
+                     ("rank_labels", lambda: kernels.rank_labels(mom_r, mom_valid, B))):
         with count_dispatches() as d:
             fn()
         dispatches[name] = d["dispatches"]
-    if dispatches != {"decile_partial_sums": 1, "cohort_partial_sums": 1}:
+    if dispatches != {"decile_partial_sums": 1, "cohort_partial_sums": 1,
+                      "rank_labels": 1}:
         raise AssertionError(f"count_dispatches: one wrapper call dispatched "
                              f"{dispatches} CUDA kernels, not 1 each")
     log("kernels", f"main-path shapes: K1 labels/ret {tuple(lab1.shape)} f32, "
@@ -6761,6 +6899,7 @@ def main(argv=None) -> int:
     log("smoke", f"phase walls s {json.dumps(PHASE_WALLS)}; whole "
                  f"{time.perf_counter() - t_smoke:.1f} s | {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"k3": k3_times}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1064,7 +1064,7 @@ def _replay_scenarios():
     ]
 
 
-_KERNEL_WRAPPERS = ("decile_partial_sums", "cohort_partial_sums")
+_KERNEL_WRAPPERS = ("decile_partial_sums", "cohort_partial_sums", "rank_labels")
 
 
 def _check_warmup_healed(r):

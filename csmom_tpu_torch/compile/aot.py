@@ -48,7 +48,7 @@ log = get_logger("compile.aot")
 
 REPORT_NAME = "warmup_report.json"
 # the wrappers whose launch counters a record reads (ops/kernels.py)
-_KERNELS = ("decile_partial_sums", "cohort_partial_sums")
+_KERNELS = ("decile_partial_sums", "cohort_partial_sums", "rank_labels")
 
 
 def report_dir(subdir: str = "bench") -> str:
@@ -190,6 +190,16 @@ def warmup(profiles=("bench-gpu", "golden"), *, subdir: str = "bench",
     entries = []
     for profile in profiles:
         entries += [(profile, e) for e in build_manifest(profile)]
+    if not on_cpu:
+        # the libraries the entries name, built at once (one nvcc each, in
+        # parallel) rather than one at a time as the entries reach them; a
+        # failed build is left to the entries, which record its error
+        from csmom_tpu_torch.ops import build
+
+        try:
+            build.build(tuple(dict.fromkeys(k for _, e in entries for k in e.kernels)))
+        except RuntimeError as e:
+            log.warning("warmup: building the entries' kernels: %s", str(e)[:200])
 
     rows = []
 

@@ -61,6 +61,7 @@ __all__ = [
 
 K1 = "decile_partial_sums"
 K2 = "cohort_partial_sums"
+K3 = "rank_labels"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +174,8 @@ def grid_entries(A: int, M: int, dtype, *, modes_impls, tag: str,
             name=f"grid.jk16.{mode}.{impl}@{tag}",
             fn=grid_scalar_fn(wl.GRID_JS, wl.GRID_KS, wl.GRID_SKIP, mode, impl),
             args=(p, m),
-            kernels=(K2,) if impl == "kernel" else (),
+            kernels=((K2,) if impl == "kernel" else ())
+                    + ((K3,) if mode == "rank" else ()),
         )
         for mode, impl in modes_impls
     ]
@@ -186,6 +188,7 @@ def grid_entries(A: int, M: int, dtype, *, modes_impls, tag: str,
                   sds((len(wl.GRID_KS),), idx, value=wl.GRID_KS), wl.GRID_SKIP),
             kwargs=dict(n_bins=10, mode="rank", max_hold=max(wl.GRID_KS),
                         freq=12, impl="plain"),
+            kernels=(K3,),
             donated=(0, 1),
         ))
     return out
@@ -231,7 +234,7 @@ def monthly_entries(A: int, M: int, dtype, tag: str) -> list:
 
 def grid_net_entry(A: int, M: int, dtype, tag: str) -> ManifestEntry:
     """``_grid_net_core`` (the CLI's ``--tc-bps`` netting pass) at the
-    grid size; it launches neither kernel."""
+    grid size; it launches K3 (its rank labels), not K1 or K2."""
     from csmom_tpu_torch.backtest.grid import _grid_net_core
 
     nJ, nK = len(wl.GRID_JS), len(wl.GRID_KS)
@@ -243,6 +246,7 @@ def grid_net_entry(A: int, M: int, dtype, tag: str) -> ManifestEntry:
               sds((nJ, nK, M), dtype), sds((nJ, nK, M), bool), 1.0),
         kwargs=dict(Ks_c=wl.GRID_KS, skip=wl.GRID_SKIP, n_bins=10,
                     mode="rank", freq=12),
+        kernels=(K3,),
     )
 
 

@@ -57,7 +57,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("decile_partial_sums", "cohort_partial_sums")
+KERNELS = ("decile_partial_sums", "cohort_partial_sums", "rank_labels")
 
 _LIBS: dict = {}
 # reentrant: load() builds under it, and build() counts under it

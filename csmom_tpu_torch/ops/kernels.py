@@ -5,7 +5,11 @@ Counterpart of :mod:`csmom_tpu.ops.pallas_kernels`:
 - :func:`decile_partial_sums` (K1) replaces ``decile_partial_sums_pallas``
   — the monthly engine's per-(bin, month) sums and counts;
 - :func:`cohort_partial_sums` (K2) replaces ``cohort_partial_sums_pallas``
-  — the grid's cohort x horizon sums and counts, every J in one launch.
+  — the grid's cohort x horizon sums and counts, every J in one launch;
+- :func:`rank_labels` (K3) replaces no TPU kernel (the JAX package's rank
+  mode sorts in XLA) — ``mode="rank"`` labels of every (lead, month) row
+  of a ``[..., A, M]`` panel in one launch, in place of a transposed
+  copy, an int64 sort and its boundary passes.
 
 Each wrapper checks its inputs (on every device), then launches the CUDA
 kernel for CUDA tensors (``csrc/<name>.cu``, built on first use) or runs
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 
 import torch
@@ -61,6 +66,9 @@ _ARGTYPES = {
                            + [ctypes.c_void_p],
     "cohort_partial_sums": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
                            + [ctypes.c_void_p],
+    "rank_labels": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p],
 }
 
 
@@ -362,8 +370,113 @@ cohort_partial_sums.launches = 0
 cohort_partial_sums.device_kernels = ("cohort_tile_kernel",)
 
 
+# -- K3: rank-mode labels ---------------------------------------------------
+
+# K3's instances (threads, items), by capacity: a row of A lanes takes the
+# smallest that holds it (csrc/rank_labels.cu holds the same list and
+# re-checks every plan against the row width)
+_RANK_PLANS = ((128, 1), (128, 4), (256, 4), (256, 8), (256, 12), (512, 8),
+               (512, 16))
+# the widest row K3 takes; wider rows take the plain sort path
+RANK_MAX_LANES = _RANK_PLANS[-1][0] * _RANK_PLANS[-1][1]
+
+
+def rank_route(A: int, dtype: torch.dtype, device) -> str:
+    """Where ``mode="rank"`` labels of rows of ``A`` lanes are computed:
+    ``"plain"`` for a CPU tensor (:func:`rank_labels_plain`), ``"kernel"``
+    (K3) for a CUDA row of at most :data:`RANK_MAX_LANES` lanes, ``"sort"``
+    (the plain sort, on the card) for a wider one.  Raises ``TypeError``
+    for a dtype other than float32/float64 and ``ValueError`` for another
+    device type."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rank_labels: x must be float32 or float64, got {dtype}")
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"rank_labels: unsupported device {device}")
+    return "kernel" if A <= RANK_MAX_LANES else "sort"
+
+
+def _rank_plan(A: int) -> tuple:
+    """K3's ``(threads, items)`` for rows of ``A <= RANK_MAX_LANES`` lanes:
+    the smallest instance of :data:`_RANK_PLANS` that holds a row."""
+    return next(p for p in _RANK_PLANS if p[0] * p[1] >= A)
+
+
+def rank_labels_plain(x, valid, n_bins: int):
+    """The plain version: the panel's months as rows ``[..., M, A]``
+    through :func:`~csmom_tpu_torch.ops.ranking._rank_labels` (one stable
+    sort), ``(labels i32[..., A, M], n_eff i32[..., M])``."""
+    # imported here: the ranking module imports this one
+    from csmom_tpu_torch.ops.ranking import _assign_panel_rows
+
+    return _assign_panel_rows(x, valid, n_bins, "rank")
+
+
+def rank_labels(x, valid, n_bins: int = 10):
+    """``mode="rank"`` decile labels of every date of ``[..., A, M]``
+    panels: ``floor(pct_rank * n_bins)`` capped at ``n_bins - 1``, ties by
+    position, over each (lead, month) row's valid lanes.
+
+    Args:
+      x: f32/f64[..., A, M] (any strides; NaN allowed at invalid lanes).
+      valid: bool[..., A, M] (any strides).
+      n_bins: B >= 1.
+
+    Returns ``(labels i32[..., A, M] with -1 at invalid lanes, n_eff
+    i32[..., M] = min(valid lanes, B))``, the same bits on every route
+    (:func:`rank_route`).  Rows wider than :data:`RANK_MAX_LANES` on the
+    card take the plain sort and add to ``rank_labels.wide_rows``.
+    """
+    what = "rank_labels"
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{what}: valid must be bool, got {valid.dtype}")
+    if x.dim() < 2 or valid.shape != x.shape:
+        raise ValueError(f"{what}: x {tuple(x.shape)} and valid "
+                         f"{tuple(valid.shape)} must be the same [..., A, M]")
+    if x.device != valid.device:
+        raise ValueError(f"{what}: inputs on {x.device} and {valid.device}")
+    if int(n_bins) < 1:
+        raise ValueError(f"{what}: n_bins must be >= 1, got {n_bins}")
+    A, M = x.shape[-2:]
+    lead = x.shape[:-2]
+    route = rank_route(A, x.dtype, x.device)
+    if route != "kernel":
+        if route == "sort":
+            with _LAUNCH_LOCK:
+                rank_labels.wide_rows += x.numel() // A
+        return rank_labels_plain(x, valid, int(n_bins))
+
+    # views where the strides allow (a stride-0 lead axis included)
+    L = math.prod(lead)
+    x3, v3 = x.reshape(L, A, M), valid.reshape(L, A, M)
+    labels = torch.empty((L, A, M), dtype=torch.int32, device=x.device)
+    n_eff = torch.empty((L, M), dtype=torch.int32, device=x.device)
+    if A == 0:
+        n_eff.zero_()
+    elif L and M:
+        # the kernel writes every label and every row's n_eff
+        threads, items = _rank_plan(A)
+        lib, fn = _entry("rank_labels", x.dtype)
+        _launch(rank_labels, lib, fn, x, what,
+                x3.data_ptr(), v3.data_ptr(), labels.data_ptr(),
+                n_eff.data_ptr(), L, A, M, int(n_bins), *x3.stride(),
+                *v3.stride(), threads, items)
+    return labels.reshape(*lead, A, M), n_eff.reshape(*lead, M)
+
+
+rank_labels.launches = 0
+# rows of calls routed to the plain sort on the card (A > RANK_MAX_LANES)
+rank_labels.wide_rows = 0
+# the CUDA kernels one call launches, by name (csrc/rank_labels.cu)
+rank_labels.device_kernels = ("rank_labels_kernel",)
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and K3's wide-row count, to 0."""
     with _LAUNCH_LOCK:
         decile_partial_sums.launches = 0
         cohort_partial_sums.launches = 0
+        rank_labels.launches = 0
+        rank_labels.wide_rows = 0

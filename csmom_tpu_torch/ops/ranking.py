@@ -6,7 +6,9 @@ flooring, ties by position) and ``"hist"`` (the same labels as ``"rank"``
 by radix-histogram selection, no sort: :mod:`csmom_tpu_torch.parallel.histrank`).
 Each month's cross-section is one contiguous row: panels ``[..., A, M]``
 are ranked as rows ``[..., M, A]``, so one batched ``torch.sort`` covers
-every month (and every J of the grid, and every sector).
+every month (and every J of the grid, and every sector).  On the card,
+mode ``"rank"`` is kernel K3 instead (:func:`csmom_tpu_torch.ops.kernels.rank_labels`),
+which reads the panel in place; the sort here is its plain version.
 
 Labels are int32 in ``[0, n_bins)`` with ``-1`` for unranked lanes.
 """
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from csmom_tpu_torch.ops import kernels
 
 _TOP32 = 0x7FFFFFFF
 _TOP64 = 0x7FFFFFFFFFFFFFFF
@@ -27,7 +31,9 @@ def sortable_bits(x, valid):
     thin, so this map gives signed int64 keys in the same order: -0.0 is
     folded onto +0.0 first, a negative float's magnitude bits are flipped,
     and invalid lanes take the largest int64, strictly above every valid
-    value including ``+inf``.  Returns ``(keys int64, nbits)`` where
+    value including ``+inf`` (in f64 a valid NaN whose payload bits are all
+    ones keys the same: :func:`_rank_labels` orders it before them).
+    Returns ``(keys int64, nbits)`` where
     ``nbits`` is the width the keys were formed at (64 for f64, else 32).
     """
     x = torch.where(x == 0.0, torch.zeros_like(x), x)
@@ -49,8 +55,14 @@ def _rank_labels(x, valid, n_bins: int):
     and a lane's label counts the boundary ``(key, position)`` pairs it
     lexicographically dominates."""
     A = x.shape[-1]
-    key, _ = sortable_bits(x, valid)
+    key, nbits = sortable_bits(x, valid)
     order = torch.sort(key, dim=-1, stable=True).indices   # invalid lanes last
+    if nbits == 64:
+        # a valid f64 NaN of the largest payload keys as the invalid lanes
+        # do: move every invalid lane behind it, so they never enter the
+        # order (K3's rule; ROADMAP known difference 80)
+        behind = (~valid).gather(-1, order).to(torch.uint8)
+        order = order.gather(-1, torch.sort(behind, dim=-1, stable=True).indices)
     n = valid.sum(dim=-1)                                  # [R]
     pos = torch.arange(A, device=x.device)
     labels = torch.zeros(key.shape, dtype=torch.int32, device=x.device)
@@ -131,15 +143,26 @@ def decile_assign(x, valid, n_bins: int = 10, mode: str = "qcut"):
     """Bins for one date: ``x f[A]`` (NaN allowed at masked lanes) ->
     ``(labels i32[A] with -1 at masked lanes, n_bins_effective i32 scalar)``
     in mode ``"qcut"``, ``"rank"`` or ``"hist"``."""
-    labels, n_eff = _assign_rows(x[None, :], valid[None, :], n_bins, mode)
-    return labels[0], n_eff[0]
+    labels, n_eff = decile_assign_panel(x[:, None], valid[:, None], n_bins, mode)
+    return labels[:, 0], n_eff[0]
 
 
 def decile_assign_panel(x, valid, n_bins: int = 10, mode: str = "qcut"):
     """Bins for every date of ``[..., A, M]`` panels.
 
+    Mode ``"rank"`` goes through :func:`csmom_tpu_torch.ops.kernels.rank_labels`:
+    kernel K3 on the card, one launch for every (lead, month) row.
+
     Returns ``(labels i32[..., A, M], n_bins_effective i32[..., M])``.
     """
+    if mode == "rank":
+        return kernels.rank_labels(x, valid, n_bins)
+    return _assign_panel_rows(x, valid, n_bins, mode)
+
+
+def _assign_panel_rows(x, valid, n_bins: int, mode: str):
+    """:func:`decile_assign_panel` by rows: each month's cross-section is
+    one row of a batched :func:`_assign_rows`."""
     A, M = x.shape[-2:]
     lead = x.shape[:-2]
     rows = x.transpose(-1, -2).reshape(-1, A)

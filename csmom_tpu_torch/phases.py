@@ -32,6 +32,7 @@ import torch
 
 from csmom_tpu_torch.backtest.grid import jk_grid_backtest
 from csmom_tpu_torch.backtest.monthly import _assemble_result, monthly_spread_backtest
+from csmom_tpu_torch.ops import kernels
 from csmom_tpu_torch.ops.ranking import decile_assign_panel
 from csmom_tpu_torch.signals.momentum import (
     formation_listed_mask,
@@ -237,16 +238,22 @@ def span_phases(ranges, annotations, device_ops, names):
 
 
 def grid_phases(pm, mm, mode):
-    """The 16-cell grid whole (:func:`time_call`), and one traced warm call
-    of it split by its phase spans (:func:`span_phases`; its ``whole`` is
-    the traced call's device ms and launches)."""
+    """The 16-cell grid whole (:func:`time_call`), one traced warm call of
+    it split by its phase spans (:func:`span_phases`; its ``whole`` is the
+    traced call's device ms and launches), and one call's counts of K3
+    (``rank_labels.launches``, and ``rank_labels.wide_rows``: rows too wide
+    for K3, ranked by the plain sort)."""
     def call():
         return jk_grid_backtest(pm, mm, GRID_JS, GRID_KS, skip=GRID_SKIP, mode=mode)
 
     d, h = time_call(call)
+    kernels.reset_launches()
+    call()
+    counts = {"rank_labels.launches": kernels.rank_labels.launches,
+              "rank_labels.wide_rows": kernels.rank_labels.wide_rows}
     *events, wall = _phase_events(call, GRID_SPANS)
     return {"whole": {"device_ms": d, "host_ms": h, "traced_wall_ms": wall},
-            "spans": span_phases(*events, GRID_SPANS)}
+            "spans": span_phases(*events, GRID_SPANS), "counts": counts}
 
 
 def monthly_phases(pm, mm):

@@ -279,7 +279,8 @@ REGISTRY.register(EngineSpec(
 # ---------------------------------------------------------------------------
 
 # the kernel libraries each serve endpoint's scorer launches on the card
-_SERVE_KERNELS = {"backtest": ("decile_partial_sums",)}
+# in the service's rank mode: the backtest's K1 and its rank labels' K3
+_SERVE_KERNELS = {"backtest": ("decile_partial_sums", "rank_labels")}
 
 
 def _dt(profile: str, dtype):
@@ -602,7 +603,7 @@ def _mesh_grid_manifest(profile: str, dtype=None) -> list:
     """The grid-cell x asset sharded J x K entries (the reduced and the
     north-star panels) on the visible cards, one logical CPU shard
     without one: the cached callable the sharded grid runs
-    (:func:`~csmom_tpu_torch.parallel.collectives.grid_shard_fn`), K2
+    (:func:`~csmom_tpu_torch.parallel.collectives.grid_shard_fn`), K2 and K3
     once per shard."""
     import torch
 
@@ -631,7 +632,7 @@ def _mesh_grid_manifest(profile: str, dtype=None) -> list:
             args=(sds((A, M), dt), sds((A, M), bool),
                   sds((nJ,), idx, value=wl.GRID_JS),
                   sds((len(wl.GRID_KS),), idx, value=wl.GRID_KS)),
-            kernels=("cohort_partial_sums",),
+            kernels=("cohort_partial_sums", "rank_labels"),
         ))
     return out
 

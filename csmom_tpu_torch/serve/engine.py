@@ -56,8 +56,9 @@ __all__ = ["KERNELS", "MeshTorchEngine", "StubEngine", "TorchEngine",
            "unpack_result"]
 
 # the kernels the builtin endpoints launch (ops/build.py names): the
-# backtest endpoint's K1; the CLI's cold-cache gate checks their builds
-KERNELS = ("decile_partial_sums",)
+# backtest endpoint's K1 and its rank labels' K3; the CLI's cold-cache
+# gate checks their builds
+KERNELS = ("decile_partial_sums", "rank_labels")
 
 
 def _surface_or_raise(kind: str):

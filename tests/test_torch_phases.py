@@ -160,6 +160,8 @@ def test_grid_phases_reports_the_whole_call_and_its_spans(monkeypatch):
                                      "unplaced": 0}
     assert out["spans"]["grid.stats"]["launches"] == 1
     assert len(calls) == 1 and traced == calls
+    # K3's counters of one call: a CPU panel launches nothing
+    assert out["counts"] == {"rank_labels.launches": 0, "rank_labels.wide_rows": 0}
 
 
 def test_trace_counts_device_work_and_not_the_ranges_device_twins(monkeypatch):

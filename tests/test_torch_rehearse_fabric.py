@@ -61,7 +61,7 @@ def test_corrupt_aot_cache_runs_green_on_the_cpu(tmp_path):
     assert summary["platform"] == "cpu" and summary["n_errors"] == 0
     assert summary["value"] > 0 and summary["n_self_healed"] == 0
     assert summary["launches"] == {"decile_partial_sums": 0,
-                                   "cohort_partial_sums": 0}
+                                   "cohort_partial_sums": 0, "rank_labels": 0}
     # the armed pass found the sandbox's build directory empty
     assert "nothing to damage" in (box / "pass2.err").read_text()
     assert not (box / "jit-cache").exists() or not os.listdir(box / "jit-cache")

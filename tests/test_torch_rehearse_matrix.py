@@ -418,13 +418,13 @@ def test_warmup_check_equals_the_references_off_the_card(trailing):
 def test_warmup_check_is_tighter_on_the_card():
     healed = {**_WARM_OK, "platform": "gpu", "n_self_healed": 2,
               "launches": {"decile_partial_sums": 2,
-                           "cohort_partial_sums": 2}}
+                           "cohort_partial_sums": 2, "rank_labels": 2}}
     assert port._check_warmup_healed({"trailing": healed}) == []
     unhealed = {**healed, "n_self_healed": 0,
                 "launches": {"decile_partial_sums": 2}}
     out = port._check_warmup_healed({"trailing": unhealed})
-    assert len(out) == 2 and "self-healed" in out[0]
-    assert "cohort_partial_sums" in out[1]
+    assert len(out) == 3 and "self-healed" in out[0]
+    assert "cohort_partial_sums" in out[1] and "rank_labels" in out[2]
     assert ref._check_warmup_healed({"trailing": unhealed}) == []
     # a failed fault-free pass fails the scenario (the reference ignores it)
     r = {"trailing": healed, "headline_violations": ["pass 1 failed"]}

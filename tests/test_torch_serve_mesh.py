@@ -221,8 +221,8 @@ def test_mesh_profile_names_equal_the_references(profile, d, monkeypatch):
     assert len(entries) == len(want)
     for e in entries:
         e.validate()
-        assert e.kernels == (("decile_partial_sums",) if ".backtest." in e.name
-                             else ())
+        assert e.kernels == (("decile_partial_sums", "rank_labels")
+                             if ".backtest." in e.name else ())
     assert health.expected_entry_names(profile) == ref_health.expected_entry_names(
         profile)
 

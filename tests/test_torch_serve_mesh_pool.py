@@ -202,9 +202,10 @@ def test_cache_readiness_reports_the_mesh_warm_up_coverage(tmp_path,
     from csmom_tpu_torch.ops import build
 
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    lib = build.library_path("decile_partial_sums")
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    lib.write_bytes(b"\x7fELF")
+    for kernel in ("decile_partial_sums", "rank_labels"):  # the serve tier's
+        lib = build.library_path(kernel)
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        lib.write_bytes(b"\x7fELF")
     names = sorted(health.expected_entry_names("serve-smoke", mesh_devices=2))
     d = aot.report_dir("mesh")
     os.makedirs(d)

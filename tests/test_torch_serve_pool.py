@@ -313,6 +313,7 @@ def test_cache_version_fingerprints_the_built_world(tmp_path, monkeypatch):
     import importlib.metadata
 
     from csmom_tpu_torch.ops import build
+    from csmom_tpu_torch.serve.engine import KERNELS
 
     v1 = health.aot_cache_version("serve")
     assert v1 == health.aot_cache_version("serve"), "must be deterministic"
@@ -331,8 +332,9 @@ def test_cache_version_fingerprints_the_built_world(tmp_path, monkeypatch):
 
     src = tmp_path / "csrc"
     src.mkdir()
-    text = (build.SRC_DIR / "decile_partial_sums.cu").read_text()
-    (src / "decile_partial_sums.cu").write_text(text)
+    for name in KERNELS:
+        (src / f"{name}.cu").write_text((build.SRC_DIR / f"{name}.cu").read_text())
+    text = (src / "decile_partial_sums.cu").read_text()
     monkeypatch.setattr(build, "SRC_DIR", src)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     assert health.aot_cache_version("serve") == v1, (
@@ -352,8 +354,8 @@ def test_expected_entry_names_name_the_kernel_libraries(tmp_path, monkeypatch):
 
     names = health.expected_entry_names()
     assert names == {build.library_path(n).name for n in KERNELS}
-    assert len(names) == 1 and next(iter(names)).startswith(
-        "decile_partial_sums-")
+    assert sorted(n.split("-")[0] for n in names) == ["decile_partial_sums",
+                                                      "rank_labels"]
 
 
 def test_cache_readiness_cold_build_dir_points_at_the_build(tmp_path,
@@ -367,8 +369,12 @@ def test_cache_readiness_cold_build_dir_points_at_the_build(tmp_path,
     lib = build.library_path("decile_partial_sums")
     lib.parent.mkdir(parents=True)
     lib.write_bytes(b"\x7fELF")
+    # the backtest endpoint's rank labels need K3's library too
     ready, reason = health.cache_readiness()
-    assert ready and "decile_partial_sums" in reason
+    assert not ready and "rank_labels" in reason
+    build.library_path("rank_labels").write_bytes(b"\x7fELF")
+    ready, reason = health.cache_readiness()
+    assert ready and "decile_partial_sums" in reason and "rank_labels" in reason
 
 
 def test_cold_cache_exits_3_before_any_spawn(tmp_path, monkeypatch, capsys):

@@ -58,8 +58,12 @@ def test_bench_gpu_lists_the_references_bench_tpu(capsys):
         assert [r[0] for r in rows] == ["bench-gpu"] * len(want)
         assert [(r[1], r[2]) for r in rows] == want
     kinds = {e.name: e.kernels for e in manifest.build_manifest("bench-gpu")}
-    assert kinds["grid.jk16.rank.kernel@3000x696"] == ("cohort_partial_sums",)
-    assert [k for k, v in kinds.items() if v] == ["grid.jk16.rank.kernel@3000x696"]
+    assert kinds["grid.jk16.rank.kernel@3000x696"] == ("cohort_partial_sums",
+                                                       "rank_labels")
+    # every rank-mode entry launches K3 on the card, whatever its K2 impl
+    assert {k: v for k, v in kinds.items() if v} == {
+        k: (("cohort_partial_sums",) if ".kernel@" in k else ()) + ("rank_labels",)
+        for k in kinds if ".rank." in k} | {"grid.net_core@3000x696": ("rank_labels",)}
 
 
 def test_manifest_drift_raises_type_error():
@@ -89,8 +93,10 @@ def test_unknown_and_mesh_profiles_are_refused(capsys):
     # bench-mesh is ported: the sharded grid on the visible cards (one
     # logical CPU shard without a card), K2 named
     assert [(e.name, e.kernels) for e in manifest.build_manifest("bench-mesh")] == [
-        ("mesh.grid.jk16.rank.kernel@512x174.g1a1", ("cohort_partial_sums",)),
-        ("mesh.grid.jk16.rank.kernel@3000x696.g1a1", ("cohort_partial_sums",))]
+        ("mesh.grid.jk16.rank.kernel@512x174.g1a1",
+         ("cohort_partial_sums", "rank_labels")),
+        ("mesh.grid.jk16.rank.kernel@3000x696.g1a1",
+         ("cohort_partial_sums", "rank_labels"))]
     assert main(["warmup", "--profiles", "nope", "--device", "cpu"]) == 2
     assert "unknown profile" in capsys.readouterr().err
 
@@ -185,7 +191,8 @@ def test_cpu_warmup_writes_and_reads_back_its_report(monkeypatch, tmp_path):
         assert r["name"] == e.name and r["shapes"] == e.shape_summary()
         assert r["profile"] == "smoke" and r["cache_hit"] is True
         assert isinstance(r["memory"], str) and r["libraries_built"] == 0
-        assert r["launches"] == {"decile_partial_sums": 0, "cohort_partial_sums": 0}
+        assert r["launches"] == {"decile_partial_sums": 0, "cohort_partial_sums": 0,
+                                 "rank_labels": 0}
         assert r["first_call_s"] >= 0 and r["warm_call_s"] >= 0
     assert read_warmup_report("t") == json.loads(
         (tmp_path / "t" / "warmup_report.json").read_text())
