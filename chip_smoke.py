@@ -1486,6 +1486,7 @@ def intraday_scale(dev, smi):
     _, compact_ms = time_call(lambda: compact_minutes(minute_df), reps=3, warmup=0)
     A, R = compact.price.shape
     T = len(compact.times)
+    tidx = torch.as_tensor(compact.time_idx).to(dev)
     L(f"{len(minute_df):,} minute rows, compact [{A}, {R}], minute axis {T}; "
       f"host: synthetic frame {gen_ms:.1f} ms (one call), compaction {compact_ms:.1f} "
       f"ms (median of 3)")
@@ -1641,7 +1642,7 @@ def intraday_scale(dev, smi):
                                    msg=f"intraday (b): {dt} features are not the entry point's")
     d64["fit"] = g64["fit"]
     band, held = hold_f32(d32, d64, g32["fit"], window, alpha)
-    (dense_band,) = scatter_to_minutes(compact, d64["yv"], (band,))[:1]
+    (dense_band,) = scatter_to_minutes(tidx, T, d64["yv"], (band,))[:1]
     s64 = g64["sc"]
     at_risk = ((s64 - threshold).abs() <= dense_band) | ((s64 + threshold).abs() <= dense_band)
     diff = g32["res"].trade_side.to(torch.int32) != g64["res"].trade_side.to(torch.int32)
@@ -1683,7 +1684,7 @@ def intraday_scale(dev, smi):
                                                        alpha=alpha), {}),
             "elastic_net_fit": (lambda: elastic_net_time_series_cv(
                 d["feats"], d["y"], d["yv"], alpha=1e-8), dict(reps=3, warmup=1)),
-            "scatter": (lambda: scatter_to_minutes(compact, d["yv"],
+            "scatter": (lambda: scatter_to_minutes(tidx, T, d["yv"],
                                                    (g["fit"].scores, d["price"])), {}),
             "event_backtest": (lambda: event_backtest(p, va, sc, adv, vol,
                                                       threshold=threshold), {}),
@@ -1710,7 +1711,7 @@ def intraday_scale(dev, smi):
         """The entry point's device work after compaction, f32, for the trace."""
         d = features(torch.float32)
         fit = ridge_time_series_cv(d["feats"], d["y"], d["yv"], alpha=alpha)
-        score, price, valid = scatter_to_minutes(compact, d["yv"], (fit.scores, d["price"]))
+        score, price, valid = scatter_to_minutes(tidx, T, d["yv"], (fit.scores, d["price"]))
         return fit, event_backtest(price, valid, torch.nan_to_num(score), adv32, vol32,
                                    threshold=threshold)
 
@@ -1829,7 +1830,8 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
 
     # -- (d) the CLI --------------------------------------------------------
     walk, price, yv = walk64
-    score, dprice, dvalid = scatter_to_minutes(compact, yv, (walk.scores, price))
+    score, dprice, dvalid = scatter_to_minutes(torch.as_tensor(compact.time_idx).to(dev),
+                                               len(compact.times), yv, (walk.scores, price))
     adv, vol = (torch.as_tensor(x, dtype=torch.float64).to(dev)
                 for x in daily_risk_maps(daily_df, compact.tickers))
     res = event_backtest(dprice, dvalid, torch.nan_to_num(score), adv, vol,

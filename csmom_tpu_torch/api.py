@@ -189,15 +189,111 @@ def intraday_pipeline(
     and ``l1_ratio`` apply) or ``'mlp'`` (``alpha`` is its weight decay).
     ``alpha=None`` resolves per model: 1.0 for ridge and online ridge,
     1e-8 for elastic net and lasso, 1e-4 for the MLP.  ``dtype`` defaults
-    to ``torch.float64``, the reference's default.  Everything after the
-    host-side compaction runs on ``device``: ``"cuda"`` by default, raising
-    without a card unless ``device="cpu"`` is passed.
+    to ``torch.float64``, the reference's default.  The host compacts the
+    frame and hands the compacted panels and the risk maps to the device
+    once; the rest is :func:`intraday_on_device`, on ``device``:
+    ``"cuda"`` by default, raising without a card unless ``device="cpu"``
+    is passed.
 
     Returns ``(EventResult, fit, compact, dense_score, dense_price,
     dense_valid)``; ``fit`` is the model's fit (RidgeFit for the batch
     linear family, OnlineRidgeFit, or MLPFit; each carries ``scores``,
     ``cv_mse`` and ``n_train``) and the dense panels are ``[A, T]``
     tensors on the device over the global minute axis.
+    """
+    import torch
+
+    from csmom_tpu_torch.signals.intraday import compact_minutes
+
+    dev = resolve_device(device)
+    dtype = torch.float64 if dtype is None else dtype
+    _check_model(model)
+    if minute_df is None or len(minute_df) == 0:
+        # no live intraday data -> synthesize minutes from daily bars
+        minute_df = synthetic_minute_frame(daily_df)
+        if len(minute_df) == 0:
+            raise ValueError(
+                "intraday_pipeline: no intraday rows and no daily bars to "
+                "synthesize a fallback from"
+            )
+    compact = compact_minutes(minute_df)
+    result, fit, dense_score, dense_price, dense_valid = intraday_on_device(
+        *intraday_panels(compact, *daily_risk_maps(daily_df, compact.tickers),
+                         dev, dtype),
+        window_minutes=window_minutes, n_splits=n_splits, alpha=alpha,
+        size_shares=size_shares, threshold=threshold, cash0=cash0,
+        model=model, l1_ratio=l1_ratio, latency_bars=latency_bars,
+    )
+    return result, fit, compact, dense_score, dense_price, dense_valid
+
+
+def intraday_panels(compact, adv, vol, device, dtype):
+    """A :class:`~csmom_tpu_torch.signals.intraday.CompactMinutePanel` and
+    its risk maps (host arrays) on ``device``, in ``dtype``: the positional
+    arguments of :func:`intraday_on_device`, ``(price, volume, row_valid,
+    time_idx, n_minutes, adv, vol)``."""
+    import torch
+
+    return (torch.as_tensor(compact.price, dtype=dtype).to(device),
+            torch.as_tensor(compact.volume, dtype=dtype).to(device),
+            torch.as_tensor(compact.row_valid).to(device),
+            torch.as_tensor(compact.time_idx).to(device),
+            len(compact.times),
+            torch.as_tensor(adv, dtype=dtype).to(device),
+            torch.as_tensor(vol, dtype=dtype).to(device))
+
+
+def _check_model(model: str) -> None:
+    if model not in INTRADAY_MODELS:
+        raise ValueError(
+            f"unknown model {model!r} (expected 'ridge', 'online_ridge', "
+            f"'elastic_net', 'lasso', or 'mlp')"
+        )
+
+
+def intraday_on_device(
+    price,
+    volume,
+    row_valid,
+    time_idx,
+    n_minutes: int,
+    adv,
+    vol,
+    *,
+    window_minutes: int = 30,
+    n_splits: int = 3,
+    alpha: float | None = None,
+    size_shares: int = 50,
+    threshold: float = 1e-5,
+    cash0: float = 1_000_000.0,
+    model: str = "ridge",
+    l1_ratio: float = 0.5,
+    latency_bars: int = 0,
+):
+    """The intraday pipeline's device work, from compacted panels resident
+    on the device to the event backtest: minute features and the next-row
+    label, the model's fit and scores, the scores scattered onto the
+    minute axis, and
+    :func:`~csmom_tpu_torch.backtest.event.event_backtest`.
+
+    ``price``, ``volume`` (f[A, R], in the pipeline's dtype),
+    ``row_valid`` (bool[A, R]) and ``time_idx`` (int[A, R], each row's
+    minute on the global axis of ``n_minutes``) are a
+    :class:`~csmom_tpu_torch.signals.intraday.CompactMinutePanel`'s arrays
+    on the device, ``adv`` and ``vol`` (f[A]) the risk maps; the other
+    arguments are :func:`intraday_pipeline`'s.  Nothing is uploaded here.
+
+    Phase spans (:func:`csmom_tpu_torch.obs.spans.span`), opened one after
+    another and before the engine's own ``event.*``: ``intraday.features``
+    (features and label), ``intraday.fit`` (scaler, folds, final fit,
+    scores) and ``intraday.scatter`` (the dense panels), each with the
+    host-known attributes ``rows`` (A·R) and ``features``; the fit's adds
+    ``solves`` (a batch model's fold fits and final fit) and ``model``.
+    A ridge call adds its ``n_splits + 1`` solves to the counter
+    ``ridge.solves`` (:mod:`csmom_tpu_torch.obs.metrics`, armed only).
+
+    Returns ``(EventResult, fit, dense_score, dense_price, dense_valid)``,
+    :func:`intraday_pipeline`'s results but ``compact``.
     """
     import torch
 
@@ -209,88 +305,85 @@ def intraday_pipeline(
         online_ridge_scores,
         ridge_time_series_cv,
     )
+    from csmom_tpu_torch.obs.metrics import counter
+    from csmom_tpu_torch.obs.spans import span
     from csmom_tpu_torch.signals.intraday import (
-        compact_minutes,
+        FEATURE_NAMES,
         minute_features,
         next_row_return,
     )
 
-    dev = resolve_device(device)
-    dtype = torch.float64 if dtype is None else dtype
-    if model not in INTRADAY_MODELS:
-        raise ValueError(
-            f"unknown model {model!r} (expected 'ridge', 'online_ridge', "
-            f"'elastic_net', 'lasso', or 'mlp')"
-        )
-    if minute_df is None or len(minute_df) == 0:
-        # no live intraday data -> synthesize minutes from daily bars
-        minute_df = synthetic_minute_frame(daily_df)
-        if len(minute_df) == 0:
-            raise ValueError(
-                "intraday_pipeline: no intraday rows and no daily bars to "
-                "synthesize a fallback from"
-            )
+    _check_model(model)
     if alpha is None:
         alpha = {"ridge": 1.0, "online_ridge": 1.0, "mlp": 1e-4}.get(model, 1e-8)
-    compact = compact_minutes(minute_df)
-    price = torch.as_tensor(compact.price, dtype=dtype).to(dev)
-    volume = torch.as_tensor(compact.volume, dtype=dtype).to(dev)
-    row_valid = torch.as_tensor(compact.row_valid).to(dev)
+    A, R = price.shape
+    shape = dict(rows=A * R, features=len(FEATURE_NAMES))
+    with span("intraday.features", **shape):
+        feats, feat_valid = minute_features(price, volume, row_valid,
+                                            window=window_minutes)
+        y, y_valid = next_row_return(price, feat_valid)
 
-    feats, feat_valid = minute_features(price, volume, row_valid, window=window_minutes)
-    y, y_valid = next_row_return(price, feat_valid)
-    if model == "ridge":
-        fit = ridge_time_series_cv(feats, y, y_valid, n_splits=n_splits, alpha=alpha)
-    elif model == "online_ridge":
-        fit = online_ridge_scores(feats, y, y_valid, n_splits=n_splits, alpha=alpha)
-    elif model in ("elastic_net", "lasso"):
-        enet = elastic_net_time_series_cv(
-            feats, y, y_valid, n_splits=n_splits, alpha=alpha,
-            l1_ratio=1.0 if model == "lasso" else l1_ratio,
-        )
-        if int(enet.n_nonzero) == 0:
-            import logging
-
-            logging.getLogger("csmom_tpu_torch.api").warning(
-                "%s with alpha=%g zeroed every coefficient — scores are the "
-                "intercept only and the strategy will be (nearly) flat; "
-                "minute-return labels are ~1e-4, so useful l1 penalties are "
-                "~1e-9..1e-7", model, alpha,
+    solves = 0 if model == "online_ridge" else n_splits + 1
+    with span("intraday.fit", **shape, solves=solves, model=model):
+        if model == "ridge":
+            fit = ridge_time_series_cv(feats, y, y_valid, n_splits=n_splits,
+                                       alpha=alpha)
+            counter("ridge.solves").inc(solves)
+        elif model == "online_ridge":
+            fit = online_ridge_scores(feats, y, y_valid, n_splits=n_splits,
+                                      alpha=alpha)
+        elif model in ("elastic_net", "lasso"):
+            enet = elastic_net_time_series_cv(
+                feats, y, y_valid, n_splits=n_splits, alpha=alpha,
+                l1_ratio=1.0 if model == "lasso" else l1_ratio,
             )
-        fit = as_ridge_fit(enet)
-    else:
-        fit = mlp_time_series_cv(feats, y, y_valid, n_splits=n_splits,
-                                 weight_decay=alpha)
+            if int(enet.n_nonzero) == 0:
+                import logging
 
-    dense_score, dense_price, dense_valid = scatter_to_minutes(
-        compact, y_valid, (fit.scores, price))
-    adv, vol = daily_risk_maps(daily_df, compact.tickers)
+                logging.getLogger("csmom_tpu_torch.api").warning(
+                    "%s with alpha=%g zeroed every coefficient — scores are the "
+                    "intercept only and the strategy will be (nearly) flat; "
+                    "minute-return labels are ~1e-4, so useful l1 penalties are "
+                    "~1e-9..1e-7", model, alpha,
+                )
+            fit = as_ridge_fit(enet)
+        else:
+            fit = mlp_time_series_cv(feats, y, y_valid, n_splits=n_splits,
+                                     weight_decay=alpha)
+    del feats, y
+
+    with span("intraday.scatter", **shape):
+        dense_score, dense_price, dense_valid = scatter_to_minutes(
+            time_idx, n_minutes, y_valid, (fit.scores, price))
+        score0 = torch.nan_to_num(dense_score)
     result = event_backtest(
         dense_price,
         dense_valid,
-        torch.nan_to_num(dense_score),
-        torch.as_tensor(adv, dtype=dtype).to(dev),
-        torch.as_tensor(vol, dtype=dtype).to(dev),
+        score0,
+        adv,
+        vol,
         size_shares=size_shares,
         threshold=threshold,
         cash0=cash0,
         latency_bars=latency_bars,
     )
-    return result, fit, compact, dense_score, dense_price, dense_valid
+    return result, fit, dense_score, dense_price, dense_valid
 
 
-def scatter_to_minutes(compact, y_valid, values):
-    """Compacted ``[A, R]`` rows onto the global minute axis ``[A, T]``:
-    each tensor of ``values`` (NaN off the modeling rows), then the mask
-    of modeling rows.  Padded and non-model rows go to a spill column
-    that is sliced off; every other target cell is hit at most once."""
+def scatter_to_minutes(time_idx, n_minutes: int, y_valid, values):
+    """Compacted ``[A, R]`` rows onto the global minute axis ``[A, T]``,
+    ``T = n_minutes``, by ``time_idx`` (int[A, R] on ``y_valid``'s
+    device, each row's minute): each tensor of ``values`` (NaN off the
+    modeling rows), then the mask of modeling rows.  Padded and non-model
+    rows go to a spill column that is sliced off; every other target cell
+    is hit at most once."""
     import torch
 
     dev = y_valid.device
-    A, R = compact.price.shape
-    T = len(compact.times)
+    A, R = y_valid.shape
+    T = n_minutes
     rows = torch.arange(A, device=dev)[:, None].expand(A, R)
-    cols = torch.where(y_valid, torch.as_tensor(compact.time_idx).to(dev).long(), T)
+    cols = torch.where(y_valid, time_idx.long(), T)
     out = []
     for vals in values:
         dense = torch.full((A, T + 1), float("nan"), dtype=vals.dtype, device=dev)

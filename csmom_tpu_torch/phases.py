@@ -7,7 +7,12 @@ month-end panel in f32 it times the 16-cell grid (rank and qcut) and
 the monthly engine (qcut, J=12) whole with :func:`time_call` (CUDA
 events and host wall, median of ``REPS`` after warm-up), and traces one
 call of each engine with ``torch.profiler`` to get the device's busy
-share and kernel launch count.  The grid's trace is one warm call split
+share and kernel launch count.  On the north-star minute quarter (500
+names x 60 days of synthetic minute bars, compacted, f64) it times the
+intraday pipeline's device body, ridge, the same way, split by its
+``intraday.*`` spans and its engine's ``event.*`` spans, with one armed
+call's counters (the spans' ``rows``, ``features`` and ``solves``, and
+``ridge.solves``).  The grid's trace is one warm call split
 by its phase spans (``grid.signal``, ``grid.ranking``, ``grid.cohorts``,
 ``grid.stats``: ranges of the profiler's trace, see
 :mod:`csmom_tpu_torch.obs.spans`): device ms, kernel launches and host
@@ -39,7 +44,17 @@ from csmom_tpu_torch.signals.momentum import (
     momentum,
     monthly_returns,
 )
-from csmom_tpu_torch.workloads import GRID_JS, GRID_KS, GRID_SKIP, north_star_month_panel
+from csmom_tpu_torch.api import intraday_on_device
+from csmom_tpu_torch.obs import spans
+from csmom_tpu_torch.obs.metrics import counter
+from csmom_tpu_torch.workloads import (
+    GRID_JS,
+    GRID_KS,
+    GRID_SKIP,
+    NORTH_STAR_MINUTES,
+    minute_panels,
+    north_star_month_panel,
+)
 
 
 # timed repetitions per measurement, after 3 warm-up calls
@@ -52,6 +67,9 @@ _TRACE_MARGIN_S = 0.05
 _FLUSH_INTS = 64 * 2**20
 # the grid's phase spans, in the order a call opens them
 GRID_SPANS = ("grid.signal", "grid.ranking", "grid.cohorts", "grid.stats")
+# the intraday pipeline's, then its threshold engine's
+INTRADAY_SPANS = ("intraday.features", "intraday.fit", "intraday.scatter",
+                  "event.decide", "event.fill", "event.settle")
 
 
 def time_call(fn, cold=False, reps=REPS, warmup=3):
@@ -256,6 +274,39 @@ def grid_phases(pm, mm, mode):
             "spans": span_phases(*events, GRID_SPANS), "counts": counts}
 
 
+def intraday_counts(call):
+    """The counters of one armed call of the intraday pipeline: each
+    ``intraday.*`` span's attributes, as ``<span>.<attribute>``, and the
+    ``ridge.solves`` it added.  Arms in memory for the call, then disarms."""
+    solves = counter("ridge.solves")
+    col = spans.arm(None)
+    try:
+        before = solves.value
+        call()
+        added = solves.value - before
+    finally:
+        spans.disarm()
+    counts = {f"{r['name']}.{k}": v for r in col.events
+              if r["name"].startswith("intraday.") for k, v in r["attrs"].items()}
+    counts["ridge.solves"] = added
+    return counts
+
+
+def intraday_phases(panels):
+    """The intraday pipeline's device body (``intraday_on_device``, ridge,
+    its defaults) on ``panels`` whole (:func:`time_call`), one traced warm
+    call split by its phase spans and the engine's (:func:`span_phases`),
+    and one armed call's counters (:func:`intraday_counts`)."""
+    def call():
+        return intraday_on_device(*panels)
+
+    d, h = time_call(call)
+    counts = intraday_counts(call)
+    *events, wall = _phase_events(call, INTRADAY_SPANS)
+    return {"whole": {"device_ms": d, "host_ms": h, "traced_wall_ms": wall},
+            "spans": span_phases(*events, INTRADAY_SPANS), "counts": counts}
+
+
 def monthly_phases(pm, mm):
     ret, ret_valid = monthly_returns(pm, mm)
     mom, mom_valid = momentum(pm, mm, 12, 1)
@@ -300,6 +351,10 @@ def main(argv=None) -> int:
         "grid16_qcut": grid_phases(pm, mm, "qcut"),
         "monthly_qcut_J12": monthly_phases(pm, mm),
     }
+    del pm, mm
+    record["minute_panel"] = list(NORTH_STAR_MINUTES)
+    record["intraday_ridge_f64"] = intraday_phases(
+        minute_panels(*NORTH_STAR_MINUTES, device="cuda"))
     text = json.dumps(record)
     print(text)
     if args.out:

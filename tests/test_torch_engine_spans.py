@@ -26,6 +26,7 @@ torch.set_num_threads(2)
 
 GRID = ["grid.signal", "grid.ranking", "grid.cohorts", "grid.stats"]
 EVENT = ["event.decide", "event.fill", "event.settle"]
+INTRADAY = ["intraday.features", "intraday.fit", "intraday.scatter"]
 CALLER = "caller"
 
 
@@ -76,8 +77,17 @@ def _costs_call():
     return lambda: event.cost_attribution(r, price)
 
 
+def _intraday_call(model="ridge"):
+    from csmom_tpu_torch.api import intraday_on_device
+    from csmom_tpu_torch.workloads import minute_panels
+
+    panels = minute_panels(3, 1, device="cpu")
+    return lambda: intraday_on_device(*panels, model=model)
+
+
 CALLS = {
     "grid": (_grid_call, GRID),
+    "intraday": (_intraday_call, INTRADAY + EVENT),
     "threshold": (_event_call, EVENT),
     "threshold_latency": (lambda: _event_call(latency=2), EVENT),
     "hysteresis": (_hysteresis_call, EVENT),
@@ -91,7 +101,8 @@ def _phase_ranges(fn):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with record_function(CALLER):
             fn()
-    evs = sorted((e for e in prof.events() if e.name.startswith(("grid.", "event."))),
+    evs = sorted((e for e in prof.events()
+                  if e.name.startswith(("grid.", "event.", "intraday."))),
                  key=lambda e: e.time_range.start)
     return [(e.name, e.cpu_parent.name if e.cpu_parent else None) for e in evs]
 
@@ -199,6 +210,45 @@ def test_armed_cost_attribution_emits_one_record():
     recs, parent = _armed_records(_costs_call())
     assert [(r["name"], r["parent"], r["attrs"]) for r in recs] == [
         ("event.costs", parent, {"A": 6, "T": 96, "latency_bars": 0})]
+
+
+@pytest.mark.parametrize("model,solves", [("ridge", 4), ("online_ridge", 0)])
+def test_armed_intraday_call_names_its_rows_features_and_solves(model, solves):
+    """The three intraday spans, then the engine's, each under the caller's
+    span; ``rows`` is A * R of the compacted panels, and a ridge call adds
+    its fold fits and final fit to ``ridge.solves``."""
+    from csmom_tpu_torch.obs.metrics import counter
+
+    fn = _intraday_call(model)
+    before = counter("ridge.solves").value
+    recs, parent = _armed_records(fn)
+    added = counter("ridge.solves").value - before
+    assert [r["name"] for r in recs] == INTRADAY + EVENT
+    assert all(r["parent"] == parent for r in recs)
+    rows = recs[0]["attrs"]["rows"]
+    assert rows == 3 * 390
+    shape = {"rows": rows, "features": 5}
+    assert [r["attrs"] for r in recs[:3]] == [
+        shape, dict(shape, solves=solves, model=model), shape]
+    assert added == (solves if model == "ridge" else 0)
+    # disarmed, the counter stays where it was
+    fn()
+    assert counter("ridge.solves").value - before == added
+
+
+def test_the_intraday_spans_wait_on_no_device_value(monkeypatch):
+    """Armed, a ridge call's spans and counters take host-known values
+    only: reading any tensor's value on the host fails the test."""
+    fn = _intraday_call()
+
+    def no_read(*a, **k):
+        raise AssertionError("a tensor's value was read on the host")
+
+    for name in ("item", "tolist", "cpu", "numpy", "__int__", "__float__",
+                 "__bool__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, no_read)
+    recs, _ = _armed_records(fn)
+    assert [r["name"] for r in recs] == INTRADAY + EVENT
 
 
 def test_a_phase_that_raises_closes_its_span_with_the_error():

@@ -200,3 +200,40 @@ def test_trace_counts_device_work_and_not_the_ranges_device_twins(monkeypatch):
     out = phases._trace(lambda: None)
     assert out["device_activities"] == 2
     assert out["device_busy_ms"] == pytest.approx(0.4)
+
+
+# ---- the intraday pipeline's phases (intraday_phases, intraday_counts) ----
+
+INTRADAY_RANGES = [(n, 100.0 * i, 100.0 * i + 90.0)
+                   for i, n in enumerate(phases.INTRADAY_SPANS)]
+INTRADAY_ANNOTATIONS = [(n, s + 20.0, e + 20.0) for n, s, e in INTRADAY_RANGES]
+
+
+def test_intraday_phases_reports_the_whole_call_its_spans_and_counters(monkeypatch):
+    """One timed, one armed and one traced call of the device body: the
+    split covers the three intraday spans and the engine's, and the
+    counters are the armed call's span attributes and ridge solves."""
+    from csmom_tpu_torch.obs import spans
+    from csmom_tpu_torch.workloads import minute_panels
+
+    ops = [_op("void feats()", 30.0, 10.0), _op("void gemv()", 130.0, 40.0),
+           _op("void gemv()", 180.0, 20.0), _op("void scatter()", 230.0, 5.0),
+           _op("void cummax()", 560.0, 8.0)]
+    calls, traced = [], []
+    monkeypatch.setattr(phases, "time_call", lambda fn: (calls.append(fn) or (15.0, 16.0)))
+    monkeypatch.setattr(phases, "_phase_events", lambda fn, names: (
+        traced.append((fn, names)) or (INTRADAY_RANGES, INTRADAY_ANNOTATIONS, ops, 18.0)))
+    out = phases.intraday_phases(minute_panels(3, 1, device="cpu"))
+    assert out["whole"] == {"device_ms": 15.0, "host_ms": 16.0, "traced_wall_ms": 18.0}
+    assert traced == [(calls[0], phases.INTRADAY_SPANS)]
+    sp = out["spans"]
+    assert [sp[n]["launches"] for n in phases.INTRADAY_SPANS] == [1, 2, 1, 0, 0, 1]
+    assert sp["intraday.fit"]["device_ms"] == pytest.approx(0.06)
+    assert sp["whole"]["unplaced"] == 0
+    rows = 3 * 390
+    assert out["counts"] == {
+        "intraday.features.rows": rows, "intraday.features.features": 5,
+        "intraday.fit.rows": rows, "intraday.fit.features": 5, "intraday.fit.solves": 4,
+        "intraday.fit.model": "ridge", "intraday.scatter.rows": rows,
+        "intraday.scatter.features": 5, "ridge.solves": 4}
+    assert spans.current_collector() is None
