@@ -1727,6 +1727,100 @@ def intraday_scale(dev, smi):
       f"call's) {json.dumps(part)}")
 
 
+def ridge_kernel_scale(dev, smi, bw) -> dict:
+    """Phase 9(e): K4 at the intraday cell's shape (the quarter of minute
+    bars of ``workloads.NORTH_STAR_MINUTES``, 500 names x 60 days,
+    compacted, f64, the demo's 3 folds and alpha 1): against its plain
+    version on the same card within the f64 limits of
+    ``tests/test_torch_ridge_kernel.py`` (1e-12 of each quantity's scale,
+    times kappa = 1 + max |m| / s), two calls bit-equal, one launch a call
+    over every row; then its kernels' device time (L2 flushed) against the
+    byte bound of its two passes (the moments pass reads the features, the
+    label and the validity, the score pass the features and the validity
+    and writes the scores, each once), with the plain version's and the
+    masked-pass harness's time on the same inputs.  Returns the numbers."""
+    import torch
+
+    from csmom_tpu_torch.models.ridge import _masked_ridge, time_series_cv_harness
+    from csmom_tpu_torch.ops import kernels
+    from csmom_tpu_torch.phases import time_call, time_kernels
+    from csmom_tpu_torch.signals.intraday import minute_features, next_row_return
+    from csmom_tpu_torch.workloads import NORTH_STAR_MINUTES, minute_panels
+
+    price, volume, rv, *_ = minute_panels(*NORTH_STAR_MINUTES, device=dev)
+    feats, fv = minute_features(price, volume, rv, window=30)
+    y, yv = next_row_return(price, fv)
+    del price, volume, rv, fv
+    A, R, F = feats.shape
+    N, s = A * R, feats.element_size()
+    args = (feats, y, yv)
+
+    def k4():
+        return kernels.ridge_moments(*args)
+
+    def plain():
+        return kernels.ridge_moments_plain(*args, 3, 1.0, 0.7, 0.6, 100)
+
+    def harness():
+        return time_series_cv_harness(
+            *args, solver=lambda Xs, yf, w: _masked_ridge(Xs, yf, w, 1.0), n_splits=3,
+            train_frac=0.7, train_frac_small=0.6, small_threshold=100)
+
+    kernels.reset_launches()
+    got, again = k4(), k4()
+    torch.cuda.synchronize()
+    if kernels.ridge_moments.launches != 2 or kernels.ridge_moments.rows != 2 * N:
+        raise AssertionError(f"intraday (e): K4 counted {kernels.ridge_moments.launches} "
+                             f"launches over {kernels.ridge_moments.rows} rows in two calls")
+    for a, b in zip(got, again):
+        if not torch.equal(a.view(torch.int64) if a.dtype == torch.float64 else a,
+                           b.view(torch.int64) if b.dtype == torch.float64 else b):
+            raise AssertionError("intraday (e): two K4 calls are not bit-equal")
+    want = plain()
+    coef, icept, m, sd, cv, scores, n_train = (t.double() for t in got)
+    wc, wi, wm, ws, wcv, wsc, wn = (t.double() for t in want)
+    kappa = 1 + float((wm.abs() / ws).max())
+    lever = float((wm.abs() / ws * wc.abs()).sum())
+    scale = max(float(wc.abs().max()), abs(float(wi)))
+    ok = yv
+    rms = float(wsc[ok].pow(2).mean().sqrt())
+    gaps = {"coef": float((coef - wc).abs().max()) / scale,
+            "intercept": abs(float(icept - wi)) / (scale + lever),
+            "cv_mse": float(((cv - wcv).abs() / wcv.abs()).max()),
+            "scores": float((scores[ok] - wsc[ok]).abs().max()) / (rms + lever)}
+    if int(n_train) != int(wn) or not torch.equal(scores.isnan(), wsc.isnan()) \
+            or max(gaps.values()) > 1e-12 * kappa:
+        raise AssertionError(f"intraday (e): K4 off its plain version: n_train "
+                             f"{int(n_train)} vs {int(wn)}, gaps {gaps}, kappa {kappa}")
+    hp, _, _, hcv, hsc, *_ = harness()
+    harness_gap = max(float((hp[0] - wc).abs().max()) / scale,
+                      float(((hcv - wcv).abs() / wcv.abs()).max()),
+                      float((hsc[ok] - wsc[ok]).abs().max()) / (rms + lever))
+    del want, hp, hcv, hsc
+
+    moments_bytes = N * (F * s + s + 1)
+    score_bytes = N * (F * s + 1) + N * s
+    bound_ms = (moments_bytes + score_bytes) / bw * 1e3
+    device_ms, per_call, by_kernel = time_kernels(k4, kernels.ridge_moments.device_kernels,
+                                                  split=True)
+    call_ms = time_call(k4, cold=True)[0]
+    plain_ms = time_call(plain, reps=5, warmup=1)[0]
+    harness_ms = time_call(harness, reps=5, warmup=1)[0]
+    out = {"shape": [A, R, F], "n_train": int(n_train), "kappa": kappa, "gaps": gaps,
+           "harness_gap": harness_gap, "bytes": moments_bytes + score_bytes,
+           "bound_ms": bound_ms, "device_ms": device_ms, "kernels_per_call": per_call,
+           "by_kernel": by_kernel, "call_ms": call_ms, "bound_share": bound_ms / device_ms,
+           "plain_ms": plain_ms, "harness_ms": harness_ms}
+    log("intraday", f"(e) K4 ridge_moments at [{A}, {R}, {F}] f64: equal to its plain "
+                    f"version (gaps {json.dumps(gaps)}, kappa {kappa:.3g}; the harness "
+                    f"{harness_gap:.3e}), two calls bit-equal; device {device_ms:.4f} ms "
+                    f"in {per_call} kernels {json.dumps(by_kernel)}, bound {bound_ms:.4f} "
+                    f"ms ({(moments_bytes + score_bytes) / 1e6:.1f} MB, share "
+                    f"{bound_ms / device_ms:.3f}); call {call_ms:.4f} ms; plain "
+                    f"{plain_ms:.3f} ms; harness {harness_ms:.3f} ms | {smi}")
+    return out
+
+
 def write_cli_cache(out_dir: str):
     """Phase 9(d)'s cache in the reference's naming: ``<T>_daily.csv``
     (CLI_CACHE[1] days) and ``<T>_intraday.csv`` (the last CLI_CACHE[2]
@@ -1896,9 +1990,10 @@ def intraday_cli(dev, smi, cache, tickers, out_dir):
     return totals
 
 
-def intraday_phase(dev, smi) -> dict:
-    """Phase 9: the intraday leg on the card.  Returns the phase's launch
-    counts per kernel (only ``run``'s replicate leg launches one: K1)."""
+def intraday_phase(dev, smi, bw) -> dict:
+    """Phase 9: the intraday leg on the card, with K4 at the intraday
+    cell's shape (e).  Returns the phase's launch counts of K1 and K2
+    (only ``run``'s replicate leg launches one: K1)."""
     import torch
 
     from csmom_tpu_torch.api import intraday_pipeline
@@ -1933,6 +2028,10 @@ def intraday_phase(dev, smi) -> dict:
                 "cohort_partial_sums": kernels.cohort_partial_sums.launches}
     if any(launched.values()):
         raise AssertionError(f"intraday (a)-(b) launched a kernel: {launched}")
+    if not kernels.ridge_moments.launches:
+        raise AssertionError("intraday (a)-(b): no ridge fit went through K4")
+    # -- (e) K4 at the intraday cell's shape --------------------------------
+    ridge_kernel_scale(dev, smi, bw)
 
     # -- (c) and (d) on a CSV cache of the reference's shape ---------------
     with tempfile.TemporaryDirectory(prefix="csmom_intraday_") as tmp:
@@ -6831,7 +6930,7 @@ def main(argv=None) -> int:
 
     # -- 9. intraday: the intraday leg and its CLI -------------------------
     t_phase = time.perf_counter()
-    intraday_launches = intraday_phase(dev, smi)
+    intraday_launches = intraday_phase(dev, smi, bw)
     log("intraday", f"phase wall {time.perf_counter() - t_phase:.1f} s; launches "
                     f"{intraday_launches} | {smi}")
     t_p = phase_done(9, "intraday", t_p)

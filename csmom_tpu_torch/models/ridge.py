@@ -3,12 +3,18 @@
 Counterpart of :mod:`csmom_tpu.models.ridge`: a StandardScaler fit on the
 training block, sklearn ``TimeSeriesSplit(n_splits)`` expanding folds
 collecting per-fold MSE, and a final ``Ridge(alpha)`` refit, with the
-whole history scored.  With 5 features the normal equations are a 6x6
-solve; every reduction is a masked product over the padded ``[A, R, F]``
-feature tensor, and fold membership is index arithmetic on the global row
-ordinal (the position each valid row takes in the reference's
-sort-by-(ticker, datetime) flattening), so the folds are masks.  Nothing
-in the fit waits on the host.
+whole history scored.  Fold membership is index arithmetic on the global
+row ordinal (the position each valid row takes in the reference's
+sort-by-(ticker, datetime) flattening).
+
+:func:`time_series_cv_harness` is the shared scaffold of the score
+models whose solvers need the scaled design (the elastic net, the MLP):
+masked products over the padded ``[A, R, F]`` feature tensor, the folds
+as masks.  :func:`ridge_time_series_cv` needs only each fold segment's
+row count, means and co-moments, so it runs as kernel K4
+(:func:`csmom_tpu_torch.ops.kernels.ridge_moments`: one pass of moments,
+one of scores, its plain version on the CPU).  Nothing in either fit
+waits on the host.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from csmom_tpu_torch.device import resolve_device
+from csmom_tpu_torch.ops import kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,12 +172,12 @@ def ridge_time_series_cv(
       train_frac: leading fraction of rows used for training (the
         reference trains on the first 70%, 60% at or below 100 rows, in
         (ticker, datetime) order and scores everything).
+
+    The harness's fit with :func:`_masked_ridge`, from segment co-moments
+    (:func:`~csmom_tpu_torch.ops.kernels.ridge_moments`: K4 on the card).
     """
-    (coef, icept), mean, std, cv_mse, scores, n_train, _ = time_series_cv_harness(
-        features, y, valid,
-        solver=lambda Xs, yf, w: _masked_ridge(Xs, yf, w, alpha),
-        n_splits=n_splits, train_frac=train_frac,
-        train_frac_small=train_frac_small, small_threshold=small_threshold,
-    )
+    coef, icept, mean, std, cv_mse, scores, n_train = kernels.ridge_moments(
+        features, y, valid, n_splits=n_splits, alpha=alpha, train_frac=train_frac,
+        train_frac_small=train_frac_small, small_threshold=small_threshold)
     return RidgeFit(coef=coef, intercept=icept, scale_mean=mean, scale_std=std,
                     cv_mse=cv_mse, scores=scores, n_train=n_train)

@@ -57,7 +57,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("decile_partial_sums", "cohort_partial_sums", "rank_labels")
+KERNELS = ("decile_partial_sums", "cohort_partial_sums", "rank_labels",
+           "ridge_moments")
 
 _LIBS: dict = {}
 # reentrant: load() builds under it, and build() counts under it

@@ -9,7 +9,11 @@ Counterpart of :mod:`csmom_tpu.ops.pallas_kernels`:
 - :func:`rank_labels` (K3) replaces no TPU kernel (the JAX package's rank
   mode sorts in XLA) — ``mode="rank"`` labels of every (lead, month) row
   of a ``[..., A, M]`` panel in one launch, in place of a transposed
-  copy, an int64 sort and its boundary passes.
+  copy, an int64 sort and its boundary passes;
+- :func:`ridge_moments` (K4) replaces no TPU kernel (the JAX package
+  leaves its ridge to XLA) — the intraday ridge fit with its expanding
+  time-series CV from one pass of segment co-moments over the design and
+  one pass of scores, in place of the harness's ~30 masked passes.
 
 Each wrapper checks its inputs (on every device), then launches the CUDA
 kernel for CUDA tensors (``csrc/<name>.cu``, built on first use) or runs
@@ -69,6 +73,9 @@ _ARGTYPES = {
     "rank_labels": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p],
+    "ridge_moments": [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 3 + [ctypes.c_double] * 3
+                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -473,10 +480,248 @@ rank_labels.wide_rows = 0
 rank_labels.device_kernels = ("rank_labels_kernel",)
 
 
+# -- K4: the ridge fit from segment co-moments ------------------------------
+
+# K4's launch plan (csrc/ridge_moments.cu holds the same constants and
+# re-checks every plan against the row count)
+_K4_TILE = 1024        # rows a block stages at once: 256 threads x 4 rows
+_K4_MAX_BLOCKS = 528   # moment blocks at most: four on each of 132 SMs
+# the kernel's widths: the five minute features, up to 32 folds
+RIDGE_FEATURES = 5
+RIDGE_MAX_SPLITS = 32
+# a segment partial's floats: the means of the features and the label,
+# then their 21 co-moments
+_K4_PARTIAL = 27
+
+
+def _ridge_plan(N: int) -> tuple:
+    """K4's ``(blocks, tiles a block)`` for ``N`` rows, from the row count
+    alone (so the summation order is fixed): the rows' ``ceil(N / 1024)``
+    tiles in at most 528 contiguous chunks of equal tile counts, the last
+    one shorter; ``(1, 0)`` for no rows."""
+    tiles = -(-N // _K4_TILE)
+    if tiles == 0:
+        return 1, 0
+    per = -(-tiles // min(tiles, _K4_MAX_BLOCKS))
+    return -(-tiles // per), per
+
+
+def ridge_segments(valid, n_splits: int, train_frac: float,
+                   train_frac_small: float, small_threshold: int, dtype):
+    """The rows' segments of the expanding time-series CV, as the harness
+    (``models/ridge.py::time_series_cv_harness``) lays its folds out:
+    ``(seg i64[A*R], n_train i32[])``.  The training rows are the valid
+    rows whose global ordinal (valid rows before them in (asset, row)
+    order) is below ``n_train = floor(n_total * frac)`` (computed in
+    ``dtype``; ``frac`` is ``train_frac_small`` at or below
+    ``small_threshold`` rows); with ``ts = n_train // (n_splits + 1)``,
+    segment 0 holds ordinals ``[0, n_train - n_splits * ts)`` and segments
+    1..n_splits the following blocks of ``ts``.  ``seg`` is -1 off the
+    training rows."""
+    vf = valid.reshape(-1)
+    ordinal = torch.cumsum(vf, 0) - 1
+    n_total = torch.sum(vf)
+    frac = torch.where(n_total > small_threshold,
+                       torch.tensor(train_frac, dtype=dtype, device=vf.device),
+                       torch.tensor(train_frac_small, dtype=dtype, device=vf.device))
+    n_train = torch.floor(n_total.to(dtype) * frac).to(torch.int32)
+    ts = torch.div(n_train, n_splits + 1, rounding_mode="floor")
+    b1 = n_train - n_splits * ts
+    seg = torch.where(ordinal < b1, 0,
+                      1 + torch.div(ordinal - b1, torch.clamp(ts, min=1),
+                                    rounding_mode="floor"))
+    return torch.where(vf & (ordinal < n_train), seg, -1), n_train
+
+
+def _chan(a, b):
+    """Merge of ``(n, mean [..., C], M2 [..., C, C])`` moment sets,
+    elementwise over the leading axes: Chan et al.'s pairwise formula,
+    exact where one side is empty (mean and M2 zero)."""
+    (na, ma, Ma), (nb, mb, Mb) = a, b
+    n = na + nb
+    f = nb.to(ma.dtype) / torch.clamp(n, min=1).to(ma.dtype)
+    g = na.to(ma.dtype) * f
+    d = mb - ma
+    return (n, ma + d * f[..., None],
+            Ma + Mb + d[..., :, None] * d[..., None, :] * g[..., None, None])
+
+
+def segment_moments_plain(Z, seg, n_seg: int, tile: int = _K4_TILE):
+    """Each segment's ``(n i64[S], mean [S, C], M2 [S, C, C])`` of the rows
+    ``Z [N, C]``: per tile of ``tile`` rows two passes (the mean, then the
+    centred products), then the tiles merged in a pairwise tree with
+    :func:`_chan`."""
+    N, C = Z.shape
+    T = max(-(-N // tile), 1)
+    pad = T * tile - N
+    Zt = torch.nn.functional.pad(Z, (0, 0, 0, pad)).reshape(T, tile, C)
+    st = torch.nn.functional.pad(seg, (0, pad), value=-1).reshape(T, tile)
+    ns, means, m2s = [], [], []
+    for s in range(n_seg):
+        w = st == s
+        n = w.sum(1)
+        Zw = torch.where(w[..., None], Zt, 0)
+        mean = Zw.sum(1) / torch.clamp(n, min=1).to(Z.dtype)[:, None]
+        Zc = torch.where(w[..., None], Zt - mean[:, None], 0)
+        ns.append(n)
+        means.append(mean)
+        m2s.append(Zc.transpose(1, 2) @ Zc)
+    n, mean, M2 = torch.stack(ns), torch.stack(means), torch.stack(m2s)
+    while n.shape[1] > 1:
+        h = n.shape[1] // 2
+        merged = _chan((n[:, :2 * h:2], mean[:, :2 * h:2], M2[:, :2 * h:2]),
+                       (n[:, 1:2 * h:2], mean[:, 1:2 * h:2], M2[:, 1:2 * h:2]))
+        n, mean, M2 = (torch.cat([m, x[:, 2 * h:]], 1)
+                       for m, x in zip(merged, (n, mean, M2)))
+    return n[:, 0], mean[:, 0], M2[:, 0]
+
+
+def ridge_from_moments(n, mean, M2, alpha: float):
+    """The ridge fits with their expanding CV from segment moments ``(n
+    [S], mean [S, F + 1], M2 [S, F + 1, F + 1])`` (features, then the
+    label): ``(coef f[S, F], intercept f[S], scale_mean f[F], scale_std
+    f[F], cv_mse f[S - 1])``.  The scaler is the union of every segment
+    (ddof 0, std -> 1 where at most ``1e-12 max(|mean|, 1)``); fit k solves
+    the scaled, centred normal equations of segments 0..k plus ``alpha
+    I``, and fold k's MSE on segment k + 1 follows from that segment's
+    moments in closed form (0 where it is empty); the last fit, on every
+    segment, is the final one."""
+    S, C = mean.shape
+    F = C - 1
+    unions = [(n[0], mean[0], M2[0])]
+    for s in range(1, S):
+        unions.append(_chan(unions[-1], (n[s], mean[s], M2[s])))
+    nU, mU, MU = (torch.stack(u) for u in zip(*unions))
+    m = mU[-1, :F]
+    std = torch.sqrt(torch.diagonal(MU[-1])[:F]
+                     / torch.clamp(nU[-1], min=1).to(mean.dtype))
+    std = torch.where(std > 1e-12 * torch.clamp(m.abs(), min=1.0), std, 1.0)
+    eye = torch.eye(F, dtype=mean.dtype, device=mean.device)
+    G = MU[:, :F, :F] / (std[:, None] * std[None, :]) + alpha * eye
+    beta = torch.linalg.solve_ex(G, MU[:, :F, F] / std).result
+    icept = mU[:, F] - (((mU[:, :F] - m) / std) * beta).sum(-1)
+    # fold k (fit k) on segment k + 1
+    bp, Mt = beta[:-1] / std, M2[1:]
+    q = (torch.einsum("ki,kij,kj->k", bp, Mt[:, :F, :F], bp)
+         - 2 * (bp * Mt[:, :F, F]).sum(-1) + Mt[:, F, F])
+    d = (((mean[1:, :F] - m) / std) * beta[:-1]).sum(-1) + icept[:-1] - mean[1:, F]
+    nt = n[1:]
+    cv = torch.where(nt > 0, torch.clamp(q, min=0) / torch.clamp(nt, min=1).to(q.dtype)
+                     + d * d, 0.0)
+    return beta, icept, m, std, cv
+
+
+def ridge_moments_plain(features, y, valid, n_splits: int, alpha: float,
+                        train_frac: float, train_frac_small: float,
+                        small_threshold: int, tile: int = _K4_TILE):
+    """K4's arithmetic in PyTorch: :func:`ridge_segments`, the segments'
+    moments of ``[nan_to_num(features), nan_to_num(y)]`` by tile
+    (:func:`segment_moments_plain`), :func:`ridge_from_moments`, then the
+    scores.  Returns :func:`ridge_moments`' tuple."""
+    A, R, F = features.shape
+    dt = features.dtype
+    seg, n_train = ridge_segments(valid, n_splits, train_frac, train_frac_small,
+                                  small_threshold, dt)
+    Xf = torch.nan_to_num(features.reshape(A * R, F))
+    Z = torch.cat([Xf, torch.nan_to_num(y.reshape(A * R, 1))], 1)
+    moments = segment_moments_plain(Z, seg, n_splits + 1, tile)
+    coefs, icepts, mean, std, cv = ridge_from_moments(*moments, alpha)
+    coef, icept = coefs[-1], icepts[-1]
+    scores = (((Xf - mean) / std) @ coef + icept).reshape(A, R)
+    return (coef, icept, mean, std, cv, torch.where(valid, scores, torch.nan),
+            n_train)
+
+
+def ridge_moments(features, y, valid, n_splits: int = 3, alpha: float = 1.0,
+                  train_frac: float = 0.7, train_frac_small: float = 0.6,
+                  small_threshold: int = 100):
+    """Ridge regression with expanding time-series CV over the training
+    rows, and the scores of every valid row: the fit of
+    ``models/ridge.py::time_series_cv_harness`` with its ridge solver, from
+    segment co-moments (:func:`ridge_segments`, :func:`ridge_from_moments`).
+
+    Args:
+      features: f32/f64[A, R, F] (NaN allowed; read with ``nan_to_num``).
+      y: [A, R] labels in the features' dtype.
+      valid: bool[A, R] modeling rows.
+      n_splits: CV folds, at least 1.
+      alpha: the ridge penalty.
+      train_frac, train_frac_small, small_threshold: the training block's
+        share of the valid rows, and the small-panel rule.
+
+    Returns ``(coef f[F], intercept f[], scale_mean f[F], scale_std f[F],
+    cv_mse f[n_splits], scores f[A, R] with NaN off the valid rows,
+    n_train i32[])``, on the inputs' device, with no wait on the host.  A
+    CUDA call is one launch of K4 (four CUDA kernels) and adds its A * R
+    rows to ``ridge_moments.rows``; it takes F = 5 and n_splits <= 32
+    (``ValueError`` otherwise, on the card only).
+    """
+    what = "ridge_moments"
+    _check_float(features, what)
+    if y.dtype != features.dtype:
+        raise TypeError(f"{what}: y is {y.dtype}, features {features.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{what}: valid must be bool, got {valid.dtype}")
+    if (features.dim() != 3 or y.shape != features.shape[:2]
+            or valid.shape != y.shape):
+        raise ValueError(f"{what}: need features [A, R, F], y and valid [A, R], "
+                         f"got {tuple(features.shape)}, {tuple(y.shape)}, "
+                         f"{tuple(valid.shape)}")
+    if int(n_splits) < 1:
+        raise ValueError(f"{what}: n_splits must be >= 1, got {n_splits}")
+    A, R, F = features.shape
+    dev = features.device
+    if y.device != dev or valid.device != dev:
+        raise ValueError(f"{what}: inputs on {dev}, {y.device} and {valid.device}")
+    if dev.type == "cpu":
+        return ridge_moments_plain(features, y, valid, int(n_splits), float(alpha),
+                                   float(train_frac), float(train_frac_small),
+                                   int(small_threshold))
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if F != RIDGE_FEATURES or int(n_splits) > RIDGE_MAX_SPLITS:
+        raise ValueError(f"{what}: the kernel takes {RIDGE_FEATURES} features and "
+                         f"at most {RIDGE_MAX_SPLITS} splits, got {F} and {n_splits}")
+    # contiguous and 16-byte aligned: the kernel stages rows with 16-byte copies
+    x, yy, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                else t.clone(memory_format=torch.contiguous_format)
+                for t in (features, y, valid))
+    N, S = A * R, int(n_splits) + 1
+    blocks, per = _ridge_plan(N)
+    dt = features.dtype
+    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    part = torch.empty((S, blocks, _K4_PARTIAL), dtype=dt, device=dev)
+    part_n = torch.empty((S, blocks), dtype=torch.int64, device=dev)
+    fit = torch.empty(3 * F + 1 + S - 1, dtype=dt, device=dev)
+    n_train = torch.empty((), dtype=torch.int32, device=dev)
+    scores = torch.empty((A, R), dtype=dt, device=dev)
+    lib, fn = _entry("ridge_moments", dt)
+    _launch(ridge_moments, lib, fn, x, what,
+            x.data_ptr(), yy.data_ptr(), v.data_ptr(), counts.data_ptr(),
+            part.data_ptr(), part_n.data_ptr(), fit.data_ptr(), n_train.data_ptr(),
+            scores.data_ptr(), N, S, blocks, per, float(alpha), float(train_frac),
+            float(train_frac_small), int(small_threshold))
+    with _LAUNCH_LOCK:
+        ridge_moments.rows += N
+    return (fit[:F], fit[F], fit[F + 1:2 * F + 1], fit[2 * F + 1:3 * F + 1],
+            fit[3 * F + 1:], scores, n_train)
+
+
+ridge_moments.launches = 0
+# rows of the design the kernel has passed over (A * R a call)
+ridge_moments.rows = 0
+# the CUDA kernels one call launches, by name (csrc/ridge_moments.cu)
+ridge_moments.device_kernels = ("ridge_count_kernel", "ridge_moments_kernel",
+                                "ridge_solve_kernel", "ridge_score_kernel")
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count, and K3's wide-row count, to 0."""
+    """Set every kernel's launch count, K3's wide-row count and K4's row
+    count to 0."""
     with _LAUNCH_LOCK:
         decile_partial_sums.launches = 0
         cohort_partial_sums.launches = 0
         rank_labels.launches = 0
         rank_labels.wide_rows = 0
+        ridge_moments.launches = 0
+        ridge_moments.rows = 0

@@ -11,8 +11,9 @@ share and kernel launch count.  On the north-star minute quarter (500
 names x 60 days of synthetic minute bars, compacted, f64) it times the
 intraday pipeline's device body, ridge, the same way, split by its
 ``intraday.*`` spans and its engine's ``event.*`` spans, with one armed
-call's counters (the spans' ``rows``, ``features`` and ``solves``, and
-``ridge.solves``).  The grid's trace is one warm call split
+call's counters (the spans' ``rows``, ``features`` and ``solves``,
+``ridge.solves``, and K4's ``ridge_moments.launches`` and
+``ridge_moments.rows``).  The grid's trace is one warm call split
 by its phase spans (``grid.signal``, ``grid.ranking``, ``grid.cohorts``,
 ``grid.stats``: ranges of the profiler's trace, see
 :mod:`csmom_tpu_torch.obs.spans`): device ms, kernel launches and host
@@ -276,12 +277,15 @@ def grid_phases(pm, mm, mode):
 
 def intraday_counts(call):
     """The counters of one armed call of the intraday pipeline: each
-    ``intraday.*`` span's attributes, as ``<span>.<attribute>``, and the
-    ``ridge.solves`` it added.  Arms in memory for the call, then disarms."""
+    ``intraday.*`` span's attributes, as ``<span>.<attribute>``, the
+    ``ridge.solves`` it added, and K4's ``ridge_moments.launches`` and
+    ``ridge_moments.rows`` (the design rows the kernel passed over) in
+    the call.  Arms in memory for the call, then disarms."""
     solves = counter("ridge.solves")
     col = spans.arm(None)
     try:
         before = solves.value
+        kernels.reset_launches()
         call()
         added = solves.value - before
     finally:
@@ -289,6 +293,8 @@ def intraday_counts(call):
     counts = {f"{r['name']}.{k}": v for r in col.events
               if r["name"].startswith("intraday.") for k, v in r["attrs"].items()}
     counts["ridge.solves"] = added
+    counts["ridge_moments.launches"] = kernels.ridge_moments.launches
+    counts["ridge_moments.rows"] = kernels.ridge_moments.rows
     return counts
 
 

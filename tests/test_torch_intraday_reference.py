@@ -20,9 +20,9 @@ sit near zero:
   of ~1e-8 against window sums near 3e6), the reference's direct sums;
 - label, modeling rows, ``n_train``, trades, positions and counts exact:
   the same divisions and integers;
-- scaler ``1e-12``, fits and CV MSEs ``1e-9``: normal equations against
-  least squares on ~4,000 rows (the design's condition number squared
-  times rounding stays far below);
+- scaler ``1e-12``, fits and CV MSEs ``1e-9``: normal equations from the
+  fold segments' co-moments against least squares on ~4,000 rows (the
+  design's condition number squared times rounding stays far below);
 - scores ``1e-9`` of their RMS, fills ``1e-12``, costs ``1e-9``, the PnL
   ``1e-9`` of its RMS: differences of portfolio values near 1e6.
 
@@ -36,7 +36,7 @@ import torch
 
 from csmom_tpu_torch import api
 from csmom_tpu_torch.backtest.event import cost_attribution
-from csmom_tpu_torch.models.ridge import _masked_ridge, time_series_cv_harness
+from csmom_tpu_torch.ops import kernels
 from csmom_tpu_torch.signals.intraday import minute_features, next_row_return
 from perfbench.generators import minute_bars_volume
 from perfbench.reference import intraday as ref_intraday
@@ -64,21 +64,23 @@ def _panels(seed):
 
 
 def _port(panels):
-    """Every stage of the port on ``panels``: features, label, the
-    harness's fold fits (recorded from its solver) and the device body's
-    results with the cost attribution."""
+    """Every stage of the port on ``panels``: features, label, the ridge
+    fit's stages as the device body computes them (the fold segments,
+    their co-moments, every fold's fit and the final one) and the device
+    body's results with the cost attribution."""
     price, volume, row_valid, *_ = panels
     feats, feat_valid = minute_features(price, volume, row_valid, window=KNOBS["window"])
     y, y_valid = next_row_return(price, feat_valid)
-    fits = []
-
-    def solver(Xs, yf, w):
-        fits.append(_masked_ridge(Xs, yf, w, KNOBS["alpha"]))
-        return fits[-1]
-
-    _, mean, std, cv_mse, scores, n_train, _ = time_series_cv_harness(
-        feats, y, y_valid, solver, n_splits=KNOBS["n_splits"],
-        train_frac=KNOBS["train_frac"], train_frac_small=0.6, small_threshold=100)
+    A, R, F = feats.shape
+    seg, n_train = kernels.ridge_segments(y_valid, KNOBS["n_splits"], KNOBS["train_frac"],
+                                          0.6, 100, feats.dtype)
+    Xf = torch.nan_to_num(feats.reshape(A * R, F))
+    Z = torch.cat([Xf, torch.nan_to_num(y.reshape(A * R, 1))], 1)
+    moments = kernels.segment_moments_plain(Z, seg, KNOBS["n_splits"] + 1)
+    coefs, icepts, mean, std, cv_mse = kernels.ridge_from_moments(*moments, KNOBS["alpha"])
+    fits = list(zip(coefs, icepts))
+    scores = torch.where(y_valid, (((Xf - mean) / std) @ coefs[-1] + icepts[-1]).reshape(A, R),
+                         torch.nan)
     res, fit, dense_score, dense_price, dense_valid = api.intraday_on_device(
         *panels, window_minutes=KNOBS["window"], n_splits=KNOBS["n_splits"],
         alpha=KNOBS["alpha"], size_shares=ENGINE["size_shares"],
@@ -171,8 +173,8 @@ def test_each_stage_is_within_its_tolerance(runs, stage):
 
 
 def test_the_device_body_gives_the_harness_fit(runs):
-    """The body's fit is the harness's final fit, and its scores the
-    harness's: the stages compared above are the ones the body runs."""
+    """The body's fit is the final fit of the stages compared above, and
+    its scores theirs: the stages compared are the ones the body runs."""
     _, p, _ = runs
     coef, icept = p["fits"][-1]
     assert torch.equal(p["fit"].coef, coef) and torch.equal(p["fit"].intercept, icept)

@@ -78,6 +78,76 @@ def test_ridge_equals_the_reference(data, n_splits, alpha):
     _assert_fit(got, want, LINEAR)
 
 
+def _design(seed, A, R, holes=0.2, n_valid=None, offset=0.0, spread=1.0,
+            constant=None):
+    """A seeded ``[A, R, 5]`` design with labels: features ``offset +
+    spread * N(0, 1)`` (feature ``constant`` held at 2.5), labels linear in
+    the standardized features plus noise, ``holes`` of the rows invalid at
+    random (NaN features and label there), or only the first ``n_valid``
+    rows of the flattened panel valid."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(A, R, 5))
+    X = offset + spread * z
+    if constant is not None:
+        X[..., constant] = 2.5
+    y = z @ np.array([0.3, -0.2, 0.1, 0.05, -0.4]) * 1e-3 + rng.normal(0, 1e-3, (A, R))
+    if n_valid is None:
+        valid = rng.random((A, R)) >= holes
+    else:
+        valid = (np.arange(A * R) < n_valid).reshape(A, R)
+    X[~valid] = np.nan
+    y[~valid] = np.nan
+    return X, y, valid
+
+
+# each case of the moments algebra: (design, n_splits, what the case must show)
+RIDGE_CASES = {
+    "gappy": (dict(seed=1, A=4, R=300, holes=0.3), 3, "holes"),
+    "splits_2": (dict(seed=2, A=3, R=400), 2, "holes"),
+    "splits_4": (dict(seed=3, A=3, R=400), 4, "holes"),
+    "splits_5": (dict(seed=4, A=5, R=250), 5, "holes"),
+    "small_threshold": (dict(seed=5, A=2, R=70, holes=0.4), 3, "small"),
+    "short_test_segment": (dict(seed=6, A=1, R=20, n_valid=8), 5, "short"),
+    "constant_feature": (dict(seed=7, A=3, R=300, constant=2), 3, "constant"),
+    "offset_1e7": (dict(seed=8, A=3, R=400, offset=1e7, spread=1e3), 3, "offset"),
+    "straddling_tiles": (dict(seed=9, A=3, R=1500, holes=0.1), 3, "straddle"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RIDGE_CASES))
+def test_ridge_moments_algebra_equals_the_reference(case):
+    """The ridge fit from fold-segment co-moments (per-tile moments merged
+    pairwise, the unions, the scaler, the closed-form CV) equals the JAX
+    package's masked passes over the design, case by case."""
+    from csmom_tpu_torch.ops import kernels
+
+    spec, n_splits, shows = RIDGE_CASES[case]
+    X, y, valid = _design(**spec)
+    want = jmodels.ridge_time_series_cv(X, y, valid, n_splits=n_splits)
+    got = models.ridge_time_series_cv(*_t(X, y, valid), n_splits=n_splits)
+    assert int(got.n_train) == int(want.n_train)
+    _assert_fit(got, want, LINEAR)
+    n_total, n_train = int(valid.sum()), int(got.n_train)
+    seg, _ = kernels.ridge_segments(torch.from_numpy(valid), n_splits, 0.7, 0.6, 100,
+                                    torch.float64)
+    if shows == "holes":
+        assert 0 < n_total < valid.size and not valid.reshape(-1)[:n_total].all()
+    elif shows == "small":
+        assert n_total <= 100 and n_train == int(np.floor(n_total * 0.6))
+    elif shows == "short":
+        assert n_train < n_splits + 1
+        assert (got.cv_mse == 0).all() and (seg[seg >= 0] == 0).all()
+    elif shows == "constant":
+        assert float(got.scale_std[2]) == 1.0 and float(got.coef[2]) == 0.0
+    elif shows == "offset":
+        assert float(got.scale_mean.min()) > 9e6
+    else:
+        # a tile of the kernel's 1024 rows holds training rows of two segments
+        tiles = torch.nn.functional.pad(seg, (0, -len(seg) % 1024), value=-1).reshape(-1, 1024)
+        mixed = [len(set(t[t >= 0].tolist())) > 1 for t in tiles]
+        assert sum(mixed) >= 2
+
+
 @pytest.mark.parametrize("alpha,l1_ratio", [(1e-8, 0.5), (1e-8, 1.0), (3e-7, 1.0),
                                             (1e-3, 0.5)])
 def test_elastic_net_and_lasso_equal_the_reference(data, alpha, l1_ratio):

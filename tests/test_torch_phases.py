@@ -212,7 +212,8 @@ INTRADAY_ANNOTATIONS = [(n, s + 20.0, e + 20.0) for n, s, e in INTRADAY_RANGES]
 def test_intraday_phases_reports_the_whole_call_its_spans_and_counters(monkeypatch):
     """One timed, one armed and one traced call of the device body: the
     split covers the three intraday spans and the engine's, and the
-    counters are the armed call's span attributes and ridge solves."""
+    counters are the armed call's span attributes, ridge solves and K4's
+    counts (none on the CPU, where the fit runs K4's plain version)."""
     from csmom_tpu_torch.obs import spans
     from csmom_tpu_torch.workloads import minute_panels
 
@@ -235,5 +236,6 @@ def test_intraday_phases_reports_the_whole_call_its_spans_and_counters(monkeypat
         "intraday.features.rows": rows, "intraday.features.features": 5,
         "intraday.fit.rows": rows, "intraday.fit.features": 5, "intraday.fit.solves": 4,
         "intraday.fit.model": "ridge", "intraday.scatter.rows": rows,
-        "intraday.scatter.features": 5, "ridge.solves": 4}
+        "intraday.scatter.features": 5, "ridge.solves": 4,
+        "ridge_moments.launches": 0, "ridge_moments.rows": 0}
     assert spans.current_collector() is None
